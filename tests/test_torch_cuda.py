@@ -1,4 +1,5 @@
-"""The rowscan CUDA kernel against its plain PyTorch version, on a card.
+"""The CUDA kernels (rowscan sweep, block-tile sweep) against their plain
+PyTorch versions, on a card.
 
 Every test here needs a CUDA device and skips without one (decided in the
 `cuda` fixture, never at import). This file imports no JAX, so it also runs
@@ -15,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from timemachine_torch.ops import nonbonded_kernel as nbk
 from timemachine_torch.ops import rowscan_kernel as rs
 
 pytestmark = pytest.mark.cuda
@@ -111,3 +113,74 @@ def test_provider_runs_on_the_kernel(cuda):
     assert bool(torch.isfinite(force).all()) and bool(torch.isfinite(u))
     assert rs.rowscan_sweep.launches == before_k + 2
     assert rs.rowscan_sweep_plain.calls == before_p
+
+
+# -- the block-tile kernel (csrc/nb_tiles.cu) -----------------------------------
+
+NB_MODES = {
+    "DP": (nbk.DP, False),
+    "UF-exact": (nbk.UF, False),
+    "UF-poly": (nbk.UF, True),
+    "F": (nbk.FORCE, False),
+}
+
+
+def _tile_args(conf, params, box, cb=2):
+    tiles = nbk.build_block_tiles(conf, params, box, CUTOFF, 10**6, cb)
+    return (tiles.atoms, tiles.row_start, tiles.row_count, tiles.col_ids, nbk.tile_scalars(box, BETA, CUTOFF))
+
+
+def _col_rel(out_k, out_p):
+    """Largest per-column relative norm; a column that is zero in the plain
+    version must be zero in the kernel's output too."""
+    worst = 0.0
+    for a in range(4):
+        norm = float(torch.linalg.vector_norm(out_p[:, a]))
+        if norm == 0:
+            assert not bool(out_k[:, a].any())
+        else:
+            worst = max(worst, float(torch.linalg.vector_norm(out_k[:, a] - out_p[:, a])) / norm)
+    return worst
+
+
+@pytest.mark.parametrize("cb", [1, 2])
+@pytest.mark.parametrize("mode_name", list(NB_MODES))
+def test_nb_tiles_kernel_matches_plain(cuda, mode_name, cb):
+    mode, poly = NB_MODES[mode_name]
+    es = nbk.es_switch_poly_coeffs(BETA, CUTOFF) if poly else None
+    args = _tile_args(*_fluid(cuda, seed=3), cb=cb)
+    before = nbk.nb_tiles.launches
+    out_k = nbk.nb_tiles(*args, mode, cb, es)
+    out_p = nbk.nb_tiles_plain(*args, mode, cb, es)
+    torch.cuda.synchronize()
+    assert nbk.nb_tiles.launches == before + 1
+    assert _col_rel(out_k, out_p) < TOL
+
+
+def test_nb_tiles_kernel_is_bitwise_reproducible(cuda):
+    args = _tile_args(*_fluid(cuda, seed=4))
+    for mode in (nbk.DP, nbk.UF):
+        assert torch.equal(nbk.nb_tiles(*args, mode, 2), nbk.nb_tiles(*args, mode, 2))
+
+
+def test_nb_tiles_wrapper_rejects_what_the_kernel_cannot_take(cuda):
+    args = _tile_args(*_fluid(cuda))
+    with pytest.raises(ValueError):
+        nbk.nb_tiles(args[0].double(), *args[1:], nbk.UF, 2)
+    with pytest.raises(ValueError):
+        nbk.nb_tiles(*args, nbk.DP, 2, nbk.es_switch_poly_coeffs(BETA, CUTOFF))
+    with pytest.raises(ValueError):
+        nbk.nb_tiles(*args, nbk.UF, 3)
+
+
+def test_param_grad_runs_on_the_kernel(cuda):
+    conf, params, box = _fluid(cuda, seed=5)
+    energy = rs.make_nonbonded_rowscan(BETA, CUTOFF, max_pairs=10**6, dp_max_tiles=10**6)
+    p = params.clone().requires_grad_(True)
+    before_k, before_p = nbk.nb_tiles.launches, nbk.nb_tiles_plain.calls
+    energy(conf, p, box).backward()
+    assert bool(torch.isfinite(p.grad).all())
+    assert nbk.nb_tiles.launches == before_k + 1 and nbk.nb_tiles_plain.calls == before_p
+    dp_plain = nbk.nb_tiles_plain(*_tile_args(conf, params, box), nbk.DP, 2)
+    tiles = nbk.build_block_tiles(conf, params, box, CUTOFF, 10**6, 2)
+    assert _col_rel(p.grad, dp_plain[torch.argsort(tiles.pad_order[: conf.shape[0]])]) < TOL

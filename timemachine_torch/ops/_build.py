@@ -1,7 +1,8 @@
 """Build the package's CUDA sources with nvcc at first use, load them with ctypes.
 
 Each `csrc/<name>.cu` exports plain `extern "C"` launchers, so it compiles
-in seconds without PyTorch's headers. The shared library goes to
+in seconds without PyTorch's headers; `load_libraries` runs one nvcc per
+source, all at once. The shared library goes to
 `timemachine_torch/_build/` under a name keyed by a hash of the source and
 the flags, so an edited source is rebuilt and an unchanged one is reused.
 """
@@ -18,7 +19,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-# no --use_fast_math: the sweep relies on IEEE 0 * x = 0 for padding pairs
+LIBRARIES = ("rowscan", "nb_tiles")  # every source under csrc/
+# no --use_fast_math: the sweeps rely on IEEE 0 * x = 0 for padding pairs
+# and on IEEE expf, cosf and division in the exact electrostatics
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -48,20 +51,38 @@ def build_log(name: str) -> str:
     return library_path(name).with_suffix(".log").read_text()
 
 
+def _start_build(name: str):
+    """Start nvcc on `csrc/<name>.cu` in the background: (Popen, command, tmp path)."""
+    so = library_path(name)
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), cmd, tmp
+
+
+def load_libraries(*names: str) -> list:
+    """Compile every `csrc/<name>.cu` that has no current build for sm_90a,
+    one nvcc each, all started together, then load them (once per process)."""
+    missing = [name for name in dict.fromkeys(names) if name not in _libs and not library_path(name).exists()]
+    jobs = {name: _start_build(name) for name in missing}
+    failed = []
+    for name, (proc, cmd, tmp) in jobs.items():
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed with code {proc.returncode}:\n{shlex.join(cmd)}\n{err}")
+            continue
+        so = library_path(name)
+        so.with_suffix(".log").write_text(shlex.join(cmd) + "\n" + out + err)
+        os.replace(tmp, so)  # atomic: concurrent builders never load a partial file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name in names:
+        if name not in _libs:
+            _libs[name] = ctypes.CDLL(str(library_path(name)))
+    return [_libs[name] for name in names]
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Compile `csrc/<name>.cu` for sm_90a if no current build exists, then
     load it (once per process)."""
-    if name in _libs:
-        return _libs[name]
-    so = library_path(name)
-    if not so.exists():
-        BUILD_DIR.mkdir(exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n{shlex.join(cmd)}\n{proc.stderr}")
-        so.with_suffix(".log").write_text(shlex.join(cmd) + "\n" + proc.stdout + proc.stderr)
-        os.replace(tmp, so)  # atomic: concurrent builders never load a partial file
-    _libs[name] = ctypes.CDLL(str(so))
-    return _libs[name]
+    return load_libraries(name)[0]

@@ -4,9 +4,11 @@
 Per-atom parameter rows are [q sqrt(138.935456), sigma/2, sqrt(eps), w]:
 sigma_ij = s_i + s_j, eps_ij = e_i e_j, and the pair distance is
 sqrt(|dr|^2 + (w_i - w_j)^2). The all-pairs term runs in the rowscan sweep
-(ops/rowscan_kernel.py); this module holds the dense oracle and the
-exclusion corrections, which evaluate the sweep's own polynomial
-electrostatics so that they cancel it exactly.
+(ops/rowscan_kernel.py) or the block-tile sweep (ops/nonbonded_kernel.py);
+this module holds the dense oracle and the exclusion corrections, which
+evaluate the sweep's own electrostatics so that they cancel it: the rowscan
+polynomial in closed form, or exact erfc (for the block-tile sweep's exact
+form), differentiated by autograd.
 """
 
 from __future__ import annotations
@@ -139,6 +141,55 @@ def leading_water_exclusions(exc_idxs, exc_scales) -> int:
     )
     bad = np.nonzero(~ok)[0]
     return int(bad[0]) if bad.size else nw
+
+
+def _exact_pair_energy(d, dw, qij, sig_ij, eps_ij, beta, cutoff):
+    """(vdW, es) per pair with exact erfc electrostatics, as the JAX
+    package's nonbonded_on_specific_pairs without a polynomial: pairs at or
+    beyond the cutoff give 0, coincident points give finite zeros."""
+    d2 = torch.sum(d * d, dim=-1) + dw * dw
+    dij = torch.where(d2 > 0, torch.sqrt(torch.where(d2 > 0, d2, 1.0)), 0.0)  # finite gradient at d2 = 0
+    keep = dij < cutoff
+    dij_safe = torch.where(dij > 0, dij, 1.0)
+    sig_ij = torch.where(keep, sig_ij, 0.0)
+    eps_ij = torch.where(keep, eps_ij, 0.0)
+    vdw = torch.where(eps_ij != 0, lennard_jones(dij_safe, sig_ij, eps_ij), 0.0)
+    es = torch.where(keep, switched_direct_space_pme(dij_safe, torch.where(keep, qij, 0.0), beta), 0.0)
+    return vdw, es
+
+
+def nonbonded_on_specific_pairs(conf, params, box, pairs, beta, cutoff, rescale_mask):
+    """Per-pair (vdW, es) energies of an explicit pair list with exact erfc
+    electrostatics, each scaled by rescale_mask (P, 2) [q_scale, lj_scale]
+    (the exact form of the JAX function of this name; the polynomial form
+    is specific_pairs_energy_force). Differentiable in conf and params."""
+    l, r = pairs[:, 0], pairs[:, 1]
+    q, sig, eps, w = params.unbind(1)
+    vdw, es = _exact_pair_energy(
+        periodic_delta(conf[l], conf[r], box), w[l] - w[r], q[l] * q[r], combine_sigma(sig[l], sig[r]),
+        combine_epsilon(eps[l], eps[r]), beta, cutoff,
+    )
+    vdw = torch.where(rescale_mask[:, 1] != 0, vdw * rescale_mask[:, 1], 0.0)
+    es = torch.where(rescale_mask[:, 0] != 0, es * rescale_mask[:, 0], 0.0)
+    return vdw, es
+
+
+def water_exclusion_energy(conf, params, box, nw: int, beta, cutoff):
+    """Energy of the first nw waters' three intra pairs with full scales and
+    exact erfc electrostatics, on strided slices (the exact form of the JAX
+    function of this name; the polynomial form is
+    water_exclusion_energy_force). Differentiable in conf and params."""
+    x = conf[: 3 * nw].reshape(nw, 3, 3)
+    p = params[: 3 * nw].reshape(nw, 3, 4)
+    u = conf.new_zeros(())
+    for a, b in ((0, 1), (0, 2), (1, 2)):
+        pa, pb = p[:, a], p[:, b]
+        vdw, es = _exact_pair_energy(
+            periodic_delta(x[:, a], x[:, b], box), pa[:, 3] - pb[:, 3], pa[:, 0] * pb[:, 0],
+            combine_sigma(pa[:, 1], pb[:, 1]), combine_epsilon(pa[:, 2], pb[:, 2]), beta, cutoff,
+        )
+        u = u + torch.sum(vdw) + torch.sum(es)
+    return u
 
 
 def water_exclusion_energy_force(conf, params, box, nw: int, cutoff, h_coeffs):

@@ -1,0 +1,508 @@
+"""Nonbonded block-tile sweep: energy + forces, or forcefield-parameter
+gradients (counterpart of timemachine_tpu/ops/pallas/nonbonded_kernel.py).
+
+Atoms are sorted along a snake path through spatial cells and cut into
+128-atom row blocks; column super-blocks are cb row blocks wide. Each row
+block lists the column super-blocks whose bounding boxes come within the
+cutoff (and always its own), so the list is symmetric: every pair is seen
+from both of its atoms. The sweep sums, per row atom, over the listed
+column atoms j with
+
+    mask = valid_i & valid_j & (i != j) & (r2 < cutoff^2)
+
+(r2 the 4D minimum-image distance) in one of three modes:
+
+    UF   [u_i, dU/dx_i]      u_i half of atom i's pair energies
+    F    [0, dU/dx_i]
+    DP   [dU/dq_i, dU/d(sig/2)_i, dU/d sqrt(eps)_i, dU/dw_i]
+
+The electrostatics are exact (erfc by Abramowitz & Stegun 7.1.26 times the
+cos^3 switch) or two Clenshaw series (`es_switch_poly_coeffs`); DP is always
+exact, as in the JAX backward pass.
+
+`nb_tiles` launches the hand-written CUDA kernel (`csrc/nb_tiles.cu`) on
+CUDA tensors and uses `nb_tiles_plain`, the same function in plain PyTorch,
+on CPU tensors. The tile builder and the providers are plain tensor code,
+as they are plain XLA in the JAX package. Where the JAX package drops the
+list overflow count (its `_run_dp`), the port returns NaN.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from timemachine_torch.ops import _build
+from timemachine_torch.ops.nonbonded import SWITCH_CUTOFF
+
+BLOCK = 128  # atoms per row block
+UF, FORCE, DP = 0, 1, 2  # sweep modes, as in csrc/nb_tiles.cu
+MAX_CB = 8  # widest column super-block the kernel takes
+CELL_SIZE = 0.65  # nm, the sort cells of the snake path, as in the JAX builder
+_SQRT_PI = 1.7724538509055159
+
+_es_poly_cache: dict = {}
+
+
+def es_switch_poly_coeffs(beta: float, cutoff: float, deg: int = 12):
+    """Chebyshev coefficients (domain u = r/cutoff in [0, 1]) of the
+    switched-erfc factor h(u) = erfc(beta*cutoff*u) * cos^3((pi/2) u^8) and
+    of its derivative h'(u), fitted once per (beta, cutoff) in f64; max fit
+    error ~2e-6 (h) / ~7e-4 abs (h')."""
+    key = (float(beta), float(cutoff), deg)
+    if key not in _es_poly_cache:
+        from scipy.special import erfc as _erfc
+
+        u = np.linspace(0.0, 1.0, 4001)
+        bc = beta * cutoff
+        h = _erfc(bc * u) * np.cos(np.pi / 2 * u**8) ** 3
+        dh = (
+            -2.0 * bc / np.sqrt(np.pi) * np.exp(-((bc * u) ** 2)) * np.cos(np.pi / 2 * u**8) ** 3
+            + _erfc(bc * u) * 3.0 * np.cos(np.pi / 2 * u**8) ** 2 * (-np.sin(np.pi / 2 * u**8)) * (np.pi / 2 * 8 * u**7)
+        )
+        ch = np.polynomial.chebyshev.Chebyshev.fit(u, h, deg, domain=[0.0, 1.0])
+        chp = np.polynomial.chebyshev.Chebyshev.fit(u, dh, deg, domain=[0.0, 1.0])
+        _es_poly_cache[key] = (tuple(float(x) for x in ch.coef), tuple(float(x) for x in chp.coef))
+    return _es_poly_cache[key]
+
+
+class BlockTiles(NamedTuple):
+    atoms: torch.Tensor  # (Npad, 8) sorted rows [x y z w q sig/2 sqrt(eps) valid], padding rows zero
+    pad_order: torch.Tensor  # (Npad,) int64: sorted slot -> atom (padding slots -> atom 0)
+    row_start: torch.Tensor  # (nB,) int32: first col_ids entry of each row block
+    row_count: torch.Tensor  # (nB,) int32: listed column super-blocks of each row block
+    col_ids: torch.Tensor  # (max_tiles,) int32: column super-block ids, ascending per row
+    overflow: torch.Tensor  # () int64: tiles that did not fit in max_tiles
+
+
+def padded_size(n: int, cb: int) -> int:
+    return -(-n // (BLOCK * cb)) * (BLOCK * cb)
+
+
+def snake_order(conf, box_diag, cell_size: float):
+    """Atom order along a boustrophedon path through cells of about
+    cell_size nm (the JAX builders' key, in their arithmetic)."""
+    dims = torch.clamp(torch.floor(box_diag / cell_size).to(torch.int32), min=1)
+    frac = conf / box_diag
+    frac = frac - torch.floor(frac)
+    cx, cy, cz = torch.minimum((frac * dims).to(torch.int32), dims - 1).unbind(1)
+    ky = torch.where(cz % 2 == 0, cy, dims[1] - 1 - cy)
+    kx = torch.where((cz * dims[1] + ky) % 2 == 0, cx, dims[0] - 1 - cx)
+    return torch.argsort((cz * dims[1] + ky) * dims[0] + kx, stable=True)
+
+
+def param_rows(params, pad_order, n: int):
+    """(Npad, 5) sorted rows [w q sig/2 sqrt(eps) valid], zero on padding."""
+    real = (torch.arange(pad_order.shape[0], device=params.device) < n).to(params.dtype)[:, None]
+    p = params[pad_order]
+    return torch.stack([p[:, 3], p[:, 0], p[:, 1], p[:, 2], torch.ones_like(p[:, 0])], dim=1) * real
+
+
+def assemble_atoms(conf, box, pad_order, prows):
+    """(Npad, 8) sweep rows: coordinates wrapped into the box and sorted,
+    then the parameter rows; padding rows are zero."""
+    box_diag = torch.diagonal(box)
+    xyz = conf[:, :3] - box_diag * torch.floor(conf[:, :3] / box_diag)
+    return torch.cat([xyz[pad_order] * prows[:, 4:], prows], dim=1)
+
+
+def build_block_tiles(conf, params, box, cutoff: float, max_tiles: int, cb: int = 1):
+    """Snake sort, 128-atom block bounding boxes and the symmetric list of
+    (row block, column super-block) tiles whose boxes come within `cutoff`,
+    in CSR form with every row's own column kept. The sort and the boxes run
+    in f32, as in the JAX builder; the atom rows take conf's dtype."""
+    n = conf.shape[0]
+    dev = conf.device
+    n_pad = padded_size(n, cb)
+    n_blocks, n_cols = n_pad // BLOCK, n_pad // (BLOCK * cb)
+    x32 = conf[:, :3].to(torch.float32)
+    box_diag = torch.diagonal(box).to(torch.float32)
+    order = snake_order(x32, box_diag, CELL_SIZE)
+    pad_order = torch.cat([order, order.new_zeros(n_pad - n)])
+    atoms = assemble_atoms(conf, box.to(conf.dtype), pad_order, param_rows(params.to(conf.dtype), pad_order, n))
+
+    wrapped = (x32 - box_diag * torch.floor(x32 / box_diag))[pad_order]
+    valid = (torch.arange(n_pad, device=dev) < n)[:, None]
+    lo = torch.where(valid, wrapped, 1e9).view(n_blocks, BLOCK, 3).amin(1)
+    hi = torch.where(valid, wrapped, -1e9).view(n_blocks, BLOCK, 3).amax(1)
+    clo, chi = lo.view(n_cols, cb, 3).amin(1), hi.view(n_cols, cb, 3).amax(1)
+    dc = 0.5 * (lo + hi)[:, None, :] - 0.5 * (clo + chi)[None, :, :]
+    dc = dc - box_diag * torch.floor(dc / box_diag + 0.5)
+    gap = torch.clamp(torch.abs(dc) - (0.5 * (hi - lo)[:, None, :] + 0.5 * (chi - clo)[None, :, :]), min=0.0)
+    has_r = valid.view(n_blocks, BLOCK).any(1)
+    has_c = has_r.view(n_cols, cb).any(1)
+    cols = torch.arange(n_cols, device=dev)
+    inter = (torch.sum(gap * gap, dim=2) < cutoff * cutoff) & has_r[:, None] & has_c[None, :]
+    inter = inter | (cols[None, :] == torch.arange(n_blocks, device=dev)[:, None] // cb)
+
+    counts = inter.sum(1)
+    listed = torch.sort(torch.where(inter, cols, n_cols + cols), dim=1).values  # interacting columns first, ascending
+    row_start = torch.cumsum(counts, 0) - counts
+    target = row_start[:, None] + cols
+    ok = (cols < counts[:, None]) & (target < max_tiles)
+    # entries that are not written go to distinct slots past max_tiles
+    slot = torch.where(ok, target, max_tiles + torch.arange(n_blocks * n_cols, device=dev).view(n_blocks, n_cols))
+    col_ids = torch.zeros(max_tiles + n_blocks * n_cols, dtype=torch.int32, device=dev)
+    col_ids[slot.reshape(-1)] = listed.reshape(-1).to(torch.int32)
+    return BlockTiles(
+        atoms=atoms,
+        pad_order=pad_order,
+        row_start=torch.clamp(row_start, max=max_tiles - 1).to(torch.int32),
+        # an overflowing tail is cut, never read out of bounds; overflow > 0 poisons the result
+        row_count=torch.minimum(counts, torch.clamp(max_tiles - row_start, min=0)).to(torch.int32),
+        col_ids=col_ids[:max_tiles],
+        overflow=torch.clamp(counts.sum() - max_tiles, min=0),
+    )
+
+
+def suggest_max_tiles(conf, box, cutoff: float, margin: float = 1.3, cb: int = 1) -> int:
+    """Host-side capacity: the listed tile count at this geometry, times
+    margin for diffusion between rebuilds, rounded up to 128."""
+    n_pad = padded_size(conf.shape[0], cb)
+    cap = (n_pad // BLOCK) * (n_pad // (BLOCK * cb))
+    conf = torch.as_tensor(conf)
+    params = conf.new_zeros((conf.shape[0], 4))
+    count = int(build_block_tiles(conf, params, torch.as_tensor(box), cutoff, cap, cb).row_count.sum())
+    want = int(np.ceil(count * margin / 128) * 128)
+    return min(max(want, 128), cap)
+
+
+def tile_scalars(box, beta: float, cutoff: float):
+    """(5,) [box_x, box_y, box_z, beta, cutoff] on box's device, without a
+    host copy."""
+    return F.pad(F.pad(torch.diagonal(box), (0, 1), value=beta), (0, 1), value=cutoff)
+
+
+def _clenshaw(t2, coeffs):
+    b1 = torch.zeros_like(t2)
+    b2 = torch.zeros_like(t2)
+    for ck in coeffs[:0:-1]:
+        b1, b2 = t2 * b1 - b2 + ck, b1
+    return 0.5 * t2 * b1 - b2 + coeffs[0]
+
+
+def _pair_terms(r2, qq, sig, eps, beta, mask, es_coeffs):
+    """(e, dE/dr / r, s_es, t6, t12, eps4) of the kernel's pair function on
+    pair tensors; masked pairs take r2 := 1 and every term is selected on
+    the mask by the caller."""
+    r2 = torch.where(mask, r2, 1.0)
+    inv_r = torch.rsqrt(r2)
+    r = r2 * inv_r
+    inv_r2 = inv_r * inv_r
+    s2 = sig * sig * inv_r2
+    t6 = s2 * s2 * s2
+    t12 = t6 * t6
+    eps4 = 4.0 * eps
+    e_lj = eps4 * (t12 - t6)
+    dlj_r = eps4 * inv_r2 * (6.0 * t6 - 12.0 * t12)
+    if es_coeffs is not None:
+        h_coeffs, hp_coeffs = es_coeffs
+        inv_c = 1.0 / SWITCH_CUTOFF
+        t2 = 2.0 * (2.0 * (r * inv_c) - 1.0)
+        h = _clenshaw(t2, h_coeffs)
+        hp = _clenshaw(t2, hp_coeffs)
+        s_r_sw = h * inv_r
+        e_es = qq * s_r_sw
+        des_r = qq * inv_r2 * (hp * inv_c - h * inv_r)
+    else:
+        v = r2 * (1.0 / (SWITCH_CUTOFF * SWITCH_CUTOFF))
+        v2 = v * v
+        u8 = v2 * v2
+        cosu = torch.cos((0.5 * math.pi) * u8)
+        cos2 = cosu * cosu
+        sinu = torch.sqrt(torch.clamp(1.0 - cos2, min=0.0))
+        sw = cos2 * cosu
+        dsw_dr = -12.0 * math.pi * u8 * inv_r * cos2 * sinu
+        x = beta * r
+        gauss = torch.exp(-x * x)
+        tt = 1.0 / (1.0 + 0.3275911 * x)
+        erfc_bar = gauss * tt * (
+            0.254829592 + tt * (-0.284496736 + tt * (1.421413741 + tt * (-1.453152027 + tt * 1.061405429)))
+        )
+        s_r = erfc_bar * inv_r
+        ds_dr = (-2.0 / _SQRT_PI) * beta * gauss * inv_r - erfc_bar * inv_r2
+        e_es = qq * s_r * sw
+        des_r = qq * (ds_dr * sw + s_r * dsw_dr) * inv_r
+        s_r_sw = s_r * sw
+    e = torch.where(mask, e_lj + e_es, 0.0)
+    de_r = torch.where(mask, dlj_r + des_r, 0.0)
+    return e, de_r, s_r_sw, t6, t12, eps4
+
+
+def _check_args(atoms, row_start, row_count, col_ids, scalars, mode: int, cb: int, es_coeffs):
+    if mode not in (UF, FORCE, DP):
+        raise ValueError(f"nb_tiles: unknown mode {mode}")
+    if mode == DP and es_coeffs is not None:
+        raise ValueError("nb_tiles: the DP mode runs the exact electrostatics only")
+    if not 1 <= cb <= MAX_CB:
+        raise ValueError(f"nb_tiles: cb must lie in [1, {MAX_CB}], got {cb}")
+    n_pad = atoms.shape[0]
+    if n_pad % (BLOCK * cb):
+        raise ValueError(f"nb_tiles: {n_pad} atom rows is not a multiple of {BLOCK * cb}")
+    n_blocks = n_pad // BLOCK
+    dev = atoms.device
+    for name, t, dtype, shape in (
+        ("atoms", atoms, torch.float32, (n_pad, 8)),
+        ("row_start", row_start, torch.int32, (n_blocks,)),
+        ("row_count", row_count, torch.int32, (n_blocks,)),
+        ("col_ids", col_ids, torch.int32, None),
+        ("scalars", scalars, torch.float32, (5,)),
+    ):
+        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name}: want a contiguous {dtype} tensor on {dev}, got {t.dtype} on {t.device}")
+        if shape is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{name}: want shape {shape}, got {tuple(t.shape)}")
+
+
+def nb_tiles_plain(atoms, row_start, row_count, col_ids, scalars, mode: int, cb: int = 1, es_coeffs=None):
+    """The sweep in plain PyTorch, in atoms' dtype: each batch of row blocks
+    gathers its listed column super-blocks into (rows, L, 128, 128 cb) pair
+    tensors masked by row_count, with L the batch's longest list. A batch
+    holds at most about 2^18 pair slots on the CPU and 2^24 on a card.
+    Returns (Npad, 4) by mode, like the kernel."""
+    nb_tiles_plain.calls += 1
+    block_pairs = 1 << 18 if atoms.device.type == "cpu" else 1 << 24
+    n_pad = atoms.shape[0]
+    width = BLOCK * cb
+    n_blocks = n_pad // BLOCK
+    out = atoms.new_zeros((n_pad, 4))
+    counts = row_count.tolist()
+    batch = max(1, block_pairs // (max(max(counts), 1) * BLOCK * width))
+    comp = atoms.T.contiguous()  # one contiguous row per column of the atom rows
+    rows = comp.view(8, n_blocks, 1, BLOCK, 1)
+    cols = comp.view(8, n_pad // width, width)
+    box, beta, cutoff = scalars[:3], scalars[3], scalars[4]
+    lane = torch.arange(BLOCK, device=atoms.device)
+    col_lane = torch.arange(width, device=atoms.device)
+    for r0 in range(0, n_blocks, batch):
+        r1 = min(r0 + batch, n_blocks)
+        length = max(counts[r0:r1])
+        if length == 0:
+            continue
+        k = torch.arange(length, device=atoms.device)
+        listed = k < row_count[r0:r1, None]  # (b, L)
+        cid = col_ids[torch.where(listed, row_start[r0:r1, None] + k, 0)].long()
+        cj = cols[:, cid].unsqueeze(3)  # (8, b, L, 1, W)
+        ri = rows[:, r0:r1]  # (8, b, 1, 128, 1)
+        gi = (torch.arange(r0, r1, device=atoms.device)[:, None] * BLOCK + lane)[:, None, :, None]
+        gj = (cid[:, :, None] * width + col_lane)[:, :, None, :]
+        d = [ri[a] - cj[a] for a in range(3)]  # each (b, L, 128, W)
+        d = [da - box[a] * torch.floor(da / box[a] + 0.5) for a, da in enumerate(d)]
+        dw = ri[3] - cj[3]
+        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2] + dw * dw
+        mask = (ri[7] > 0) & (cj[7] > 0) & (gi != gj) & (r2 < cutoff * cutoff) & listed[:, :, None, None]
+        e, de_r, s_r_sw, t6, t12, eps4 = _pair_terms(r2, ri[4] * cj[4], ri[5] + cj[5], ri[6] * cj[6], beta, mask, es_coeffs)
+        sl = slice(r0 * BLOCK, r1 * BLOCK)
+        if mode == DP:
+            sig = ri[5] + cj[5]
+            sig_safe = torch.where(sig > 0, sig, 1.0)
+            terms = (
+                torch.where(mask, cj[4] * s_r_sw, 0.0),
+                torch.where(mask & (eps4 != 0), eps4 * (12.0 * t12 - 6.0 * t6) / sig_safe, 0.0),
+                torch.where(mask, cj[6] * (4.0 * (t12 - t6)), 0.0),
+                de_r * dw,
+            )
+            for a, term in enumerate(terms):
+                out[sl, a] = term.sum((1, 3)).reshape(-1)
+        else:
+            for a in range(3):
+                out[sl, 1 + a] = (de_r * d[a]).sum((1, 3)).reshape(-1)
+            if mode == UF:
+                out[sl, 0] = 0.5 * e.sum((1, 3)).reshape(-1)
+    return out
+
+
+nb_tiles_plain.calls = 0
+
+_series_args: dict = {}
+
+
+def _launcher():
+    fn = _build.load_library("nb_tiles").nb_tiles_launch
+    if fn.argtypes is None:
+        fn.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_float)] * 2 + [ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def nb_tiles(atoms, row_start, row_count, col_ids, scalars, mode: int, cb: int = 1, es_coeffs=None):
+    """(Npad, 4) sweep of the listed tiles by mode (UF, FORCE or DP).
+
+    atoms (Npad, 8) f32 sorted rows [x y z w q sig/2 sqrt(eps) valid],
+    row_start/row_count (nB,) and col_ids (max_tiles,) int32 in CSR form,
+    scalars (5,) f32 [bx by bz beta cutoff], es_coeffs None (exact
+    electrostatics) or the (h, h') series of es_switch_poly_coeffs. A CUDA
+    tensor launches the kernel of csrc/nb_tiles.cu on the current stream; a
+    CPU tensor runs nb_tiles_plain (in atoms' dtype)."""
+    if atoms.device.type == "cpu":
+        return nb_tiles_plain(atoms, row_start, row_count, col_ids, scalars, mode, cb, es_coeffs)
+    if atoms.device.type != "cuda":
+        raise ValueError(f"nb_tiles: no kernel for device {atoms.device}")
+    _check_args(atoms, row_start, row_count, col_ids, scalars, mode, cb, es_coeffs)
+    h_arg = hp_arg = None
+    if es_coeffs is not None:
+        if es_coeffs not in _series_args:
+            _series_args[es_coeffs] = tuple((ctypes.c_float * len(c))(*c) for c in es_coeffs)
+        h_arg, hp_arg = _series_args[es_coeffs]
+    dev = atoms.device
+    out = torch.empty((atoms.shape[0], 4), dtype=torch.float32, device=dev)
+    rc = _launcher()(
+        atoms.data_ptr(), row_start.data_ptr(), row_count.data_ptr(), col_ids.data_ptr(), scalars.data_ptr(),
+        out.data_ptr(), atoms.shape[0] // BLOCK, cb, mode, h_arg, hp_arg, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"nb_tiles: kernel launch failed with CUDA error {rc}")
+    nb_tiles.launches += 1
+    return out
+
+
+nb_tiles.launches = 0
+
+
+def poison_on_overflow(overflow, val):
+    """NaN where the list overflowed: a sweep that dropped tiles must not
+    pass for a right answer."""
+    return torch.where(overflow > 0, torch.nan, val)
+
+
+def _sweep(conf, params, box, beta, cutoff, max_tiles, mode, cb, es_coeffs=None):
+    """(Npad, 4) sweep over lists built for this call, with the inverse order."""
+    tiles = build_block_tiles(conf, params, box, cutoff, max_tiles, cb)
+    out = nb_tiles(
+        tiles.atoms, tiles.row_start, tiles.row_count, tiles.col_ids, tile_scalars(box.to(conf.dtype), beta, cutoff),
+        mode, cb, es_coeffs,
+    )
+    return out, torch.argsort(tiles.pad_order[: conf.shape[0]]), tiles.overflow
+
+
+def run_uf(conf, params, box, beta, cutoff, max_tiles, es_coeffs=None, cb: int = 1):
+    """One UF pass: (total energy, dU/dx), NaN on list overflow."""
+    out, inv, overflow = _sweep(conf, params, box, beta, cutoff, max_tiles, UF, cb, es_coeffs)
+    return poison_on_overflow(overflow, torch.sum(out[:, 0])), poison_on_overflow(overflow, out[inv, 1:4])
+
+
+def run_dp(conf, params, box, beta, cutoff, max_tiles, cb: int = 1):
+    """One DP pass: (N, 4) dU/dp in params' column order [q, sig/2,
+    sqrt(eps), w], NaN on list overflow."""
+    out, inv, overflow = _sweep(conf, params, box, beta, cutoff, max_tiles, DP, cb)
+    return poison_on_overflow(overflow, out[inv])
+
+
+class StashedGradEnergy(torch.autograd.Function):
+    """u(conf, params, box) whose forward pass also returns dU/dx, stashed
+    for the backward pass, and whose dU/dp comes from a separate pass run
+    only when params needs a gradient. The box gets no gradient (no virial,
+    as in the JAX package). Differentiating twice raises: a backward pass
+    run with create_graph=True stops with an error, since the kernels have
+    no backward of their own."""
+
+    @staticmethod
+    def forward(ctx, conf, params, box, energy_grad_fn, dp_fn):
+        u, du_dx = energy_grad_fn(conf, params, box)
+        ctx.save_for_backward(conf, params, box, du_dx)
+        ctx.dp_fn = dp_fn
+        return u
+
+    @staticmethod
+    def backward(ctx, g):
+        if torch.is_grad_enabled():
+            raise RuntimeError("StashedGradEnergy: cannot differentiate twice (backward with create_graph=True)")
+        conf, params, box, du_dx = ctx.saved_tensors
+        g_conf = (g * du_dx).to(conf.dtype) if ctx.needs_input_grad[0] else None
+        g_params = (g * ctx.dp_fn(conf, params, box)).to(params.dtype) if ctx.needs_input_grad[1] else None
+        return g_conf, g_params, None, None, None
+
+
+def make_nonbonded_tiles(beta: float, cutoff: float, max_tiles: int, cb: int = 1):
+    """Differentiable energy(conf, params, box): the forward runs one UF
+    pass (exact electrostatics) and stashes dU/dx; dU/dp comes from a DP
+    pass (counterpart of make_nonbonded_pallas)."""
+
+    def energy_grad(conf, params, box):
+        return run_uf(conf, params, box, beta, cutoff, max_tiles, cb=cb)
+
+    def dp(conf, params, box):
+        return run_dp(conf, params, box, beta, cutoff, max_tiles, cb=cb)
+
+    def energy(conf, params, box):
+        return StashedGradEnergy.apply(conf, params, box, energy_grad, dp)
+
+    return energy
+
+
+def make_nonbonded_tiles_energy_force(beta: float, cutoff: float, max_tiles: int, es: str = "exact", cb: int = 1):
+    """(conf, params, box) -> (u, force) in one UF pass over lists built for
+    the call (counterpart of make_nonbonded_pallas_energy_force). es="poly"
+    evaluates the electrostatics as the Clenshaw series of
+    es_switch_poly_coeffs, which pins cutoff to the switch's 1.2 nm."""
+    if es not in ("exact", "poly"):
+        raise ValueError(f"es must be 'exact' or 'poly', got {es!r}")
+    es_coeffs = None
+    if es == "poly":
+        if cutoff != SWITCH_CUTOFF:
+            raise ValueError("poly electrostatics pins cutoff == SWITCH_CUTOFF")
+        es_coeffs = es_switch_poly_coeffs(beta, cutoff)
+
+    def energy_force(conf, params, box):
+        u, du_dx = run_uf(conf, params, box, beta, cutoff, max_tiles, es_coeffs=es_coeffs, cb=cb)
+        return u, -du_dx
+
+    return energy_force
+
+
+class TileState(NamedTuple):
+    pad_order: torch.Tensor  # (Npad,) sorted slot -> atom
+    inv: torch.Tensor  # (N,) sorted slot of each atom
+    prows: torch.Tensor  # (Npad, 5) sorted parameter rows, cached at rebuild
+    row_start: torch.Tensor
+    row_count: torch.Tensor
+    col_ids: torch.Tensor
+    overflow: torch.Tensor
+
+
+def make_nonbonded_tiles_md(
+    beta: float, cutoff: float, max_tiles: int, skin: float = 0.1, rebuild_interval: int = 20, cb: int = 1,
+):
+    """Stateful MD force provider (counterpart of make_nonbonded_pallas_md):
+    lists culled at cutoff + skin, rebuilt when the step t is a multiple of
+    rebuild_interval; the kernel's mask applies the bare cutoff. Returns
+    (init_fn, apply_fn, energy_fn):
+
+      init_fn(conf, params, box) -> state
+      apply_fn(state, conf, params, box, t) -> (force, state)    F pass
+      energy_fn(state, conf, params, box) -> energy              UF pass
+
+    The parameter rows are cached at rebuild: params must not change between
+    rebuilds. t is the host's step count, so the rebuild decision reads
+    nothing from the device."""
+
+    def init_fn(conf, params, box):
+        tiles = build_block_tiles(conf, params, box, cutoff + skin, max_tiles, cb)
+        n = conf.shape[0]
+        return TileState(
+            tiles.pad_order, torch.argsort(tiles.pad_order[:n]), tiles.atoms[:, 3:],
+            tiles.row_start, tiles.row_count, tiles.col_ids, tiles.overflow,
+        )
+
+    def sweep(state, conf, box, mode):
+        atoms = assemble_atoms(conf, box, state.pad_order, state.prows)
+        return nb_tiles(
+            atoms, state.row_start, state.row_count, state.col_ids, tile_scalars(box, beta, cutoff), mode, cb
+        )
+
+    def apply_fn(state, conf, params, box, t: int):
+        if t % rebuild_interval == 0:
+            state = init_fn(conf, params, box)
+        return poison_on_overflow(state.overflow, -sweep(state, conf, box, FORCE)[state.inv, 1:4]), state
+
+    def energy_fn(state, conf, params, box):
+        return poison_on_overflow(state.overflow, torch.sum(sweep(state, conf, box, UF)[:, 0]))
+
+    return init_fn, apply_fn, energy_fn

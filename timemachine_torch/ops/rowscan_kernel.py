@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from timemachine_torch.ops import _build
 from timemachine_torch.ops.nonbonded import SWITCH_CUTOFF, polyval_t
+from timemachine_torch.ops.nonbonded_kernel import StashedGradEnergy, poison_on_overflow, run_dp, snake_order
 
 ROW = 32  # atoms per row chunk
 COL = 128  # atoms per column chunk
@@ -117,13 +118,7 @@ def build_rowscan_tiles(conf, box, cutoff: float, max_pairs: int, cell_size: flo
     box_diag = torch.diagonal(box).to(torch.float32)
     wrapped = _wrap(conf[:, :3].to(torch.float32), box_diag)
 
-    dims = torch.clamp(torch.floor(box_diag / cell_size).to(torch.int32), min=1)
-    frac = wrapped / box_diag
-    frac = frac - torch.floor(frac)
-    cx, cy, cz = torch.minimum((frac * dims).to(torch.int32), dims - 1).unbind(1)
-    ky = torch.where(cz % 2 == 0, cy, dims[1] - 1 - cy)
-    kx = torch.where((cz * dims[1] + ky) % 2 == 0, cx, dims[0] - 1 - cx)
-    order = torch.argsort((cz * dims[1] + ky) * dims[0] + kx, stable=True)
+    order = snake_order(wrapped, box_diag, cell_size)
     pad_order = torch.cat([order, order.new_zeros(n_pad - n)])
 
     xs = wrapped[pad_order]
@@ -356,12 +351,6 @@ class RowscanState(NamedTuple):
     prows: torch.Tensor  # (Npad, 4) sorted parameter rows, cached at rebuild
 
 
-def _poison(tiles: RowscanTiles, val):
-    """NaN where the list overflowed: a sweep that dropped tiles must not
-    pass for a right answer."""
-    return torch.where(tiles.overflow > 0, torch.nan, val)
-
-
 def make_nonbonded_rowscan_md(
     beta: float, cutoff: float, max_pairs: int, skin: float = 0.1, rebuild_interval: int = 20,
     cell_size: float = 0.65,
@@ -396,10 +385,10 @@ def make_nonbonded_rowscan_md(
         if t % rebuild_interval == 0:
             state = init_fn(conf, params, box)
         out = sweep(state, conf, box, FORCE)
-        return _poison(state.tiles, -out[state.inv, 1:4]), state
+        return poison_on_overflow(state.tiles.overflow, -out[state.inv, 1:4]), state
 
     def energy_fn(state, conf, params, box):
-        return _poison(state.tiles, torch.sum(sweep(state, conf, box, ENERGY)[:, 0]))
+        return poison_on_overflow(state.tiles.overflow, torch.sum(sweep(state, conf, box, ENERGY)[:, 0]))
 
     return init_fn, apply_fn, energy_fn
 
@@ -416,6 +405,26 @@ def make_nonbonded_rowscan_energy_force(beta: float, cutoff: float, max_pairs: i
         atoms = assemble_atoms(conf, box, tiles.pad_order, param_rows(params.to(conf.dtype), tiles.pad_order, n))
         out = rowscan_sweep(atoms, tiles.row_start, tiles.row_count, tiles.col_ids, sweep_scalars(box, cutoff), series, mode)
         force = -out[torch.argsort(tiles.pad_order[:n]), 1:4]
-        return _poison(tiles, torch.sum(out[:, 0])), _poison(tiles, force)
+        return poison_on_overflow(tiles.overflow, torch.sum(out[:, 0])), poison_on_overflow(tiles.overflow, force)
 
     return energy_force
+
+
+def make_nonbonded_rowscan(beta: float, cutoff: float, max_pairs: int, dp_max_tiles: int, dp_cb: int = 2):
+    """Differentiable energy(conf, params, box): the forward runs one F+U
+    sweep over lists built for the call and stashes dU/dx; dU/dp comes from
+    the block-tile kernel's DP pass (exact electrostatics, as in the JAX
+    package's custom VJP) over lists of dp_max_tiles at dp_cb."""
+    ef = make_nonbonded_rowscan_energy_force(beta, cutoff, max_pairs)
+
+    def energy_grad(conf, params, box):
+        u, force = ef(conf, params, box)
+        return u, -force
+
+    def dp(conf, params, box):
+        return run_dp(conf, params, box, beta, cutoff, dp_max_tiles, cb=dp_cb)
+
+    def energy(conf, params, box):
+        return StashedGradEnergy.apply(conf, params, box, energy_grad, dp)
+
+    return energy

@@ -6,6 +6,7 @@ potential + params) and offers
 
   energy(x, box) -> u
   energy_force(x, box) -> (u, force),  force = -dU/dx, closed form
+  u(x, params, box) -> u,  differentiable in x and params (du/dp)
 
 Bonded terms sum their per-term forces with a fixed-order SegmentSum, so a
 step is bitwise reproducible on the card. `Nonbonded` also offers the
@@ -19,12 +20,14 @@ import torch
 from torch import nn
 
 from timemachine_torch.ops import bonded, nonbonded
+from timemachine_torch.ops import nonbonded_kernel as nbk
 from timemachine_torch.ops import rowscan_kernel as rs
 from timemachine_torch.ops.segment import SegmentSum
 
 # list capacity over the count at configure time, the MD lists' skin (nm)
 # and their rebuild period (steps), as the JAX package's rowscan path
 MARGIN, SKIN, REBUILD_INTERVAL = 1.4, 0.1, 20
+DP_CB = 2  # column super-block width of the block-tile lists, as the JAX package's configure_pallas
 
 
 class _BondedTerm(nn.Module):
@@ -44,8 +47,13 @@ class _BondedTerm(nn.Module):
         # role-major: contributions arrive as cat([role 0 rows, role 1 rows, ...])
         self.assemble = SegmentSum(idxs.T.ravel(), num_atoms, device=device)
 
+    def u(self, x, params, box):
+        """Energy as a function of (x, params, box), differentiable in both
+        by autograd (the counterpart of the JAX potential's __call__)."""
+        return type(self)._energy(x, params, box, self.idxs)
+
     def energy(self, x, box):
-        return type(self)._energy(x, self.params, box, self.idxs)
+        return self.u(x, self.params, box)
 
     def energy_force(self, x, box):
         u, contribs = type(self)._contribs(x, self.params, self.idxs)
@@ -68,9 +76,15 @@ class PeriodicTorsion(_BondedTerm):
 
 
 class NonbondedAllPairs(nn.Module):
-    """All-pairs LJ + switched Coulomb in 4D, no exclusions, through the
-    rowscan sweep. Call `configure(box, conf)` once before use: it sizes the
-    list capacities from the geometry."""
+    """All-pairs LJ + switched Coulomb in 4D, no exclusions. Call
+    `configure(box, conf, kernel)` once before use: it picks the kernel and
+    sizes the list capacities from the geometry.
+
+    kernel="rowscan" (the MD main path): the rowscan sweep with polynomial
+    electrostatics. kernel="v1": the block-tile sweep with exact
+    electrostatics, lists at cutoff + SKIN for MD. Either way `u(x, params,
+    box)` is differentiable in params through the block-tile kernel's DP
+    pass (exact electrostatics, as in the JAX package)."""
 
     rigid_group_invariant = False
 
@@ -80,39 +94,65 @@ class NonbondedAllPairs(nn.Module):
         self.beta = float(beta)
         self.cutoff = float(cutoff)
         self.register_buffer("params", torch.tensor(np.ascontiguousarray(params), device=device, dtype=dtype))
+        # the exclusion corrections' electrostatics: the rowscan polynomial, or None for exact erfc
         self.h_coeffs = rs.es_energy_force_series(self.beta, self.cutoff)[0]
-        self._ef = None
-        self._md = None
+        self._energy = self._energy_force = self._u = self._md = None
 
-    def configure(self, box, conf):
-        """Size the lists from this geometry: max_pairs at MARGIN over the
-        present count, and for the MD provider a sort-cell size from a census
-        of swept slots (systems of 8,192 atoms and up)."""
+    def configure(self, box, conf, kernel: str = "rowscan"):
+        """Size the lists from this geometry, at MARGIN over the present
+        counts: the energy/force lists at the bare cutoff, the MD lists at
+        cutoff + SKIN (with a sort-cell size from a census of swept slots
+        for rowscan systems of 8,192 atoms and up), the du/dp lists at the
+        bare cutoff with column super-blocks DP_CB wide."""
+        if kernel not in ("rowscan", "v1"):
+            raise ValueError(f"kernel must be 'rowscan' or 'v1', got {kernel!r}")
         box = torch.as_tensor(box, device=self.params.device)
         conf = torch.as_tensor(conf, device=self.params.device)
-        pairs = rs.suggest_max_pairs(conf, box, self.cutoff, margin=MARGIN)
-        self._ef = rs.make_nonbonded_rowscan_energy_force(self.beta, self.cutoff, pairs)
-        cell = 0.65
-        if conf.shape[0] >= 8192:
-            cell = rs.suggest_cell_size(conf, box, self.cutoff, skin=SKIN)
-        md_pairs = rs.suggest_max_pairs(conf, box, self.cutoff + SKIN, margin=MARGIN, cell_size=cell)
-        self._md = rs.make_nonbonded_rowscan_md(
-            self.beta, self.cutoff, md_pairs, skin=SKIN, rebuild_interval=REBUILD_INTERVAL, cell_size=cell
-        )
-        self.max_pairs, self.md_max_pairs, self.md_cell_size = pairs, md_pairs, cell
+        self.dp_max_tiles = nbk.suggest_max_tiles(conf, box, self.cutoff, margin=MARGIN, cb=DP_CB)
+        if kernel == "rowscan":
+            pairs = rs.suggest_max_pairs(conf, box, self.cutoff, margin=MARGIN)
+            ef = rs.make_nonbonded_rowscan_energy_force(self.beta, self.cutoff, pairs)
+            self._energy = lambda x, params, box: ef(x, params, box, rs.ENERGY)[0]
+            self._energy_force = ef
+            self._u = rs.make_nonbonded_rowscan(self.beta, self.cutoff, pairs, self.dp_max_tiles, dp_cb=DP_CB)
+            cell = 0.65
+            if conf.shape[0] >= 8192:
+                cell = rs.suggest_cell_size(conf, box, self.cutoff, skin=SKIN)
+            md_pairs = rs.suggest_max_pairs(conf, box, self.cutoff + SKIN, margin=MARGIN, cell_size=cell)
+            self._md = rs.make_nonbonded_rowscan_md(
+                self.beta, self.cutoff, md_pairs, skin=SKIN, rebuild_interval=REBUILD_INTERVAL, cell_size=cell
+            )
+            self.h_coeffs = rs.es_energy_force_series(self.beta, self.cutoff)[0]
+            self.max_pairs, self.md_max_pairs, self.md_cell_size = pairs, md_pairs, cell
+        else:
+            ef = nbk.make_nonbonded_tiles_energy_force(self.beta, self.cutoff, self.dp_max_tiles, cb=DP_CB)
+            self._energy = lambda x, params, box: ef(x, params, box)[0]
+            self._energy_force = ef
+            self._u = nbk.make_nonbonded_tiles(self.beta, self.cutoff, self.dp_max_tiles, cb=DP_CB)
+            self.md_max_tiles = nbk.suggest_max_tiles(conf, box, self.cutoff + SKIN, margin=MARGIN, cb=DP_CB)
+            self._md = nbk.make_nonbonded_tiles_md(
+                self.beta, self.cutoff, self.md_max_tiles, skin=SKIN, rebuild_interval=REBUILD_INTERVAL, cb=DP_CB
+            )
+            self.h_coeffs = None
         return self
 
     def _configured(self):
-        if self._ef is None:
+        if self._u is None:
             raise RuntimeError(f"{type(self).__name__}: call configure(box, conf) first")
+
+    def u(self, x, params, box):
+        """Energy as a function of (x, params, box), differentiable in x and
+        params (the counterpart of the JAX potential's __call__)."""
+        self._configured()
+        return self._u(x, params, box)
 
     def energy(self, x, box):
         self._configured()
-        return self._ef(x, self.params, box, rs.ENERGY)[0]
+        return self._energy(x, self.params, box)
 
     def energy_force(self, x, box):
         self._configured()
-        return self._ef(x, self.params, box)
+        return self._energy_force(x, self.params, box)
 
     def md_force_provider(self):
         """(init(x, box), apply(state, x, box, t) -> (force, state),
@@ -135,7 +175,8 @@ class NonbondedAllPairs(nn.Module):
 
 class Nonbonded(NonbondedAllPairs):
     """All pairs minus the intramolecular exclusions, which are subtracted
-    with the sweep's own polynomial electrostatics so they cancel it exactly.
+    with the sweep's own electrostatics so they cancel it: the rowscan
+    polynomial in closed form, or exact erfc through autograd (kernel="v1").
     Leading TIP3P waters go through a strided path, the rest through an
     explicit pair list."""
 
@@ -152,19 +193,45 @@ class Nonbonded(NonbondedAllPairs):
         self.register_buffer("tail_scales", torch.tensor(scales[3 * self.num_waters :], device=device, dtype=dtype))
         self.assemble = SegmentSum(tail.T.ravel(), num_atoms, device=device)
 
-    def exclusion_energy_force(self, x, box):
-        """(u_exc, dU_exc/dx) of the excluded pairs."""
+    def exclusion_energy(self, x, params, box):
+        """u_exc as a function of (x, params, box), differentiable in both."""
+        if self.h_coeffs is not None:
+            return self._exclusion_energy_force_poly(x, params, box)[0]
+        u = x.new_zeros(())
+        if self.num_waters:
+            u = nonbonded.water_exclusion_energy(x, params, box, self.num_waters, self.beta, self.cutoff)
+        if self.tail_idxs.shape[0]:
+            vdw, es = nonbonded.nonbonded_on_specific_pairs(
+                x, params, box, self.tail_idxs, self.beta, self.cutoff, self.tail_scales.to(params.dtype)
+            )
+            u = u + torch.sum(vdw) + torch.sum(es)
+        return u
+
+    def _exclusion_energy_force_poly(self, x, params, box):
         u, grad = x.new_zeros(()), torch.zeros_like(x)
         if self.num_waters:
-            u, grad = nonbonded.water_exclusion_energy_force(
-                x, self.params, box, self.num_waters, self.cutoff, self.h_coeffs
-            )
+            u, grad = nonbonded.water_exclusion_energy_force(x, params, box, self.num_waters, self.cutoff, self.h_coeffs)
         if self.tail_idxs.shape[0]:
             u_t, f_t = nonbonded.specific_pairs_energy_force(
-                x, self.params, box, self.tail_idxs, self.cutoff, self.tail_scales, self.h_coeffs, self.assemble
+                x, params, box, self.tail_idxs, self.cutoff, self.tail_scales.to(params.dtype), self.h_coeffs,
+                self.assemble,
             )
             u, grad = u + u_t, grad - f_t
         return u, grad
+
+    def exclusion_energy_force(self, x, box):
+        """(u_exc, dU_exc/dx) of the excluded pairs: closed form with the
+        rowscan polynomial, autograd with exact erfc."""
+        if self.h_coeffs is not None:
+            return self._exclusion_energy_force_poly(x, self.params, box)
+        with torch.enable_grad():
+            xg = x.detach().requires_grad_(True)
+            u = self.exclusion_energy(xg, self.params, box)
+            (grad,) = torch.autograd.grad(u, xg)
+        return u.detach(), grad
+
+    def u(self, x, params, box):
+        return super().u(x, params, box) - self.exclusion_energy(x, params, box)
 
     def energy(self, x, box):
         return super().energy(x, box) - self.exclusion_energy_force(x, box)[0]

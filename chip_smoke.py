@@ -6,7 +6,9 @@ BAOAB at 2.5 fs and 300 K with a Monte Carlo barostat every 25 steps. The
 nonbonded term runs through the hand-written rowscan kernel
 (timemachine_torch/csrc/rowscan.cu); forcefield-parameter gradients and the
 kernel="v1" configuration run through the hand-written block-tile kernel
-(timemachine_torch/csrc/nb_tiles.cu). Both are built here with nvcc for
+(timemachine_torch/csrc/nb_tiles.cu); the kernel="gather" and kernel="quad"
+configurations run through the hand-written gather and quadscan kernels
+(csrc/gather.cu, csrc/quadscan.cu). All four are built here with nvcc for
 sm_90a, in parallel.
 
 Phases, one line each or more: the device; the kernel builds; the rowscan
@@ -19,8 +21,17 @@ the block-tile kernel against its plain version at DHFR shapes in its modes
 DP, UF (exact and polynomial) and F; du/dp training: 5 Adam steps on a
 protein charge scale through a reweighting estimator over 8 NPT frames; the
 kernel="v1" path: its force against the rowscan configuration's, then 500
-NPT steps. Then a JSON line on the kernels, the card's name and power limit
-from nvidia-smi, and as the last line {"ok": true, "device": {...}}.
+NPT steps; the kernel="gather" path [9] and the kernel="quad" path [10],
+each from the minimized start: list shapes and build time, the kernel
+against its plain version in F and F+U, the net force against the rowscan
+configuration's, 500 NPT steps and two bitwise-equal 100-step runs (quad
+also: the configuration taken, the constant-shift margin, the largest
+|dU/dx| against the fixed-point range). Every path runs with all launch
+and plain-call counts set to 0 just before it and read just after. Then a
+JSON line on the kernels (time; launches per NPT step of the path named in
+`path`, and per Adam step of the training path where the kernel has one;
+bound; plain time), the card's name and power limit from nvidia-smi, and as
+the last line {"ok": true, "device": {...}}.
 
 Usage, from the repository root:  python3 chip_smoke.py
 Without a CUDA card, or when any phase fails, the script exits non-zero and
@@ -35,7 +46,7 @@ import time
 TEMP, DT, FRICTION, PRESSURE, BAROSTAT_INTERVAL = 300.0, 2.5e-3, 1.0, 1.013, 25
 N_FIRE, N_STEPS, N_PROFILE, N_DET = 400, 1000, 50, 100
 N_FRAMES, FRAME_INTERVAL, N_ADAM, ADAM_LR, S_START = 8, 100, 5, 2e-3, 1.01
-N_V1 = 500
+N_ALT = 500
 # kernel vs plain PyTorch, both f32: the two sum each atom's ~700 pairs in
 # different orders and the kernel's rsqrt is approximate (2 ulp)
 TOL_GRAD_REL_NORM = 1e-4
@@ -45,18 +56,65 @@ TOL_U_REL_NORM = 1e-4
 # cancel the all-pairs term's huge bonded-neighbour forces, so f32 rounding
 # of those (the sweep's ~1e-6) sets the scale, not the small net
 TOL_FORCE_REL_NORM = 1e-5
-# block-tile kernel vs plain PyTorch, per output column, both f32
-TOL_NB_COL = 1e-4
+# block-tile, gather and quadscan kernels vs plain PyTorch, per output
+# column, both f32
+TOL_KERNEL_COL = 1e-4
 # dL/ds with the DP pass on the kernel vs on the plain version
 TOL_DLDS = 1e-4
 # kernel="v1" (A&S erfc, exact exclusions) vs rowscan (polynomial) net
 # nonbonded force, relative to the all-pairs force norm
 TOL_V1_FORCE = 1e-5
+# kernel="gather" / kernel="quad" (the same polynomial function over other
+# lists and summation orders) vs rowscan net force, the same scale
+TOL_ALT_FORCE = 1e-5
+# the bound: published H100 SXM peaks (NVIDIA data sheet), FP32 outside the
+# tensor cores and HBM3
+PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+# FP32 operations for one pair within the cutoff, counted once with its
+# reaction on the other atom (the least work of the function, whatever a
+# list makes a kernel sweep), from the sources in the timed mode: an FMA is 2,
+# a compare, select or special function (rsqrt, exp, cos, sqrt, division) 1.
+# No minimum image: quadscan computes the function without one (one image
+# per list entry). The three list sweeps: pair_math.cuh's pair function in F
+# mode 48, the 4 differences, the 3 pair parameters, the row sums 6 and the
+# reaction 3. nb_tiles' DP pass (exact form): 94 for the differences, the
+# parameters, the pair function and the row's four sums, and 7 for the
+# reaction's four
+FLOPS_PER_PAIR = {"rowscan_sweep": 64, "nb_tiles": 101, "gather_sweep": 64, "quadscan_sweep": 64}
 
 
 def check(ok: bool, what: str):
     if not ok:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def bound(name: str, pairs: int, nbytes: int):
+    """(bound_ms, bound_by): the larger of the pairs' FP32 operations over
+    the FP32 peak and the bytes over the memory rate."""
+    t_ops = pairs * FLOPS_PER_PAIR[name] / PEAK_FP32 * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def pairs_within_cutoff(x, box, w, cutoff: float) -> int:
+    """Atom pairs, each counted once, with 4D minimum-image r^2 in the
+    kernels' gate (1e-7, cutoff^2): the pairs a sweep must compute."""
+    import torch
+
+    n = x.shape[0]
+    diag = torch.diagonal(box)
+    total = 0
+    for i0 in range(0, n, 1024):
+        d = x[i0 : i0 + 1024, None, :] - x[None, :, :]
+        d = d - diag * torch.round(d / diag)
+        r2 = (d * d).sum(2) + (w[i0 : i0 + 1024, None] - w[None, :]) ** 2
+        later = torch.arange(i0, min(i0 + 1024, n), device=x.device)[:, None] < torch.arange(n, device=x.device)
+        total += int(((r2 < cutoff * cutoff) & (r2 > 1e-7) & later).sum())
+    return total
 
 
 def main() -> int:
@@ -79,15 +137,31 @@ def main() -> int:
     from timemachine_torch.md.fire import FireMinimizationConfig, fire_minimize
     from timemachine_torch.md.utils import sample_velocities
     from timemachine_torch.ops import _build
+    from timemachine_torch.ops import gather_kernel as gk
     from timemachine_torch.ops import nonbonded_kernel as nbk
+    from timemachine_torch.ops import quadscan_kernel as qk
     from timemachine_torch.ops import rowscan_kernel as rs
-    from timemachine_torch.potentials import DP_CB, NonbondedAllPairs
+    from timemachine_torch.potentials import DP_CB, SKIN, NonbondedAllPairs
     from timemachine_torch.testsystems.dhfr import setup_dhfr
 
     dev = torch.device("cuda", 0)
     f32 = torch.float32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    sweeps = (rs.rowscan_sweep, nbk.nb_tiles, gk.gather_sweep, qk.quadscan_sweep)
+    plains = (rs.rowscan_sweep_plain, nbk.nb_tiles_plain, gk.gather_sweep_plain, qk.quadscan_sweep_plain)
+
+    def zero_counts():
+        """Every kernel's launch count and every plain version's call count
+        to 0, just before a path runs."""
+        for fn in sweeps:
+            fn.launches = 0
+        for fn in plains:
+            fn.calls = 0
+
+    def read_counts():
+        """({kernel: launches}, plain calls) since zero_counts()."""
+        return {fn.__name__: fn.launches for fn in sweeps}, sum(fn.calls for fn in plains)
 
     # -- 1. device ------------------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -106,7 +180,7 @@ def main() -> int:
         log = _build.build_log(lib).splitlines()
         ptxas = [ln.strip() for ln in log[1:] if "registers" in ln or "spill" in ln]
         print(f"[2 build] {lib}: {log[0]} | " + " | ".join(ptxas))
-    print(f"[2 build] {len(_build.LIBRARIES)} libraries in {t_build:.1f} s, one nvcc each, in parallel")
+    print(f"[2 build] {len(_build.LIBRARIES)} libraries in {t_build:.1f} s, one nvcc each, in parallel ({smi})")
 
     # -- 3. kernel vs plain at DHFR shapes -------------------------------------------
     hc = setup_dhfr(waters_first=True, device=dev, dtype=f32)
@@ -117,7 +191,7 @@ def main() -> int:
     nb.configure(box, x0)
     n = x0.shape[0]
     state = nb.md_force_provider()[0](x0, box)
-    tiles = state.tiles
+    tiles = state.lists
     atoms = rs.assemble_atoms(x0, box, tiles.pad_order, state.prows)
     row_count = rs.chop_row_counts(atoms[:, :3], tiles.rank_mat, tiles.row_count, box, nb.cutoff)
     series = rs.es_energy_force_series(nb.beta, nb.cutoff)
@@ -126,7 +200,7 @@ def main() -> int:
     print(
         f"[3 shapes] N {n}, Npad {atoms.shape[0]}, row chunks {tiles.row_start.shape[0]}, "
         f"max_pairs {nb.md_max_pairs}, cell {nb.md_cell_size} nm, listed tiles {int(tiles.row_count.sum())}, "
-        f"swept slots/step {slots}"
+        f"swept slots/step {slots} ({smi})"
     )
     check(int(tiles.overflow) == 0, "tile list overflow at DHFR")
 
@@ -142,6 +216,58 @@ def main() -> int:
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
+
+    w0 = nb.params[:, 3].to(f32)
+    pairs_x0 = pairs_within_cutoff(x0, box, w0, nb.cutoff)
+    print(
+        f"[3 bound] pairs within the cutoff at the DHFR start, each once: {pairs_x0}; swept slots / pairs "
+        f"{slots / pairs_x0:.2f}; F-mode bound over pairs {bound('rowscan_sweep', pairs_x0, 0)[0]:.4f} ms, "
+        f"over swept slots {bound('rowscan_sweep', slots // 2, 0)[0]:.4f} ms (a symmetric list sweeps each pair "
+        f"twice; FP32 peak {PEAK_FP32:.3g}/s; {smi})"
+    )
+
+    def kernel_entry(name, source, replaces, max_abs_err, ms, plain_ms, pairs, nbytes):
+        """One row of the kernels JSON line; launches are filled in by the kernel's path."""
+        bound_ms, bound_by = bound(name, pairs, nbytes)
+        return {
+            "name": name, "route": "cuda", "source": f"timemachine_torch/csrc/{source}",
+            "replaces": f"timemachine_tpu/ops/pallas/{replaces}", "launches": 0, "max_abs_err": max_abs_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            # no single PyTorch call computes a cutoff pair sweep
+            "library_ms": None,
+        }
+
+    def compare_kernel(tag, calls):
+        """Kernel against plain for each (label, kernel(), plain()) at one
+        set of inputs: per-column relative norm, two launches bitwise equal,
+        ms over 20 launches and 2 plain calls. Returns the first's (max_abs,
+        ms, plain_ms)."""
+        first = None
+        for label, kernel, plain in calls:
+            out_k, out_k2, out_p = kernel(), kernel(), plain()
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(out_k).all()), f"[{tag}] kernel output not finite in mode {label}")
+            rels = []
+            for col in range(out_p.shape[1]):
+                norm = float(torch.linalg.vector_norm(out_p[:, col]))
+                if norm == 0:  # F mode's energy column, dU/dw at w = 0
+                    check(not bool(out_k[:, col].any()), f"[{tag}] kernel column {col} not zero in mode {label}")
+                    rels.append(0.0)
+                else:
+                    rels.append(float(torch.linalg.vector_norm(out_k[:, col] - out_p[:, col])) / norm)
+            max_abs = float((out_k - out_p).abs().max())
+            same = torch.equal(out_k, out_k2)
+            ms = cuda_ms(kernel, 20)
+            plain_ms = cuda_ms(plain, 2)
+            print(
+                f"[{tag} kernel {label}] rel_norm per column " + " ".join(f"{r:.3e}" for r in rels)
+                + f" (tol {TOL_KERNEL_COL:g}); max_abs {max_abs:.3e} of max |out| {float(out_p.abs().max()):.3e}; "
+                f"two launches bitwise equal: {same}; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms ({smi})"
+            )
+            check(max(rels) <= TOL_KERNEL_COL, f"[{tag}] kernel disagrees with plain in mode {label}")
+            check(same, f"[{tag}] two launches differ in mode {label}")
+            first = first or (max_abs, ms, plain_ms)
+        return first
 
     kernel_row = None
     for mode, label in ((rs.FORCE, "F"), (rs.FORCE_ENERGY, "F+U"), (rs.ENERGY, "U")):
@@ -167,11 +293,10 @@ def main() -> int:
         plain_ms = cuda_ms(lambda: rs.rowscan_sweep_plain(*sweep_args, mode), 2)
         print(f"[3 kernel {label}] {'; '.join(msg)}; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms ({smi})")
         if mode == rs.FORCE:
-            kernel_row = {
-                "name": "rowscan_sweep", "route": "cuda", "source": "timemachine_torch/csrc/rowscan.cu",
-                "replaces": "timemachine_tpu/ops/pallas/rowscan_kernel.py:111", "launches": None,
-                "max_abs_err": g_err, "ms": ms, "plain_ms": plain_ms,
-            }
+            kernel_row = kernel_entry(
+                "rowscan_sweep", "rowscan.cu", "rowscan_kernel.py:111", g_err, ms, plain_ms, pairs_x0,
+                tensor_bytes(atoms, tiles.row_start, row_count, out_k) + 4 * int(row_count.sum()),
+            )
 
     hc_cpu = setup_dhfr(waters_first=True, device="cpu", dtype=f32)
     hc_cpu.host_system.nonbonded_all_pairs.configure(box.cpu(), x0.cpu())
@@ -182,13 +307,11 @@ def main() -> int:
     f_rel = f_err / float(torch.linalg.vector_norm(f_all_pairs))
     print(
         f"[3 slice] total force, card vs host CPU: |diff| / |all-pairs force| {f_rel:.3e} "
-        f"(tol {TOL_FORCE_REL_NORM:g}); |diff| / |total force| {f_err / float(torch.linalg.vector_norm(f_host)):.3e}"
+        f"(tol {TOL_FORCE_REL_NORM:g}); |diff| / |total force| {f_err / float(torch.linalg.vector_norm(f_host)):.3e} ({smi})"
     )
     check(f_rel <= TOL_FORCE_REL_NORM, "total force on the card disagrees with the host CPU")
 
     # -- 4. main path -----------------------------------------------------------------
-    rs.rowscan_sweep.launches = 0
-    rs.rowscan_sweep_plain.calls = 0
     masses = apply_hmr(hc.masses, hc.host_system.bond.idxs.cpu().numpy())
     t0 = time.perf_counter()
     x_min = fire_minimize(x0, lambda x: sum(p.energy_force(x, box)[1] for p in bps), FireMinimizationConfig(N_FIRE))
@@ -198,10 +321,19 @@ def main() -> int:
     intg = LangevinIntegrator(TEMP, DT, FRICTION, masses, seed=2026)
     v0 = sample_velocities(masses, TEMP, seed=2028)
 
-    def make_context():
+    def make_context(potentials=bps):
         baro = MonteCarloBarostat(n, PRESSURE, TEMP, hc.group_idxs, BAROSTAT_INTERVAL, seed=2027)
-        return Context(x_min, v0, box, intg, bps, movers=[baro], device=dev)
+        return Context(x_min, v0, box, intg, potentials, movers=[baro], device=dev)
 
+    def bitwise_repeat(tag, potentials):
+        a, b = make_context(potentials), make_context(potentials)
+        a.multiple_steps(N_DET)
+        b.multiple_steps(N_DET)
+        same = all(np.array_equal(p, q) for p, q in ((a.get_x_t(), b.get_x_t()), (a.get_v_t(), b.get_v_t()), (a.get_box(), b.get_box())))
+        print(f"[{tag} determinism] two fresh Contexts, {N_DET} steps: x, v, box bitwise equal: {same} ({smi})")
+        check(same, f"[{tag}] two identical runs differ")
+
+    zero_counts()
     ctxt = make_context()
     ctxt.multiple_steps(N_STEPS)  # warm-up
     torch.cuda.synchronize()
@@ -209,7 +341,8 @@ def main() -> int:
     ctxt.multiple_steps(N_STEPS)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches, plain_calls = rs.rowscan_sweep.launches, rs.rowscan_sweep_plain.calls
+    launches4, plain_calls = read_counts()
+    launches = launches4["rowscan_sweep"]
     ns_per_day = N_STEPS * DT / 1000.0 / elapsed * 86_400.0
     baro_state = ctxt.get_mover_states()[0]
     attempted, accepted = int(baro_state.total_attempted), int(baro_state.total_accepted)
@@ -219,17 +352,18 @@ def main() -> int:
     print(
         f"[4 main path] DHFR NPT {n} atoms: {ns_per_day:.2f} ns/day ({elapsed * 1e3 / N_STEPS:.4f} ms/step over "
         f"{N_STEPS} steps; {smi}); FIRE {N_FIRE} steps {t_fire:.2f} s; barostat {accepted}/{attempted} "
-        f"accepted; box {box_end[0, 0].item():.4f} nm; U {u_end:.2f} kJ/mol; kernel launches {launches}, "
-        f"plain sweeps {plain_calls}"
+        f"accepted; box {box_end[0, 0].item():.4f} nm; U {u_end:.2f} kJ/mol; kernel launches in the "
+        f"{2 * N_STEPS} NPT steps {launches} ({launches / (2 * N_STEPS):.3f} per step), plain sweeps {plain_calls}"
     )
     check(bool(torch.isfinite(x_end).all() and torch.isfinite(box_end).all()), "coordinates or box not finite")
     check(np.isfinite(u_end), "final energy not finite")
     check(attempted == 2 * N_STEPS // BAROSTAT_INTERVAL, f"barostat attempted {attempted} moves")
     check(accepted >= 1, "barostat accepted no move")
-    min_launches = (N_FIRE + 1) + 2 * N_STEPS + 2 * attempted
+    min_launches = 2 * N_STEPS + 2 * attempted
     check(launches >= min_launches, f"kernel launched {launches} times, want >= {min_launches}")
     check(plain_calls == 0, "the main path ran the plain sweep")
-    kernel_row["launches"] = launches
+    kernel_row["launches"] = launches / (2 * N_STEPS)
+    kernel_row["path"] = "DHFR NPT, the main path (per step)"
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         ctxt.multiple_steps(N_PROFILE)
@@ -246,12 +380,7 @@ def main() -> int:
     print(f"[4 profile] {N_PROFILE} steps: {busy} ({smi}); table on stderr")
 
     # -- 5. determinism -----------------------------------------------------------------
-    a, b = make_context(), make_context()
-    a.multiple_steps(N_DET)
-    b.multiple_steps(N_DET)
-    same = all(np.array_equal(p, q) for p, q in ((a.get_x_t(), b.get_x_t()), (a.get_v_t(), b.get_v_t()), (a.get_box(), b.get_box())))
-    print(f"[5 determinism] two fresh Contexts, {N_DET} steps: x, v, box bitwise equal: {same}")
-    check(same, "two identical runs differ")
+    bitwise_repeat("5", bps)
 
     # -- 6. block-tile kernel vs plain at DHFR shapes ----------------------------------
     tiles6 = nbk.build_block_tiles(x0, nb.params, box, nb.cutoff, nb.dp_max_tiles, DP_CB)
@@ -260,41 +389,21 @@ def main() -> int:
     n_tiles = int(tiles6.row_count.sum())
     print(
         f"[6 shapes] Npad {tiles6.atoms.shape[0]}, row blocks {tiles6.row_start.shape[0]}, cb {DP_CB}, "
-        f"listed tiles {n_tiles} of capacity {nb.dp_max_tiles}, pair slots {n_tiles * nbk.BLOCK * nbk.BLOCK * DP_CB}"
+        f"listed tiles {n_tiles} of capacity {nb.dp_max_tiles}, pair slots {n_tiles * nbk.BLOCK * nbk.BLOCK * DP_CB} ({smi})"
     )
     poly = nbk.es_switch_poly_coeffs(nb.beta, nb.cutoff)
-    nb_row = None
-    for label, mode, es in (("DP", nbk.DP, None), ("UF-exact", nbk.UF, None), ("UF-poly", nbk.UF, poly), ("F", nbk.FORCE, None)):
-        out_k = nbk.nb_tiles(*nb_args, mode, DP_CB, es)
-        out_k2 = nbk.nb_tiles(*nb_args, mode, DP_CB, es)
-        out_p = nbk.nb_tiles_plain(*nb_args, mode, DP_CB, es)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(out_k).all()), f"block-tile kernel output not finite in mode {label}")
-        rels = []
-        for col in range(4):
-            norm = float(torch.linalg.vector_norm(out_p[:, col]))
-            if norm == 0:  # F mode's energy column, dU/dw at w = 0
-                check(not bool(out_k[:, col].any()), f"kernel column {col} not zero in mode {label}")
-                rels.append(0.0)
-            else:
-                rels.append(float(torch.linalg.vector_norm(out_k[:, col] - out_p[:, col])) / norm)
-        max_abs = float((out_k - out_p).abs().max())
-        same = torch.equal(out_k, out_k2)
-        ms = cuda_ms(lambda: nbk.nb_tiles(*nb_args, mode, DP_CB, es), 20)
-        plain_ms = cuda_ms(lambda: nbk.nb_tiles_plain(*nb_args, mode, DP_CB, es), 2)
-        print(
-            f"[6 kernel {label}] rel_norm per column " + " ".join(f"{r:.3e}" for r in rels)
-            + f" (tol {TOL_NB_COL:g}); max_abs {max_abs:.3e}; two launches bitwise equal: {same}; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms ({smi})"
-        )
-        check(max(rels) <= TOL_NB_COL, f"block-tile kernel disagrees with plain in mode {label}")
-        check(same, f"two block-tile launches differ in mode {label}")
-        if mode == nbk.DP:
-            nb_row = {
-                "name": "nb_tiles", "route": "cuda", "source": "timemachine_torch/csrc/nb_tiles.cu",
-                "replaces": "timemachine_tpu/ops/pallas/nonbonded_kernel.py:213", "launches": None,
-                "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-            }
+    modes6 = (("DP", nbk.DP, None), ("UF-exact", nbk.UF, None), ("UF-poly", nbk.UF, poly), ("F", nbk.FORCE, None))
+    err6, ms6, plain6 = compare_kernel("6", [
+        (label, lambda m=mode, e=es: nbk.nb_tiles(*nb_args, m, DP_CB, e), lambda m=mode, e=es: nbk.nb_tiles_plain(*nb_args, m, DP_CB, e))
+        for label, mode, es in modes6
+    ])
+    nb_row = kernel_entry(
+        "nb_tiles", "nb_tiles.cu", "nonbonded_kernel.py:213", err6, ms6, plain6, pairs_x0,
+        tensor_bytes(tiles6.atoms, tiles6.row_start, tiles6.row_count) + 4 * n_tiles + 16 * tiles6.atoms.shape[0],
+    )
+    slots6 = n_tiles * nbk.BLOCK * nbk.BLOCK * DP_CB
+    print(f"[6 bound] DP-mode bound over pairs {nb_row['bound_ms']:.4f} ms, over swept slots "
+          f"{bound('nb_tiles', slots6 // 2, 0)[0]:.4f} ms (a symmetric list sweeps each pair twice; {smi})")
 
     # -- 7. du/dp training ----------------------------------------------------------------
     frames, frame_boxes = ctxt.multiple_steps(N_FRAMES * FRAME_INTERVAL, store_x_interval=FRAME_INTERVAL)
@@ -339,11 +448,10 @@ def main() -> int:
     g_plain = torch.sum(dl_du * torch.stack(du_ds))
     g_rel = abs(float(g_kernel) - float(g_plain)) / abs(float(g_plain))
     print(f"[7 du/dp] dL/ds at s = {S_START}: through the kernel {float(g_kernel):.6e}, through the plain DP "
-          f"{float(g_plain):.6e}, rel {g_rel:.3e} (tol {TOL_DLDS:g})")
+          f"{float(g_plain):.6e}, rel {g_rel:.3e} (tol {TOL_DLDS:g}; {smi})")
     check(g_rel <= TOL_DLDS, "dL/ds through the kernel disagrees with the plain DP pass")
 
-    rs.rowscan_sweep.launches, nbk.nb_tiles.launches = 0, 0
-    rs.rowscan_sweep_plain.calls, nbk.nb_tiles_plain.calls = 0, 0
+    zero_counts()
     s = s0.detach().clone().requires_grad_(True)
     opt = torch.optim.Adam([s], lr=ADAM_LR)
     history = [(None, float(s.detach()))]
@@ -357,12 +465,11 @@ def main() -> int:
         history.append((float(loss.detach()), float(s.detach())))
         print(
             f"[7 du/dp] Adam step {step}: loss {history[-1][0]:.6f}, s {history[-2][1]:.6f} -> "
-            f"{history[-1][1]:.6f}, dL/ds {float(s.grad):.6e}"
+            f"{history[-1][1]:.6f}, dL/ds {float(s.grad):.6e} ({smi})"
         )
     torch.cuda.synchronize()
     train_ms = (time.perf_counter() - t0) * 1e3 / N_ADAM
-    launches7 = {"rowscan_sweep": rs.rowscan_sweep.launches, "nb_tiles": nbk.nb_tiles.launches}
-    plain7 = rs.rowscan_sweep_plain.calls + nbk.nb_tiles_plain.calls
+    launches7, plain7 = read_counts()
     losses = [h[0] for h in history[1:]]
     print(
         f"[7 du/dp] DHFR, {N_FRAMES} frames {FRAME_INTERVAL} steps apart, protein charge scale: "
@@ -375,6 +482,9 @@ def main() -> int:
     check(launches7["nb_tiles"] >= N_ADAM * N_FRAMES, f"nb_tiles launched {launches7['nb_tiles']} times on the training path")
     check(launches7["rowscan_sweep"] >= N_ADAM * N_FRAMES, "rowscan_sweep not launched on the training path")
     check(plain7 == 0, "the training path ran a plain version")
+    # the training path's own counts, beside each row's NPT path in `launches`
+    kernel_row["launches_per_training_step"] = launches7["rowscan_sweep"] / N_ADAM
+    nb_row["launches_per_training_step"] = launches7["nb_tiles"] / N_ADAM
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         loss_of(estimator(s)).backward()
         torch.cuda.synchronize()
@@ -399,35 +509,147 @@ def main() -> int:
     print(
         f"[8 v1] capacities: {nb8.dp_max_tiles} tiles at the cutoff, {nb8.md_max_tiles} at cutoff + skin (cb {DP_CB}); "
         f"net nonbonded force, v1 vs rowscan: |diff| / |all-pairs force| {v1_rel:.3e} (tol {TOL_V1_FORCE:g}), "
-        f"|diff| / |net force| {float(torch.linalg.vector_norm(f_v1 - f_rs) / torch.linalg.vector_norm(f_rs)):.3e}"
+        f"|diff| / |net force| {float(torch.linalg.vector_norm(f_v1 - f_rs) / torch.linalg.vector_norm(f_rs)):.3e} ({smi})"
     )
     check(v1_rel <= TOL_V1_FORCE, "the v1 force disagrees with the rowscan configuration's")
-    rs.rowscan_sweep.launches, nbk.nb_tiles.launches = 0, 0
-    rs.rowscan_sweep_plain.calls, nbk.nb_tiles_plain.calls = 0, 0
-    baro8 = MonteCarloBarostat(n, PRESSURE, TEMP, hc8.group_idxs, BAROSTAT_INTERVAL, seed=2027)
-    ctx8 = Context(x_min, v0, box, LangevinIntegrator(TEMP, DT, FRICTION, masses, seed=2026), bps8, movers=[baro8], device=dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ctx8.multiple_steps(N_V1)
-    torch.cuda.synchronize()
-    elapsed8 = time.perf_counter() - t0
-    launches8, plain8 = nbk.nb_tiles.launches, nbk.nb_tiles_plain.calls + rs.rowscan_sweep_plain.calls
-    x8 = torch.as_tensor(ctx8.get_x_t(), device=dev)
-    box8 = torch.as_tensor(ctx8.get_box(), device=dev)
-    u8 = float(sum(p.energy(x8, box8) for p in bps8))
-    attempted8 = int(ctx8.get_mover_states()[0].total_attempted)
-    print(
-        f"[8 v1] DHFR NPT {N_V1} steps on kernel=\"v1\": {N_V1 * DT / 1000.0 / elapsed8 * 86_400.0:.2f} ns/day "
-        f"({elapsed8 * 1e3 / N_V1:.4f} ms/step, lists built included; {smi}); box {box8[0, 0].item():.4f} nm; "
-        f"U {u8:.2f} kJ/mol; nb_tiles launches {launches8}, rowscan launches {rs.rowscan_sweep.launches}, plain calls {plain8}"
-    )
-    check(bool(torch.isfinite(x8).all() and torch.isfinite(box8).all()) and np.isfinite(u8), "v1 run not finite")
-    check(launches8 >= N_V1 + 2 * attempted8, f"nb_tiles launched {launches8} times on the v1 path")
-    check(plain8 == 0, "the v1 path ran a plain version")
 
-    kernel_row["launches"] += launches7["rowscan_sweep"]
-    nb_row["launches"] = launches7["nb_tiles"] + launches8
-    print(json.dumps({"kernels": [kernel_row, nb_row]}))
+    def npt_run(tag, label, potentials, sweep):
+        """N_ALT NPT steps from the minimized start with every count set to 0
+        first: the path's own kernel must carry every step and every
+        barostat energy, and no plain version may run. Returns its launches
+        per step and the final coordinates and box."""
+        zero_counts()
+        ctx = make_context(potentials)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctx.multiple_steps(N_ALT)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches, plain = read_counts()
+        x_end = torch.as_tensor(ctx.get_x_t(), device=dev)
+        box_end = torch.as_tensor(ctx.get_box(), device=dev)
+        u_end = float(sum(p.energy(x_end, box_end) for p in potentials))
+        attempted = int(ctx.get_mover_states()[0].total_attempted)
+        print(
+            f"[{tag} NPT] DHFR NPT {N_ALT} steps on {label}: {N_ALT * DT / 1000.0 / elapsed * 86_400.0:.2f} ns/day "
+            f"({elapsed * 1e3 / N_ALT:.4f} ms/step, list builds included; {smi}); box {box_end[0, 0].item():.4f} nm; "
+            f"U {u_end:.2f} kJ/mol; launches {launches} ({launches[sweep.__name__] / N_ALT:.3f} per step), plain calls {plain}"
+        )
+        check(bool(torch.isfinite(x_end).all() and torch.isfinite(box_end).all()) and np.isfinite(u_end), f"[{tag}] run not finite")
+        check(launches[sweep.__name__] >= N_ALT + 2 * attempted, f"[{tag}] {sweep.__name__} launched {launches[sweep.__name__]} times")
+        check(plain == 0, f"[{tag}] the path ran a plain version")
+        return launches[sweep.__name__] / N_ALT, x_end, box_end
+
+    nb_row["launches"], _, _ = npt_run("8", 'kernel="v1"', bps8, nbk.nb_tiles)
+    nb_row["path"] = 'DHFR NPT, kernel="v1" (per step)'
+
+    def alt_config(tag, kernel):
+        """DHFR configured as `kernel` at the minimized start, and its net
+        nonbonded force against the rowscan configuration's."""
+        hc_k = setup_dhfr(waters_first=True, device=dev, dtype=f32)
+        nb_k = hc_k.host_system.nonbonded_all_pairs.configure(box, x_min, kernel=kernel)
+        check(nb_k.kernel == kernel, f"[{tag}] DHFR configured as {nb_k.kernel!r}, not {kernel!r}")
+        f_k = nb_k.energy_force(x_min, box)[1]
+        f_rel = float(torch.linalg.vector_norm(f_k - f_rs) / torch.linalg.vector_norm(f_ap))
+        print(
+            f"[{tag} force] configuration {nb_k.kernel!r}: net nonbonded force vs rowscan: |diff| / |all-pairs force| "
+            f"{f_rel:.3e} (tol {TOL_ALT_FORCE:g}), |diff| / |net force| "
+            f"{float(torch.linalg.vector_norm(f_k - f_rs) / torch.linalg.vector_norm(f_rs)):.3e} ({smi})"
+        )
+        check(f_rel <= TOL_ALT_FORCE, f"[{tag}] the {kernel} force disagrees with the rowscan configuration's")
+        return hc_k.host_system.get_U_fns(), nb_k
+
+    def build_ms(init):
+        init(x_min, box)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            state = init(x_min, box)
+        torch.cuda.synchronize()
+        return state, (time.perf_counter() - t0) * 1e3 / 5
+
+    w_min = nb.params[:, 3].to(f32)
+    pairs_min = pairs_within_cutoff(x_min, box, w_min, nb.cutoff)
+
+    # -- 9. the kernel="gather" path -----------------------------------------------------
+    bps9, nb9 = alt_config("9", "gather")
+    state9, build9 = build_ms(nb9.md_force_provider()[0])
+    lists = state9.lists
+    check(int(lists.overflow) == 0, "[9] neighbour list overflow at DHFR")
+    atoms9 = rs.assemble_atoms(x_min, box, lists.pad_order, state9.prows)
+    args9 = (atoms9, lists.counts, lists.nbr, rs.sweep_scalars(box, nb9.cutoff), series)
+    counts9 = lists.counts.double()
+    slots9 = int(lists.counts.sum()) * gk.ROW
+    print(
+        f"[9 shapes] Npad {atoms9.shape[0]}, row chunks {lists.counts.shape[0]}, max_nbrs {nb9.md_max_nbrs} at "
+        f"cutoff + skin, counts mean {float(counts9.mean()):.1f} max {int(lists.counts.max())}, swept slots {slots9} "
+        f"({slots9 / pairs_min:.2f} per pair within the cutoff, {pairs_min} pairs); list build {build9:.3f} ms ({smi})"
+    )
+    err9, ms9, plain9 = compare_kernel("9", [
+        (label, lambda m=mode: gk.gather_sweep(*args9, m), lambda m=mode: gk.gather_sweep_plain(*args9, m))
+        for label, mode in (("F", gk.FORCE), ("F+U", gk.FORCE_ENERGY))
+    ])
+    gather_row = kernel_entry(
+        "gather_sweep", "gather.cu", "gather_kernel.py:64", err9, ms9, plain9, pairs_min,
+        tensor_bytes(atoms9, lists.counts) + 4 * int(lists.counts.sum()) + 16 * atoms9.shape[0],
+    )
+    print(f"[9 bound] F-mode bound over pairs {gather_row['bound_ms']:.4f} ms, over swept slots "
+          f"{bound('gather_sweep', slots9 // 2, 0)[0]:.4f} ms (a full list sweeps each pair twice; {smi})")
+    gather_row["launches"], _, _ = npt_run("9", 'kernel="gather"', bps9, gk.gather_sweep)
+    gather_row["path"] = 'DHFR NPT, kernel="gather" (per step)'
+    bitwise_repeat("9", bps9)
+
+    # -- 10. the kernel="quad" path -------------------------------------------------------
+    bps10, nb10 = alt_config("10", "quad")
+    state10, build10 = build_ms(nb10.md_force_provider()[0])
+    tiles10 = state10.lists
+    check(int(tiles10.overflow) == 0, "[10] tile list overflow at DHFR")
+    atoms10 = rs.assemble_atoms(x_min, box, tiles10.pad_order, state10.prows)
+    args10 = (atoms10, tiles10.row_start, tiles10.row_count, tiles10.entries, rs.sweep_scalars(box, nb10.cutoff), series)
+    listed10 = int(tiles10.row_count.sum())
+    slots10 = listed10 * qk.PACK * qk.Q * qk.Q
+    print(
+        f"[10 shapes] Npad {atoms10.shape[0]}, chunks {tiles10.row_start.shape[0]}, listed tiles {listed10} of "
+        f"capacity {nb10.md_max_tiles} at cutoff + skin, swept slots {slots10} ({slots10 / pairs_min:.2f} per pair "
+        f"within the cutoff); constant-shift margin {float(tiles10.margin):.4f} nm; list build {build10:.3f} ms ({smi})"
+    )
+    check(float(tiles10.margin) > 0, "[10] the constant-shift invariant fails at the start")
+    err10, ms10, plain10 = compare_kernel("10", [
+        (label, lambda m=mode: qk.quadscan_sweep(*args10, m), lambda m=mode: qk.quadscan_sweep_plain(*args10, m))
+        for label, mode in (("F", qk.FORCE), ("F+U", qk.FORCE_ENERGY))
+    ])
+    quad_row = kernel_entry(
+        "quadscan_sweep", "quadscan.cu", "quadscan_kernel.py:69", err10, ms10, plain10, pairs_min,
+        tensor_bytes(atoms10, tiles10.row_start, tiles10.row_count) + 4 * qk.PACK * listed10 + 16 * atoms10.shape[0],
+    )
+    print(f"[10 bound] F-mode bound over pairs {quad_row['bound_ms']:.4f} ms, over swept slots "
+          f"{bound('quadscan_sweep', slots10, 0)[0]:.4f} ms ({smi})")
+    # the quad configuration's energy and force are rowscan's: hold its MD
+    # provider's net nonbonded force (the quadscan sweep minus the
+    # exclusions) against the rowscan configuration's, on the same scale
+    f_md10 = nb10.md_force_provider()[1](state10, x_min, box, 1)[0]
+    md_rel = float(torch.linalg.vector_norm(f_md10 - f_rs) / torch.linalg.vector_norm(f_ap))
+    print(f"[10 force] MD provider (quadscan): net nonbonded force vs rowscan: |diff| / |all-pairs force| {md_rel:.3e} "
+          f"(tol {TOL_ALT_FORCE:g}; {smi})")
+    check(md_rel <= TOL_ALT_FORCE, "[10] the quad MD force disagrees with the rowscan configuration's")
+    quad_row["launches"], x10, box10 = npt_run("10", 'kernel="quad"', bps10, qk.quadscan_sweep)
+    quad_row["path"] = 'DHFR NPT, kernel="quad" (per step)'
+    margin_end = qk.constant_shift_margin(x10, box10, nb10.cutoff + SKIN)
+    grad_max = max(
+        float(qk.quadscan_sweep(*args10, qk.FORCE)[:, 1:4].abs().max()),
+        float(NonbondedAllPairs.energy_force(nb10, x10, box10)[1].abs().max()),
+    )
+    fixed_range = 2.0**63 / qk.FIXED_SCALE
+    print(
+        f"[10 invariant] constant-shift margin at cutoff + skin: {float(tiles10.margin):.4f} nm at the start, "
+        f"{margin_end:.4f} nm after {N_ALT} steps; largest |dU/dx| {grad_max:.4e} of the fixed-point range "
+        f"{fixed_range:.4e} kJ/mol/nm ({smi})"
+    )
+    check(margin_end > 0, "[10] the constant-shift invariant fails at the end")
+    check(grad_max < fixed_range, "[10] |dU/dx| beyond the fixed-point range")
+    bitwise_repeat("10", bps10)
+
+    print(json.dumps({"kernels": [kernel_row, nb_row, gather_row, quad_row]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

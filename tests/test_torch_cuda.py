@@ -1,5 +1,5 @@
-"""The CUDA kernels (rowscan sweep, block-tile sweep) against their plain
-PyTorch versions, on a card.
+"""The CUDA kernels (rowscan, block-tile, gather and quadscan sweeps)
+against their plain PyTorch versions, on a card.
 
 Every test here needs a CUDA device and skips without one (decided in the
 `cuda` fixture, never at import). This file imports no JAX, so it also runs
@@ -16,7 +16,9 @@ import numpy as np
 import pytest
 import torch
 
+from timemachine_torch.ops import gather_kernel as gk
 from timemachine_torch.ops import nonbonded_kernel as nbk
+from timemachine_torch.ops import quadscan_kernel as qk
 from timemachine_torch.ops import rowscan_kernel as rs
 
 pytestmark = pytest.mark.cuda
@@ -184,3 +186,115 @@ def test_param_grad_runs_on_the_kernel(cuda):
     dp_plain = nbk.nb_tiles_plain(*_tile_args(conf, params, box), nbk.DP, 2)
     tiles = nbk.build_block_tiles(conf, params, box, CUTOFF, 10**6, 2)
     assert _col_rel(p.grad, dp_plain[torch.argsort(tiles.pad_order[: conf.shape[0]])]) < TOL
+
+
+# -- the gather and quadscan kernels (csrc/gather.cu, csrc/quadscan.cu) -----------
+
+SERIES = rs.es_energy_force_series(BETA, CUTOFF)
+SWEEP_MODES = {"F": rs.FORCE, "F+U": rs.FORCE_ENERGY}
+
+
+def _gather_args(conf, params, box, cutoff=CUTOFF + 0.1):
+    lists = gk.build_gather_neighbors(conf, box, cutoff, gk.suggest_max_nbrs(conf, box, cutoff))
+    atoms = rs.assemble_atoms(conf, box, lists.pad_order, rs.param_rows(params, lists.pad_order, conf.shape[0]))
+    return (atoms, lists.counts, lists.nbr, rs.sweep_scalars(box, CUTOFF), SERIES)
+
+
+def _quad_args(conf, params, box, cutoff=CUTOFF + 0.1):
+    tiles = qk.build_quadscan_tiles(conf, box, cutoff, qk.suggest_max_tiles(conf, box, cutoff))
+    atoms = rs.assemble_atoms(conf, box, tiles.pad_order, rs.param_rows(params, tiles.pad_order, conf.shape[0]))
+    return (atoms, tiles.row_start, tiles.row_count, tiles.entries, rs.sweep_scalars(box, CUTOFF), SERIES)
+
+
+SWEEPS = {
+    "gather": (gk.gather_sweep, gk.gather_sweep_plain, _gather_args),
+    "quad": (qk.quadscan_sweep, qk.quadscan_sweep_plain, _quad_args),
+}
+
+
+def _dhfr(device):
+    from timemachine_torch.testsystems.dhfr import setup_dhfr
+
+    hc = setup_dhfr(device=device, dtype=torch.float32)
+    conf = torch.as_tensor(hc.conf, device=device, dtype=torch.float32)
+    box = torch.as_tensor(hc.box, device=device, dtype=torch.float32)
+    return conf, hc.host_system.nonbonded_all_pairs.params, box
+
+
+@pytest.mark.parametrize("size", ["small", "dhfr"])
+@pytest.mark.parametrize("mode_name", list(SWEEP_MODES))
+@pytest.mark.parametrize("path", list(SWEEPS))
+def test_list_kernels_match_plain(cuda, path, mode_name, size):
+    """Every mode, at a small fluid and at DHFR shapes: per-column relative
+    norm within TOL, two launches bitwise equal (no float atomics)."""
+    sweep, plain, make_args = SWEEPS[path]
+    args = make_args(*(_fluid(cuda, seed=6) if size == "small" else _dhfr(cuda)))
+    mode = SWEEP_MODES[mode_name]
+    before = sweep.launches
+    out_k = sweep(*args, mode)
+    out_p = plain(*args, mode)
+    torch.cuda.synchronize()
+    assert sweep.launches == before + 1
+    assert _col_rel(out_k, out_p) < TOL
+    assert torch.equal(out_k, sweep(*args, mode))
+
+
+def _real_last_quarter(atoms):
+    """The quad sweep's arguments with the all-padding last quarter filled
+    by real atoms: chunk 0's, 0.2 nm along x."""
+    atoms = atoms.clone()
+    atoms[-qk.Q :] = atoms[: qk.Q]
+    atoms[-qk.Q :, 0] += 0.2
+    return atoms
+
+
+def test_quad_kernel_computes_padding_entries(cuda):
+    """Entries that point at the last quarter (the builder's padding) are
+    computed like any other: with real atoms in that quarter the kernel
+    still matches the plain version, which computes every listed entry, so
+    a caller's lists that put real atoms there lose no pairs."""
+    atoms, *rest = _quad_args(*_fluid(cuda, seed=8))
+    atoms = _real_last_quarter(atoms)
+    for mode in SWEEP_MODES.values():
+        out_k = qk.quadscan_sweep(atoms, *rest, mode)
+        out_p = qk.quadscan_sweep_plain(atoms, *rest, mode)
+        assert bool(out_p[-qk.Q :, 1:4].any())  # the padding entries reach real pairs
+        assert _col_rel(out_k, out_p) < TOL
+
+
+@pytest.mark.parametrize("path", list(SWEEPS))
+def test_list_wrappers_reject_what_the_kernel_cannot_take(cuda, path):
+    sweep, _, make_args = SWEEPS[path]
+    args = make_args(*_fluid(cuda))
+    with pytest.raises(ValueError):
+        sweep(args[0].double(), *args[1:], rs.FORCE)
+    with pytest.raises(ValueError):
+        sweep(args[0], args[1].long(), *args[2:], rs.FORCE)
+    with pytest.raises(ValueError):
+        sweep(args[0][:-32], *args[1:], rs.FORCE)
+    with pytest.raises(ValueError):
+        sweep(*args, rs.ENERGY)
+
+
+@pytest.mark.parametrize("path", list(SWEEPS))
+def test_list_providers_run_on_their_kernels(cuda, path):
+    """A 5.16 nm lattice fluid at cutoff 0.9 (the quad shift invariant
+    holds at cutoff + skin there): two steps across a rebuild and an energy,
+    all on the kernel."""
+    sweep, plain, _ = SWEEPS[path]
+    conf, params, box = _fluid(cuda, n_side=24, spacing=0.215, seed=7)
+    cutoff = 0.9
+    if path == "gather":
+        provider = gk.make_nonbonded_gather_md(BETA, cutoff, gk.suggest_max_nbrs(conf, box, cutoff + 0.1, margin=1.4), rebuild_interval=1)
+    else:
+        assert qk.constant_shift_valid(conf, box, cutoff + 0.1)
+        provider = qk.make_nonbonded_quadscan_md(BETA, cutoff, qk.suggest_max_tiles(conf, box, cutoff + 0.1, margin=1.4), rebuild_interval=1)
+    init, apply, energy = provider
+    before_k, before_p = sweep.launches, plain.calls
+    state = init(conf, params, box)
+    for t in range(2):
+        force, state = apply(state, conf, params, box, t)
+    u = energy(state, conf, params, box)
+    assert bool(torch.isfinite(force).all()) and bool(torch.isfinite(u))
+    assert sweep.launches == before_k + 3
+    assert plain.calls == before_p

@@ -62,7 +62,7 @@ def test_barostat_matches_jax_with_its_uniforms(water):
     kw = dict(num_atoms=n, pressure=1.013, temperature=300.0, group_idxs=groups, interval=25)
     j_move = jbaro.MonteCarloBarostat(**kw).make_move_fn(lambda x, box: 0.4 * jnp.sum(x**2))
     baro = MonteCarloBarostat(**kw)
-    t_move = baro.make_move_with_uniforms(lambda x, box: 0.4 * torch.sum(x**2))
+    t_move = baro.make_move_with_uniforms(lambda x, box: 0.4 * torch.sum(x**2), device="cpu")
     j_state, t_state = jbaro.MonteCarloBarostat(**kw).init_state(), baro.init_state("cpu", torch.float64)
     jx, jbox = jnp.asarray(water.conf), jnp.asarray(water.box)
     tx, tbox = torch.as_tensor(water.conf), torch.as_tensor(water.box)
@@ -85,7 +85,7 @@ def test_fire_matches_jax(water):
     """50 FIRE steps on the bond + angle terms of a water box whose atoms
     were jittered by 0.01 nm (f64): same trajectory to 1e-10 nm (same
     update rule; the forces differ in summation order only)."""
-    cfg = host_config_from_jax(water)
+    cfg = host_config_from_jax(water, device="cpu")
     terms = (cfg.host_system.bond, cfg.host_system.angle)
     jterms = (water.host_system.bond, water.host_system.angle)
     box = torch.as_tensor(water.box)
@@ -115,10 +115,10 @@ def test_context_matches_jax_context(water):
     j_intg = jint.LangevinIntegrator(0.0, 1e-3, 1.0, masses, seed=1)
     j_ctxt = JaxContext(np.asarray(water.conf), v0, box, j_intg, water.host_system.get_U_fns())
 
-    cfg = host_config_from_jax(water)
+    cfg = host_config_from_jax(water, device="cpu")
     x0, b0 = torch.as_tensor(cfg.conf), torch.as_tensor(cfg.box)
     cfg.host_system.nonbonded_all_pairs.configure(b0, x0)
-    ctxt = Context(x0, v0, b0, tint.LangevinIntegrator(0.0, 1e-3, 1.0, masses, seed=1), cfg.host_system.get_U_fns())
+    ctxt = Context(x0, v0, b0, tint.LangevinIntegrator(0.0, 1e-3, 1.0, masses, seed=1), cfg.host_system.get_U_fns(), device="cpu")
     for n, tol in ((1, 2e-6), (39, 5e-4)):
         j_ctxt.multiple_steps(n)
         ctxt.multiple_steps(n)

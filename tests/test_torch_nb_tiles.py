@@ -154,7 +154,7 @@ def test_overflow_gives_nan(water):
 def test_exact_exclusion_functions_match_jax(water):
     """f64, 1e-12: the exact-erfc water and pair-list exclusion energies and
     their parameter gradients equal the JAX functions."""
-    cfg = host_config_from_jax(water)
+    cfg = host_config_from_jax(water, device="cpu")
     nb = cfg.host_system.nonbonded_all_pairs
     conf, box = water.conf, water.box
     params = np.asarray(water.host_system.nonbonded_all_pairs.params)
@@ -186,7 +186,7 @@ def v1_pair(water):
     jcfg = build_water_system(2.4)  # configure_pallas changes the potential in place
     jpot = jcfg.host_system.nonbonded_all_pairs
     jpot.potential.configure_pallas(jcfg.box, jcfg.conf, interpret=True, kernel="v1")
-    cfg = host_config_from_jax(water, dtype=torch.float32)
+    cfg = host_config_from_jax(water, device="cpu", dtype=torch.float32)
     x = torch.as_tensor(cfg.conf, dtype=torch.float32)
     box = torch.as_tensor(cfg.box, dtype=torch.float32)
     nb = cfg.host_system.nonbonded_all_pairs.configure(box, x, kernel="v1")

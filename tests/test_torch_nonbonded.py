@@ -30,7 +30,7 @@ def water():
 
 
 def _port_nb(jcfg, dtype):
-    cfg = host_config_from_jax(jcfg, dtype=dtype)
+    cfg = host_config_from_jax(jcfg, device="cpu", dtype=dtype)
     x = torch.as_tensor(cfg.conf, dtype=dtype)
     box = torch.as_tensor(cfg.box, dtype=dtype)
     return cfg.host_system.nonbonded_all_pairs.configure(box, x), x, box
@@ -39,9 +39,9 @@ def _port_nb(jcfg, dtype):
 def _scales(nb, x, box):
     """(sum |u_i| of the all-pairs sweep, all-pairs force norm)."""
     state = nb.md_force_provider()[0](x, box)
-    atoms = trs.assemble_atoms(x, box, state.tiles.pad_order, state.prows)
+    atoms = trs.assemble_atoms(x, box, state.lists.pad_order, state.prows)
     out = trs.rowscan_sweep(
-        atoms, state.tiles.row_start, state.tiles.row_count, state.tiles.col_ids, trs.sweep_scalars(box, CUTOFF),
+        atoms, state.lists.row_start, state.lists.row_count, state.lists.col_ids, trs.sweep_scalars(box, CUTOFF),
         trs.es_energy_force_series(BETA, CUTOFF), trs.FORCE_ENERGY,
     )
     return float(out[:, 0].abs().sum()), float(torch.linalg.vector_norm(out[:, 1:4]))
@@ -84,11 +84,11 @@ def test_water_exclusion_path_equals_pair_list_path(water):
     """The strided leading-water correction and the explicit pair-list path
     are one function (f64, 1e-12): reversing the exclusion rows turns off
     leading-water detection."""
-    cfg = host_config_from_jax(water)
+    cfg = host_config_from_jax(water, device="cpu")
     nb = cfg.host_system.nonbonded_all_pairs
     exc = np.asarray(water.host_system.nonbonded_all_pairs.potential.exclusion_idxs)
     scales = np.asarray(water.host_system.nonbonded_all_pairs.potential.scale_factors)
-    flat = Nonbonded(len(cfg.conf), exc[::-1], scales[::-1], BETA, CUTOFF, nb.params.numpy())
+    flat = Nonbonded(len(cfg.conf), exc[::-1], scales[::-1], BETA, CUTOFF, nb.params.numpy(), device="cpu")
     assert nb.num_waters == len(cfg.conf) // 3 and flat.num_waters == 0
     x, box = torch.as_tensor(cfg.conf), torch.as_tensor(cfg.box)
     u_w, g_w = nb.exclusion_energy_force(x, box)
@@ -114,7 +114,7 @@ def test_provider_rebuild_schedule(provider):
     for t in (0, 20, 40):
         s = apply(s0, x, box, t)[1]
         assert s is not s0
-        assert torch.equal(s.tiles.col_ids, s0.tiles.col_ids)
+        assert torch.equal(s.lists.col_ids, s0.lists.col_ids)
 
 
 def test_provider_reuses_lists_within_skin(provider):
@@ -144,7 +144,7 @@ def test_provider_overflow_poisons_with_nan(water):
     nb, x, box = _port_nb(water, torch.float32)
     init, apply, energy = trs.make_nonbonded_rowscan_md(BETA, CUTOFF, max_pairs=128)
     state = init(x, nb.params, box)
-    assert int(state.tiles.overflow) > 0
+    assert int(state.lists.overflow) > 0
     f, state = apply(state, x, nb.params, box, 0)
     assert bool(torch.isnan(f).all())
     assert bool(torch.isnan(energy(state, x, nb.params, box)))
@@ -153,6 +153,6 @@ def test_provider_overflow_poisons_with_nan(water):
 
 
 def test_all_pairs_needs_configure(water):
-    nb = NonbondedAllPairs(len(water.conf), BETA, CUTOFF, np.asarray(water.host_system.nonbonded_all_pairs.params))
+    nb = NonbondedAllPairs(len(water.conf), BETA, CUTOFF, np.asarray(water.host_system.nonbonded_all_pairs.params), device="cpu")
     with pytest.raises(RuntimeError, match="configure"):
         nb.energy_force(torch.as_tensor(water.conf), torch.as_tensor(water.box))

@@ -22,7 +22,7 @@ torch.set_num_threads(1)  # the suite's workers share the host's cores
 
 @pytest.fixture(scope="module")
 def npt():
-    cfg = host_config_from_jax(build_water_system(3.0), dtype=torch.float32)
+    cfg = host_config_from_jax(build_water_system(3.0), device="cpu", dtype=torch.float32)
     bps = cfg.host_system.get_U_fns()
     x0 = torch.as_tensor(cfg.conf, dtype=torch.float32)
     box = torch.as_tensor(cfg.box, dtype=torch.float32)
@@ -33,7 +33,7 @@ def npt():
 
     def make_context():
         baro = MonteCarloBarostat(len(masses), 1.013, 300.0, cfg.group_idxs, 25, seed=2027)
-        return Context(x_min, v0, box, LangevinIntegrator(300.0, 2.5e-3, 1.0, masses, seed=2026), bps, movers=[baro])
+        return Context(x_min, v0, box, LangevinIntegrator(300.0, 2.5e-3, 1.0, masses, seed=2026), bps, movers=[baro], device="cpu")
 
     return make_context, x_min, box
 

@@ -195,7 +195,7 @@ def test_segment_sum_matches_numpy_and_is_reproducible(rng, width):
     src = rng.normal(size=(len(seg), 3))
     ref = np.zeros((45, 3))
     np.add.at(ref, seg, src)
-    ss = SegmentSum(seg, 45, width=width)
+    ss = SegmentSum(seg, 45, device="cpu", width=width)
     out = ss(_t(src))
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-12, atol=1e-12)
     assert torch.equal(out, ss(_t(src)))

@@ -47,7 +47,7 @@ def _rel(a, b):
 def test_bonded_du_dp_matches_jax(term, cls):
     """f64 on the DHFR arrays: autograd of the port's energy against
     jax.grad(pot, argnums=1), to 1e-10 relative norm."""
-    cfg = setup_dhfr()
+    cfg = setup_dhfr(device="cpu")
     pot = getattr(cfg.host_system, term)
     p = pot.params.clone().requires_grad_(True)
     x, box = torch.as_tensor(cfg.conf), torch.as_tensor(cfg.box)
@@ -59,12 +59,13 @@ def test_bonded_du_dp_matches_jax(term, cls):
 @pytest.fixture(scope="module")
 def water_pair():
     """The 2.4 nm water box: JAX potentials configured as the Pallas path
-    (rowscan and v1, interpret mode) and the port's, in f32."""
+    (interpret mode) and the port's, in f32, for each kernel; "quad" falls
+    back to rowscan in both at this box (the constant-shift gate)."""
     out = {}
-    for kernel in ("rowscan", "v1"):
+    for kernel in ("rowscan", "v1", "gather", "quad"):
         jcfg = build_water_system(2.4)
         jcfg.host_system.nonbonded_all_pairs.potential.configure_pallas(jcfg.box, jcfg.conf, interpret=True, kernel=kernel)
-        cfg = host_config_from_jax(jcfg, dtype=F32)
+        cfg = host_config_from_jax(jcfg, device="cpu", dtype=F32)
         x = torch.as_tensor(cfg.conf, dtype=F32)
         box = torch.as_tensor(cfg.box, dtype=F32)
         cfg.host_system.nonbonded_all_pairs.configure(box, x, kernel=kernel)
@@ -72,7 +73,7 @@ def water_pair():
     return out
 
 
-@pytest.mark.parametrize("kernel", ["rowscan", "v1"])
+@pytest.mark.parametrize("kernel", ["rowscan", "v1", "gather", "quad"])
 def test_nonbonded_du_dp_matches_jax(water_pair, kernel):
     """Nonbonded du/dp (all pairs through the DP pass minus the exclusions
     through autograd) against jax.grad(pot, argnums=1), per parameter
@@ -82,6 +83,7 @@ def test_nonbonded_du_dp_matches_jax(water_pair, kernel):
     force norm (the exclusions' x-gradient comes from autograd there)."""
     jcfg, cfg, x, box = water_pair[kernel]
     jbp = jcfg.host_system.nonbonded_all_pairs
+    assert cfg.host_system.nonbonded_all_pairs.kernel == jbp.potential._all_pairs.pallas_kernel
     f32 = lambda a: jnp.asarray(a, jnp.float32)  # noqa: E731
     ref = np.asarray(jax.grad(jbp.potential, argnums=1)(f32(jcfg.conf), f32(jbp.params), f32(jcfg.box)))
     nb = cfg.host_system.nonbonded_all_pairs
@@ -121,7 +123,7 @@ def test_r2_dp_charge_gradient_vs_polynomial_energy():
     of the port's own polynomial energy is 1.37e-5 in relative norm on the
     2.4 nm water box (bound 5e-5); LJ columns agree to 1e-12."""
     jcfg = build_water_system(2.4)
-    cfg = host_config_from_jax(jcfg)
+    cfg = host_config_from_jax(jcfg, device="cpu")
     x, box = torch.as_tensor(cfg.conf), torch.as_tensor(cfg.box)
     params = cfg.host_system.nonbonded_all_pairs.params
     p = params.clone().requires_grad_(True)

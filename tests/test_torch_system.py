@@ -26,7 +26,7 @@ torch.set_num_threads(1)  # the suite's workers share the host's cores
 
 @pytest.fixture(scope="module")
 def dhfr():
-    return setup_dhfr_native(waters_first=True), setup_dhfr(waters_first=True)
+    return setup_dhfr_native(waters_first=True), setup_dhfr(waters_first=True, device="cpu")
 
 
 def test_dhfr_loader_matches_jax(dhfr):
@@ -53,7 +53,7 @@ def test_dhfr_loader_matches_jax(dhfr):
 
 def test_convert_carries_a_jax_host_config():
     jcfg = build_water_system(3.0)
-    cfg = host_config_from_jax(jcfg, dtype=torch.float32)
+    cfg = host_config_from_jax(jcfg, device="cpu", dtype=torch.float32)
     hs = cfg.host_system
     assert [type(p).__name__ for p in hs.get_U_fns()] == [
         "HarmonicBond", "HarmonicAngle", "PeriodicTorsion", "PeriodicTorsion", "Nonbonded",
@@ -106,3 +106,43 @@ def test_port_never_imports_jax():
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True)
+
+
+def _default_device_constructions():
+    """Entry points called with no device argument, each returning the
+    tensors it made."""
+    from timemachine_torch.integrators import LangevinIntegrator
+    from timemachine_torch.md.barostat import MonteCarloBarostat
+    from timemachine_torch.md.context import Context
+    from timemachine_torch.ops.segment import SegmentSum
+
+    x = np.zeros((3, 3))
+
+    def barostat_move():
+        baro = MonteCarloBarostat(3, 1.0, 300.0, [[0, 1, 2]], 25)
+        move = baro.make_move_fn(lambda x, box: x.sum())
+        cuda = dict(device="cuda", dtype=torch.float64)
+        xt = torch.zeros((3, 3), **cuda)
+        return list(move(baro.init_state("cuda", torch.float64), xt, xt, 3.0 * torch.eye(3, **cuda))[1:])
+
+    return {
+        "setup_dhfr": lambda: [b for p in setup_dhfr().host_system.get_U_fns() for b in p.buffers()],
+        "Context": lambda: [Context(x, x, 3.0 * np.eye(3), LangevinIntegrator(300.0, 1e-3, 1.0, np.ones(3), 0), [])._x],
+        "SegmentSum": lambda: list(SegmentSum([0, 1, 1], 2).buffers()),
+        "MonteCarloBarostat": barostat_move,
+    }
+
+
+@pytest.mark.parametrize("entry", ["setup_dhfr", "Context", "SegmentSum", "MonteCarloBarostat"])
+def test_default_device_is_the_card(entry):
+    """With no device argument the port builds on the card: where there is
+    one, every tensor comes out on cuda; where there is none, construction
+    raises as torch raises for a CUDA tensor and never falls back to the
+    CPU."""
+    make = _default_device_constructions()[entry]
+    if torch.cuda.is_available():
+        tensors = make()
+        assert tensors and all(t.device.type == "cuda" for t in tensors)
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            make()

@@ -31,7 +31,8 @@ def host_system_arrays(hs) -> dict:
 
 
 def host_config_from_jax(cfg, device=None, dtype=torch.float64) -> HostConfig:
-    """A JAX HostConfig as the port's HostConfig, potentials on `device`."""
+    """A JAX HostConfig as the port's HostConfig, potentials on `device`
+    (None: the card)."""
     return HostConfig(
         host_system=HostSystem.from_arrays(host_system_arrays(cfg.host_system), device=device, dtype=dtype),
         conf=np.asarray(cfg.conf),

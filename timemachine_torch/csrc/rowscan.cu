@@ -44,6 +44,10 @@
 
 #include <cuda_runtime.h>
 
+#include "pair_math.cuh"
+
+using namespace pair_math;
+
 namespace {
 
 constexpr int ROW = 32;   // atoms per row chunk
@@ -51,22 +55,6 @@ constexpr int COL = 128;  // atoms per column chunk
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int COLS_PER_WARP = COL / WARPS;
-constexpr int DEG = 11;  // coefficients of the degree-10 series
-constexpr float K1 = 1.6666666666666667f;  // t = K1 r - 1 = 2 r / 1.2 - 1
-
-enum Mode { FORCE = 0, FORCE_ENERGY = 1, ENERGY = 2 };
-
-struct Series {
-  float h[DEG];  // energy h(t), low to high
-  float p[DEG];  // force P(t) = u h'(u) - h(u)
-};
-
-__device__ __forceinline__ float horner(const float (&c)[DEG], float t) {
-  float acc = c[DEG - 1];
-#pragma unroll
-  for (int k = DEG - 2; k >= 0; --k) acc = fmaf(acc, t, c[k]);
-  return acc;
-}
 
 template <int MODE>
 __global__ void __launch_bounds__(THREADS) rowscan_kernel(
@@ -121,30 +109,14 @@ __global__ void __launch_bounds__(THREADS) rowscan_kernel(
       dx -= bx * rintf(dx * ibx);
       dy -= by * rintf(dy * iby);
       dz -= bz * rintf(dz * ibz);
-      const float dw = ra.w - ca.w;
-      const float r2 = dx * dx + dy * dy + dz * dz + dw * dw;
-      const float r2s = fmaxf(r2, 1e-8f);
-      const float inv_r = rsqrtf(r2s);
-      const float inv_r2 = inv_r * inv_r;
-      const float qq = rb.x * cb.x;
-      const float sg = rb.y + cb.y;
-      const float e4 = rb.z * cb.z;
-      const float s2 = sg * sg * inv_r2;
-      const float t6 = s2 * s2 * s2;
-      const float et6 = e4 * t6;
-      const float t = K1 * (r2s * inv_r) - 1.0f;
-      const bool gate = (r2 < cut2) && (r2 > 1e-7f);
+      float de_r, e;
+      pair_terms<MODE>(dx, dy, dz, ra.w - ca.w, rb.x * cb.x, rb.y + cb.y, rb.z * cb.z, cut2, true, s, de_r, e);
       if (MODE != ENERGY) {
-        const float f = (et6 * (6.0f - 12.0f * t6) + qq * horner(s.p, t) * inv_r) * inv_r2;
-        const float de_r = gate ? f : 0.0f;
         gx = fmaf(de_r, dx, gx);
         gy = fmaf(de_r, dy, gy);
         gz = fmaf(de_r, dz, gz);
       }
-      if (MODE != FORCE) {
-        const float e = et6 * (t6 - 1.0f) + qq * horner(s.h, t) * inv_r;
-        u += gate ? e : 0.0f;
-      }
+      if (MODE != FORCE) u += e;
     }
   }
 
@@ -174,11 +146,7 @@ __global__ void __launch_bounds__(THREADS) rowscan_kernel(
 extern "C" int rowscan_sweep_launch(const void* atoms, const void* row_start, const void* row_count,
                                     const void* col_ids, const void* scal, void* out, int n_rows, int mode,
                                     const float* h, const float* p, void* stream) {
-  Series s;
-  for (int k = 0; k < DEG; ++k) {
-    s.h[k] = h[k];
-    s.p[k] = p[k];
-  }
+  const Series s = make_series(h, p);
   const dim3 grid(n_rows), block(THREADS);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float4* a = static_cast<const float4*>(atoms);

@@ -9,6 +9,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from timemachine_torch.device import resolve_device
 from timemachine_torch.potentials import HarmonicAngle, HarmonicBond, Nonbonded, PeriodicTorsion
 
 
@@ -29,9 +30,9 @@ class HostSystem:
     def from_arrays(cls, a: dict, device=None, dtype=torch.float64) -> "HostSystem":
         """From numpy arrays under the keys of the JAX package's host npz
         (bond_idxs, bond_params, ..., excl_idxs, excl_scales, nb_params,
-        beta, cutoff)."""
+        beta, cutoff), on `device` (None: the card)."""
         n = a["nb_params"].shape[0]
-        kw = dict(device=device, dtype=dtype)
+        kw = dict(device=resolve_device(device), dtype=dtype)
         return cls(
             bond=HarmonicBond(a["bond_idxs"], a["bond_params"], n, **kw),
             angle=HarmonicAngle(a["angle_idxs"], a["angle_params"], n, **kw),

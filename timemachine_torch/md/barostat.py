@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from timemachine_torch.constants import AVOGADRO, BOLTZ
+from timemachine_torch.device import resolve_device
 from timemachine_torch.ops.segment import SegmentSum
 
 
@@ -39,6 +40,7 @@ class CentroidRescaler(nn.Module):
 
     def __init__(self, group_idxs, n_atoms: int, device=None):
         super().__init__()
+        device = resolve_device(device)
         scatter, sizes = scatter_idxs_from_group_idxs(group_idxs, n_atoms)
         grouped = np.zeros((n_atoms, 1), dtype=bool)
         for g in group_idxs:

@@ -21,6 +21,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from timemachine_torch.device import resolve_device
 from timemachine_torch.integrators import LangevinIntegrator, langevin_step
 
 
@@ -35,7 +36,7 @@ class Context:
         movers: Sequence = (),
         device=None,
     ):
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve_device(device)  # None: the card
         self._x = torch.as_tensor(x0, device=self.device)
         dtype = self._x.dtype
         self._v = torch.as_tensor(v0, device=self.device, dtype=dtype)

@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` exports plain `extern "C"` launchers, so it compiles
 in seconds without PyTorch's headers; `load_libraries` runs one nvcc per
 source, all at once. The shared library goes to
-`timemachine_torch/_build/` under a name keyed by a hash of the source and
-the flags, so an edited source is rebuilt and an unchanged one is reused.
+`timemachine_torch/_build/` under a name keyed by a hash of the source, the
+shared headers (`csrc/*.cuh`) and the flags, so an edited source is rebuilt
+and an unchanged one is reused.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-LIBRARIES = ("rowscan", "nb_tiles")  # every source under csrc/
+LIBRARIES = ("rowscan", "nb_tiles", "gather", "quadscan")  # every source under csrc/
 # no --use_fast_math: the sweeps rely on IEEE 0 * x = 0 for padding pairs
 # and on IEEE expf, cosf and division in the exact electrostatics
 NVCC_FLAGS = (
@@ -41,7 +42,8 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(path.read_bytes() for path in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -457,52 +457,63 @@ def make_nonbonded_tiles_energy_force(beta: float, cutoff: float, max_tiles: int
     return energy_force
 
 
-class TileState(NamedTuple):
-    pad_order: torch.Tensor  # (Npad,) sorted slot -> atom
+class ListState(NamedTuple):
+    """An MD provider's state between rebuilds."""
+
+    lists: NamedTuple  # the layout's lists as built (pad_order first)
     inv: torch.Tensor  # (N,) sorted slot of each atom
-    prows: torch.Tensor  # (Npad, 5) sorted parameter rows, cached at rebuild
-    row_start: torch.Tensor
-    row_count: torch.Tensor
-    col_ids: torch.Tensor
-    overflow: torch.Tensor
+    prows: torch.Tensor  # sorted parameter rows, cached at rebuild
+    invalid: torch.Tensor  # () int: nonzero where the lists must not be trusted (overflow, a broken invariant)
+    image: torch.Tensor | None = None  # (N, 3) whole boxes the build wrapped each atom by, where the layout keeps it
+
+
+def make_list_md_provider(build, sweep, force_mode: int, energy_mode: int, rebuild_interval: int):
+    """The stateful MD force provider of every list layout (counterpart of
+    make_tile_md_provider in the JAX rowscan module):
+
+      build(conf, params, box) -> ListState        lists at cutoff + skin
+      sweep(state, conf, box, mode) -> (Npad, 4)   [u_i, dU/dx_i], sorted
+
+    The lists are rebuilt when the step t is a multiple of rebuild_interval;
+    the sweep's gate applies the bare cutoff. Returns (init_fn, apply_fn,
+    energy_fn):
+
+      init_fn(conf, params, box) -> state
+      apply_fn(state, conf, params, box, t) -> (force, state)    force_mode sweep
+      energy_fn(state, conf, params, box) -> energy              energy_mode sweep
+
+    Both are NaN where state.invalid is nonzero. The parameter rows are
+    cached at rebuild: params must not change between rebuilds. energy_fn
+    runs through the cached lists, valid for any conf within skin/2 of the
+    build conf, which covers a barostat trial move. t is the host's step
+    count, so the rebuild decision reads nothing from the device."""
+
+    def apply_fn(state, conf, params, box, t: int):
+        if t % rebuild_interval == 0:
+            state = build(conf, params, box)
+        out = sweep(state, conf, box, force_mode)
+        return poison_on_overflow(state.invalid, -out[state.inv, 1:4]), state
+
+    def energy_fn(state, conf, params, box):
+        return poison_on_overflow(state.invalid, torch.sum(sweep(state, conf, box, energy_mode)[:, 0]))
+
+    return build, apply_fn, energy_fn
 
 
 def make_nonbonded_tiles_md(
     beta: float, cutoff: float, max_tiles: int, skin: float = 0.1, rebuild_interval: int = 20, cb: int = 1,
 ):
-    """Stateful MD force provider (counterpart of make_nonbonded_pallas_md):
-    lists culled at cutoff + skin, rebuilt when the step t is a multiple of
-    rebuild_interval; the kernel's mask applies the bare cutoff. Returns
-    (init_fn, apply_fn, energy_fn):
+    """MD force provider over block tiles (counterpart of
+    make_nonbonded_pallas_md): an F pass per step, a UF pass for the
+    energy; see make_list_md_provider."""
 
-      init_fn(conf, params, box) -> state
-      apply_fn(state, conf, params, box, t) -> (force, state)    F pass
-      energy_fn(state, conf, params, box) -> energy              UF pass
-
-    The parameter rows are cached at rebuild: params must not change between
-    rebuilds. t is the host's step count, so the rebuild decision reads
-    nothing from the device."""
-
-    def init_fn(conf, params, box):
+    def build(conf, params, box):
         tiles = build_block_tiles(conf, params, box, cutoff + skin, max_tiles, cb)
-        n = conf.shape[0]
-        return TileState(
-            tiles.pad_order, torch.argsort(tiles.pad_order[:n]), tiles.atoms[:, 3:],
-            tiles.row_start, tiles.row_count, tiles.col_ids, tiles.overflow,
-        )
+        return ListState(tiles, torch.argsort(tiles.pad_order[: conf.shape[0]]), tiles.atoms[:, 3:], tiles.overflow)
 
     def sweep(state, conf, box, mode):
-        atoms = assemble_atoms(conf, box, state.pad_order, state.prows)
-        return nb_tiles(
-            atoms, state.row_start, state.row_count, state.col_ids, tile_scalars(box, beta, cutoff), mode, cb
-        )
+        t = state.lists
+        atoms = assemble_atoms(conf, box, t.pad_order, state.prows)
+        return nb_tiles(atoms, t.row_start, t.row_count, t.col_ids, tile_scalars(box, beta, cutoff), mode, cb)
 
-    def apply_fn(state, conf, params, box, t: int):
-        if t % rebuild_interval == 0:
-            state = init_fn(conf, params, box)
-        return poison_on_overflow(state.overflow, -sweep(state, conf, box, FORCE)[state.inv, 1:4]), state
-
-    def energy_fn(state, conf, params, box):
-        return poison_on_overflow(state.overflow, torch.sum(sweep(state, conf, box, UF)[:, 0]))
-
-    return init_fn, apply_fn, energy_fn
+    return make_list_md_provider(build, sweep, FORCE, UF, rebuild_interval)

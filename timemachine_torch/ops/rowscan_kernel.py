@@ -31,7 +31,14 @@ import torch.nn.functional as F
 
 from timemachine_torch.ops import _build
 from timemachine_torch.ops.nonbonded import SWITCH_CUTOFF, polyval_t
-from timemachine_torch.ops.nonbonded_kernel import StashedGradEnergy, poison_on_overflow, run_dp, snake_order
+from timemachine_torch.ops.nonbonded_kernel import (
+    ListState,
+    StashedGradEnergy,
+    make_list_md_provider,
+    poison_on_overflow,
+    run_dp,
+    snake_order,
+)
 
 ROW = 32  # atoms per row chunk
 COL = 128  # atoms per column chunk
@@ -227,6 +234,31 @@ def sweep_scalars(box, cutoff: float):
     return F.pad(torch.diagonal(box), (0, 1), value=cutoff)
 
 
+def pair_terms(d, dw, qq, sg, e4, cut2, listed, series, mode: int):
+    """(dU/dr / r, pair energy) of the sweeps' pair function on pair
+    tensors: d the three imaged coordinate differences, dw the w offset
+    difference, qq, sg = sigma_i/2 + sigma_j/2 and e4 = 4 eps_ij the pair
+    parameters, `listed` a mask of the slots that hold a pair. Both terms
+    are zero outside the gate (r^2 < cut2) & (r^2 > 1e-7) & listed; de_r is
+    None in ENERGY mode and e None in FORCE mode."""
+    h_coeffs, p_coeffs = series
+    r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2] + dw * dw
+    r2s = torch.clamp(r2, min=1e-8)
+    inv_r = torch.rsqrt(r2s)
+    inv_r2 = inv_r * inv_r
+    s2 = sg * sg * inv_r2
+    t6 = s2 * s2 * s2
+    et6 = e4 * t6  # before t6^2: e4 = 0 zeroes padding pairs that sit at r2 = 1e-8
+    t = _K1 * (r2s * inv_r) - 1.0
+    gate = (r2 < cut2) & (r2 > 1e-7) & listed
+    de_r = e = None
+    if mode != ENERGY:
+        de_r = torch.where(gate, (et6 * (6.0 - 12.0 * t6) + qq * polyval_t(t, p_coeffs) * inv_r) * inv_r2, 0.0)
+    if mode != FORCE:
+        e = torch.where(gate, et6 * (t6 - 1.0) + qq * polyval_t(t, h_coeffs) * inv_r, 0.0)
+    return de_r, e
+
+
 def rowscan_sweep_plain(atoms, row_start, row_count, col_ids, scalars, series, mode: int):
     """The sweep in plain PyTorch, in atoms' dtype: each batch of row chunks
     gathers its listed column chunks into (rows, L, 32, 128) pair blocks,
@@ -236,7 +268,6 @@ def rowscan_sweep_plain(atoms, row_start, row_count, col_ids, scalars, series, m
     [u_i, dU/dx_i] like the kernel; u_i is half of atom i's pair energies."""
     rowscan_sweep_plain.calls += 1
     block_pairs = 1 << 18 if atoms.device.type == "cpu" else 1 << 24
-    h_coeffs, p_coeffs = series
     n_pad = atoms.shape[0]
     n_rows = n_pad // ROW
     out = atoms.new_zeros((n_pad, 4))
@@ -261,24 +292,11 @@ def rowscan_sweep_plain(atoms, row_start, row_count, col_ids, scalars, series, m
         d = [ri[a] - cj[a] for a in range(3)]  # each (b, L, ROW, COL)
         d = [da - box[a] * torch.round(da * inv_box[a]) for a, da in enumerate(d)]
         dw = ri[3] - cj[3]
-        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2] + dw * dw
-        r2s = torch.clamp(r2, min=1e-8)
-        inv_r = torch.rsqrt(r2s)
-        inv_r2 = inv_r * inv_r
-        qq = ri[4] * cj[4]
-        sg = ri[5] + cj[5]
-        e4 = ri[6] * cj[6]  # rows store 2 sqrt(eps): e4 = 4 eps_ij
-        s2 = sg * sg * inv_r2
-        t6 = s2 * s2 * s2
-        et6 = e4 * t6  # before t6^2: e4 = 0 zeroes padding pairs that sit at r2 = 1e-8
-        t = _K1 * (r2s * inv_r) - 1.0
-        gate = (r2 < cut2) & (r2 > 1e-7) & listed[:, :, None, None]
+        de_r, e = pair_terms(d, dw, ri[4] * cj[4], ri[5] + cj[5], ri[6] * cj[6], cut2, listed[:, :, None, None], series, mode)
         if mode != ENERGY:
-            de_r = torch.where(gate, (et6 * (6.0 - 12.0 * t6) + qq * polyval_t(t, p_coeffs) * inv_r) * inv_r2, 0.0)
             for a in range(3):
                 out[r0 * ROW : r1 * ROW, 1 + a] = (de_r * d[a]).sum((1, 3)).reshape(-1)
         if mode != FORCE:
-            e = torch.where(gate, et6 * (t6 - 1.0) + qq * polyval_t(t, h_coeffs) * inv_r, 0.0)
             out[r0 * ROW : r1 * ROW, 0] = 0.5 * e.sum((1, 3)).reshape(-1)
     return out
 
@@ -296,7 +314,15 @@ def _launcher():
     return fn
 
 
-def _check(name, t, dtype, device, shape=None):
+def series_args(series):
+    """The (h, P) coefficient tuples as ctypes float arrays, made once per series."""
+    if series not in _series_args:
+        _series_args[series] = tuple((ctypes.c_float * len(c))(*c) for c in series)
+    return _series_args[series]
+
+
+def check_tensor(name, t, dtype, device, shape=None):
+    """Raise ValueError unless t is a contiguous `dtype` tensor on `device` (of `shape`)."""
     if t.device != device or t.dtype != dtype or not t.is_contiguous():
         raise ValueError(f"{name}: want a contiguous {dtype} tensor on {device}, got {t.dtype} on {t.device}")
     if shape is not None and tuple(t.shape) != shape:
@@ -323,14 +349,12 @@ def rowscan_sweep(atoms, row_start, row_count, col_ids, scalars, series, mode: i
     if n_pad % COL:
         raise ValueError(f"rowscan_sweep: {n_pad} atom rows is not a multiple of {COL}")
     n_rows = n_pad // ROW
-    _check("atoms", atoms, torch.float32, dev, (n_pad, 8))
-    _check("row_start", row_start, torch.int32, dev, (n_rows,))
-    _check("row_count", row_count, torch.int32, dev, (n_rows,))
-    _check("col_ids", col_ids, torch.int32, dev)
-    _check("scalars", scalars, torch.float32, dev, (4,))
-    if series not in _series_args:
-        _series_args[series] = tuple((ctypes.c_float * len(c))(*c) for c in series)
-    h_arg, p_arg = _series_args[series]
+    check_tensor("atoms", atoms, torch.float32, dev, (n_pad, 8))
+    check_tensor("row_start", row_start, torch.int32, dev, (n_rows,))
+    check_tensor("row_count", row_count, torch.int32, dev, (n_rows,))
+    check_tensor("col_ids", col_ids, torch.int32, dev)
+    check_tensor("scalars", scalars, torch.float32, dev, (4,))
+    h_arg, p_arg = series_args(series)
     out = torch.empty((n_pad, 4), dtype=torch.float32, device=dev)
     rc = _launcher()(
         atoms.data_ptr(), row_start.data_ptr(), row_count.data_ptr(), col_ids.data_ptr(), scalars.data_ptr(),
@@ -345,52 +369,28 @@ def rowscan_sweep(atoms, row_start, row_count, col_ids, scalars, series, mode: i
 rowscan_sweep.launches = 0
 
 
-class RowscanState(NamedTuple):
-    tiles: RowscanTiles
-    inv: torch.Tensor  # (N,) sorted slot of each atom
-    prows: torch.Tensor  # (Npad, 4) sorted parameter rows, cached at rebuild
-
-
 def make_nonbonded_rowscan_md(
     beta: float, cutoff: float, max_pairs: int, skin: float = 0.1, rebuild_interval: int = 20,
     cell_size: float = 0.65,
 ):
-    """Stateful MD force provider: lists culled at cutoff + skin, rebuilt
-    when the step t is a multiple of rebuild_interval, chopped to the bare
-    cutoff every step. Returns (init_fn, apply_fn, energy_fn):
-
-      init_fn(conf, params, box) -> state
-      apply_fn(state, conf, params, box, t) -> (force, state)
-      energy_fn(state, conf, params, box) -> energy through the cached lists
-
-    The parameter rows are cached at rebuild: params must not change between
-    rebuilds. energy_fn is valid for any conf within skin/2 of the build
-    conf, which covers a barostat trial move. t is the host's step count,
-    so the rebuild decision reads nothing from the device."""
+    """MD force provider over rowscan tiles, chopped to the bare cutoff at
+    every sweep: an F sweep per step, a U sweep for the energy; see
+    nonbonded_kernel.make_list_md_provider."""
     series = es_energy_force_series(beta, cutoff)
 
-    def init_fn(conf, params, box):
+    def build(conf, params, box):
         tiles = build_rowscan_tiles(conf, box, cutoff + skin, max_pairs, cell_size)
         n = conf.shape[0]
-        return RowscanState(tiles, torch.argsort(tiles.pad_order[:n]), param_rows(params.to(conf.dtype), tiles.pad_order, n))
+        prows = param_rows(params.to(conf.dtype), tiles.pad_order, n)
+        return ListState(tiles, torch.argsort(tiles.pad_order[:n]), prows, tiles.overflow)
 
     def sweep(state, conf, box, mode):
-        atoms = assemble_atoms(conf, box, state.tiles.pad_order, state.prows)
-        row_count = chop_row_counts(atoms[:, :3], state.tiles.rank_mat, state.tiles.row_count, box, cutoff)
-        return rowscan_sweep(
-            atoms, state.tiles.row_start, row_count, state.tiles.col_ids, sweep_scalars(box, cutoff), series, mode
-        )
+        t = state.lists
+        atoms = assemble_atoms(conf, box, t.pad_order, state.prows)
+        row_count = chop_row_counts(atoms[:, :3], t.rank_mat, t.row_count, box, cutoff)
+        return rowscan_sweep(atoms, t.row_start, row_count, t.col_ids, sweep_scalars(box, cutoff), series, mode)
 
-    def apply_fn(state, conf, params, box, t: int):
-        if t % rebuild_interval == 0:
-            state = init_fn(conf, params, box)
-        out = sweep(state, conf, box, FORCE)
-        return poison_on_overflow(state.tiles.overflow, -out[state.inv, 1:4]), state
-
-    def energy_fn(state, conf, params, box):
-        return poison_on_overflow(state.tiles.overflow, torch.sum(sweep(state, conf, box, ENERGY)[:, 0]))
-
-    return init_fn, apply_fn, energy_fn
+    return make_list_md_provider(build, sweep, FORCE, ENERGY, rebuild_interval)
 
 
 def make_nonbonded_rowscan_energy_force(beta: float, cutoff: float, max_pairs: int, cell_size: float = 0.65):

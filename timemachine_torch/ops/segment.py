@@ -14,6 +14,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from timemachine_torch.device import resolve_device
+
 
 class SegmentSum(nn.Module):
     """out[s] = sum of src[m] over all m with seg[m] == s.
@@ -25,6 +27,7 @@ class SegmentSum(nn.Module):
 
     def __init__(self, seg, n_segments: int, device=None, width: int = 32):
         super().__init__()
+        device = resolve_device(device)
         seg = np.asarray(seg, dtype=np.int64).ravel()
         if seg.size and (seg.min() < 0 or seg.max() >= n_segments):
             raise ValueError("segment id out of range")

@@ -19,8 +19,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from timemachine_torch.device import resolve_device
 from timemachine_torch.ops import bonded, nonbonded
+from timemachine_torch.ops import gather_kernel as gk
 from timemachine_torch.ops import nonbonded_kernel as nbk
+from timemachine_torch.ops import quadscan_kernel as qk
 from timemachine_torch.ops import rowscan_kernel as rs
 from timemachine_torch.ops.segment import SegmentSum
 
@@ -39,6 +42,7 @@ class _BondedTerm(nn.Module):
 
     def __init__(self, idxs, params, num_atoms: int, device=None, dtype=torch.float64):
         super().__init__()
+        device = resolve_device(device)
         idxs = np.ascontiguousarray(idxs, dtype=np.int64)
         if idxs.size and (idxs.min() < 0 or idxs.max() >= num_atoms):
             raise ValueError(f"{type(self).__name__}: atom index out of range")
@@ -81,15 +85,21 @@ class NonbondedAllPairs(nn.Module):
     sizes the list capacities from the geometry.
 
     kernel="rowscan" (the MD main path): the rowscan sweep with polynomial
-    electrostatics. kernel="v1": the block-tile sweep with exact
-    electrostatics, lists at cutoff + SKIN for MD. Either way `u(x, params,
-    box)` is differentiable in params through the block-tile kernel's DP
-    pass (exact electrostatics, as in the JAX package)."""
+    electrostatics. kernel="gather": the same pair function over atom-exact
+    full neighbour lists, for energy, force and MD. kernel="quad": rowscan
+    for energy and force, the Newton-triangular quadscan sweep for MD; it
+    falls back to rowscan wholesale where the constant-shift invariant
+    fails at cutoff + SKIN (small boxes). kernel="v1": the block-tile sweep
+    with exact electrostatics, lists at cutoff + SKIN for MD. `kernel` then
+    names the configuration taken. Either way `u(x, params, box)` is
+    differentiable in params through the block-tile kernel's DP pass (exact
+    electrostatics, as in the JAX package)."""
 
     rigid_group_invariant = False
 
     def __init__(self, num_atoms: int, beta: float, cutoff: float, params, device=None, dtype=torch.float64):
         super().__init__()
+        device = resolve_device(device)
         self.num_atoms = num_atoms
         self.beta = float(beta)
         self.cutoff = float(cutoff)
@@ -97,6 +107,7 @@ class NonbondedAllPairs(nn.Module):
         # the exclusion corrections' electrostatics: the rowscan polynomial, or None for exact erfc
         self.h_coeffs = rs.es_energy_force_series(self.beta, self.cutoff)[0]
         self._energy = self._energy_force = self._u = self._md = None
+        self.kernel = None
 
     def configure(self, box, conf, kernel: str = "rowscan"):
         """Size the lists from this geometry, at MARGIN over the present
@@ -104,26 +115,46 @@ class NonbondedAllPairs(nn.Module):
         cutoff + SKIN (with a sort-cell size from a census of swept slots
         for rowscan systems of 8,192 atoms and up), the du/dp lists at the
         bare cutoff with column super-blocks DP_CB wide."""
-        if kernel not in ("rowscan", "v1"):
-            raise ValueError(f"kernel must be 'rowscan' or 'v1', got {kernel!r}")
+        if kernel not in ("rowscan", "gather", "quad", "v1"):
+            raise ValueError(f"kernel must be 'rowscan', 'gather', 'quad' or 'v1', got {kernel!r}")
         box = torch.as_tensor(box, device=self.params.device)
         conf = torch.as_tensor(conf, device=self.params.device)
+        if kernel == "quad" and not qk.constant_shift_valid(conf, box, self.cutoff + SKIN):
+            kernel = "rowscan"
+        self.kernel = kernel
         self.dp_max_tiles = nbk.suggest_max_tiles(conf, box, self.cutoff, margin=MARGIN, cb=DP_CB)
-        if kernel == "rowscan":
+        self.h_coeffs = rs.es_energy_force_series(self.beta, self.cutoff)[0]
+        if kernel == "gather":
+            self.max_nbrs = gk.suggest_max_nbrs(conf, box, self.cutoff, margin=MARGIN)
+            ef = gk.make_nonbonded_gather_energy_force(self.beta, self.cutoff, self.max_nbrs)
+            self._energy = lambda x, params, box: ef(x, params, box)[0]
+            self._energy_force = ef
+            self._u = gk.make_nonbonded_gather(self.beta, self.cutoff, self.max_nbrs, self.dp_max_tiles, dp_cb=DP_CB)
+            self.md_max_nbrs = gk.suggest_max_nbrs(conf, box, self.cutoff + SKIN, margin=MARGIN)
+            self._md = gk.make_nonbonded_gather_md(
+                self.beta, self.cutoff, self.md_max_nbrs, skin=SKIN, rebuild_interval=REBUILD_INTERVAL
+            )
+        elif kernel in ("rowscan", "quad"):
             pairs = rs.suggest_max_pairs(conf, box, self.cutoff, margin=MARGIN)
             ef = rs.make_nonbonded_rowscan_energy_force(self.beta, self.cutoff, pairs)
             self._energy = lambda x, params, box: ef(x, params, box, rs.ENERGY)[0]
             self._energy_force = ef
             self._u = rs.make_nonbonded_rowscan(self.beta, self.cutoff, pairs, self.dp_max_tiles, dp_cb=DP_CB)
-            cell = 0.65
-            if conf.shape[0] >= 8192:
-                cell = rs.suggest_cell_size(conf, box, self.cutoff, skin=SKIN)
-            md_pairs = rs.suggest_max_pairs(conf, box, self.cutoff + SKIN, margin=MARGIN, cell_size=cell)
-            self._md = rs.make_nonbonded_rowscan_md(
-                self.beta, self.cutoff, md_pairs, skin=SKIN, rebuild_interval=REBUILD_INTERVAL, cell_size=cell
-            )
-            self.h_coeffs = rs.es_energy_force_series(self.beta, self.cutoff)[0]
-            self.max_pairs, self.md_max_pairs, self.md_cell_size = pairs, md_pairs, cell
+            self.max_pairs = pairs
+            if kernel == "quad":
+                self.md_max_tiles = qk.suggest_max_tiles(conf, box, self.cutoff + SKIN, margin=MARGIN)
+                self._md = qk.make_nonbonded_quadscan_md(
+                    self.beta, self.cutoff, self.md_max_tiles, skin=SKIN, rebuild_interval=REBUILD_INTERVAL
+                )
+            else:
+                cell = 0.65
+                if conf.shape[0] >= 8192:
+                    cell = rs.suggest_cell_size(conf, box, self.cutoff, skin=SKIN)
+                md_pairs = rs.suggest_max_pairs(conf, box, self.cutoff + SKIN, margin=MARGIN, cell_size=cell)
+                self._md = rs.make_nonbonded_rowscan_md(
+                    self.beta, self.cutoff, md_pairs, skin=SKIN, rebuild_interval=REBUILD_INTERVAL, cell_size=cell
+                )
+                self.md_max_pairs, self.md_cell_size = md_pairs, cell
         else:
             ef = nbk.make_nonbonded_tiles_energy_force(self.beta, self.cutoff, self.dp_max_tiles, cb=DP_CB)
             self._energy = lambda x, params, box: ef(x, params, box)[0]
@@ -185,6 +216,7 @@ class Nonbonded(NonbondedAllPairs):
         device=None, dtype=torch.float64,
     ):
         super().__init__(num_atoms, beta, cutoff, params, device=device, dtype=dtype)
+        device = self.params.device
         exc = np.ascontiguousarray(exclusion_idxs, dtype=np.int64).reshape(-1, 2)
         scales = np.ascontiguousarray(scale_factors, dtype=np.float64).reshape(-1, 2)
         self.num_waters = nonbonded.leading_water_exclusions(exc, scales)

@@ -58,7 +58,8 @@ def permute_host_arrays(a: dict, perm: np.ndarray) -> dict:
 
 def setup_dhfr(waters_first: bool = True, device=None, dtype=torch.float64, path=DHFR_NPZ) -> HostConfig:
     """The DHFR HostConfig. waters_first=True puts the 7,023 waters ahead of
-    the protein, the apo-benchmark order. Molecule groups come from the bond
+    the protein, the apo-benchmark order. The potentials live on `device`
+    (None: the card). Molecule groups come from the bond
     graph of the file's own atom order, renumbered like the atoms."""
     a = load_host_arrays(path)
     n = a["conf"].shape[0]

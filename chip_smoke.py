@@ -6,10 +6,11 @@ BAOAB at 2.5 fs and 300 K with a Monte Carlo barostat every 25 steps. The
 nonbonded term runs through the hand-written rowscan kernel
 (timemachine_torch/csrc/rowscan.cu); forcefield-parameter gradients and the
 kernel="v1" configuration run through the hand-written block-tile kernel
-(timemachine_torch/csrc/nb_tiles.cu); the kernel="gather" and kernel="quad"
-configurations run through the hand-written gather and quadscan kernels
-(csrc/gather.cu, csrc/quadscan.cu). All four are built here with nvcc for
-sm_90a, in parallel.
+(timemachine_torch/csrc/nb_tiles.cu); the kernel="gather", kernel="quad" and
+kernel="dot" configurations run through the hand-written gather, quadscan
+and dotscan kernels (csrc/gather.cu, csrc/quadscan.cu, csrc/dotscan.cu); two
+probes measure the card (csrc/probe_fma.cu, csrc/probe_bf16.cu). All seven
+are built here with nvcc for sm_90a, in parallel.
 
 Phases, one line each or more: the device; the kernel builds; the rowscan
 kernel against its plain PyTorch version at DHFR shapes in its three modes,
@@ -21,17 +22,22 @@ the block-tile kernel against its plain version at DHFR shapes in its modes
 DP, UF (exact and polynomial) and F; du/dp training: 5 Adam steps on a
 protein charge scale through a reweighting estimator over 8 NPT frames; the
 kernel="v1" path: its force against the rowscan configuration's, then 500
-NPT steps; the kernel="gather" path [9] and the kernel="quad" path [10],
-each from the minimized start: list shapes and build time, the kernel
-against its plain version in F and F+U, the net force against the rowscan
-configuration's, 500 NPT steps and two bitwise-equal 100-step runs (quad
-also: the configuration taken, the constant-shift margin, the largest
-|dU/dx| against the fixed-point range). Every path runs with all launch
-and plain-call counts set to 0 just before it and read just after. Then a
-JSON line on the kernels (time; launches per NPT step of the path named in
-`path`, and per Adam step of the training path where the kernel has one;
-bound; plain time), the card's name and power limit from nvidia-smi, and as
-the last line {"ok": true, "device": {...}}.
+NPT steps; the kernel="gather" path [9], the kernel="quad" path [10] and the
+kernel="dot" path [11], each from the minimized start: list shapes and build
+time, the kernel against its plain version in F and F+U, the net force
+against the rowscan configuration's, 500 NPT steps and two bitwise-equal
+100-step runs (quad also: the configuration taken, the constant-shift
+margin, the largest |dU/dx| against the fixed-point range; dot also: the
+sort taken, both list forms, the image-bound margin before and after the
+run, its MD provider's force against rowscan's); the probes [12]: the FP32
+FMA rate at INNER and twice INNER (the time must double) beside the data
+sheet's peak, the bf16 and f32 gate rates, each probe bitwise against its
+plain version. Every path runs with all launch and plain-call counts set to
+0 just before it and read just after. Then a JSON line on the kernels
+(time; launches per NPT step of the path named in `path`, per Adam step of
+the training path where the kernel has one, per run of phase 12 for the
+probes; bound; plain time), the card's name and power limit from
+nvidia-smi, and as the last line {"ok": true, "device": {...}}.
 
 Usage, from the repository root:  python3 chip_smoke.py
 Without a CUDA card, or when any phase fails, the script exits non-zero and
@@ -67,9 +73,19 @@ TOL_V1_FORCE = 1e-5
 # kernel="gather" / kernel="quad" (the same polynomial function over other
 # lists and summation orders) vs rowscan net force, the same scale
 TOL_ALT_FORCE = 1e-5
+# kernel="dot": its MD provider's force (direct differences at the row
+# center's images, forces by contraction) against rowscan's, on the
+# all-pairs scale. The limit sits between the kernel's reading (1.011e-6)
+# and that of r^2 by the f32 dot identity, the JAX kernel's default F mode,
+# which DHFR NPT does not survive (1.47e-5 to 1.51e-5; ROADMAP R6), so this
+# check fails a return to it
+TOL_DOT_FORCE = 4e-6
+# the FP32 probe's time from INNER to 2 INNER: the chains were not folded
+PROBE_RATIO = (1.8, 2.2)
 # the bound: published H100 SXM peaks (NVIDIA data sheet), FP32 outside the
-# tensor cores and HBM3
-PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+# tensor cores and HBM3; bf16 outside the tensor cores (NVIDIA H100 Tensor
+# Core GPU Architecture whitepaper: 133.8 TFLOP/s, twice FP32)
+PEAK_FP32, PEAK_BYTES, PEAK_BF16_VECTOR = 67e12, 3.35e12, 133.8e12
 # FP32 operations for one pair within the cutoff, counted once with its
 # reaction on the other atom (the least work of the function, whatever a
 # list makes a kernel sweep), from the sources in the timed mode: an FMA is 2,
@@ -79,8 +95,10 @@ PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
 # mode 48, the 4 differences, the 3 pair parameters, the row sums 6 and the
 # reaction 3. nb_tiles' DP pass (exact form): 94 for the differences, the
 # parameters, the pair function and the row's four sums, and 7 for the
-# reaction's four
-FLOPS_PER_PAIR = {"rowscan_sweep": 64, "nb_tiles": 101, "gather_sweep": 64, "quadscan_sweep": 64}
+# reaction's four. dotscan's F mode: the 4 differences, the pair function
+# 48, the 3 pair parameters, the row contraction's 4 sums 7 and the
+# column's 7.
+FLOPS_PER_PAIR = {"rowscan_sweep": 64, "nb_tiles": 101, "gather_sweep": 64, "quadscan_sweep": 64, "dotscan_sweep": 69}
 
 
 def check(ok: bool, what: str):
@@ -88,10 +106,15 @@ def check(ok: bool, what: str):
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
-def bound(name: str, pairs: int, nbytes: int):
-    """(bound_ms, bound_by): the larger of the pairs' FP32 operations over
-    the FP32 peak and the bytes over the memory rate."""
-    t_ops = pairs * FLOPS_PER_PAIR[name] / PEAK_FP32 * 1e3
+def pair_ops(name: str, pairs: int) -> float:
+    """FP32 operations of `pairs` pairs of kernel `name`."""
+    return pairs * FLOPS_PER_PAIR[name]
+
+
+def bound(ops: float, nbytes: int, peak: float = PEAK_FP32):
+    """(bound_ms, bound_by): the larger of the operations over the peak
+    rate of their type and the bytes over the memory rate."""
+    t_ops = ops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -137,19 +160,25 @@ def main() -> int:
     from timemachine_torch.md.fire import FireMinimizationConfig, fire_minimize
     from timemachine_torch.md.utils import sample_velocities
     from timemachine_torch.ops import _build
+    from timemachine_torch.ops import dotscan_kernel as dk
     from timemachine_torch.ops import gather_kernel as gk
     from timemachine_torch.ops import nonbonded_kernel as nbk
     from timemachine_torch.ops import quadscan_kernel as qk
     from timemachine_torch.ops import rowscan_kernel as rs
     from timemachine_torch.potentials import DP_CB, SKIN, NonbondedAllPairs
+    from timemachine_torch.probes import bf16_rate as br
+    from timemachine_torch.probes import fp32_peak as fp
     from timemachine_torch.testsystems.dhfr import setup_dhfr
 
     dev = torch.device("cuda", 0)
     f32 = torch.float32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    sweeps = (rs.rowscan_sweep, nbk.nb_tiles, gk.gather_sweep, qk.quadscan_sweep)
-    plains = (rs.rowscan_sweep_plain, nbk.nb_tiles_plain, gk.gather_sweep_plain, qk.quadscan_sweep_plain)
+    sweeps = (rs.rowscan_sweep, nbk.nb_tiles, gk.gather_sweep, qk.quadscan_sweep, dk.dotscan_sweep, fp.fp32_peak, br.bf16_rate)
+    plains = (
+        rs.rowscan_sweep_plain, nbk.nb_tiles_plain, gk.gather_sweep_plain, qk.quadscan_sweep_plain,
+        dk.dotscan_sweep_plain, fp.fp32_peak_plain, br.bf16_rate_plain,
+    )
 
     def zero_counts():
         """Every kernel's launch count and every plain version's call count
@@ -221,17 +250,19 @@ def main() -> int:
     pairs_x0 = pairs_within_cutoff(x0, box, w0, nb.cutoff)
     print(
         f"[3 bound] pairs within the cutoff at the DHFR start, each once: {pairs_x0}; swept slots / pairs "
-        f"{slots / pairs_x0:.2f}; F-mode bound over pairs {bound('rowscan_sweep', pairs_x0, 0)[0]:.4f} ms, "
-        f"over swept slots {bound('rowscan_sweep', slots // 2, 0)[0]:.4f} ms (a symmetric list sweeps each pair "
+        f"{slots / pairs_x0:.2f}; F-mode bound over pairs {bound(pair_ops('rowscan_sweep', pairs_x0), 0)[0]:.4f} ms, "
+        f"over swept slots {bound(pair_ops('rowscan_sweep', slots // 2), 0)[0]:.4f} ms (a symmetric list sweeps each pair "
         f"twice; FP32 peak {PEAK_FP32:.3g}/s; {smi})"
     )
 
-    def kernel_entry(name, source, replaces, max_abs_err, ms, plain_ms, pairs, nbytes):
-        """One row of the kernels JSON line; launches are filled in by the kernel's path."""
-        bound_ms, bound_by = bound(name, pairs, nbytes)
+    def kernel_entry(name, source, replaces, max_abs_err, ms, plain_ms, pairs, nbytes, ops=None, peak=PEAK_FP32):
+        """One row of the kernels JSON line, bound by the pairs' operations
+        (or `ops` at `peak`); launches are filled in by the kernel's path."""
+        bound_ms, bound_by = bound(pair_ops(name, pairs) if ops is None else ops, nbytes, peak)
         return {
             "name": name, "route": "cuda", "source": f"timemachine_torch/csrc/{source}",
-            "replaces": f"timemachine_tpu/ops/pallas/{replaces}", "launches": 0, "max_abs_err": max_abs_err,
+            "replaces": replaces if "/" in replaces else f"timemachine_tpu/ops/pallas/{replaces}", "launches": 0,
+            "max_abs_err": max_abs_err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             # no single PyTorch call computes a cutoff pair sweep
             "library_ms": None,
@@ -403,7 +434,7 @@ def main() -> int:
     )
     slots6 = n_tiles * nbk.BLOCK * nbk.BLOCK * DP_CB
     print(f"[6 bound] DP-mode bound over pairs {nb_row['bound_ms']:.4f} ms, over swept slots "
-          f"{bound('nb_tiles', slots6 // 2, 0)[0]:.4f} ms (a symmetric list sweeps each pair twice; {smi})")
+          f"{bound(pair_ops('nb_tiles', slots6 // 2), 0)[0]:.4f} ms (a symmetric list sweeps each pair twice; {smi})")
 
     # -- 7. du/dp training ----------------------------------------------------------------
     frames, frame_boxes = ctxt.multiple_steps(N_FRAMES * FRAME_INTERVAL, store_x_interval=FRAME_INTERVAL)
@@ -594,7 +625,7 @@ def main() -> int:
         tensor_bytes(atoms9, lists.counts) + 4 * int(lists.counts.sum()) + 16 * atoms9.shape[0],
     )
     print(f"[9 bound] F-mode bound over pairs {gather_row['bound_ms']:.4f} ms, over swept slots "
-          f"{bound('gather_sweep', slots9 // 2, 0)[0]:.4f} ms (a full list sweeps each pair twice; {smi})")
+          f"{bound(pair_ops('gather_sweep', slots9 // 2), 0)[0]:.4f} ms (a full list sweeps each pair twice; {smi})")
     gather_row["launches"], _, _ = npt_run("9", 'kernel="gather"', bps9, gk.gather_sweep)
     gather_row["path"] = 'DHFR NPT, kernel="gather" (per step)'
     bitwise_repeat("9", bps9)
@@ -623,7 +654,7 @@ def main() -> int:
         tensor_bytes(atoms10, tiles10.row_start, tiles10.row_count) + 4 * qk.PACK * listed10 + 16 * atoms10.shape[0],
     )
     print(f"[10 bound] F-mode bound over pairs {quad_row['bound_ms']:.4f} ms, over swept slots "
-          f"{bound('quadscan_sweep', slots10, 0)[0]:.4f} ms ({smi})")
+          f"{bound(pair_ops('quadscan_sweep', slots10), 0)[0]:.4f} ms ({smi})")
     # the quad configuration's energy and force are rowscan's: hold its MD
     # provider's net nonbonded force (the quadscan sweep minus the
     # exclusions) against the rowscan configuration's, on the same scale
@@ -639,7 +670,7 @@ def main() -> int:
         float(qk.quadscan_sweep(*args10, qk.FORCE)[:, 1:4].abs().max()),
         float(NonbondedAllPairs.energy_force(nb10, x10, box10)[1].abs().max()),
     )
-    fixed_range = 2.0**63 / qk.FIXED_SCALE
+    fixed_range = 2.0**63 / rs.FIXED_SCALE
     print(
         f"[10 invariant] constant-shift margin at cutoff + skin: {float(tiles10.margin):.4f} nm at the start, "
         f"{margin_end:.4f} nm after {N_ALT} steps; largest |dU/dx| {grad_max:.4e} of the fixed-point range "
@@ -649,7 +680,114 @@ def main() -> int:
     check(grad_max < fixed_range, "[10] |dU/dx| beyond the fixed-point range")
     bitwise_repeat("10", bps10)
 
-    print(json.dumps({"kernels": [kernel_row, nb_row, gather_row, quad_row]}))
+    # -- 11. the kernel="dot" path --------------------------------------------------------
+    bps11, nb11 = alt_config("11", "dot")
+    state11, build11 = build_ms(nb11.md_force_provider()[0])
+    tiles11 = state11.lists
+    list_cut = nb11.cutoff + SKIN
+    check(int(tiles11.invalid) == 0, "[11] dotscan lists invalid at DHFR (overflow or the image bound)")
+    atoms11 = rs.assemble_atoms(x_min, box, tiles11.pad_order, state11.prows)
+    n_rows11 = tiles11.row_start.shape[0]
+    listed11 = int(tiles11.row_count.sum())
+    slots11 = (listed11 + n_rows11) * dk.ROW * dk.COL  # the covering tiles are swept too
+    print(
+        f"[11 shapes] configuration {nb11.kernel!r}, sort {nb11.dot_sort!r}; Npad {atoms11.shape[0]}, row chunks "
+        f"{n_rows11}, listed tiles {listed11} of capacity {nb11.md_max_pairs} at cutoff + skin (triangular), swept "
+        f"slots {slots11} ({slots11 / pairs_min:.2f} per pair within the cutoff, {pairs_min} pairs); image-bound "
+        f"margin {float(tiles11.margin):.4f} nm; list build {build11:.3f} ms ({smi})"
+    )
+    sym11 = dk.build_dotscan_tiles(
+        x_min, box, list_cut, dk.suggest_max_pairs(x_min, box, list_cut, sort=nb11.dot_sort), sort=nb11.dot_sort
+    )
+    check(int(sym11.invalid) == 0 and torch.equal(sym11.pad_order, tiles11.pad_order), "[11] symmetric lists")
+    forms11 = {"tri": (tiles11, True), "sym": (sym11, False)}
+
+    def dot_args(form):
+        t, tri = forms11[form]
+        return (atoms11, t.row_start, t.row_count, t.col_ids, t.rcen_q, rs.sweep_scalars(box, nb11.cutoff), series), tri
+
+    err11, ms11, plain11 = compare_kernel("11", [
+        (f"{form} {label}", lambda f=form, m=mode: dk.dotscan_sweep(*dot_args(f)[0], m, dot_args(f)[1]),
+         lambda f=form, m=mode: dk.dotscan_sweep_plain(*dot_args(f)[0], m, dot_args(f)[1]))
+        for form in ("tri", "sym") for label, mode in (("F", dk.FORCE), ("F+U", dk.FORCE_ENERGY))
+    ])
+    dot_row = kernel_entry(
+        "dotscan_sweep", "dotscan.cu", "dotscan_kernel.py:82", err11, ms11, plain11, pairs_min,
+        tensor_bytes(atoms11, tiles11.row_start, tiles11.row_count, tiles11.rcen_q) + 4 * listed11 + 16 * atoms11.shape[0],
+    )
+    print(f"[11 bound] triangular F-mode bound over pairs {dot_row['bound_ms']:.4f} ms, over swept slots "
+          f"{bound(pair_ops('dotscan_sweep', slots11), 0)[0]:.4f} ms (FP32 peak {PEAK_FP32:.3g}/s; {smi})")
+    f_md11 = nb11.md_force_provider()[1](state11, x_min, box, 1)[0]
+    md_rel11 = float(torch.linalg.vector_norm(f_md11 - f_rs) / torch.linalg.vector_norm(f_ap))
+    print(f"[11 force] MD provider (dotscan): net nonbonded force vs rowscan: |diff| / |all-pairs force| "
+          f"{md_rel11:.3e} (tol {TOL_DOT_FORCE:g}; {smi})")
+    check(md_rel11 <= TOL_DOT_FORCE, "[11] the dot MD force disagrees with the rowscan configuration's")
+    dot_row["launches"], x11, box11 = npt_run("11", 'kernel="dot"', bps11, dk.dotscan_sweep)
+    dot_row["path"] = 'DHFR NPT, kernel="dot" (per step)'
+    # the end state: lists, centers and the dotscan sweep's |dU/dx| at x11, box11
+    state_end = nb11.md_force_provider()[0](x11, box11)
+    t_end = state_end.lists
+    check(int(t_end.invalid) == 0, "[11] dotscan lists invalid after the run (overflow or the image bound)")
+    margin11 = float(t_end.margin)
+    atoms_end = rs.assemble_atoms(x11, box11, t_end.pad_order, state_end.prows)
+    end_args = (atoms_end, t_end.row_start, t_end.row_count, t_end.col_ids, t_end.rcen_q, rs.sweep_scalars(box11, nb11.cutoff))
+    grad11 = max(
+        float(dk.dotscan_sweep(*end_args, series, dk.FORCE, True)[:, 1:4].abs().max()),
+        float(NonbondedAllPairs.energy_force(nb11, x11, box11)[1].abs().max()),
+    )
+    print(
+        f"[11 invariant] image-bound margin at cutoff + skin: {float(tiles11.margin):.4f} nm at the start, "
+        f"{margin11:.4f} nm after {N_ALT} steps; largest |dU/dx| {grad11:.4e} of the fixed-point range "
+        f"{2.0**63 / rs.FIXED_SCALE:.4e} kJ/mol/nm ({smi})"
+    )
+    check(margin11 > 0, "[11] the image bound fails at the end")
+    check(grad11 < 2.0**63 / rs.FIXED_SCALE, "[11] |dU/dx| beyond the fixed-point range")
+    bitwise_repeat("11", bps11)
+
+    # -- 12. the probes ----------------------------------------------------------------
+    x12 = fp.inputs(dev)
+    a12, b12 = br.inputs(dev)
+    zero_counts()
+    tflops, ms_fma, ms_fma2 = fp.measure(x12)
+    ms_gate = {dt: br.time_ms(a12, b12, dt) for dt in (torch.float32, torch.bfloat16)}
+    launches12, plain12 = read_counts()
+    check(plain12 == 0, "[12] the probes ran a plain version")
+    ratio = ms_fma2 / ms_fma
+    print(
+        f"[12 fp32] {fp.GRID} x ({fp.ROWS}, {fp.LANES}) elements, 4 FMA chains: {ms_fma:.4f} ms at INNER {fp.INNER}, "
+        f"{ms_fma2:.4f} ms at {2 * fp.INNER} (device time; ratio {ratio:.3f}, want {PROBE_RATIO[0]}-{PROBE_RATIO[1]}); "
+        f"measured FP32 peak {tflops:.2f} TFLOP/s, {fp.flops(x12.numel()) / ((ms_fma2 - ms_fma) * 1e-3) / 1e12:.2f} from "
+        f"the difference, against the data sheet's {PEAK_FP32 / 1e12:.0f} ({tflops * 1e12 / PEAK_FP32:.3f}; {smi})"
+    )
+    check(PROBE_RATIO[0] <= ratio <= PROBE_RATIO[1], "[12] the FP32 probe's time does not double with INNER")
+    n12 = a12.numel()
+    slot_iters = n12 * br.ITERS
+    print(
+        f"[12 bf16] ({br.SUB}, {br.LANE}) x {br.ITERS} slot-iterations, device time: f32 {ms_gate[torch.float32] * 1e3:.2f} us "
+        f"({ms_gate[torch.float32] * 1e9 / slot_iters:.4f} ps/slot-iteration), bf16 {ms_gate[torch.bfloat16] * 1e3:.2f} us "
+        f"({ms_gate[torch.bfloat16] * 1e9 / slot_iters:.4f}); bf16 speedup over f32 "
+        f"{ms_gate[torch.float32] / ms_gate[torch.bfloat16]:.3f}x ({smi})"
+    )
+    probe_rows = []
+    for probe, kernel, plain, ms, ops, peak, nbytes, source, replaces in (
+        ("fp32_peak", lambda: fp.fp32_peak(x12), lambda: fp.fp32_peak_plain(x12), ms_fma, fp.flops(x12.numel()),
+         PEAK_FP32, 8 * x12.numel(), "probe_fma.cu", "scripts/probe_mfu.py:53"),
+        ("bf16_rate", lambda: br.bf16_rate(a12, b12), lambda: br.bf16_rate_plain(a12, b12), ms_gate[torch.bfloat16],
+         slot_iters * br.OPS_PER_SLOT, PEAK_BF16_VECTOR, 12 * n12, "probe_bf16.cu", "scripts/probe_bf16.py:41"),
+    ):
+        out_k, out_p = kernel(), plain()
+        same = torch.equal(out_k, out_p) and torch.equal(out_k, kernel()) and bool(torch.isfinite(out_k).all())
+        plain_ms = cuda_ms(plain, 1)
+        row = kernel_entry(probe, source, replaces, float((out_k - out_p).abs().max()), ms, plain_ms, 0, nbytes, ops, peak)
+        row["launches"], row["path"] = launches12[probe], "chip_smoke.py phase 12 (per run)"
+        probe_rows.append(row)
+        print(f"[12 {probe}] kernel vs plain bitwise equal (and two launches), finite: {same}; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.2f} ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']} ({smi})")
+        check(same, f"[12] {probe} disagrees with its plain version")
+    out_f32 = br.bf16_rate(a12, b12, torch.float32)
+    check(torch.equal(out_f32, br.bf16_rate_plain(a12, b12, torch.float32)), "[12] the f32 gate disagrees with plain")
+
+    print(json.dumps({"kernels": [kernel_row, nb_row, gather_row, quad_row, dot_row, *probe_rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

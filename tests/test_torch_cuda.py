@@ -1,5 +1,6 @@
-"""The CUDA kernels (rowscan, block-tile, gather and quadscan sweeps)
-against their plain PyTorch versions, on a card.
+"""The CUDA kernels (rowscan, block-tile, gather, quadscan and dotscan
+sweeps, the FP32 and bf16 probes) against their plain PyTorch versions, on
+a card.
 
 Every test here needs a CUDA device and skips without one (decided in the
 `cuda` fixture, never at import). This file imports no JAX, so it also runs
@@ -9,17 +10,21 @@ where JAX is not installed:
 
 Tolerance: both sides are f32 and sum each atom's pairs in different
 orders, and the kernel's rsqrt is approximate (2 ulp), so gradients and
-per-atom energies agree to a relative norm of 1e-4 (measured ~1e-6).
+per-atom energies agree to a relative norm of 1e-4 (measured ~1e-6). The
+probes round every operation as their plain versions do: bit for bit.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from timemachine_torch.ops import dotscan_kernel as dk
 from timemachine_torch.ops import gather_kernel as gk
 from timemachine_torch.ops import nonbonded_kernel as nbk
 from timemachine_torch.ops import quadscan_kernel as qk
 from timemachine_torch.ops import rowscan_kernel as rs
+from timemachine_torch.probes import bf16_rate as br
+from timemachine_torch.probes import fp32_peak as fp
 
 pytestmark = pytest.mark.cuda
 
@@ -298,3 +303,88 @@ def test_list_providers_run_on_their_kernels(cuda, path):
     assert bool(torch.isfinite(force).all()) and bool(torch.isfinite(u))
     assert sweep.launches == before_k + 3
     assert plain.calls == before_p
+
+
+# -- the dotscan kernel (csrc/dotscan.cu) ------------------------------------------
+
+
+def _dot_args(conf, params, box, triangular, sort, cutoff=CUTOFF + 0.1, max_pairs=10**6):
+    tiles = dk.build_dotscan_tiles(conf, box, cutoff, max_pairs, triangular=triangular, sort=sort)
+    atoms = rs.assemble_atoms(conf, box, tiles.pad_order, rs.param_rows(params, tiles.pad_order, conf.shape[0]))
+    return (atoms, tiles.row_start, tiles.row_count, tiles.col_ids, tiles.rcen_q, rs.sweep_scalars(box, CUTOFF), SERIES)
+
+
+@pytest.mark.parametrize("size", ["small", "dhfr"])
+@pytest.mark.parametrize("mode_name", list(SWEEP_MODES))
+@pytest.mark.parametrize("triangular", [False, True])
+def test_dotscan_kernel_matches_plain(cuda, triangular, mode_name, size):
+    """Both list forms and both modes, at a small fluid (w lifted, a ragged
+    last chunk, so padding rows and the all-padding chunk) on Hilbert rows
+    and at DHFR shapes on snake rows: per-column relative norm within TOL,
+    two launches bitwise equal, padding atoms zero."""
+    conf, params, box = _fluid(cuda, seed=9) if size == "small" else _dhfr(cuda)
+    args = _dot_args(conf, params, box, triangular, "hilbert" if size == "small" else "snake")
+    mode = SWEEP_MODES[mode_name]
+    before = dk.dotscan_sweep.launches
+    out_k = dk.dotscan_sweep(*args, mode, triangular)
+    out_p = dk.dotscan_sweep_plain(*args, mode, triangular)
+    torch.cuda.synchronize()
+    assert dk.dotscan_sweep.launches == before + 1
+    assert _col_rel(out_k, out_p) < TOL
+    assert torch.equal(out_k, dk.dotscan_sweep(*args, mode, triangular))
+    assert not out_k[conf.shape[0] :].any()
+
+
+def test_dotscan_wrapper_rejects_what_the_kernel_cannot_take(cuda):
+    args = _dot_args(*_fluid(cuda), True, "hilbert")
+    with pytest.raises(ValueError):
+        dk.dotscan_sweep(args[0].double(), *args[1:], rs.FORCE, True)
+    with pytest.raises(ValueError):
+        dk.dotscan_sweep(*args[:4], args[4].long(), *args[5:], rs.FORCE, True)
+    with pytest.raises(ValueError):
+        dk.dotscan_sweep(args[0][:-32], *args[1:], rs.FORCE, True)
+    with pytest.raises(ValueError):
+        dk.dotscan_sweep(*args, rs.ENERGY, True)
+
+
+def test_dotscan_provider_runs_on_the_kernel(cuda):
+    """Two steps across a rebuild and an energy, all on the kernel, at
+    cutoff 0.9 + skin (Hilbert rows pass the image bound on this 4.96 nm
+    box there, not at 1.2); an undersized capacity poisons the force with
+    NaN, still on the kernel."""
+    conf, params, box = _fluid(cuda, seed=10)
+    cutoff = 0.9
+    before_k, before_p = dk.dotscan_sweep.launches, dk.dotscan_sweep_plain.calls
+    init, apply, energy = dk.make_nonbonded_dotscan_md(BETA, cutoff, 10**6, rebuild_interval=1, sort="hilbert")
+    state = init(conf, params, box)
+    for t in range(2):
+        force, state = apply(state, conf, params, box, t)
+    u = energy(state, conf, params, box)
+    assert int(state.invalid) == 0 and bool(torch.isfinite(force).all()) and bool(torch.isfinite(u))
+    init, apply, _ = dk.make_nonbonded_dotscan_md(BETA, cutoff, 8, sort="hilbert")
+    force, _ = apply(init(conf, params, box), conf, params, box, 1)
+    assert bool(torch.isnan(force).all())
+    assert dk.dotscan_sweep.launches == before_k + 4
+    assert dk.dotscan_sweep_plain.calls == before_p
+
+
+# -- the probes (csrc/probe_fma.cu, csrc/probe_bf16.cu) ---------------------------
+
+
+def test_fp32_peak_probe_matches_plain(cuda):
+    x = fp.inputs(cuda, shape=(64, 1024))
+    before = fp.fp32_peak.launches
+    out_k = fp.fp32_peak(x)
+    out_p = fp.fp32_peak_plain(x)
+    assert fp.fp32_peak.launches == before + 1
+    assert bool(torch.isfinite(out_k).all()) and torch.equal(out_k, out_p)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bf16_rate_probe_matches_plain(cuda, dtype):
+    a, b = br.inputs(cuda)
+    before = br.bf16_rate.launches
+    out_k = br.bf16_rate(a, b, dtype)
+    out_p = br.bf16_rate_plain(a, b, dtype)
+    assert br.bf16_rate.launches == before + 1
+    assert torch.equal(out_k, out_p) and float(out_k.sum()) > 0

@@ -3,8 +3,10 @@ converter from JAX objects, the numpy helpers the port copies, the bonded
 terms on the full DHFR arrays, and the rule that the port never imports JAX.
 """
 
+import ast
 import subprocess
 import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -106,6 +108,25 @@ def test_port_never_imports_jax():
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True)
+
+
+def test_no_import_of_jax_anywhere_in_the_port_or_chip_smoke():
+    """Every import statement of the port's modules and of chip_smoke.py,
+    those inside functions included (kernels and probes import lazily),
+    names neither jax nor the JAX package."""
+    root = Path(__file__).resolve().parents[1]
+    files = sorted((root / "timemachine_torch").rglob("*.py")) + [root / "chip_smoke.py"]
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path.name}: {m}" for m in names if m.split(".")[0] in ("jax", "jaxlib", "timemachine_tpu")]
+    assert len(files) > 30 and not bad, bad
 
 
 def _default_device_constructions():

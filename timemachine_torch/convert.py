@@ -3,7 +3,9 @@ or HostConfig becomes the port's modules.
 
 Reads the JAX objects by duck typing (`bp.potential.idxs`, `bp.params`,
 `exclusion_idxs`, `scale_factors`, `beta`, `cutoff`) through np.asarray,
-so this module imports neither jax nor the JAX package.
+so this module imports neither jax nor the JAX package. Every nonbonded
+configuration (`configure(kernel=...)`, "dot" included) reads the same
+parameters, so nothing more is carried for any of them.
 """
 
 from __future__ import annotations

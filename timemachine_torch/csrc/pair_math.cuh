@@ -1,5 +1,5 @@
-// The pair function shared by the sweeps of rowscan.cu, gather.cu and
-// quadscan.cu: LJ + polynomial electrostatics on atom rows
+// The pair function shared by the sweeps of rowscan.cu, gather.cu,
+// quadscan.cu and dotscan.cu: LJ + polynomial electrostatics on atom rows
 // [x y z w q sigma/2 2 sqrt(eps) 0], the function of
 // timemachine_tpu/ops/pallas/rowscan_kernel.py's pair tile.
 //

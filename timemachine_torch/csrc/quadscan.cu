@@ -34,12 +34,10 @@
 //   and its complete sum over the row chunk are back in the lane they
 //   started from. No shared memory in the inner loop;
 // * row sums stay in registers across a warp's entries and the 4 warps'
-//   partials are added in a fixed order; each entry's column sums are added
-//   into an int64 fixed-point accumulator (2^32 units per kJ/mol/nm, range
-//   +-2^31) with integer atomics, which are exact and associative, so the
-//   order of the blocks does not change the result. A second kernel adds
-//   the converted column sums to the row sums. Two launches are bitwise
-//   equal, with no float atomics;
+//   partials are added in a fixed order; each entry's column sums go into
+//   fixed_point.cuh's int64 accumulator (2^32 units per kJ/mol/nm) by
+//   order-free integer atomics, added to the row sums by a second kernel.
+//   Two launches are bitwise equal, with no float atomics;
 // * padding entries (the builder's last quarter, all padding) are computed
 //   like any other, as the plain version computes them: padding atoms carry
 //   q = eps = 0 and add exact zeros, and an entry that holds real atoms is
@@ -47,6 +45,7 @@
 
 #include <cuda_runtime.h>
 
+#include "fixed_point.cuh"
 #include "pair_math.cuh"
 
 using namespace pair_math;
@@ -59,8 +58,6 @@ constexpr int WARPS = PACK;
 constexpr int THREADS = WARPS * 32;
 constexpr int SHIFT_BITS = 12;  // quarter id in bits 0-11, (shift + 1) per axis in bits 12-17
 constexpr unsigned FULL = 0xffffffffu;
-constexpr float TO_FIXED = 4294967296.0f;  // 2^32 units per kJ/mol/nm
-constexpr double FROM_FIXED = 1.0 / 4294967296.0;
 
 __device__ __forceinline__ float image(int code, int axis) {
   return static_cast<float>(((code >> (SHIFT_BITS + 2 * axis)) & 3) - 1);
@@ -135,9 +132,9 @@ __global__ void __launch_bounds__(THREADS) quadscan_kernel(
       fz = __shfl_sync(FULL, fz, from);
     }
     // 32 passes later lane l holds column atom j again, with its whole sum
-    atomicAdd(acc + j, static_cast<unsigned long long>(__float2ll_rn(fx * TO_FIXED)));
-    atomicAdd(acc + n_pad + j, static_cast<unsigned long long>(__float2ll_rn(fy * TO_FIXED)));
-    atomicAdd(acc + 2 * n_pad + j, static_cast<unsigned long long>(__float2ll_rn(fz * TO_FIXED)));
+    fixed_point::add(acc + j, fx);
+    fixed_point::add(acc + n_pad + j, fy);
+    fixed_point::add(acc + 2 * n_pad + j, fz);
   }
 
   part[warp][lane] = make_float4(u, gx, gy, gz);
@@ -154,17 +151,6 @@ __global__ void __launch_bounds__(THREADS) quadscan_kernel(
     }
     out[i] = sum;
   }
-}
-
-// out[i].xyz += the fixed-point column sums of atom i
-__global__ void add_columns(float4* __restrict__ out, const long long* __restrict__ acc, int n_pad) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_pad) return;
-  float4 o = out[i];
-  o.y += static_cast<float>(static_cast<double>(acc[i]) * FROM_FIXED);
-  o.z += static_cast<float>(static_cast<double>(acc[n_pad + i]) * FROM_FIXED);
-  o.w += static_cast<float>(static_cast<double>(acc[2 * n_pad + i]) * FROM_FIXED);
-  out[i] = o;
 }
 
 }  // namespace
@@ -198,7 +184,6 @@ extern "C" int quadscan_sweep_launch(const void* atoms, const void* row_start, c
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_pad = n_rows * Q;
-  add_columns<<<(n_pad + 255) / 256, 256, 0, st>>>(o, static_cast<const long long*>(acc), n_pad);
+  fixed_point::launch_add_columns(o, acc, n_rows * Q, st);
   return static_cast<int>(cudaGetLastError());
 }

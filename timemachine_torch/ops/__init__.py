@@ -1,1 +1,1 @@
-"""Tensor math of the potentials, and the rowscan pair sweep with its CUDA kernel."""
+"""Tensor math of the potentials, and the pair sweeps with their CUDA kernels."""

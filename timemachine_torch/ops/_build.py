@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-LIBRARIES = ("rowscan", "nb_tiles", "gather", "quadscan")  # every source under csrc/
+LIBRARIES = ("rowscan", "nb_tiles", "gather", "quadscan", "dotscan", "probe_fma", "probe_bf16")  # every source under csrc/
 # no --use_fast_math: the sweeps rely on IEEE 0 * x = 0 for padding pairs
 # and on IEEE expf, cosf and division in the exact electrostatics
 NVCC_FLAGS = (

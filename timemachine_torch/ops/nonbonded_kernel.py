@@ -44,6 +44,7 @@ BLOCK = 128  # atoms per row block
 UF, FORCE, DP = 0, 1, 2  # sweep modes, as in csrc/nb_tiles.cu
 MAX_CB = 8  # widest column super-block the kernel takes
 CELL_SIZE = 0.65  # nm, the sort cells of the snake path, as in the JAX builder
+HILBERT_BITS = 7  # Hilbert grid of 2^7 cells per axis
 _SQRT_PI = 1.7724538509055159
 
 _es_poly_cache: dict = {}
@@ -94,6 +95,45 @@ def snake_order(conf, box_diag, cell_size: float):
     ky = torch.where(cz % 2 == 0, cy, dims[1] - 1 - cy)
     kx = torch.where((cz * dims[1] + ky) % 2 == 0, cx, dims[0] - 1 - cx)
     return torch.argsort((cz * dims[1] + ky) * dims[0] + kx, stable=True)
+
+
+def hilbert_keys(frac, bits: int = HILBERT_BITS):
+    """(N, 3) fractional positions in [0, 1) -> (N,) int64 index along a
+    Hilbert curve through a 2^bits grid (Skilling's transpose algorithm, in
+    the JAX package's arithmetic)."""
+    side = 1 << bits
+    cell = torch.clamp((frac * side).to(torch.int64), max=side - 1)
+    x = [cell[:, 0], cell[:, 1], cell[:, 2]]
+    q = side >> 1
+    while q > 1:
+        p = q - 1
+        for i in range(3):
+            cond = (x[i] & q) != 0
+            x[0] = torch.where(cond, x[0] ^ p, x[0])
+            t = torch.where(cond, 0, (x[0] ^ x[i]) & p)
+            x[0] = x[0] ^ t
+            x[i] = x[i] ^ t
+        q >>= 1
+    for i in range(1, 3):
+        x[i] = x[i] ^ x[i - 1]
+    t = torch.zeros_like(x[0])
+    q = side >> 1
+    while q > 1:
+        t = torch.where((x[2] & q) != 0, t ^ (q - 1), t)
+        q >>= 1
+    x = [xi ^ t for xi in x]
+    key = torch.zeros_like(x[0])
+    for b in range(bits - 1, -1, -1):
+        for i in range(3):
+            key = (key << 1) | ((x[i] >> b) & 1)
+    return key
+
+
+def hilbert_order(wrapped, box_diag):
+    """Atom order along the Hilbert curve of hilbert_keys, for coordinates
+    wrapped into the box (the JAX builders' key, in their arithmetic)."""
+    frac = wrapped / box_diag
+    return torch.argsort(hilbert_keys(frac - torch.floor(frac)), stable=True)
 
 
 def param_rows(params, pad_order, n: int):

@@ -33,50 +33,14 @@ import torch
 
 from timemachine_torch.ops import _build
 from timemachine_torch.ops import rowscan_kernel as rs
-from timemachine_torch.ops.nonbonded_kernel import ListState, make_list_md_provider
+from timemachine_torch.ops.nonbonded_kernel import ListState, hilbert_order, make_list_md_provider
 
 Q = 32  # atoms per row chunk and per column quarter
 PACK = 4  # quarters per listed tile
 SHIFT_BITS = 12  # quarter ids in bits 0-11, image shifts in bits 12-17
-HILBERT_BITS = 7  # Hilbert grid of 2^7 cells per axis
 FORCE, FORCE_ENERGY = rs.FORCE, rs.FORCE_ENERGY  # sweep modes, as in csrc/quadscan.cu
-# column reactions are summed in int64 fixed point at this many units per
-# kJ/mol/nm: range +-2^31 = 2.1e9 (DHFR's largest all-pairs |dU/dx| is 3.1e7)
-FIXED_SCALE = 2.0**32
 
 padded_size = rs.padded_size  # whole 128-atom blocks plus one all-padding block
-
-
-def hilbert_keys(frac, bits: int = HILBERT_BITS):
-    """(N, 3) fractional positions in [0, 1) -> (N,) int64 index along a
-    Hilbert curve through a 2^bits grid (Skilling's transpose algorithm, in
-    the JAX package's arithmetic)."""
-    side = 1 << bits
-    cell = torch.clamp((frac * side).to(torch.int64), max=side - 1)
-    x = [cell[:, 0], cell[:, 1], cell[:, 2]]
-    q = side >> 1
-    while q > 1:
-        p = q - 1
-        for i in range(3):
-            cond = (x[i] & q) != 0
-            x[0] = torch.where(cond, x[0] ^ p, x[0])
-            t = torch.where(cond, 0, (x[0] ^ x[i]) & p)
-            x[0] = x[0] ^ t
-            x[i] = x[i] ^ t
-        q >>= 1
-    for i in range(1, 3):
-        x[i] = x[i] ^ x[i - 1]
-    t = torch.zeros_like(x[0])
-    q = side >> 1
-    while q > 1:
-        t = torch.where((x[2] & q) != 0, t ^ (q - 1), t)
-        q >>= 1
-    x = [xi ^ t for xi in x]
-    key = torch.zeros_like(x[0])
-    for b in range(bits - 1, -1, -1):
-        for i in range(3):
-            key = (key << 1) | ((x[i] >> b) & 1)
-    return key
 
 
 def _sorted_chunks(conf, box):
@@ -86,8 +50,7 @@ def _sorted_chunks(conf, box):
     box_diag = torch.diagonal(box).to(torch.float32)
     x32 = conf[:, :3].to(torch.float32)
     wrapped = x32 - box_diag * torch.floor(x32 / box_diag)
-    frac = wrapped / box_diag
-    order = torch.argsort(hilbert_keys(frac - torch.floor(frac)), stable=True)
+    order = hilbert_order(wrapped, box_diag)
     pad_order = torch.cat([order, order.new_zeros(n_pad - n)])
     valid = (torch.arange(n_pad, device=conf.device) < n).view(n_pad // Q, Q, 1)
     return wrapped, pad_order, valid

@@ -34,6 +34,7 @@ from timemachine_torch.ops.nonbonded import SWITCH_CUTOFF, polyval_t
 from timemachine_torch.ops.nonbonded_kernel import (
     ListState,
     StashedGradEnergy,
+    hilbert_order,
     make_list_md_provider,
     poison_on_overflow,
     run_dp,
@@ -44,6 +45,10 @@ ROW = 32  # atoms per row chunk
 COL = 128  # atoms per column chunk
 FORCE, FORCE_ENERGY, ENERGY = 0, 1, 2  # sweep modes, as in csrc/rowscan.cu
 _K1 = 2.0 / SWITCH_CUTOFF  # t = _K1 * r - 1
+# the Newton-triangular sweeps (quadscan, dotscan) sum column reactions in
+# int64 fixed point at this many units per kJ/mol/nm (csrc/fixed_point.cuh):
+# range +-2^31 = 2.1e9 (DHFR's largest all-pairs |dU/dx| is 3.1e7)
+FIXED_SCALE = 2.0**32
 
 _poly_cache: dict = {}
 
@@ -113,11 +118,22 @@ def _wrap(xyz, box_diag):
     return xyz - box_diag * torch.floor(xyz / box_diag)
 
 
-def build_rowscan_tiles(conf, box, cutoff: float, max_pairs: int, cell_size: float = 0.65) -> RowscanTiles:
-    """Snake-cell sort + per-row-chunk column lists culled at `cutoff` by
-    bounding-box gap (symmetric: every interacting chunk pair is listed for
-    both of its rows). Lists are ordered by gap so that `chop_row_counts` can
-    cut the skin shell off their tails. Runs in f32 whatever conf's dtype."""
+def build_rowscan_tiles(
+    conf, box, cutoff: float, max_pairs: int, cell_size: float = 0.65, triangular: bool = False, sort: str = "snake",
+) -> RowscanTiles:
+    """Spatial sort + per-row-chunk column lists culled at `cutoff` by
+    bounding-box gap, ordered by that gap so that `chop_row_counts` can cut
+    the skin shell off their tails. Runs in f32 whatever conf's dtype.
+
+    sort="snake" walks cells of cell_size nm; "hilbert" follows the Hilbert
+    curve of quadscan's keys (compact chunks at any density). Symmetric
+    lists (the default) list every interacting chunk pair for both of its
+    rows; triangular lists hold, for row chunk r, only the column chunks
+    strictly after the one that covers r, as JAX's do: a Newton-triangular
+    sweep peels the covering chunk itself. Unlike JAX's, the lists are not
+    padded per row to a multiple of 4 (the TPU kernel's unroll)."""
+    if sort not in ("snake", "hilbert"):
+        raise ValueError(f"sort must be 'snake' or 'hilbert', got {sort!r}")
     n = conf.shape[0]
     dev = conf.device
     n_pad = padded_size(n)
@@ -125,7 +141,7 @@ def build_rowscan_tiles(conf, box, cutoff: float, max_pairs: int, cell_size: flo
     box_diag = torch.diagonal(box).to(torch.float32)
     wrapped = _wrap(conf[:, :3].to(torch.float32), box_diag)
 
-    order = snake_order(wrapped, box_diag, cell_size)
+    order = snake_order(wrapped, box_diag, cell_size) if sort == "snake" else hilbert_order(wrapped, box_diag)
     pad_order = torch.cat([order, order.new_zeros(n_pad - n)])
 
     xs = wrapped[pad_order]
@@ -139,6 +155,9 @@ def build_rowscan_tiles(conf, box, cutoff: float, max_pairs: int, cell_size: flo
     has_r = valid.view(n_rows, ROW).any(1)
     has_c = valid.view(n_cols, COL).any(1)
     inter = (d2 < cutoff * cutoff) & has_r[:, None] & has_c[None, :]
+    if triangular:
+        covering = torch.arange(n_rows, device=dev) * ROW // COL
+        inter &= torch.arange(n_cols, device=dev)[None, :] > covering[:, None]
 
     counts = inter.sum(1)
     sorted_cols = torch.argsort(torch.where(inter, torch.sqrt(d2), torch.inf), dim=1, stable=True)
@@ -177,12 +196,15 @@ def chop_row_counts(xyz, rank_mat, row_count, box, cutoff: float):
     return torch.minimum(row_count, keep_rank.amax(1) + 1)
 
 
-def suggest_max_pairs(conf, box, cutoff: float, margin: float = 1.3, cell_size: float = 0.65) -> int:
+def suggest_max_pairs(
+    conf, box, cutoff: float, margin: float = 1.3, cell_size: float = 0.65, triangular: bool = False,
+    sort: str = "snake",
+) -> int:
     """Host-side capacity: the listed (row chunk, column chunk) count at this
     geometry, times margin for diffusion between rebuilds."""
     n_pad = padded_size(conf.shape[0])
     cap = (n_pad // ROW) * (n_pad // COL)
-    total = int(build_rowscan_tiles(conf, box, cutoff, cap, cell_size).row_count.sum())
+    total = int(build_rowscan_tiles(conf, box, cutoff, cap, cell_size, triangular, sort).row_count.sum())
     want = int(np.ceil(total * margin / 128) * 128)
     return min(max(want, 128), cap)
 

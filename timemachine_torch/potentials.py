@@ -21,6 +21,7 @@ from torch import nn
 
 from timemachine_torch.device import resolve_device
 from timemachine_torch.ops import bonded, nonbonded
+from timemachine_torch.ops import dotscan_kernel as dk
 from timemachine_torch.ops import gather_kernel as gk
 from timemachine_torch.ops import nonbonded_kernel as nbk
 from timemachine_torch.ops import quadscan_kernel as qk
@@ -89,9 +90,12 @@ class NonbondedAllPairs(nn.Module):
     full neighbour lists, for energy, force and MD. kernel="quad": rowscan
     for energy and force, the Newton-triangular quadscan sweep for MD; it
     falls back to rowscan wholesale where the constant-shift invariant
-    fails at cutoff + SKIN (small boxes). kernel="v1": the block-tile sweep
-    with exact electrostatics, lists at cutoff + SKIN for MD. `kernel` then
-    names the configuration taken. Either way `u(x, params, box)` is
+    fails at cutoff + SKIN (small boxes). kernel="dot": rowscan for energy
+    and force, the dotscan sweep (row-center images, forces by contraction) over Newton-triangular lists for MD, on the snake
+    sort, else the Hilbert sort, whichever passes the image bound at cutoff
+    + SKIN first (`dot_sort`); where neither does, rowscan wholesale.
+    kernel="v1": the block-tile sweep with exact electrostatics, lists at
+    cutoff + SKIN for MD. `kernel` then names the configuration taken. Either way `u(x, params, box)` is
     differentiable in params through the block-tile kernel's DP pass (exact
     electrostatics, as in the JAX package)."""
 
@@ -115,12 +119,18 @@ class NonbondedAllPairs(nn.Module):
         cutoff + SKIN (with a sort-cell size from a census of swept slots
         for rowscan systems of 8,192 atoms and up), the du/dp lists at the
         bare cutoff with column super-blocks DP_CB wide."""
-        if kernel not in ("rowscan", "gather", "quad", "v1"):
-            raise ValueError(f"kernel must be 'rowscan', 'gather', 'quad' or 'v1', got {kernel!r}")
+        if kernel not in ("rowscan", "gather", "quad", "dot", "v1"):
+            raise ValueError(f"kernel must be 'rowscan', 'gather', 'quad', 'dot' or 'v1', got {kernel!r}")
         box = torch.as_tensor(box, device=self.params.device)
         conf = torch.as_tensor(conf, device=self.params.device)
         if kernel == "quad" and not qk.constant_shift_valid(conf, box, self.cutoff + SKIN):
             kernel = "rowscan"
+        self.dot_sort = None
+        if kernel == "dot":
+            valid = (s for s in ("snake", "hilbert") if dk.dotscan_valid(conf, box, self.cutoff + SKIN, sort=s))
+            self.dot_sort = next(valid, None)
+            if self.dot_sort is None:
+                kernel = "rowscan"
         self.kernel = kernel
         self.dp_max_tiles = nbk.suggest_max_tiles(conf, box, self.cutoff, margin=MARGIN, cb=DP_CB)
         self.h_coeffs = rs.es_energy_force_series(self.beta, self.cutoff)[0]
@@ -134,7 +144,7 @@ class NonbondedAllPairs(nn.Module):
             self._md = gk.make_nonbonded_gather_md(
                 self.beta, self.cutoff, self.md_max_nbrs, skin=SKIN, rebuild_interval=REBUILD_INTERVAL
             )
-        elif kernel in ("rowscan", "quad"):
+        elif kernel in ("rowscan", "quad", "dot"):
             pairs = rs.suggest_max_pairs(conf, box, self.cutoff, margin=MARGIN)
             ef = rs.make_nonbonded_rowscan_energy_force(self.beta, self.cutoff, pairs)
             self._energy = lambda x, params, box: ef(x, params, box, rs.ENERGY)[0]
@@ -145,6 +155,14 @@ class NonbondedAllPairs(nn.Module):
                 self.md_max_tiles = qk.suggest_max_tiles(conf, box, self.cutoff + SKIN, margin=MARGIN)
                 self._md = qk.make_nonbonded_quadscan_md(
                     self.beta, self.cutoff, self.md_max_tiles, skin=SKIN, rebuild_interval=REBUILD_INTERVAL
+                )
+            elif kernel == "dot":
+                self.md_max_pairs = dk.suggest_max_pairs(
+                    conf, box, self.cutoff + SKIN, margin=MARGIN, triangular=True, sort=self.dot_sort
+                )
+                self._md = dk.make_nonbonded_dotscan_md(
+                    self.beta, self.cutoff, self.md_max_pairs, skin=SKIN, rebuild_interval=REBUILD_INTERVAL,
+                    sort=self.dot_sort,
                 )
             else:
                 cell = 0.65

@@ -13,11 +13,18 @@ probes measure the card (csrc/probe_fma.cu, csrc/probe_bf16.cu). All seven
 are built here with nvcc for sm_90a, in parallel.
 
 Phases, one line each or more: the device; the kernel builds; the rowscan
-kernel against its plain PyTorch version at DHFR shapes in its three modes,
-and the whole force on the card against the same modules on the host CPU;
-the main path (1,000 warm-up and 1,000 timed NPT steps, with ns/day), then
-50 steps under torch.profiler for the device's busy time per step (its
-table goes to standard error); bitwise determinism of two fresh Contexts;
+kernel against its plain PyTorch version at DHFR shapes, in the main path's
+form (Newton-triangular lists, row-center images, no w: JAX's default DHFR
+path, with rowscan_has_w computed as bench.py does) in its three modes and
+in the symmetric form (the kernel's first design) in F mode, with both
+forms' slots, times and bounds and the main form's F time held under
+REDESIGN_RATIO of the symmetric one's; the main form's MD force against the symmetric form's, and
+the whole force on the card against the same modules on the host CPU; the
+main path (1,000 warm-up and 1,000 timed NPT steps, with ns/day), then 50
+steps under torch.profiler for the device's busy time per step (its table
+goes to standard error), and at the end state the image-bound margin and
+the largest |dU/dx| against the fixed-point range; bitwise determinism of
+two fresh Contexts;
 the block-tile kernel against its plain version at DHFR shapes in its modes
 DP, UF (exact and polynomial) and F; du/dp training: 5 Adam steps on a
 protein charge scale through a reweighting estimator over 8 NPT frames; the
@@ -53,18 +60,19 @@ TEMP, DT, FRICTION, PRESSURE, BAROSTAT_INTERVAL = 300.0, 2.5e-3, 1.0, 1.013, 25
 N_FIRE, N_STEPS, N_PROFILE, N_DET = 400, 1000, 50, 100
 N_FRAMES, FRAME_INTERVAL, N_ADAM, ADAM_LR, S_START = 8, 100, 5, 2e-3, 1.01
 N_ALT = 500
-# kernel vs plain PyTorch, both f32: the two sum each atom's ~700 pairs in
-# different orders and the kernel's rsqrt is approximate (2 ulp)
-TOL_GRAD_REL_NORM = 1e-4
-TOL_U_REL_NORM = 1e-4
 # whole force on the card vs on the host CPU, both f32, relative to the
 # all-pairs force: the net force is what is left after the exclusions
 # cancel the all-pairs term's huge bonded-neighbour forces, so f32 rounding
 # of those (the sweep's ~1e-6) sets the scale, not the small net
 TOL_FORCE_REL_NORM = 1e-5
-# block-tile, gather and quadscan kernels vs plain PyTorch, per output
-# column, both f32
+# every kernel vs plain PyTorch, per output column, both f32: the two sum
+# each atom's pairs in different orders and the kernel's rsqrt is
+# approximate (2 ulp)
 TOL_KERNEL_COL = 1e-4
+# the main path's rowscan form (triangular, preshift, no w) against the
+# symmetric form (the kernel's first design) in F mode, in the same run: it sweeps about half
+# the slots with fewer operations per slot
+REDESIGN_RATIO = 0.65
 # dL/ds with the DP pass on the kernel vs on the plain version
 TOL_DLDS = 1e-4
 # kernel="v1" (A&S erfc, exact exclusions) vs rowscan (polynomial) net
@@ -91,14 +99,22 @@ PEAK_FP32, PEAK_BYTES, PEAK_BF16_VECTOR = 67e12, 3.35e12, 133.8e12
 # list makes a kernel sweep), from the sources in the timed mode: an FMA is 2,
 # a compare, select or special function (rsqrt, exp, cos, sqrt, division) 1.
 # No minimum image: quadscan computes the function without one (one image
-# per list entry). The three list sweeps: pair_math.cuh's pair function in F
-# mode 48, the 4 differences, the 3 pair parameters, the row sums 6 and the
-# reaction 3. nb_tiles' DP pass (exact form): 94 for the differences, the
-# parameters, the pair function and the row's four sums, and 7 for the
-# reaction's four. dotscan's F mode: the 4 differences, the pair function
-# 48, the 3 pair parameters, the row contraction's 4 sums 7 and the
-# column's 7.
-FLOPS_PER_PAIR = {"rowscan_sweep": 64, "nb_tiles": 101, "gather_sweep": 64, "quadscan_sweep": 64, "dotscan_sweep": 69}
+# per list entry). The symmetric rowscan form, gather and quadscan:
+# pair_math.cuh's pair function in F mode 48, the 4 differences, the 3 pair
+# parameters, the row sums 6 and the reaction 3. The main path's rowscan
+# form (triangular, preshift, no w) computes the same function without w:
+# the pair function without dw 46, the 3 differences, the 3 pair
+# parameters, the row sums 6 and the reaction 3 (the kernel's column
+# contraction, 7, is how it is built, not what the function needs).
+# nb_tiles' DP pass (exact form): 94 for the
+# differences, the parameters, the pair function and the row's four sums,
+# and 7 for the reaction's four. dotscan's F mode: the 4 differences, the
+# pair function 48, the 3 pair parameters, the row contraction's 4 sums 7
+# and the column's 7.
+FLOPS_PER_PAIR = {
+    "rowscan_sweep": 61, "rowscan_symmetric": 64, "nb_tiles": 101, "gather_sweep": 64, "quadscan_sweep": 64,
+    "dotscan_sweep": 69,
+}
 
 
 def check(ok: bool, what: str):
@@ -217,24 +233,37 @@ def main() -> int:
     nb = hc.host_system.nonbonded_all_pairs
     x0 = torch.as_tensor(hc.conf, device=dev, dtype=f32)
     box = torch.as_tensor(hc.box, device=dev, dtype=f32)
-    nb.configure(box, x0)
+    has_w = bool((nb.params[:, 3] != 0).any())  # bench.py's rowscan_has_w: False for DHFR
+    nb.configure(box, x0, rowscan_has_w=has_w)
     n = x0.shape[0]
     state = nb.md_force_provider()[0](x0, box)
     tiles = state.lists
+    check(nb.md_preshift, "DHFR configured without preshift (the image bound at cutoff + skin)")
+    check(int(state.invalid) == 0, "main-path lists invalid at DHFR (overflow, the image bound or a nonzero w)")
     atoms = rs.assemble_atoms(x0, box, tiles.pad_order, state.prows)
     row_count = rs.chop_row_counts(atoms[:, :3], tiles.rank_mat, tiles.row_count, box, nb.cutoff)
     series = rs.es_energy_force_series(nb.beta, nb.cutoff)
-    sweep_args = (atoms, tiles.row_start, row_count, tiles.col_ids, rs.sweep_scalars(box, nb.cutoff), series)
-    slots = int(row_count.sum()) * rs.ROW * rs.COL
-    print(
-        f"[3 shapes] N {n}, Npad {atoms.shape[0]}, row chunks {tiles.row_start.shape[0]}, "
-        f"max_pairs {nb.md_max_pairs}, cell {nb.md_cell_size} nm, listed tiles {int(tiles.row_count.sum())}, "
-        f"swept slots/step {slots} ({smi})"
+    scalars = rs.sweep_scalars(box, nb.cutoff)
+    main_form = dict(triangular=True, rcen_q=tiles.rcen_q, has_w=has_w)
+    sweep_args = (atoms, tiles.row_start, row_count, tiles.col_ids, scalars, series)
+    n_rows = tiles.row_start.shape[0]
+    slots = (int(row_count.sum()) + n_rows) * rs.ROW * rs.COL  # the covering tiles are swept too
+    # the yardstick: the symmetric form (per-pair minimum image, w) on the same sort
+    list_cut = nb.cutoff + SKIN
+    sym = rs.build_rowscan_tiles(
+        x0, box, list_cut, rs.suggest_max_pairs(x0, box, list_cut, cell_size=nb.md_cell_size), nb.md_cell_size
     )
-    check(int(tiles.overflow) == 0, "tile list overflow at DHFR")
-
-    def rel_norm(a, b):
-        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+    check(int(sym.overflow) == 0 and torch.equal(sym.pad_order, tiles.pad_order), "symmetric lists at DHFR")
+    sym_count = rs.chop_row_counts(atoms[:, :3], sym.rank_mat, sym.row_count, box, nb.cutoff)
+    sym_args = (atoms, sym.row_start, sym_count, sym.col_ids, scalars, series)
+    sym_slots = int(sym_count.sum()) * rs.ROW * rs.COL
+    print(
+        f"[3 shapes] N {n}, Npad {atoms.shape[0]}, row chunks {n_rows}, cell {nb.md_cell_size} nm; main form "
+        f"(triangular, preshift {nb.md_preshift}, has_w {has_w}): max_pairs {nb.md_max_pairs}, listed tiles "
+        f"{int(tiles.row_count.sum())}, swept slots/step {slots} with the covering tiles, image-bound margin "
+        f"{float(tiles.margin):.4f} nm; symmetric: listed tiles {int(sym.row_count.sum())}, swept slots/step "
+        f"{sym_slots} ({smi})"
+    )
 
     def cuda_ms(fn, reps):
         fn()
@@ -249,10 +278,12 @@ def main() -> int:
     w0 = nb.params[:, 3].to(f32)
     pairs_x0 = pairs_within_cutoff(x0, box, w0, nb.cutoff)
     print(
-        f"[3 bound] pairs within the cutoff at the DHFR start, each once: {pairs_x0}; swept slots / pairs "
-        f"{slots / pairs_x0:.2f}; F-mode bound over pairs {bound(pair_ops('rowscan_sweep', pairs_x0), 0)[0]:.4f} ms, "
-        f"over swept slots {bound(pair_ops('rowscan_sweep', slots // 2), 0)[0]:.4f} ms (a symmetric list sweeps each pair "
-        f"twice; FP32 peak {PEAK_FP32:.3g}/s; {smi})"
+        f"[3 bound] pairs within the cutoff at the DHFR start, each once: {pairs_x0}; main form: slots / pairs "
+        f"{slots / pairs_x0:.2f}, F-mode bound over pairs {bound(pair_ops('rowscan_sweep', pairs_x0), 0)[0]:.4f} ms, "
+        f"over its swept slots {bound(pair_ops('rowscan_sweep', slots), 0)[0]:.4f} ms "
+        f"({FLOPS_PER_PAIR['rowscan_sweep']} per pair); symmetric: slots / pairs {sym_slots / pairs_x0:.2f}, "
+        f"over pair visits {bound(pair_ops('rowscan_symmetric', sym_slots // 2), 0)[0]:.4f} ms "
+        f"({FLOPS_PER_PAIR['rowscan_symmetric']} per pair; each pair swept twice); FP32 peak {PEAK_FP32:.3g}/s ({smi})"
     )
 
     def kernel_entry(name, source, replaces, max_abs_err, ms, plain_ms, pairs, nbytes, ops=None, peak=PEAK_FP32):
@@ -300,37 +331,38 @@ def main() -> int:
             first = first or (max_abs, ms, plain_ms)
         return first
 
-    kernel_row = None
-    for mode, label in ((rs.FORCE, "F"), (rs.FORCE_ENERGY, "F+U"), (rs.ENERGY, "U")):
-        out_k = rs.rowscan_sweep(*sweep_args, mode)
-        out_p = rs.rowscan_sweep_plain(*sweep_args, mode)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(out_k).all()), f"kernel output not finite in mode {label}")
-        msg = []
-        if mode != rs.ENERGY:
-            g_err = float((out_k[:, 1:4] - out_p[:, 1:4]).abs().max())
-            g_rel = rel_norm(out_k[:, 1:4], out_p[:, 1:4])
-            g_max = float(out_p[:, 1:4].abs().max())
-            msg.append(f"grad max_abs {g_err:.3e} of max |grad| {g_max:.3e}, rel_norm {g_rel:.3e} (tol {TOL_GRAD_REL_NORM:g})")
-            check(g_rel <= TOL_GRAD_REL_NORM, f"kernel gradient disagrees with plain in mode {label}")
-        else:
-            check(bool((out_k[:, 1:4] == 0).all()), "energy mode wrote gradients")
-        if mode != rs.FORCE:
-            u_rel = rel_norm(out_k[:, 0], out_p[:, 0])
-            u_k, u_p = float(out_k[:, 0].double().sum()), float(out_p[:, 0].double().sum())
-            msg.append(f"u rel_norm {u_rel:.3e} (tol {TOL_U_REL_NORM:g}), total {u_k:.4f} vs {u_p:.4f} kJ/mol")
-            check(u_rel <= TOL_U_REL_NORM, f"kernel energy disagrees with plain in mode {label}")
-        ms = cuda_ms(lambda: rs.rowscan_sweep(*sweep_args, mode), 20)
-        plain_ms = cuda_ms(lambda: rs.rowscan_sweep_plain(*sweep_args, mode), 2)
-        print(f"[3 kernel {label}] {'; '.join(msg)}; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms ({smi})")
-        if mode == rs.FORCE:
-            kernel_row = kernel_entry(
-                "rowscan_sweep", "rowscan.cu", "rowscan_kernel.py:111", g_err, ms, plain_ms, pairs_x0,
-                tensor_bytes(atoms, tiles.row_start, row_count, out_k) + 4 * int(row_count.sum()),
-            )
+    err3, ms3, plain3 = compare_kernel("3", [
+        (f"main form {label}", lambda m=mode: rs.rowscan_sweep(*sweep_args, m, **main_form),
+         lambda m=mode: rs.rowscan_sweep_plain(*sweep_args, m, **main_form))
+        for label, mode in (("F", rs.FORCE), ("F+U", rs.FORCE_ENERGY), ("U", rs.ENERGY))
+    ])
+    _, ms_sym, _ = compare_kernel("3", [
+        ("symmetric F", lambda: rs.rowscan_sweep(*sym_args, rs.FORCE), lambda: rs.rowscan_sweep_plain(*sym_args, rs.FORCE))
+    ])
+    print(
+        f"[3 redesign] main form F {ms3:.4f} ms over {slots} slots ({slots / ms3 / 1e6:.1f}G slots/s), symmetric F "
+        f"{ms_sym:.4f} ms over {sym_slots} slots ({sym_slots / ms_sym / 1e6:.1f}G slots/s); ratio {ms3 / ms_sym:.3f} "
+        f"(want <= {REDESIGN_RATIO}) ({smi})"
+    )
+    check(ms3 <= REDESIGN_RATIO * ms_sym, "the main form's F sweep is not enough faster than the symmetric form's")
+    kernel_row = kernel_entry(
+        "rowscan_sweep", "rowscan.cu", "rowscan_kernel.py:111", err3, ms3, plain3, pairs_x0,
+        tensor_bytes(atoms, tiles.row_start, row_count, tiles.rcen_q) + 4 * int(row_count.sum()) + 16 * atoms.shape[0],
+    )
+
+    # the main form's MD force (all pairs through the kernel, minus the
+    # exclusions) against the symmetric form's on the all-pairs scale
+    inv = torch.argsort(tiles.pad_order[:n])
+    f_sym_ap = -rs.rowscan_sweep(*sym_args, rs.FORCE)[inv, 1:4]
+    f_sym = f_sym_ap + nb.exclusion_energy_force(x0, box)[1]
+    f_main = nb.md_force_provider()[1](state, x0, box, 1)[0]
+    main_rel = float(torch.linalg.vector_norm(f_main - f_sym) / torch.linalg.vector_norm(f_sym_ap))
+    print(f"[3 force] MD provider, main form vs symmetric form: net nonbonded force |diff| / |all-pairs force| "
+          f"{main_rel:.3e} (tol {TOL_ALT_FORCE:g}; {smi})")
+    check(main_rel <= TOL_ALT_FORCE, "the main form's MD force disagrees with the symmetric form's")
 
     hc_cpu = setup_dhfr(waters_first=True, device="cpu", dtype=f32)
-    hc_cpu.host_system.nonbonded_all_pairs.configure(box.cpu(), x0.cpu())
+    hc_cpu.host_system.nonbonded_all_pairs.configure(box.cpu(), x0.cpu(), rowscan_has_w=has_w)
     f_card = sum(p.energy_force(x0, box)[1] for p in bps)
     f_host = sum(p.energy_force(x0.cpu(), box.cpu())[1] for p in hc_cpu.host_system.get_U_fns())
     f_all_pairs = NonbondedAllPairs.energy_force(nb, x0, box)[1]
@@ -409,6 +441,29 @@ def main() -> int:
         if busy_ms > 0 else "device busy not measured (the profiler saw no device time)"
     )
     print(f"[4 profile] {N_PROFILE} steps: {busy} ({smi}); table on stderr")
+
+    # the end state: lists and row centers rebuilt there, and the main form's
+    # |dU/dx| (row sums and reactions in int64 fixed point) against its range
+    state_end = nb.md_force_provider()[0](x_end, box_end)
+    t_end = state_end.lists
+    check(int(state_end.invalid) == 0, "[4] main-path lists invalid at the end state (overflow, the image bound or w)")
+    atoms_end = rs.assemble_atoms(x_end, box_end, t_end.pad_order, state_end.prows)
+    count_end = rs.chop_row_counts(atoms_end[:, :3], t_end.rank_mat, t_end.row_count, box_end, nb.cutoff)
+    end_args = (atoms_end, t_end.row_start, count_end, t_end.col_ids, rs.sweep_scalars(box_end, nb.cutoff), series)
+    end_form = dict(triangular=True, rcen_q=t_end.rcen_q, has_w=has_w)
+    fixed_range = 2.0**63 / rs.FIXED_SCALE
+    grad_end = max(
+        float(rs.rowscan_sweep(*end_args, rs.FORCE, **end_form)[:, 1:4].abs().max()),
+        float(NonbondedAllPairs.energy_force(nb, x_end, box_end)[1].abs().max()),
+    )
+    ms_end = cuda_ms(lambda: rs.rowscan_sweep(*end_args, rs.FORCE, **end_form), 20)
+    print(
+        f"[4 invariant] image-bound margin at cutoff + skin: {float(tiles.margin):.4f} nm at the start, "
+        f"{float(t_end.margin):.4f} nm at the end; largest |dU/dx| {grad_end:.4e} of the fixed-point range "
+        f"{fixed_range:.4e} kJ/mol/nm; main form F at the end state {ms_end:.4f} ms over "
+        f"{(int(count_end.sum()) + n_rows) * rs.ROW * rs.COL} slots ({smi})"
+    )
+    check(grad_end < fixed_range, "[4] |dU/dx| beyond the fixed-point range")
 
     # -- 5. determinism -----------------------------------------------------------------
     bitwise_repeat("5", bps)
@@ -670,7 +725,6 @@ def main() -> int:
         float(qk.quadscan_sweep(*args10, qk.FORCE)[:, 1:4].abs().max()),
         float(NonbondedAllPairs.energy_force(nb10, x10, box10)[1].abs().max()),
     )
-    fixed_range = 2.0**63 / rs.FIXED_SCALE
     print(
         f"[10 invariant] constant-shift margin at cutoff + skin: {float(tiles10.margin):.4f} nm at the start, "
         f"{margin_end:.4f} nm after {N_ALT} steps; largest |dU/dx| {grad_max:.4e} of the fixed-point range "
@@ -738,10 +792,10 @@ def main() -> int:
     print(
         f"[11 invariant] image-bound margin at cutoff + skin: {float(tiles11.margin):.4f} nm at the start, "
         f"{margin11:.4f} nm after {N_ALT} steps; largest |dU/dx| {grad11:.4e} of the fixed-point range "
-        f"{2.0**63 / rs.FIXED_SCALE:.4e} kJ/mol/nm ({smi})"
+        f"{fixed_range:.4e} kJ/mol/nm ({smi})"
     )
     check(margin11 > 0, "[11] the image bound fails at the end")
-    check(grad11 < 2.0**63 / rs.FIXED_SCALE, "[11] |dU/dx| beyond the fixed-point range")
+    check(grad11 < fixed_range, "[11] |dU/dx| beyond the fixed-point range")
     bitwise_repeat("11", bps11)
 
     # -- 12. the probes ----------------------------------------------------------------

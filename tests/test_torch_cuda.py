@@ -108,6 +108,43 @@ def test_wrapper_rejects_what_the_kernel_cannot_take(cuda):
         rs.rowscan_sweep(args[0], args[1].long(), *args[2:], rs.FORCE)
     with pytest.raises(ValueError):
         rs.rowscan_sweep(*args, 7)
+    with pytest.raises(ValueError):  # row centers of the wrong length
+        rs.rowscan_sweep(*args, rs.FORCE, True, torch.zeros(3, dtype=torch.int32, device=cuda))
+
+
+def _form_args(device, triangular, preshift):
+    """Sweep arguments on Hilbert rows at the bare cutoff, where this fluid
+    holds the image bound, and the row centers where preshift is asked."""
+    conf, params, box = _fluid(device, seed=1)
+    tiles = dk.build_dotscan_tiles(conf, box, CUTOFF, 10**7, triangular=triangular, sort="hilbert")
+    assert int(tiles.invalid) == 0
+    atoms = rs.assemble_atoms(conf, box, tiles.pad_order, rs.param_rows(params, tiles.pad_order, conf.shape[0]))
+    args = (atoms, tiles.row_start, tiles.row_count, tiles.col_ids, rs.sweep_scalars(box, CUTOFF), rs.es_energy_force_series(BETA, CUTOFF))
+    return args, tiles.rcen_q if preshift else None
+
+
+@pytest.mark.parametrize("has_w", [True, False])
+@pytest.mark.parametrize("preshift", [False, True])
+@pytest.mark.parametrize("triangular", [False, True])
+@pytest.mark.parametrize("mode", [rs.FORCE, rs.FORCE_ENERGY, rs.ENERGY])
+def test_kernel_forms_match_plain(cuda, mode, triangular, preshift, has_w):
+    """Every instantiation of the kernel (mode x list form x images x w)
+    against the plain version per output column, the columns a mode leaves
+    out zero, two launches bitwise equal (the triangular form sums in int64
+    fixed point)."""
+    args, rcen_q = _form_args(cuda, triangular, preshift)
+    kw = dict(triangular=triangular, rcen_q=rcen_q, has_w=has_w)
+    before = rs.rowscan_sweep.launches
+    out_k, out_k2 = rs.rowscan_sweep(*args, mode, **kw), rs.rowscan_sweep(*args, mode, **kw)
+    out_p = rs.rowscan_sweep_plain(*args, mode, **kw)
+    torch.cuda.synchronize()
+    assert rs.rowscan_sweep.launches == before + 2
+    assert torch.equal(out_k, out_k2)
+    for col in range(4):
+        if not out_p[:, col].any():
+            assert not out_k[:, col].any()
+        else:
+            assert _rel(out_k[:, col], out_p[:, col]) < TOL, col
 
 
 def test_provider_runs_on_the_kernel(cuda):

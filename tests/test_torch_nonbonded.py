@@ -37,11 +37,12 @@ def _port_nb(jcfg, dtype):
 
 
 def _scales(nb, x, box):
-    """(sum |u_i| of the all-pairs sweep, all-pairs force norm)."""
-    state = nb.md_force_provider()[0](x, box)
-    atoms = trs.assemble_atoms(x, box, state.lists.pad_order, state.prows)
+    """(sum |u_i| of the all-pairs sweep, all-pairs force norm), from a
+    symmetric sweep (each atom holds half its pair energies)."""
+    tiles = trs.build_rowscan_tiles(x, box, CUTOFF, trs.suggest_max_pairs(x, box, CUTOFF))
+    atoms = trs.assemble_atoms(x, box, tiles.pad_order, trs.param_rows(nb.params.to(x.dtype), tiles.pad_order, x.shape[0]))
     out = trs.rowscan_sweep(
-        atoms, state.lists.row_start, state.lists.row_count, state.lists.col_ids, trs.sweep_scalars(box, CUTOFF),
+        atoms, tiles.row_start, tiles.row_count, tiles.col_ids, trs.sweep_scalars(box, CUTOFF),
         trs.es_energy_force_series(BETA, CUTOFF), trs.FORCE_ENERGY,
     )
     return float(out[:, 0].abs().sum()), float(torch.linalg.vector_norm(out[:, 1:4]))

@@ -56,8 +56,11 @@
 
 #include "fixed_point.cuh"
 #include "pair_math.cuh"
+#include "row_images.cuh"
 
 using namespace pair_math;
+using row_images::col_image;
+using row_images::row_image;
 
 namespace {
 
@@ -67,18 +70,6 @@ constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;  // = COL: thread t stages and reduces column atom t
 constexpr int COLS_PER_WARP = COL / WARPS;
 constexpr int GSTRIDE = COL + 1;  // row stride of the shared G tile
-constexpr float CEN_SCALE = 1e-4f;  // nm per unit of the quantized row centers
-
-// (x - c) - b * rint((x - c) / b): a row atom's image nearest the center c
-__device__ __forceinline__ float row_image(float x, float c, float b, float ib) {
-  const float raw = __fsub_rn(x, c);
-  return __fsub_rn(raw, __fmul_rn(b, rintf(__fmul_rn(raw, ib))));
-}
-
-// (x - c) + b * rint(c / b - x / b): a column atom's image nearest c, cb = c / b
-__device__ __forceinline__ float col_image(float x, float c, float cb, float b, float ib) {
-  return __fadd_rn(__fsub_rn(x, c), __fmul_rn(b, rintf(__fsub_rn(cb, __fmul_rn(x, ib)))));
-}
 
 template <int MODE, bool TRI>
 __global__ void __launch_bounds__(THREADS) dotscan_kernel(
@@ -106,9 +97,8 @@ __global__ void __launch_bounds__(THREADS) dotscan_kernel(
   const float ibx = 1.0f / bx, iby = 1.0f / by, ibz = 1.0f / bz;
   const float cut2 = cutoff * cutoff;
 
-  const float cx = __fmul_rn(static_cast<float>(rcen_q[4 * row]), CEN_SCALE);
-  const float cy = __fmul_rn(static_cast<float>(rcen_q[4 * row + 1]), CEN_SCALE);
-  const float cz = __fmul_rn(static_cast<float>(rcen_q[4 * row + 2]), CEN_SCALE);
+  const float3 cen = row_images::center(rcen_q, row);
+  const float cx = cen.x, cy = cen.y, cz = cen.z;
   const float cxb = __fmul_rn(cx, ibx), cyb = __fmul_rn(cy, iby), czb = __fmul_rn(cz, ibz);
 
   const float4 ra = atoms[2 * i];      // x y z w

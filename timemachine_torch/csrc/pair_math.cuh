@@ -46,13 +46,12 @@ __device__ __forceinline__ float horner(const float (&c)[DEG], float t) {
   return acc;
 }
 
-// (dU/dr / r, pair energy) of one pair, both 0 outside the gate or where
-// `listed` is false. de_r is computed unless MODE is ENERGY, e unless MODE
-// is FORCE; the other is left 0.
+// (dU/dr / r, pair energy) of one pair at squared distance r2, both 0
+// outside the gate or where `listed` is false. de_r is computed unless MODE
+// is ENERGY, e unless MODE is FORCE; the other is left 0.
 template <int MODE>
-__device__ __forceinline__ void pair_terms(float dx, float dy, float dz, float dw, float qq, float sg, float e4,
-                                           float cut2, bool listed, const Series& s, float& de_r, float& e) {
-  const float r2 = dx * dx + dy * dy + dz * dz + dw * dw;
+__device__ __forceinline__ void pair_terms_r2(float r2, float qq, float sg, float e4, float cut2, bool listed,
+                                              const Series& s, float& de_r, float& e) {
   const float r2s = fmaxf(r2, 1e-8f);
   const float inv_r = rsqrtf(r2s);
   const float inv_r2 = inv_r * inv_r;
@@ -71,6 +70,13 @@ __device__ __forceinline__ void pair_terms(float dx, float dy, float dz, float d
     const float en = et6 * (t6 - 1.0f) + qq * horner(s.h, t) * inv_r;
     e = gate ? en : 0.0f;
   }
+}
+
+// pair_terms_r2 with the 4D r2 of the differences (dx, dy, dz, dw)
+template <int MODE>
+__device__ __forceinline__ void pair_terms(float dx, float dy, float dz, float dw, float qq, float sg, float e4,
+                                           float cut2, bool listed, const Series& s, float& de_r, float& e) {
+  pair_terms_r2<MODE>(dx * dx + dy * dy + dz * dz + dw * dw, qq, sg, e4, cut2, listed, s, de_r, e);
 }
 
 }  // namespace pair_math

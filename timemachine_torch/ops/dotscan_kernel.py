@@ -60,7 +60,7 @@ from timemachine_torch.ops import rowscan_kernel as rs
 from timemachine_torch.ops.nonbonded_kernel import ListState, make_list_md_provider
 
 ROW, COL = rs.ROW, rs.COL
-CEN_SCALE = 1e-4  # nm per unit of the quantized row centers
+CEN_SCALE = rs.CEN_SCALE  # nm per unit of the quantized row centers
 FORCE, FORCE_ENERGY = rs.FORCE, rs.FORCE_ENERGY  # sweep modes, as in csrc/dotscan.cu
 
 # the lists are rowscan's; size them with the sort and form the provider uses
@@ -88,6 +88,7 @@ class DotscanTiles(NamedTuple):
     row_start: torch.Tensor  # (nR,) int32: first col_ids entry of each row chunk
     row_count: torch.Tensor  # (nR,) int32: listed column chunks of each row chunk
     col_ids: torch.Tensor  # (max_pairs,) int32: column chunk ids
+    rank_mat: torch.Tensor  # (nR, nC) int32: rank of chunk c in row r's list, -1 if unlisted (for the chop)
     rcen_q: torch.Tensor  # (nR * 4,) int32: row centers [x y z 0] in units of CEN_SCALE
     overflow: torch.Tensor  # () int64: entries that did not fit in max_pairs
     margin: torch.Tensor  # () f32: min over axes of box/2 - (largest row half-extent + cutoff)
@@ -111,7 +112,7 @@ def build_dotscan_tiles(
     rcen_q = torch.round(rcen / CEN_SCALE).to(torch.int32)
     bound_bad = (reach >= 0.5 * box_diag).any().to(t.overflow.dtype)
     return DotscanTiles(
-        t.pad_order, t.row_start, t.row_count, t.col_ids, F.pad(rcen_q, (0, 1)).reshape(-1), t.overflow,
+        t.pad_order, t.row_start, t.row_count, t.col_ids, t.rank_mat, F.pad(rcen_q, (0, 1)).reshape(-1), t.overflow,
         torch.min(0.5 * box_diag - reach), t.overflow + bound_bad,
     )
 
@@ -121,24 +122,6 @@ def dotscan_valid(conf, box, cutoff: float, headroom: float = 0.1, sort: str = "
     with `headroom` to spare for row chunks that stretch between rebuilds.
     Pass cutoff + skin to gate the MD provider, which builds at that radius."""
     return float(build_dotscan_tiles(conf, box, cutoff, ROW, cell_size, True, sort).margin) > headroom
-
-
-def _row_frame(rows, cen, box, inv_box):
-    """Row atoms (8, b, ROW) -> (4, b, ROW) [x' y' z' w] at the image nearest their chunk's center cen (b, 3)."""
-    out = []
-    for a in range(3):
-        raw = rows[a] - cen[:, a, None]
-        out.append(raw - box[a] * torch.round(raw * inv_box[a]))
-    return out + [rows[3]]
-
-
-def _col_frame(cols, cen, box, inv_box):
-    """Column atoms (8, b, L, COL) -> (4, b, L, COL) [x' y' z' w] at the image nearest their row chunk's center."""
-    out = []
-    for a in range(3):
-        c = cen[:, a, None, None]
-        out.append((cols[a] - c) + box[a] * torch.round(c * inv_box[a] - cols[a] * inv_box[a]))
-    return out + [cols[3]]
 
 
 def dotscan_sweep_plain(atoms, row_start, row_count, col_ids, rcen_q, scalars, series, mode: int, triangular: bool = False):
@@ -186,8 +169,8 @@ def dotscan_sweep_plain(atoms, row_start, row_count, col_ids, rcen_q, scalars, s
         rows = rows_all[:, r0:r1]  # (8, b, ROW)
         cols = cols_all[:, cid]  # (8, b, L, COL)
         cen = cen_all[r0:r1]
-        rd = [v[:, None, :, None] for v in _row_frame(rows, cen, box, inv_box)]  # each (b, 1, ROW, 1)
-        cd = [v[:, :, None, :] for v in _col_frame(cols, cen, box, inv_box)]  # each (b, L, 1, COL)
+        rd = [v[:, None, :, None] for v in rs._row_frame(rows, cen, box, inv_box)]  # each (b, 1, ROW, 1)
+        cd = [v[:, :, None, :] for v in rs._col_frame(cols, cen, box, inv_box)]  # each (b, L, 1, COL)
         keep = listed[:, :, None, None]
         if triangular:
             row_gid = (row_ids[r0:r1, None] * ROW + lane_r)[:, None, :, None]

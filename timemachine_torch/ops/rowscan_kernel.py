@@ -10,9 +10,22 @@ column chunk) tile and sums, per row atom,
     LJ   4 eps ((sigma/r)^12 - (sigma/r)^6)   on rows [x y z w q sigma/2 2 sqrt(eps) 0]
     ES   qq h(t) / r,  force factor qq P(t) / r^3,  t = 2 r / 1.2 - 1
 
-with minimum image, the 4D w lift, and the gate (r^2 < cutoff^2) & (r^2 >
-1e-7). The port runs the SYMMETRIC list (every pair seen from both atoms,
-energy halved), which needs no cross-block force reduction.
+with the gate (r^2 < cutoff^2) & (r^2 > 1e-7), in the forms of JAX's
+rowscan_sweep:
+
+  symmetric / triangular   every pair seen from both atoms, energy halved;
+                           or Newton-triangular lists, each row chunk's
+                           covering column chunk swept first with the gate
+                           row atom < column atom, each pair's energy to its
+                           row atom and its force to both (none to the
+                           column in ENERGY mode, JAX's u_only)
+  minimum image / preshift per-pair minimum image; or every atom mapped to
+                           its image nearest its row chunk's periodic center
+                           (`rcen_q` of dotscan_kernel.build_dotscan_tiles,
+                           which rechecks the image bound at every rebuild)
+  has_w                    the 4D w lift in r^2, or none (all w zero)
+
+The main path runs JAX's default DHFR form: triangular, preshift, no w.
 
 `rowscan_sweep` launches the hand-written CUDA kernel (`csrc/rowscan.cu`) on
 CUDA tensors and uses `rowscan_sweep_plain`, the same function in plain
@@ -44,10 +57,12 @@ from timemachine_torch.ops.nonbonded_kernel import (
 ROW = 32  # atoms per row chunk
 COL = 128  # atoms per column chunk
 FORCE, FORCE_ENERGY, ENERGY = 0, 1, 2  # sweep modes, as in csrc/rowscan.cu
+CEN_SCALE = 1e-4  # nm per unit of the quantized row centers (rcen_q)
 _K1 = 2.0 / SWITCH_CUTOFF  # t = _K1 * r - 1
-# the Newton-triangular sweeps (quadscan, dotscan) sum column reactions in
-# int64 fixed point at this many units per kJ/mol/nm (csrc/fixed_point.cuh):
-# range +-2^31 = 2.1e9 (DHFR's largest all-pairs |dU/dx| is 3.1e7)
+# the Newton-triangular sweeps (rowscan, quadscan, dotscan) sum column
+# reactions (rowscan also its row sums and energies) in int64 fixed point at
+# this many units per kJ/mol/nm (csrc/fixed_point.cuh): range +-2^31 =
+# 2.1e9 (DHFR's largest all-pairs |dU/dx|: 3.1e7 at the start, 3.5e7-5.2e7 at NPT end states)
 FIXED_SCALE = 2.0**32
 
 _poly_cache: dict = {}
@@ -187,11 +202,23 @@ def chop_row_counts(xyz, rank_mat, row_count, box, cutoff: float):
     3), drop every listed tile past the last one whose bounding-box gap is
     within the bare cutoff. Exact: a tile whose current gap exceeds the
     cutoff holds no pair within it. Padding slots duplicate atom 0, which
-    only widens boxes."""
+    only widens boxes.
+
+    Each chunk's box is taken over its atoms at their images nearest the
+    chunk's first atom, so an atom that crosses a box face between rebuilds
+    does not stretch its chunk's box across the box (JAX's chop boxes the
+    wrapped coordinates, where one such atom keeps every list that meets
+    its chunk whole). Any images give a lower bound on each pair's
+    distance, so the chop stays exact."""
     n_pad = xyz.shape[0]
-    xr = xyz.reshape(n_pad // ROW, ROW, 3)
-    xc = xyz.reshape(n_pad // COL, COL, 3)
-    d2 = _bbox_gap2(xr.amin(1), xr.amax(1), xc.amin(1), xc.amax(1), torch.diagonal(box).to(xyz.dtype))
+    box_diag = torch.diagonal(box).to(xyz.dtype)
+
+    def boxes(size):
+        x = xyz.reshape(n_pad // size, size, 3)
+        x = x - box_diag * torch.round((x - x[:, :1]) / box_diag)
+        return x.amin(1), x.amax(1)
+
+    d2 = _bbox_gap2(*boxes(ROW), *boxes(COL), box_diag)
     keep_rank = torch.where(d2 < cutoff * cutoff, rank_mat, -1)
     return torch.minimum(row_count, keep_rank.amax(1) + 1)
 
@@ -210,16 +237,18 @@ def suggest_max_pairs(
 
 
 def census_swept_slots(conf, box, cutoff: float, skin: float, cell_size: float) -> int:
-    """Host-side per-step pair-slot count at one sort-cell size: lists built
-    at cutoff + skin (as at each rebuild), chopped at the bare cutoff (as
-    every step does)."""
+    """Host-side per-step pair-slot count of the MD provider's triangular
+    sweep at one sort-cell size: lists built at cutoff + skin (as at each
+    rebuild), chopped at the bare cutoff (as every step does), plus each row
+    chunk's covering tile (as JAX's census, without its padding of lists to
+    fours)."""
     n_pad = padded_size(conf.shape[0])
     cap = (n_pad // ROW) * (n_pad // COL)
-    tiles = build_rowscan_tiles(conf, box, cutoff + skin, cap, cell_size)
+    tiles = build_rowscan_tiles(conf, box, cutoff + skin, cap, cell_size, triangular=True)
     box_diag = torch.diagonal(box).to(torch.float32)
     xyz = _wrap(conf[:, :3].to(torch.float32), box_diag)[tiles.pad_order]
     chopped = chop_row_counts(xyz, tiles.rank_mat, tiles.row_count, box.to(torch.float32), cutoff)
-    return int(chopped.sum()) * ROW * COL
+    return (int(chopped.sum()) + n_pad // ROW) * ROW * COL
 
 
 def suggest_cell_size(conf, box, cutoff: float, skin: float = 0.1, candidates=(0.65, 0.9, 1.15, 1.4)) -> float:
@@ -259,12 +288,14 @@ def sweep_scalars(box, cutoff: float):
 def pair_terms(d, dw, qq, sg, e4, cut2, listed, series, mode: int):
     """(dU/dr / r, pair energy) of the sweeps' pair function on pair
     tensors: d the three imaged coordinate differences, dw the w offset
-    difference, qq, sg = sigma_i/2 + sigma_j/2 and e4 = 4 eps_ij the pair
-    parameters, `listed` a mask of the slots that hold a pair. Both terms
-    are zero outside the gate (r^2 < cut2) & (r^2 > 1e-7) & listed; de_r is
-    None in ENERGY mode and e None in FORCE mode."""
+    difference (None: no w lift), qq, sg = sigma_i/2 + sigma_j/2 and e4 =
+    4 eps_ij the pair parameters, `listed` a mask of the slots that hold a
+    pair. Both terms are zero outside the gate (r^2 < cut2) & (r^2 > 1e-7) &
+    listed; de_r is None in ENERGY mode and e None in FORCE mode."""
     h_coeffs, p_coeffs = series
-    r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2] + dw * dw
+    r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    if dw is not None:
+        r2 = r2 + dw * dw
     r2s = torch.clamp(r2, min=1e-8)
     inv_r = torch.rsqrt(r2s)
     inv_r2 = inv_r * inv_r
@@ -281,45 +312,99 @@ def pair_terms(d, dw, qq, sg, e4, cut2, listed, series, mode: int):
     return de_r, e
 
 
-def rowscan_sweep_plain(atoms, row_start, row_count, col_ids, scalars, series, mode: int):
+def _row_frame(rows, cen, box, inv_box):
+    """Row atoms (8, b, ROW) -> [x' y' z' w], each (b, ROW), at the image nearest their chunk's center cen (b, 3)."""
+    out = []
+    for a in range(3):
+        raw = rows[a] - cen[:, a, None]
+        out.append(raw - box[a] * torch.round(raw * inv_box[a]))
+    return out + [rows[3]]
+
+
+def _col_frame(cols, cen, box, inv_box):
+    """Column atoms (8, b, L, COL) -> [x' y' z' w], each (b, L, COL), at the image nearest their row chunk's center."""
+    out = []
+    for a in range(3):
+        c = cen[:, a, None, None]
+        out.append((cols[a] - c) + box[a] * torch.round(c * inv_box[a] - cols[a] * inv_box[a]))
+    return out + [cols[3]]
+
+
+def rowscan_sweep_plain(
+    atoms, row_start, row_count, col_ids, scalars, series, mode: int, triangular: bool = False, rcen_q=None,
+    has_w: bool = True,
+):
     """The sweep in plain PyTorch, in atoms' dtype: each batch of row chunks
-    gathers its listed column chunks into (rows, L, 32, 128) pair blocks,
-    one tensor per coordinate, masked by row_count, with L the batch's
-    longest list. A batch holds at most about 2^18 pair slots on the CPU
-    (cache-sized temporaries) and 2^24 on a card. Returns (Npad, 4)
-    [u_i, dU/dx_i] like the kernel; u_i is half of atom i's pair energies."""
+    gathers its tiles (in triangular form the covering chunk first) into
+    (rows, L, 32, 128) pair blocks, one tensor per coordinate, masked by
+    row_count, with L the batch's longest list. A batch holds at most about
+    2^18 pair slots on the CPU (cache-sized temporaries) and 2^24 on a card.
+    Returns (Npad, 4) [u_i, dU/dx_i] like the kernel; the triangular form's
+    column reactions are scattered with index_add_."""
     rowscan_sweep_plain.calls += 1
-    block_pairs = 1 << 18 if atoms.device.type == "cpu" else 1 << 24
+    dev, dt = atoms.device, atoms.dtype
+    block_pairs = 1 << 18 if dev.type == "cpu" else 1 << 24
     n_pad = atoms.shape[0]
-    n_rows = n_pad // ROW
+    n_rows, n_cols = n_pad // ROW, n_pad // COL
     out = atoms.new_zeros((n_pad, 4))
-    counts = row_count.tolist()
+    react = atoms.new_zeros((n_pad, 3)) if triangular and mode != ENERGY else None
+    counts_t = row_count.long() + int(triangular)
+    counts = counts_t.tolist()
     batch = max(1, block_pairs // (max(max(counts), 1) * ROW * COL))
     comp = atoms.T.contiguous()  # one contiguous row per column of the atom rows
-    rows = comp.view(8, n_rows, 1, ROW, 1)
-    cols = comp.view(8, n_pad // COL, COL)
+    rows_all = comp.view(8, n_rows, ROW)
+    cols_all = comp.view(8, n_cols, COL)
     box = scalars[:3]
     inv_box = 1.0 / box
     cut2 = scalars[3] * scalars[3]
+    cen_all = None if rcen_q is None else rcen_q.view(n_rows, 4)[:, :3].to(dt) * CEN_SCALE
+    row_ids = torch.arange(n_rows, device=dev)
+    lane_r = torch.arange(ROW, device=dev)
+    lane_c = torch.arange(COL, device=dev)
     for r0 in range(0, n_rows, batch):
         r1 = min(r0 + batch, n_rows)
         length = max(counts[r0:r1])
         if length == 0:
             continue
-        k = torch.arange(length, device=atoms.device)
-        listed = k < row_count[r0:r1, None]  # (b, L)
-        slot = torch.where(listed, row_start[r0:r1, None] + k, 0)
-        cj = cols[:, col_ids[slot].long()].unsqueeze(3)  # (8, b, L, 1, COL)
-        ri = rows[:, r0:r1]  # (8, b, 1, ROW, 1)
-        d = [ri[a] - cj[a] for a in range(3)]  # each (b, L, ROW, COL)
-        d = [da - box[a] * torch.round(da * inv_box[a]) for a, da in enumerate(d)]
-        dw = ri[3] - cj[3]
-        de_r, e = pair_terms(d, dw, ri[4] * cj[4], ri[5] + cj[5], ri[6] * cj[6], cut2, listed[:, :, None, None], series, mode)
+        k = torch.arange(length, device=dev)
+        listed = k < counts_t[r0:r1, None]  # (b, L)
+        if triangular:
+            covering = torch.clamp(row_ids[r0:r1] * ROW // COL, max=n_cols - 1)
+            slot = torch.where(listed & (k > 0), row_start[r0:r1, None] + k - 1, 0)
+            cid = torch.where(k == 0, covering[:, None], col_ids[slot].long())
+        else:
+            slot = torch.where(listed, row_start[r0:r1, None] + k, 0)
+            cid = col_ids[slot].long()
+        rows = rows_all[:, r0:r1]  # (8, b, ROW)
+        cols = cols_all[:, cid]  # (8, b, L, COL)
+        if cen_all is None:
+            d = [rows[a][:, None, :, None] - cols[a][:, :, None, :] for a in range(3)]  # each (b, L, ROW, COL)
+            d = [da - box[a] * torch.round(da * inv_box[a]) for a, da in enumerate(d)]
+        else:
+            cen = cen_all[r0:r1]
+            rd, cd = _row_frame(rows, cen, box, inv_box), _col_frame(cols, cen, box, inv_box)
+            d = [rd[a][:, None, :, None] - cd[a][:, :, None, :] for a in range(3)]
+        dw = rows[3][:, None, :, None] - cols[3][:, :, None, :] if has_w else None
+        keep = listed[:, :, None, None]
+        if triangular:
+            row_gid = (row_ids[r0:r1, None] * ROW + lane_r)[:, None, :, None]
+            keep = keep & (row_gid < (cid[:, :, None] * COL + lane_c)[:, :, None, :])
+        qq = rows[4][:, None, :, None] * cols[4][:, :, None, :]
+        sg = rows[5][:, None, :, None] + cols[5][:, :, None, :]
+        e4 = rows[6][:, None, :, None] * cols[6][:, :, None, :]
+        de_r, e = pair_terms(d, dw, qq, sg, e4, cut2, keep, series, mode)
+        sl = slice(r0 * ROW, r1 * ROW)
         if mode != ENERGY:
             for a in range(3):
-                out[r0 * ROW : r1 * ROW, 1 + a] = (de_r * d[a]).sum((1, 3)).reshape(-1)
+                out[sl, 1 + a] = (de_r * d[a]).sum((1, 3)).reshape(-1)
+            if react is not None:
+                parts = torch.stack([-(de_r * d[a]).sum(2) for a in range(3)], -1)  # (b, L, COL, 3)
+                react.index_add_(0, (cid[:, :, None] * COL + lane_c).reshape(-1), parts.reshape(-1, 3))
         if mode != FORCE:
-            out[r0 * ROW : r1 * ROW, 0] = 0.5 * e.sum((1, 3)).reshape(-1)
+            u = e.sum((1, 3))
+            out[sl, 0] = (u if triangular else 0.5 * u).reshape(-1)
+    if react is not None:
+        out[:, 1:4] += react
     return out
 
 
@@ -331,7 +416,7 @@ _series_args: dict = {}
 def _launcher():
     fn = _build.load_library("rowscan").rowscan_sweep_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int] + [ctypes.POINTER(ctypes.c_float)] * 2 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_float)] * 2 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -351,17 +436,22 @@ def check_tensor(name, t, dtype, device, shape=None):
         raise ValueError(f"{name}: want shape {shape}, got {tuple(t.shape)}")
 
 
-def rowscan_sweep(atoms, row_start, row_count, col_ids, scalars, series, mode: int):
+def rowscan_sweep(
+    atoms, row_start, row_count, col_ids, scalars, series, mode: int, triangular: bool = False, rcen_q=None,
+    has_w: bool = True,
+):
     """(Npad, 4) [u_i, dU/dx_i] of the sweep over the listed tiles.
 
     atoms (Npad, 8) f32 sorted rows, row_start/row_count (nR,) and col_ids
     (max_pairs,) int32, scalars (4,) f32 [bx by bz cutoff], series the (h, P)
     coefficient tuples of es_energy_force_series, mode FORCE, FORCE_ENERGY
-    or ENERGY (unused columns are zero). A CUDA tensor launches the kernel
-    of csrc/rowscan.cu on the current stream; a CPU tensor runs
-    rowscan_sweep_plain."""
+    or ENERGY (unused columns are zero); lists symmetric or triangular,
+    rcen_q (nR * 4,) int32 row centers for preshift (None: minimum image),
+    has_w False to leave w out of r^2. A CUDA tensor launches the kernel of
+    csrc/rowscan.cu on the current stream (with an int64 fixed-point scratch
+    in triangular form); a CPU tensor runs rowscan_sweep_plain."""
     if atoms.device.type == "cpu":
-        return rowscan_sweep_plain(atoms, row_start, row_count, col_ids, scalars, series, mode)
+        return rowscan_sweep_plain(atoms, row_start, row_count, col_ids, scalars, series, mode, triangular, rcen_q, has_w)
     if atoms.device.type != "cuda":
         raise ValueError(f"rowscan_sweep: no kernel for device {atoms.device}")
     if mode not in (FORCE, FORCE_ENERGY, ENERGY):
@@ -376,11 +466,16 @@ def rowscan_sweep(atoms, row_start, row_count, col_ids, scalars, series, mode: i
     check_tensor("row_count", row_count, torch.int32, dev, (n_rows,))
     check_tensor("col_ids", col_ids, torch.int32, dev)
     check_tensor("scalars", scalars, torch.float32, dev, (4,))
+    if rcen_q is not None:
+        check_tensor("rcen_q", rcen_q, torch.int32, dev, (4 * n_rows,))
     h_arg, p_arg = series_args(series)
     out = torch.empty((n_pad, 4), dtype=torch.float32, device=dev)
+    acc = torch.zeros((4, n_pad) if triangular else (0,), dtype=torch.int64, device=dev)
     rc = _launcher()(
-        atoms.data_ptr(), row_start.data_ptr(), row_count.data_ptr(), col_ids.data_ptr(), scalars.data_ptr(),
-        out.data_ptr(), n_rows, mode, h_arg, p_arg, torch.cuda.current_stream(dev).cuda_stream,
+        atoms.data_ptr(), row_start.data_ptr(), row_count.data_ptr(), col_ids.data_ptr(),
+        None if rcen_q is None else rcen_q.data_ptr(), scalars.data_ptr(), out.data_ptr(), acc.data_ptr(), n_rows,
+        mode, int(triangular), int(rcen_q is not None), int(has_w), h_arg, p_arg,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"rowscan_sweep: kernel launch failed with CUDA error {rc}")
@@ -393,39 +488,63 @@ rowscan_sweep.launches = 0
 
 def make_nonbonded_rowscan_md(
     beta: float, cutoff: float, max_pairs: int, skin: float = 0.1, rebuild_interval: int = 20,
-    cell_size: float = 0.65,
+    cell_size: float = 0.65, preshift: bool = False, has_w: bool = True,
 ):
-    """MD force provider over rowscan tiles, chopped to the bare cutoff at
-    every sweep: an F sweep per step, a U sweep for the energy; see
-    nonbonded_kernel.make_list_md_provider."""
+    """MD force provider over Newton-triangular rowscan tiles (counterpart
+    of JAX's make_nonbonded_rowscan_md with its default triangular=True),
+    chopped to the bare cutoff at every sweep: an F sweep per step, a U
+    sweep for the energy; see nonbonded_kernel.make_list_md_provider. Size
+    max_pairs with suggest_max_pairs at cutoff + skin, triangular, at the
+    same cell size.
+
+    preshift takes the lists and row centers from build_dotscan_tiles, which
+    rechecks the image bound at every rebuild; configure it only where
+    dotscan_valid holds. has_w=False is the caller's promise that every w
+    offset is zero. The result is NaN on overflow, where a rebuild breaks
+    the image bound, and where a rebuild finds a nonzero w without has_w."""
     series = es_energy_force_series(beta, cutoff)
 
     def build(conf, params, box):
-        tiles = build_rowscan_tiles(conf, box, cutoff + skin, max_pairs, cell_size)
+        if preshift:
+            from timemachine_torch.ops.dotscan_kernel import build_dotscan_tiles  # dotscan imports this module
+
+            tiles = build_dotscan_tiles(conf, box, cutoff + skin, max_pairs, cell_size, triangular=True)
+            invalid = tiles.invalid
+        else:
+            tiles = build_rowscan_tiles(conf, box, cutoff + skin, max_pairs, cell_size, triangular=True)
+            invalid = tiles.overflow
+        if not has_w:
+            invalid = invalid + (params[:, 3] != 0).any().to(invalid.dtype)
         n = conf.shape[0]
         prows = param_rows(params.to(conf.dtype), tiles.pad_order, n)
-        return ListState(tiles, torch.argsort(tiles.pad_order[:n]), prows, tiles.overflow)
+        return ListState(tiles, torch.argsort(tiles.pad_order[:n]), prows, invalid)
 
     def sweep(state, conf, box, mode):
         t = state.lists
         atoms = assemble_atoms(conf, box, t.pad_order, state.prows)
         row_count = chop_row_counts(atoms[:, :3], t.rank_mat, t.row_count, box, cutoff)
-        return rowscan_sweep(atoms, t.row_start, row_count, t.col_ids, sweep_scalars(box, cutoff), series, mode)
+        return rowscan_sweep(
+            atoms, t.row_start, row_count, t.col_ids, sweep_scalars(box, cutoff), series, mode, True,
+            t.rcen_q if preshift else None, has_w,
+        )
 
     return make_list_md_provider(build, sweep, FORCE, ENERGY, rebuild_interval)
 
 
 def make_nonbonded_rowscan_energy_force(beta: float, cutoff: float, max_pairs: int, cell_size: float = 0.65):
-    """(conf, params, box, mode=FORCE_ENERGY) -> (u, force) in one sweep,
-    lists built for this call at the bare cutoff (use the MD provider in a
-    step loop). With mode=ENERGY the force is zero."""
+    """(conf, params, box, mode=FORCE_ENERGY) -> (u, force) in one sweep over
+    Newton-triangular lists built for this call at the bare cutoff, as in
+    JAX (use the MD provider in a step loop); size max_pairs with
+    suggest_max_pairs, triangular. With mode=ENERGY the force is zero."""
     series = es_energy_force_series(beta, cutoff)
 
     def energy_force(conf, params, box, mode: int = FORCE_ENERGY):
-        tiles = build_rowscan_tiles(conf, box, cutoff, max_pairs, cell_size)
+        tiles = build_rowscan_tiles(conf, box, cutoff, max_pairs, cell_size, triangular=True)
         n = conf.shape[0]
         atoms = assemble_atoms(conf, box, tiles.pad_order, param_rows(params.to(conf.dtype), tiles.pad_order, n))
-        out = rowscan_sweep(atoms, tiles.row_start, tiles.row_count, tiles.col_ids, sweep_scalars(box, cutoff), series, mode)
+        out = rowscan_sweep(
+            atoms, tiles.row_start, tiles.row_count, tiles.col_ids, sweep_scalars(box, cutoff), series, mode, True
+        )
         force = -out[torch.argsort(tiles.pad_order[:n]), 1:4]
         return poison_on_overflow(tiles.overflow, torch.sum(out[:, 0])), poison_on_overflow(tiles.overflow, force)
 

@@ -86,7 +86,11 @@ class NonbondedAllPairs(nn.Module):
     sizes the list capacities from the geometry.
 
     kernel="rowscan" (the MD main path): the rowscan sweep with polynomial
-    electrostatics. kernel="gather": the same pair function over atom-exact
+    electrostatics over Newton-triangular lists, as JAX's configure_pallas;
+    its MD provider images every atom to its row chunk's center
+    (`md_preshift`) where dotscan_valid holds at cutoff + SKIN, and leaves w
+    out of r^2 unless `rowscan_has_w` (a nonzero w then gives NaN).
+    kernel="gather": the same pair function over atom-exact
     full neighbour lists, for energy, force and MD. kernel="quad": rowscan
     for energy and force, the Newton-triangular quadscan sweep for MD; it
     falls back to rowscan wholesale where the constant-shift invariant
@@ -113,12 +117,13 @@ class NonbondedAllPairs(nn.Module):
         self._energy = self._energy_force = self._u = self._md = None
         self.kernel = None
 
-    def configure(self, box, conf, kernel: str = "rowscan"):
+    def configure(self, box, conf, kernel: str = "rowscan", rowscan_has_w: bool = True):
         """Size the lists from this geometry, at MARGIN over the present
         counts: the energy/force lists at the bare cutoff, the MD lists at
         cutoff + SKIN (with a sort-cell size from a census of swept slots
         for rowscan systems of 8,192 atoms and up), the du/dp lists at the
-        bare cutoff with column super-blocks DP_CB wide."""
+        bare cutoff with column super-blocks DP_CB wide. rowscan_has_w=False
+        promises that every w offset is zero (as bench.py passes for DHFR)."""
         if kernel not in ("rowscan", "gather", "quad", "dot", "v1"):
             raise ValueError(f"kernel must be 'rowscan', 'gather', 'quad', 'dot' or 'v1', got {kernel!r}")
         box = torch.as_tensor(box, device=self.params.device)
@@ -145,7 +150,7 @@ class NonbondedAllPairs(nn.Module):
                 self.beta, self.cutoff, self.md_max_nbrs, skin=SKIN, rebuild_interval=REBUILD_INTERVAL
             )
         elif kernel in ("rowscan", "quad", "dot"):
-            pairs = rs.suggest_max_pairs(conf, box, self.cutoff, margin=MARGIN)
+            pairs = rs.suggest_max_pairs(conf, box, self.cutoff, margin=MARGIN, triangular=True)
             ef = rs.make_nonbonded_rowscan_energy_force(self.beta, self.cutoff, pairs)
             self._energy = lambda x, params, box: ef(x, params, box, rs.ENERGY)[0]
             self._energy_force = ef
@@ -168,11 +173,15 @@ class NonbondedAllPairs(nn.Module):
                 cell = 0.65
                 if conf.shape[0] >= 8192:
                     cell = rs.suggest_cell_size(conf, box, self.cutoff, skin=SKIN)
-                md_pairs = rs.suggest_max_pairs(conf, box, self.cutoff + SKIN, margin=MARGIN, cell_size=cell)
-                self._md = rs.make_nonbonded_rowscan_md(
-                    self.beta, self.cutoff, md_pairs, skin=SKIN, rebuild_interval=REBUILD_INTERVAL, cell_size=cell
+                md_pairs = rs.suggest_max_pairs(
+                    conf, box, self.cutoff + SKIN, margin=MARGIN, cell_size=cell, triangular=True
                 )
-                self.md_max_pairs, self.md_cell_size = md_pairs, cell
+                preshift = dk.dotscan_valid(conf, box, self.cutoff + SKIN, cell_size=cell)
+                self._md = rs.make_nonbonded_rowscan_md(
+                    self.beta, self.cutoff, md_pairs, skin=SKIN, rebuild_interval=REBUILD_INTERVAL, cell_size=cell,
+                    preshift=preshift, has_w=rowscan_has_w,
+                )
+                self.md_max_pairs, self.md_cell_size, self.md_preshift = md_pairs, cell, preshift
         else:
             ef = nbk.make_nonbonded_tiles_energy_force(self.beta, self.cutoff, self.dp_max_tiles, cb=DP_CB)
             self._energy = lambda x, params, box: ef(x, params, box)[0]

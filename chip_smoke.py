@@ -25,9 +25,15 @@ steps under torch.profiler for the device's busy time per step (its table
 goes to standard error), and at the end state the image-bound margin and
 the largest |dU/dx| against the fixed-point range; bitwise determinism of
 two fresh Contexts;
-the block-tile kernel against its plain version at DHFR shapes in its modes
-DP, UF (exact and polynomial) and F; du/dp training: 5 Adam steps on a
-protein charge scale through a reweighting estimator over 8 NPT frames; the
+the block-tile kernel against its plain version at DHFR shapes in its
+Newton-triangular form (every path's) in modes DP, UF (exact and
+polynomial) and F, and in its symmetric form (the first design) in DP and
+F, with the slots listed, kept by the kernel's sub-tile and column culls
+and swept, the bounds, the triangular / symmetric time ratio in DP and F held under
+NB_REDESIGN_RATIO, and the largest |DP column| against the fixed-point
+limit; du/dp training: 5 Adam steps on a
+protein charge scale through a reweighting estimator over 8 NPT frames
+(the largest |DP column| over the frames, device busy per step); the
 kernel="v1" path: its force against the rowscan configuration's, then 500
 NPT steps; the kernel="gather" path [9], the kernel="quad" path [10] and the
 kernel="dot" path [11], each from the minimized start: list shapes and build
@@ -73,6 +79,10 @@ TOL_KERNEL_COL = 1e-4
 # symmetric form (the kernel's first design) in F mode, in the same run: it sweeps about half
 # the slots with fewer operations per slot
 REDESIGN_RATIO = 0.65
+# the block-tile kernel's triangular form (every path's) against its
+# symmetric form (the first design), DP and F, in the same run: it sweeps
+# 34.0M of the symmetric 216.5M slots at DHFR with a division-free pair function
+NB_REDESIGN_RATIO = 0.40
 # dL/ds with the DP pass on the kernel vs on the plain version
 TOL_DLDS = 1e-4
 # kernel="v1" (A&S erfc, exact exclusions) vs rowscan (polynomial) net
@@ -469,27 +479,69 @@ def main() -> int:
     bitwise_repeat("5", bps)
 
     # -- 6. block-tile kernel vs plain at DHFR shapes ----------------------------------
-    tiles6 = nbk.build_block_tiles(x0, nb.params, box, nb.cutoff, nb.dp_max_tiles, DP_CB)
-    check(int(tiles6.overflow) == 0, "block-tile list overflow at DHFR")
-    nb_args = (tiles6.atoms, tiles6.row_start, tiles6.row_count, tiles6.col_ids, nbk.tile_scalars(box, nb.beta, nb.cutoff))
-    n_tiles = int(tiles6.row_count.sum())
+    # the triangular form (every path's) and the symmetric form (the first design) on the same sort
+    tri6 = nbk.build_block_tiles(x0, nb.params, box, nb.cutoff, nb.dp_max_tiles, DP_CB, triangular=True)
+    sym6 = nbk.build_block_tiles(x0, nb.params, box, nb.cutoff, nbk.suggest_max_tiles(x0, box, nb.cutoff, cb=DP_CB), DP_CB)
+    check(int(tri6.overflow) == 0 and int(sym6.overflow) == 0, "block-tile list overflow at DHFR")
+    check(torch.equal(tri6.pad_order, sym6.pad_order), "the two block-tile forms sort differently")
+    scal6 = nbk.tile_scalars(box, nb.beta, nb.cutoff)
+    forms6 = {"triangular": tri6, "symmetric": sym6}
+
+    def nb_args(form):
+        t = forms6[form]
+        return t.atoms, t.row_start, t.row_count, t.col_ids, scal6
+
+    n_tiles = int(tri6.row_count.sum())
+    census6 = nbk.cull_census(*nb_args("triangular")[:4], box, nb.cutoff, DP_CB)
+    sym_slots6 = int(sym6.row_count.sum()) * nbk.BLOCK * nbk.BLOCK * DP_CB
     print(
-        f"[6 shapes] Npad {tiles6.atoms.shape[0]}, row blocks {tiles6.row_start.shape[0]}, cb {DP_CB}, "
-        f"listed tiles {n_tiles} of capacity {nb.dp_max_tiles}, pair slots {n_tiles * nbk.BLOCK * nbk.BLOCK * DP_CB} ({smi})"
+        f"[6 shapes] Npad {tri6.atoms.shape[0]}, row blocks {tri6.row_start.shape[0]}, cb {DP_CB}; triangular: listed "
+        f"tiles {n_tiles} of capacity {nb.dp_max_tiles}, pair slots listed {census6.listed}, in 32 x 32 sub-tiles "
+        f"not below the diagonal {census6.upper}, kept by the sub-tile cull {census6.subtiles}, by the column cull "
+        f"{census6.columns}, swept in chunks of 32 columns {census6.swept}; symmetric: listed tiles "
+        f"{int(sym6.row_count.sum())}, pair slots {sym_slots6}; pairs within the cutoff {pairs_x0} ({smi})"
     )
     poly = nbk.es_switch_poly_coeffs(nb.beta, nb.cutoff)
     modes6 = (("DP", nbk.DP, None), ("UF-exact", nbk.UF, None), ("UF-poly", nbk.UF, poly), ("F", nbk.FORCE, None))
-    err6, ms6, plain6 = compare_kernel("6", [
-        (label, lambda m=mode, e=es: nbk.nb_tiles(*nb_args, m, DP_CB, e), lambda m=mode, e=es: nbk.nb_tiles_plain(*nb_args, m, DP_CB, e))
-        for label, mode, es in modes6
-    ])
+    res6 = {}
+    for form in ("triangular", "symmetric"):
+        for label, mode, es in modes6:
+            if form == "symmetric" and mode == nbk.UF:
+                continue  # the first design is kept in DP and F only
+            tri = form == "triangular"
+            res6[form, label] = compare_kernel("6", [(
+                f"{form} {label}",
+                lambda m=mode, e=es, f=form, t=tri: nbk.nb_tiles(*nb_args(f), m, DP_CB, e, triangular=t),
+                lambda m=mode, e=es, f=form, t=tri: nbk.nb_tiles_plain(*nb_args(f), m, DP_CB, e, triangular=t),
+            )])
+    err6, ms6, plain6 = res6["triangular", "DP"]
     nb_row = kernel_entry(
         "nb_tiles", "nb_tiles.cu", "nonbonded_kernel.py:213", err6, ms6, plain6, pairs_x0,
-        tensor_bytes(tiles6.atoms, tiles6.row_start, tiles6.row_count) + 4 * n_tiles + 16 * tiles6.atoms.shape[0],
+        tensor_bytes(tri6.atoms, tri6.row_start, tri6.row_count) + 4 * n_tiles + 16 * tri6.atoms.shape[0],
     )
-    slots6 = n_tiles * nbk.BLOCK * nbk.BLOCK * DP_CB
-    print(f"[6 bound] DP-mode bound over pairs {nb_row['bound_ms']:.4f} ms, over swept slots "
-          f"{bound(pair_ops('nb_tiles', slots6 // 2), 0)[0]:.4f} ms (a symmetric list sweeps each pair twice; {smi})")
+    nb_row["ms_by_form_and_mode"] = {f"{form} {label}": r[1] for (form, label), r in res6.items()}
+    print(
+        f"[6 bound] DP mode: bound over pairs {nb_row['bound_ms']:.4f} ms, over the slots the culls keep "
+        f"{bound(pair_ops('nb_tiles', census6.columns), 0)[0]:.4f} ms, over the slots the triangular kernel "
+        f"sweeps {bound(pair_ops('nb_tiles', census6.swept), 0)[0]:.4f} ms, over the symmetric pair visits "
+        f"{bound(pair_ops('nb_tiles', sym_slots6 // 2), 0)[0]:.4f} ms (each pair swept twice); triangular DP "
+        f"{census6.swept / ms6 / 1e6:.1f}G swept slots/s ({smi})"
+    )
+    ratios6 = {label: res6["triangular", label][1] / res6["symmetric", label][1] for label in ("DP", "F")}
+    print(
+        "[6 redesign] triangular / symmetric, same run: "
+        + ", ".join(f"{label} {res6['triangular', label][1]:.4f} / {res6['symmetric', label][1]:.4f} ms = {r:.3f}"
+                    for label, r in ratios6.items())
+        + f" (want <= {NB_REDESIGN_RATIO}) ({smi})"
+    )
+    check(max(ratios6.values()) <= NB_REDESIGN_RATIO, "the triangular block-tile sweep is not enough faster")
+    dp6 = nbk.nb_tiles(*nb_args("triangular"), nbk.DP, DP_CB, triangular=True).abs().amax(0).tolist()
+    print(
+        f"[6 range] largest |DP column| at DHFR: dU/dq {dp6[0]:.4e}, dU/d(sig/2) {dp6[1]:.4e}, dU/d sqrt(eps) "
+        f"{dp6[2]:.4e}, dU/dw {dp6[3]:.4e}; the kernel's limit {nbk.FIX_LIMIT:.4e} (NaN beyond), the "
+        f"fixed-point range {2.0**63 / rs.FIXED_SCALE:.4e} ({smi})"
+    )
+    check(max(dp6) < nbk.FIX_LIMIT, "[6] a DP column beyond the fixed-point limit")
 
     # -- 7. du/dp training ----------------------------------------------------------------
     frames, frame_boxes = ctxt.multiple_steps(N_FRAMES * FRAME_INTERVAL, store_x_interval=FRAME_INTERVAL)
@@ -520,13 +572,14 @@ def main() -> int:
     (dl_du,) = torch.autograd.grad(
         loss_of(construct_mixture_reweighting_estimator(samples, u_ref, lambda smp, s: u_ref, lambda smp, s: u_n)(None)), u_n
     )
-    du_ds = []
+    du_ds, dp_max = [], torch.zeros(4, device=dev)
     for x, b in samples:
         p = params_of(s0.detach())
-        t7 = nbk.build_block_tiles(x, p, b, nb.cutoff, nb.dp_max_tiles, DP_CB)
-        dp = nbk.nb_tiles_plain(
-            t7.atoms, t7.row_start, t7.row_count, t7.col_ids, nbk.tile_scalars(b, nb.beta, nb.cutoff), nbk.DP, DP_CB
-        )
+        t7 = nbk.build_block_tiles(x, p, b, nb.cutoff, nb.dp_max_tiles, DP_CB, triangular=True)
+        check(int(t7.overflow) == 0, "[7] block-tile list overflow at a training frame")
+        args7 = (t7.atoms, t7.row_start, t7.row_count, t7.col_ids, nbk.tile_scalars(b, nb.beta, nb.cutoff), nbk.DP, DP_CB)
+        dp = nbk.nb_tiles_plain(*args7, triangular=True)
+        dp_max = torch.maximum(dp_max, nbk.nb_tiles(*args7, triangular=True).abs().amax(0))
         dq = dp[torch.argsort(t7.pad_order[:n]), 0]
         s_e = s0.detach().requires_grad_(True)
         (d_exc,) = torch.autograd.grad(nb.exclusion_energy(x, params_of(s_e), b), s_e)
@@ -536,6 +589,13 @@ def main() -> int:
     print(f"[7 du/dp] dL/ds at s = {S_START}: through the kernel {float(g_kernel):.6e}, through the plain DP "
           f"{float(g_plain):.6e}, rel {g_rel:.3e} (tol {TOL_DLDS:g}; {smi})")
     check(g_rel <= TOL_DLDS, "dL/ds through the kernel disagrees with the plain DP pass")
+    dp_max = dp_max.tolist()
+    print(
+        f"[7 range] largest |DP column| through the kernel over the {N_FRAMES} frames: dU/dq {dp_max[0]:.4e}, "
+        f"dU/d(sig/2) {dp_max[1]:.4e}, dU/d sqrt(eps) {dp_max[2]:.4e}, dU/dw {dp_max[3]:.4e}; the kernel's limit "
+        f"{nbk.FIX_LIMIT:.4e} ({smi})"
+    )
+    check(max(dp_max) < nbk.FIX_LIMIT, "[7] a DP column beyond the fixed-point limit")
 
     zero_counts()
     s = s0.detach().clone().requires_grad_(True)

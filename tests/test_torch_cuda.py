@@ -167,10 +167,13 @@ NB_MODES = {
     "UF-poly": (nbk.UF, True),
     "F": (nbk.FORCE, False),
 }
+# the forms the kernel is built for: every mode triangular, the first
+# design (symmetric) in DP and F
+NB_FORMS = [("triangular", m) for m in NB_MODES] + [("symmetric", "DP"), ("symmetric", "F")]
 
 
-def _tile_args(conf, params, box, cb=2):
-    tiles = nbk.build_block_tiles(conf, params, box, CUTOFF, 10**6, cb)
+def _tile_args(conf, params, box, cb=2, triangular=False):
+    tiles = nbk.build_block_tiles(conf, params, box, CUTOFF, 10**6, cb, triangular)
     return (tiles.atoms, tiles.row_start, tiles.row_count, tiles.col_ids, nbk.tile_scalars(box, BETA, CUTOFF))
 
 
@@ -188,26 +191,36 @@ def _col_rel(out_k, out_p):
 
 
 @pytest.mark.parametrize("cb", [1, 2])
-@pytest.mark.parametrize("mode_name", list(NB_MODES))
-def test_nb_tiles_kernel_matches_plain(cuda, mode_name, cb):
+@pytest.mark.parametrize("form,mode_name", NB_FORMS)
+def test_nb_tiles_kernel_matches_plain(cuda, form, mode_name, cb):
+    """Every built form against the plain version per column (the fluid's
+    w offsets lift dU/dw), at cb 1 and 2."""
     mode, poly = NB_MODES[mode_name]
+    tri = form == "triangular"
     es = nbk.es_switch_poly_coeffs(BETA, CUTOFF) if poly else None
-    args = _tile_args(*_fluid(cuda, seed=3), cb=cb)
+    args = _tile_args(*_fluid(cuda, seed=3), cb=cb, triangular=tri)
     before = nbk.nb_tiles.launches
-    out_k = nbk.nb_tiles(*args, mode, cb, es)
-    out_p = nbk.nb_tiles_plain(*args, mode, cb, es)
+    out_k = nbk.nb_tiles(*args, mode, cb, es, triangular=tri)
+    out_p = nbk.nb_tiles_plain(*args, mode, cb, es, triangular=tri)
     torch.cuda.synchronize()
     assert nbk.nb_tiles.launches == before + 1
     assert _col_rel(out_k, out_p) < TOL
 
 
 def test_nb_tiles_kernel_is_bitwise_reproducible(cuda):
-    args = _tile_args(*_fluid(cuda, seed=4))
-    for mode in (nbk.DP, nbk.UF):
-        assert torch.equal(nbk.nb_tiles(*args, mode, 2), nbk.nb_tiles(*args, mode, 2))
+    """Two launches bitwise equal: the triangular form sums in int64 fixed
+    point, the symmetric one in a fixed order."""
+    conf, params, box = _fluid(cuda, seed=4)
+    for tri, modes in ((True, (nbk.DP, nbk.UF, nbk.FORCE)), (False, (nbk.DP, nbk.FORCE))):
+        args = _tile_args(conf, params, box, triangular=tri)
+        for mode in modes:
+            assert torch.equal(nbk.nb_tiles(*args, mode, 2, triangular=tri), nbk.nb_tiles(*args, mode, 2, triangular=tri))
 
 
 def test_nb_tiles_wrapper_rejects_what_the_kernel_cannot_take(cuda):
+    """Bad arguments raise before a launch; a form the kernel is not built
+    for is refused by the launcher (CUDA error 1, invalid value) and
+    launches nothing."""
     args = _tile_args(*_fluid(cuda))
     with pytest.raises(ValueError):
         nbk.nb_tiles(args[0].double(), *args[1:], nbk.UF, 2)
@@ -215,6 +228,29 @@ def test_nb_tiles_wrapper_rejects_what_the_kernel_cannot_take(cuda):
         nbk.nb_tiles(*args, nbk.DP, 2, nbk.es_switch_poly_coeffs(BETA, CUTOFF))
     with pytest.raises(ValueError):
         nbk.nb_tiles(*args, nbk.UF, 3)
+    poly = nbk.es_switch_poly_coeffs(BETA, CUTOFF)
+    before = nbk.nb_tiles.launches
+    for mode, es, tri in ((nbk.UF, None, False), (nbk.UF, poly, False), (nbk.FORCE, poly, False), (nbk.FORCE, poly, True)):
+        with pytest.raises(RuntimeError, match="CUDA error 1"):
+            nbk.nb_tiles(*args, mode, 2, es, triangular=tri)
+    assert nbk.nb_tiles.launches == before
+
+
+def test_nb_tiles_fixed_point_overflow_gives_nan(cuda):
+    """Two atoms 0.01 nm apart with sigma 0.3 nm: dU/d(sig/2) of about
+    1e20, far beyond the fixed-point range, comes back NaN from the
+    triangular kernel (every column, every atom), never a wrapped sum; the
+    same lists without that pair stay finite."""
+    conf, params, box = _fluid(cuda, seed=11)
+    args = _tile_args(conf, params, box, triangular=True)
+    assert bool(torch.isfinite(nbk.nb_tiles(*args, nbk.DP, 2, triangular=True)).all())
+    conf, params = conf.clone(), params.clone()
+    conf[1] = conf[0] + torch.tensor([0.01, 0.0, 0.0], device=cuda)
+    params[0, 3] = params[1, 3] = 0.0
+    params[:2, 1] = 0.15
+    params[:2, 2] = 1.0
+    out = nbk.nb_tiles(*_tile_args(conf, params, box, triangular=True), nbk.DP, 2, triangular=True)
+    assert bool(torch.isnan(out).all())
 
 
 def test_param_grad_runs_on_the_kernel(cuda):
@@ -225,8 +261,8 @@ def test_param_grad_runs_on_the_kernel(cuda):
     energy(conf, p, box).backward()
     assert bool(torch.isfinite(p.grad).all())
     assert nbk.nb_tiles.launches == before_k + 1 and nbk.nb_tiles_plain.calls == before_p
-    dp_plain = nbk.nb_tiles_plain(*_tile_args(conf, params, box), nbk.DP, 2)
-    tiles = nbk.build_block_tiles(conf, params, box, CUTOFF, 10**6, 2)
+    dp_plain = nbk.nb_tiles_plain(*_tile_args(conf, params, box, triangular=True), nbk.DP, 2, triangular=True)
+    tiles = nbk.build_block_tiles(conf, params, box, CUTOFF, 10**6, 2, triangular=True)
     assert _col_rel(p.grad, dp_plain[torch.argsort(tiles.pad_order[: conf.shape[0]])]) < TOL
 
 

@@ -1,7 +1,9 @@
 """timemachine_torch block-tile sweep against timemachine_tpu's v1 tile
-kernel: the tile builder, nb_tiles_plain against both Pallas entry points
-(interpret mode) in every mode, NaN on list overflow, the exact-erfc
-exclusion functions, and the kernel="v1" energy/force and MD provider.
+kernel: the tile builder (symmetric, and the Newton-triangular subset),
+nb_tiles_plain in both forms against both Pallas entry points (interpret
+mode) in every mode, the kernel's sub-tile cull, NaN on list overflow, the
+exact-erfc exclusion functions, and the kernel="v1" energy/force and MD
+provider (triangular lists).
 
 The sweeps are f32 on both sides and sum each atom's pairs in different
 orders: per-atom outputs agree to a relative norm of 1e-5 per column
@@ -45,11 +47,14 @@ def _tile_set(tiles):
     return {(r, cols[s + k]) for r, (s, c) in enumerate(zip(starts, counts)) for k in range(c)}
 
 
+@pytest.mark.parametrize("triangular", [False, True])
 @pytest.mark.parametrize("cb,cutoff", [(1, 1.0), (2, 1.2)])
-def test_block_tile_set_matches_jax(cb, cutoff):
+def test_block_tile_set_matches_jax(cb, cutoff, triangular):
     """Same sort, same atom rows and the same set of tiles as the JAX
-    build_block_tiles, in a box large enough to cull tiles; the same
-    overflow count when the budget is short."""
+    build_block_tiles, in a box large enough to cull tiles (triangular:
+    JAX's set filtered to the super-blocks that reach the row block's
+    diagonal, c cb + cb - 1 >= r); the same overflow count when the budget
+    is short, and suggest_max_tiles from the same count."""
     conf, params, box = _arrays(build_water_system(3.4))
     n = len(conf)
     n_blocks = -(-n // (128 * cb)) * cb
@@ -57,18 +62,23 @@ def test_block_tile_set_matches_jax(cb, cutoff):
     args = (jnp.asarray(conf), jnp.asarray(params), jnp.asarray(box), cutoff)
     atom_data, pad_order, row_ids, col_ids, valid, _ = map(np.asarray, jnk.build_block_tiles(*args, max_tiles=full, cb=cb))
     targs = (torch.as_tensor(conf), torch.as_tensor(params), torch.as_tensor(box), cutoff)
-    tiles = nbk.build_block_tiles(*targs, full, cb)
-    want = set(zip(row_ids[valid > 0].tolist(), col_ids[valid > 0].tolist()))
+    tiles = nbk.build_block_tiles(*targs, full, cb, triangular)
+    want = {(r, c) for r, c in zip(row_ids[valid > 0].tolist(), col_ids[valid > 0].tolist())
+            if not triangular or c * cb + cb - 1 >= r}
     assert _tile_set(tiles) == want and len(want) < full
+    assert all((r, r // cb) in want for r in range(n_blocks))
     np.testing.assert_array_equal(tiles.pad_order[:n].numpy(), pad_order[:n])
     np.testing.assert_array_equal(tiles.atoms[:n].numpy(), atom_data[:, :n].T)
     assert not tiles.atoms[n:].any()
     short = len(want) // 2
-    j_over = int(jnk.build_block_tiles(*args, max_tiles=short, cb=cb)[-1])
-    t_over = nbk.build_block_tiles(*targs, short, cb)
-    assert int(t_over.overflow) == j_over == len(want) - short
+    t_over = nbk.build_block_tiles(*targs, short, cb, triangular)
+    assert int(t_over.overflow) == len(want) - short
     assert int(t_over.row_count.sum()) == short
-    assert nbk.suggest_max_tiles(conf, box, cutoff, cb=cb) == jnk.suggest_max_tiles(conf, box, cutoff, cb=cb)
+    if not triangular:
+        assert int(jnk.build_block_tiles(*args, max_tiles=short, cb=cb)[-1]) == len(want) - short
+        assert nbk.suggest_max_tiles(conf, box, cutoff, cb=cb) == jnk.suggest_max_tiles(conf, box, cutoff, cb=cb)
+    else:
+        assert nbk.suggest_max_tiles(conf, box, cutoff, cb=cb, triangular=True) == min(-(-len(want) * 13 // 1280) * 128, full)
 
 
 def test_es_switch_poly_coeffs_equal_jax():
@@ -92,7 +102,10 @@ def sweep_inputs(water):
     )
     scal = np.zeros((1, 8), np.float32)
     scal[0, :5] = [*np.diag(box), BETA, CUTOFF]
-    return tiles, flat, jnp.asarray(scal), nbk.tile_scalars(torch.as_tensor(box), BETA, CUTOFF), max_tiles, cb
+    tri = nbk.build_block_tiles(
+        torch.as_tensor(conf), torch.as_tensor(params), torch.as_tensor(box), CUTOFF, max_tiles, cb, triangular=True
+    )
+    return tiles, flat, jnp.asarray(scal), nbk.tile_scalars(torch.as_tensor(box), BETA, CUTOFF), max_tiles, cb, tri
 
 
 MODES = {
@@ -103,12 +116,16 @@ MODES = {
 }
 
 
+@pytest.mark.parametrize("form", ["symmetric", "triangular"])
 @pytest.mark.parametrize("entry", ["nb_tiles_fused", "nb_tiles_fused_vmem"])
 @pytest.mark.parametrize("mode_name", list(MODES))
-def test_plain_matches_pallas(sweep_inputs, mode_name, entry):
+def test_plain_matches_pallas(sweep_inputs, mode_name, entry, form):
     """nb_tiles_plain against the Pallas kernel run in interpret mode on the
-    same sorted rows and tiles, column by column (tolerance TOL_COL)."""
-    tiles, (rows, cols, valid), scal, scal_t, max_tiles, cb = sweep_inputs
+    same sorted rows and JAX's symmetric tiles, column by column (tolerance
+    TOL_COL); the triangular form on its own lists of the same sort, where
+    the per-atom energies are not JAX's halves and only their sum is
+    compared, relative to sum |u_i|."""
+    tiles, (rows, cols, valid), scal, scal_t, max_tiles, cb, tri = sweep_inputs
     mode, poly = MODES[mode_name]
     es = nbk.es_switch_poly_coeffs(BETA, CUTOFF) if poly else None
     ref = np.asarray(getattr(jnk, entry)(
@@ -116,13 +133,51 @@ def test_plain_matches_pallas(sweep_inputs, mode_name, entry):
         interpret=True, es_coeffs=es, cb=cb, compute_u=mode != nbk.FORCE,
     ))
     ref = (ref[4:8] if mode == nbk.DP else ref[0:4]).T
-    out = nbk.nb_tiles(tiles.atoms, tiles.row_start, tiles.row_count, tiles.col_ids, scal_t, mode, cb, es).numpy()
+    t = tri if form == "triangular" else tiles
+    out = nbk.nb_tiles(t.atoms, t.row_start, t.row_count, t.col_ids, scal_t, mode, cb, es, form == "triangular").numpy()
     for col in range(4):
         norm = np.linalg.norm(ref[:, col])
         if norm == 0:  # F mode's energy column
             assert not out[:, col].any()
+        elif col == 0 and mode == nbk.UF and form == "triangular":
+            assert abs(out[:, 0].sum(dtype=np.float64) - ref[:, 0].sum(dtype=np.float64)) / np.abs(ref[:, 0]).sum() < TOL_COL
         else:
             assert np.linalg.norm(out[:, col] - ref[:, col]) / norm < TOL_COL, col
+
+
+@pytest.mark.parametrize("jitter", [0.0, 0.02])
+def test_subtile_cull_never_drops_a_pair(jitter):
+    """The kernel's culls (subtile_boxes, subtile_near) keep every pair of
+    32-atom groups that holds a pair within the cutoff, and every column
+    atom within the cutoff of some atom of the row group, on the 3.4 nm
+    water box's sorted rows, and again after 0.02 nm of random jitter that
+    puts atoms across box faces (the rows keep the build's sort and each
+    group's box is taken at its atoms' images nearest its first atom);
+    cull_census counts the slots each cull keeps on the triangular lists."""
+    conf, params, box = _arrays(build_water_system(3.4))
+    conf_t, box_t = torch.as_tensor(conf), torch.as_tensor(box)
+    tiles = nbk.build_block_tiles(conf_t, torch.as_tensor(params), box_t, CUTOFF, 10**4, 2, triangular=True)
+    moved = conf_t + torch.as_tensor(np.random.default_rng(5).normal(0.0, jitter, conf.shape), dtype=torch.float32)
+    atoms = nbk.assemble_atoms(moved, box_t, tiles.pad_order, tiles.atoms[:, 3:])
+    box_diag = torch.diagonal(box_t)
+    n = len(conf)
+    x = atoms[:n, :3].double()
+    d = x[:, None, :] - x[None, :, :]
+    d = d - box_diag.double() * torch.round(d / box_diag.double())
+    i, j = torch.nonzero(torch.sum(d * d, dim=2) < CUTOFF**2, as_tuple=True)
+    center, half = nbk.subtile_boxes(atoms, box_diag)
+    gi, gj = i // nbk.GROUP, j // nbk.GROUP
+    assert len(i) > 0 and bool(nbk.subtile_near((center[gi], half[gi]), (center[gj], half[gj]), box_diag, CUTOFF).all())
+    point = (atoms[j, :3], torch.zeros_like(atoms[j, :3]))  # the column cull: each atom against the other's group box
+    assert bool(nbk.subtile_near((center[gi], half[gi]), point, box_diag, CUTOFF).all())
+    if jitter:  # the jitter put atoms across faces, so wrapped boxes would stretch
+        crossed = torch.floor(moved / box_diag) != torch.floor(conf_t / box_diag)
+        assert bool(crossed.any())
+    all_groups = torch.arange(len(center))
+    near = nbk.subtile_near((center[:, None], half[:, None]), (center[None], half[None]), box_diag, CUTOFF)
+    assert int(near.sum()) < len(all_groups) ** 2  # the cull drops something here
+    c = nbk.cull_census(atoms, tiles.row_start, tiles.row_count, tiles.col_ids, box_t, CUTOFF, 2)
+    assert 0 < c.columns <= c.swept <= c.subtiles < c.upper <= c.listed == int(tiles.row_count.sum()) * 128 * 256
 
 
 def test_plain_uf_matches_dense_oracle(water):
@@ -226,7 +281,7 @@ def test_v1_md_provider(v1_pair):
 
 
 def test_wrapper_rejects_bad_arguments(sweep_inputs):
-    tiles, _, _, scal_t, _, cb = sweep_inputs
+    tiles, _, _, scal_t, _, cb, _ = sweep_inputs
     args = (tiles.atoms, tiles.row_start, tiles.row_count, tiles.col_ids, scal_t)
     with pytest.raises(ValueError, match="exact"):
         nbk._check_args(*args, nbk.DP, cb, nbk.es_switch_poly_coeffs(BETA, CUTOFF))

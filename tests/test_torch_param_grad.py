@@ -116,6 +116,27 @@ def test_grad_contract(water_pair):
         torch.autograd.grad(nb.u(x, p, box), [p], create_graph=True)
 
 
+def test_dp_pass_runs_triangular_lists():
+    """run_dp sweeps Newton-triangular lists (sized by suggest_max_tiles(...,
+    triangular=True)), each pair once with its four dU/dp terms on both
+    atoms. On the 2.4 nm water box with w offsets lifted, so that dU/dw is
+    not zero, it equals the symmetric DP sweep of the same sort per column,
+    f32, to 1e-5 relative norm (different summation orders)."""
+    cfg = build_water_system(2.4)
+    x = torch.as_tensor(np.asarray(cfg.conf, np.float32))
+    box = torch.as_tensor(np.asarray(cfg.box, np.float32))
+    params = np.array(cfg.host_system.nonbonded_all_pairs.params, np.float32)
+    params[:, 3] = np.random.default_rng(6).uniform(0.0, 0.1, len(params))
+    params = torch.as_tensor(params)
+    dp = nbk.run_dp(x, params, box, BETA, CUTOFF, nbk.suggest_max_tiles(x, box, CUTOFF, cb=2, triangular=True), cb=2)
+    assert not bool(torch.isnan(dp).any())
+    sym = nbk.build_block_tiles(x, params, box, CUTOFF, nbk.suggest_max_tiles(x, box, CUTOFF, cb=2), 2)
+    ref = nbk.nb_tiles_plain(sym.atoms, sym.row_start, sym.row_count, sym.col_ids, nbk.tile_scalars(box, BETA, CUTOFF), nbk.DP, 2)
+    ref = ref[torch.argsort(sym.pad_order[: x.shape[0]])]
+    for col in range(4):
+        assert _rel(dp[:, col].numpy(), ref[:, col].numpy()) < 1e-5, col
+
+
 def test_r2_dp_charge_gradient_vs_polynomial_energy():
     """R2: the DP pass differentiates the exact (A&S erfc) electrostatics,
     as the JAX backward does, while the rowscan energy is the degree-10

@@ -1,5 +1,6 @@
 // Order-free column reactions of the Newton-triangular sweeps (quadscan.cu,
-// dotscan.cu). A block adds each force-sized f32 reaction it computes into
+// dotscan.cu; rowscan.cu and nb_tiles.cu add their row sums too, nb_tiles.cu
+// its dU/dp columns). A block adds each force-sized f32 reaction it computes into
 // an int64 fixed-point accumulator (2^32 units per kJ/mol/nm, range +-2^31)
 // with integer atomics, which are exact and associative, so the order in
 // which blocks run does not change the sum and two launches are bitwise

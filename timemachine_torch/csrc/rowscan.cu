@@ -66,6 +66,7 @@
 
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
 #include "fixed_point.cuh"
 #include "pair_math.cuh"
 #include "row_images.cuh"
@@ -225,18 +226,6 @@ __global__ void __launch_bounds__(THREADS) sym_kernel(
 }
 
 // -- Newton-triangular lists ------------------------------------------------------
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // shared floats of the G tile: none in energy-only mode, G per pair with
 // preshift (contraction), G dx, G dy, G dz per pair with per-pair images

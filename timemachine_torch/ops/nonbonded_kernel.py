@@ -4,17 +4,26 @@ gradients (counterpart of timemachine_tpu/ops/pallas/nonbonded_kernel.py).
 Atoms are sorted along a snake path through spatial cells and cut into
 128-atom row blocks; column super-blocks are cb row blocks wide. Each row
 block lists the column super-blocks whose bounding boxes come within the
-cutoff (and always its own), so the list is symmetric: every pair is seen
-from both of its atoms. The sweep sums, per row atom, over the listed
-column atoms j with
+cutoff (and always its own). The symmetric list (JAX's) sees every pair
+from both of its atoms; the Newton-triangular list keeps only the
+super-blocks that reach the row block's diagonal (c cb + cb - 1 >= r) and
+sees every pair once, from its lower sorted index. The sweep sums, per row
+atom, over the listed column atoms j with
 
-    mask = valid_i & valid_j & (i != j) & (r2 < cutoff^2)
+    mask = valid_i & valid_j & (i != j) & (r2 < cutoff^2)     symmetric
+    mask = valid_i & valid_j & (i < j) & (r2 < cutoff^2)      triangular
 
 (r2 the 4D minimum-image distance) in one of three modes:
 
-    UF   [u_i, dU/dx_i]      u_i half of atom i's pair energies
+    UF   [u_i, dU/dx_i]      u_i half of atom i's pair energies (symmetric),
+                             the energies of the pairs atom i is row of
+                             (triangular): only the sum is the energy
     F    [0, dU/dx_i]
     DP   [dU/dq_i, dU/d(sig/2)_i, dU/d sqrt(eps)_i, dU/dw_i]
+
+In triangular form each pair's terms reach the column atom too (its
+reaction). Every path of the port runs the triangular form; the symmetric
+form is the kernel's first design, kept in DP and F as its yardstick.
 
 The electrostatics are exact (erfc by Abramowitz & Stegun 7.1.26 times the
 cos^3 switch) or two Clenshaw series (`es_switch_poly_coeffs`); DP is always
@@ -24,7 +33,10 @@ exact, as in the JAX backward pass.
 CUDA tensors and uses `nb_tiles_plain`, the same function in plain PyTorch,
 on CPU tensors. The tile builder and the providers are plain tensor code,
 as they are plain XLA in the JAX package. Where the JAX package drops the
-list overflow count (its `_run_dp`), the port returns NaN.
+list overflow count (its `_run_dp`), the port returns NaN; so does the
+kernel where a sum leaves its int64 fixed-point range. `subtile_boxes` and
+`subtile_near` are the kernel's in-sweep cull of 32 x 32 sub-tiles in plain
+PyTorch, for the tests and for `cull_census`.
 """
 
 from __future__ import annotations
@@ -41,8 +53,13 @@ from timemachine_torch.ops import _build
 from timemachine_torch.ops.nonbonded import SWITCH_CUTOFF
 
 BLOCK = 128  # atoms per row block
+GROUP = 32  # atoms per side of the triangular kernel's sub-tiles (one warp's rows)
 UF, FORCE, DP = 0, 1, 2  # sweep modes, as in csrc/nb_tiles.cu
 MAX_CB = 8  # widest column super-block the kernel takes
+CULL_SLACK = 1e-3  # nm added to the cutoff by the sub-tile cull, far above its rounding
+# the triangular kernel's sums are int64 fixed point at 2^32 units (csrc/fixed_point.cuh,
+# range 2^31); a reaction, partial or whole sum of 2^30 or more turns its result into NaN
+FIX_LIMIT = 2.0**30
 CELL_SIZE = 0.65  # nm, the sort cells of the snake path, as in the JAX builder
 HILBERT_BITS = 7  # Hilbert grid of 2^7 cells per axis
 _SQRT_PI = 1.7724538509055159
@@ -151,11 +168,13 @@ def assemble_atoms(conf, box, pad_order, prows):
     return torch.cat([xyz[pad_order] * prows[:, 4:], prows], dim=1)
 
 
-def build_block_tiles(conf, params, box, cutoff: float, max_tiles: int, cb: int = 1):
+def build_block_tiles(conf, params, box, cutoff: float, max_tiles: int, cb: int = 1, triangular: bool = False):
     """Snake sort, 128-atom block bounding boxes and the symmetric list of
     (row block, column super-block) tiles whose boxes come within `cutoff`,
-    in CSR form with every row's own column kept. The sort and the boxes run
-    in f32, as in the JAX builder; the atom rows take conf's dtype."""
+    in CSR form with every row's own column kept; triangular=True keeps of
+    it only the super-blocks c that reach the row block r's diagonal, c cb +
+    cb - 1 >= r (the own column among them). The sort and the boxes run in
+    f32, as in the JAX builder; the atom rows take conf's dtype."""
     n = conf.shape[0]
     dev = conf.device
     n_pad = padded_size(n, cb)
@@ -178,7 +197,10 @@ def build_block_tiles(conf, params, box, cutoff: float, max_tiles: int, cb: int 
     has_c = has_r.view(n_cols, cb).any(1)
     cols = torch.arange(n_cols, device=dev)
     inter = (torch.sum(gap * gap, dim=2) < cutoff * cutoff) & has_r[:, None] & has_c[None, :]
-    inter = inter | (cols[None, :] == torch.arange(n_blocks, device=dev)[:, None] // cb)
+    rows = torch.arange(n_blocks, device=dev)[:, None]
+    inter = inter | (cols[None, :] == rows // cb)
+    if triangular:
+        inter = inter & (cols[None, :] * cb + cb - 1 >= rows)
 
     counts = inter.sum(1)
     listed = torch.sort(torch.where(inter, cols, n_cols + cols), dim=1).values  # interacting columns first, ascending
@@ -200,14 +222,14 @@ def build_block_tiles(conf, params, box, cutoff: float, max_tiles: int, cb: int 
     )
 
 
-def suggest_max_tiles(conf, box, cutoff: float, margin: float = 1.3, cb: int = 1) -> int:
+def suggest_max_tiles(conf, box, cutoff: float, margin: float = 1.3, cb: int = 1, triangular: bool = False) -> int:
     """Host-side capacity: the listed tile count at this geometry, times
     margin for diffusion between rebuilds, rounded up to 128."""
     n_pad = padded_size(conf.shape[0], cb)
     cap = (n_pad // BLOCK) * (n_pad // (BLOCK * cb))
     conf = torch.as_tensor(conf)
     params = conf.new_zeros((conf.shape[0], 4))
-    count = int(build_block_tiles(conf, params, torch.as_tensor(box), cutoff, cap, cb).row_count.sum())
+    count = int(build_block_tiles(conf, params, torch.as_tensor(box), cutoff, cap, cb, triangular).row_count.sum())
     want = int(np.ceil(count * margin / 128) * 128)
     return min(max(want, 128), cap)
 
@@ -216,6 +238,79 @@ def tile_scalars(box, beta: float, cutoff: float):
     """(5,) [box_x, box_y, box_z, beta, cutoff] on box's device, without a
     host copy."""
     return F.pad(F.pad(torch.diagonal(box), (0, 1), value=beta), (0, 1), value=cutoff)
+
+
+def subtile_boxes(atoms, box_diag):
+    """(Npad / 32, 3) centers and half-extents of each 32-atom group's
+    valid atoms, at their images nearest the group's first atom (the
+    kernel's group_boxes). A group with no valid atom gets half-extents of
+    -1e18, so nothing comes near it."""
+    x = atoms[:, :3].reshape(-1, GROUP, 3)
+    valid = (atoms[:, 7] > 0).reshape(-1, GROUP, 1)
+    rel = x - x[:, :1]
+    rel = rel - box_diag * torch.round(rel / box_diag)
+    lo = torch.where(valid, rel, math.inf).amin(1)
+    hi = torch.where(valid, rel, -math.inf).amax(1)
+    empty = ~valid.any(1)
+    center = torch.where(empty, 0.0, x[:, 0] + 0.5 * (lo + hi))
+    half = torch.where(empty, -1e18, 0.5 * (hi - lo))
+    return center, half
+
+
+def subtile_near(row_boxes, col_boxes, box_diag, cutoff: float):
+    """The kernel's cull, elementwise over broadcast (center, half) pairs:
+    True where the two groups' boxes come within cutoff + CULL_SLACK under
+    the minimum image. Any images of the atoms bound each pair's distance
+    from below, and w only adds to r^2, so a False pair of groups holds no
+    pair within the cutoff."""
+    (rc, rh), (cc, ch) = row_boxes, col_boxes
+    dc = rc - cc
+    dc = dc - box_diag * torch.round(dc / box_diag)
+    gap = torch.clamp(torch.abs(dc) - (rh + ch), min=0.0)
+    return torch.sum(gap * gap, dim=-1) < (cutoff + CULL_SLACK) ** 2
+
+
+class CullCensus(NamedTuple):
+    """Pair slots of the triangular kernel on one set of lists."""
+
+    listed: int  # 128 x 128 cb per listed tile
+    upper: int  # in the 32 x 32 sub-tiles whose column group is not below the row group
+    subtiles: int  # in those sub-tiles the group-box cull keeps
+    columns: int  # 32 rows x the live columns: those of kept sub-tiles near the row group's box
+    swept: int  # what the kernel sweeps: the live columns of each warp and tile in chunks of 32
+
+
+def cull_census(atoms, row_start, row_count, col_ids, box, cutoff: float, cb: int) -> CullCensus:
+    """Host-side pair-slot counts of the triangular kernel's culls on these
+    lists, by subtile_near (the column cull takes each column atom as a box
+    of no extent)."""
+    box_diag = torch.diagonal(box).to(atoms.dtype)
+    center, half = subtile_boxes(atoms, box_diag)
+    dev = atoms.device
+    counts = row_count.long()
+    rows = torch.repeat_interleave(torch.arange(len(counts), device=dev), counts)
+    k = torch.arange(len(rows), device=dev) - torch.repeat_interleave(torch.cumsum(counts, 0) - counts, counts)
+    cols = col_ids[row_start.long()[rows] + k].long()
+    per_block, per_col, width = BLOCK // GROUP, BLOCK * cb // GROUP, BLOCK * cb
+    rg = rows[:, None] * per_block + torch.arange(per_block, device=dev)  # (T, 4)
+    cg = cols[:, None] * per_col + torch.arange(per_col, device=dev)  # (T, groups)
+    upper = cg[:, None, :] >= rg[:, :, None]  # (T, 4, groups)
+    kept = upper & subtile_near(
+        (center[rg][:, :, None], half[rg][:, :, None]), (center[cg][:, None], half[cg][:, None]), box_diag, cutoff
+    )
+    j = cols[:, None] * width + torch.arange(width, device=dev)  # (T, width)
+    point = (atoms[j, :3][:, None], torch.zeros_like(atoms[j, :3][:, None]))
+    live = (
+        kept.repeat_interleave(GROUP, dim=2)
+        & (atoms[j, 7] > 0)[:, None]
+        & subtile_near((center[rg][:, :, None], half[rg][:, :, None]), point, box_diag, cutoff)
+    )  # (T, 4, width)
+    n_live = live.sum(2)
+    slots = GROUP * GROUP
+    return CullCensus(
+        listed=len(rows) * BLOCK * width, upper=int(upper.sum()) * slots, subtiles=int(kept.sum()) * slots,
+        columns=int(n_live.sum()) * GROUP, swept=int(((n_live + GROUP - 1) // GROUP).sum()) * slots,
+    )
 
 
 def _clenshaw(t2, coeffs):
@@ -299,18 +394,22 @@ def _check_args(atoms, row_start, row_count, col_ids, scalars, mode: int, cb: in
             raise ValueError(f"{name}: want shape {shape}, got {tuple(t.shape)}")
 
 
-def nb_tiles_plain(atoms, row_start, row_count, col_ids, scalars, mode: int, cb: int = 1, es_coeffs=None):
+def nb_tiles_plain(
+    atoms, row_start, row_count, col_ids, scalars, mode: int, cb: int = 1, es_coeffs=None, triangular: bool = False,
+):
     """The sweep in plain PyTorch, in atoms' dtype: each batch of row blocks
     gathers its listed column super-blocks into (rows, L, 128, 128 cb) pair
     tensors masked by row_count, with L the batch's longest list. A batch
     holds at most about 2^18 pair slots on the CPU and 2^24 on a card.
-    Returns (Npad, 4) by mode, like the kernel."""
+    Returns (Npad, 4) by mode, like the kernel; the triangular form's
+    column reactions are scattered with index_add_."""
     nb_tiles_plain.calls += 1
     block_pairs = 1 << 18 if atoms.device.type == "cpu" else 1 << 24
     n_pad = atoms.shape[0]
     width = BLOCK * cb
     n_blocks = n_pad // BLOCK
     out = atoms.new_zeros((n_pad, 4))
+    react = atoms.new_zeros((4, n_pad)) if triangular else None
     counts = row_count.tolist()
     batch = max(1, block_pairs // (max(max(counts), 1) * BLOCK * width))
     comp = atoms.T.contiguous()  # one contiguous row per column of the atom rows
@@ -335,25 +434,33 @@ def nb_tiles_plain(atoms, row_start, row_count, col_ids, scalars, mode: int, cb:
         d = [da - box[a] * torch.floor(da / box[a] + 0.5) for a, da in enumerate(d)]
         dw = ri[3] - cj[3]
         r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2] + dw * dw
-        mask = (ri[7] > 0) & (cj[7] > 0) & (gi != gj) & (r2 < cutoff * cutoff) & listed[:, :, None, None]
+        pair_ok = gi < gj if triangular else gi != gj
+        mask = (ri[7] > 0) & (cj[7] > 0) & pair_ok & (r2 < cutoff * cutoff) & listed[:, :, None, None]
         e, de_r, s_r_sw, t6, t12, eps4 = _pair_terms(r2, ri[4] * cj[4], ri[5] + cj[5], ri[6] * cj[6], beta, mask, es_coeffs)
         sl = slice(r0 * BLOCK, r1 * BLOCK)
         if mode == DP:
             sig = ri[5] + cj[5]
             sig_safe = torch.where(sig > 0, sig, 1.0)
-            terms = (
-                torch.where(mask, cj[4] * s_r_sw, 0.0),
-                torch.where(mask & (eps4 != 0), eps4 * (12.0 * t12 - 6.0 * t6) / sig_safe, 0.0),
-                torch.where(mask, cj[6] * (4.0 * (t12 - t6)), 0.0),
-                de_r * dw,
+            d_sig = torch.where(mask & (eps4 != 0), eps4 * (12.0 * t12 - 6.0 * t6) / sig_safe, 0.0)
+            lj = 4.0 * (t12 - t6)
+            rows_terms = (torch.where(mask, cj[4] * s_r_sw, 0.0), d_sig, torch.where(mask, cj[6] * lj, 0.0), de_r * dw)
+            cols_terms = (
+                (torch.where(mask, ri[4] * s_r_sw, 0.0), d_sig, torch.where(mask, ri[6] * lj, 0.0), -de_r * dw)
+                if triangular else ()
             )
-            for a, term in enumerate(terms):
-                out[sl, a] = term.sum((1, 3)).reshape(-1)
         else:
-            for a in range(3):
-                out[sl, 1 + a] = (de_r * d[a]).sum((1, 3)).reshape(-1)
-            if mode == UF:
-                out[sl, 0] = 0.5 * e.sum((1, 3)).reshape(-1)
+            rows_terms = (e if mode == UF else None, *(de_r * da for da in d))
+            cols_terms = (None, *(-de_r * da for da in d)) if triangular else ()
+        for a, term in enumerate(rows_terms):
+            if term is not None:
+                out[sl, a] = term.sum((1, 3)).reshape(-1)
+        if mode == UF and not triangular:
+            out[sl, 0] *= 0.5  # each pair's energy was counted from both of its atoms
+        for a, term in enumerate(cols_terms):
+            if term is not None:
+                react[a].index_add_(0, gj[:, :, 0, :].reshape(-1), term.sum(2).reshape(-1))
+    if triangular:
+        out += react.T
     return out
 
 
@@ -366,23 +473,30 @@ def _launcher():
     fn = _build.load_library("nb_tiles").nb_tiles_launch
     if fn.argtypes is None:
         fn.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_float)] * 2 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_float)] * 2 + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
     return fn
 
 
-def nb_tiles(atoms, row_start, row_count, col_ids, scalars, mode: int, cb: int = 1, es_coeffs=None):
+def nb_tiles(
+    atoms, row_start, row_count, col_ids, scalars, mode: int, cb: int = 1, es_coeffs=None, triangular: bool = False,
+):
     """(Npad, 4) sweep of the listed tiles by mode (UF, FORCE or DP).
 
     atoms (Npad, 8) f32 sorted rows [x y z w q sig/2 sqrt(eps) valid],
     row_start/row_count (nB,) and col_ids (max_tiles,) int32 in CSR form,
     scalars (5,) f32 [bx by bz beta cutoff], es_coeffs None (exact
-    electrostatics) or the (h, h') series of es_switch_poly_coeffs. A CUDA
-    tensor launches the kernel of csrc/nb_tiles.cu on the current stream; a
-    CPU tensor runs nb_tiles_plain (in atoms' dtype)."""
+    electrostatics) or the (h, h') series of es_switch_poly_coeffs,
+    triangular as the lists were built. A CUDA tensor launches the kernel of
+    csrc/nb_tiles.cu on the current stream (with int64 fixed-point and
+    sub-tile box scratch in triangular form; NaN where a sum leaves the
+    fixed-point range); the kernel is built for the triangular form in DP,
+    UF (exact and poly) and F (exact), and for the symmetric form in DP and
+    F (exact), and refuses any other. A CPU tensor runs nb_tiles_plain (in
+    atoms' dtype)."""
     if atoms.device.type == "cpu":
-        return nb_tiles_plain(atoms, row_start, row_count, col_ids, scalars, mode, cb, es_coeffs)
+        return nb_tiles_plain(atoms, row_start, row_count, col_ids, scalars, mode, cb, es_coeffs, triangular)
     if atoms.device.type != "cuda":
         raise ValueError(f"nb_tiles: no kernel for device {atoms.device}")
     _check_args(atoms, row_start, row_count, col_ids, scalars, mode, cb, es_coeffs)
@@ -392,10 +506,15 @@ def nb_tiles(atoms, row_start, row_count, col_ids, scalars, mode: int, cb: int =
             _series_args[es_coeffs] = tuple((ctypes.c_float * len(c))(*c) for c in es_coeffs)
         h_arg, hp_arg = _series_args[es_coeffs]
     dev = atoms.device
-    out = torch.empty((atoms.shape[0], 4), dtype=torch.float32, device=dev)
+    n_pad = atoms.shape[0]
+    out = torch.empty((n_pad, 4), dtype=torch.float32, device=dev)
+    # triangular: (4, Npad) fixed-point sums and an overflow flag; (Npad / 32, 8) group boxes
+    acc = torch.zeros(4 * n_pad + 1 if triangular else 0, dtype=torch.int64, device=dev)
+    boxes = torch.empty(n_pad // GROUP * 8 if triangular else 0, dtype=torch.float32, device=dev)
     rc = _launcher()(
         atoms.data_ptr(), row_start.data_ptr(), row_count.data_ptr(), col_ids.data_ptr(), scalars.data_ptr(),
-        out.data_ptr(), atoms.shape[0] // BLOCK, cb, mode, h_arg, hp_arg, torch.cuda.current_stream(dev).cuda_stream,
+        out.data_ptr(), acc.data_ptr(), boxes.data_ptr(), n_pad // BLOCK, cb, mode, int(triangular), h_arg, hp_arg,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"nb_tiles: kernel launch failed with CUDA error {rc}")
@@ -413,24 +532,27 @@ def poison_on_overflow(overflow, val):
 
 
 def _sweep(conf, params, box, beta, cutoff, max_tiles, mode, cb, es_coeffs=None):
-    """(Npad, 4) sweep over lists built for this call, with the inverse order."""
-    tiles = build_block_tiles(conf, params, box, cutoff, max_tiles, cb)
+    """(Npad, 4) sweep over triangular lists built for this call, with the
+    inverse order."""
+    tiles = build_block_tiles(conf, params, box, cutoff, max_tiles, cb, triangular=True)
     out = nb_tiles(
         tiles.atoms, tiles.row_start, tiles.row_count, tiles.col_ids, tile_scalars(box.to(conf.dtype), beta, cutoff),
-        mode, cb, es_coeffs,
+        mode, cb, es_coeffs, triangular=True,
     )
     return out, torch.argsort(tiles.pad_order[: conf.shape[0]]), tiles.overflow
 
 
 def run_uf(conf, params, box, beta, cutoff, max_tiles, es_coeffs=None, cb: int = 1):
-    """One UF pass: (total energy, dU/dx), NaN on list overflow."""
+    """One UF pass over triangular lists of max_tiles (size it with
+    suggest_max_tiles(..., triangular=True)): (total energy, dU/dx), NaN on
+    list overflow."""
     out, inv, overflow = _sweep(conf, params, box, beta, cutoff, max_tiles, UF, cb, es_coeffs)
     return poison_on_overflow(overflow, torch.sum(out[:, 0])), poison_on_overflow(overflow, out[inv, 1:4])
 
 
 def run_dp(conf, params, box, beta, cutoff, max_tiles, cb: int = 1):
-    """One DP pass: (N, 4) dU/dp in params' column order [q, sig/2,
-    sqrt(eps), w], NaN on list overflow."""
+    """One DP pass over triangular lists of max_tiles: (N, 4) dU/dp in
+    params' column order [q, sig/2, sqrt(eps), w], NaN on list overflow."""
     out, inv, overflow = _sweep(conf, params, box, beta, cutoff, max_tiles, DP, cb)
     return poison_on_overflow(overflow, out[inv])
 
@@ -543,17 +665,20 @@ def make_list_md_provider(build, sweep, force_mode: int, energy_mode: int, rebui
 def make_nonbonded_tiles_md(
     beta: float, cutoff: float, max_tiles: int, skin: float = 0.1, rebuild_interval: int = 20, cb: int = 1,
 ):
-    """MD force provider over block tiles (counterpart of
+    """MD force provider over triangular block tiles (counterpart of
     make_nonbonded_pallas_md): an F pass per step, a UF pass for the
-    energy; see make_list_md_provider."""
+    energy; see make_list_md_provider. Size max_tiles with
+    suggest_max_tiles(..., triangular=True)."""
 
     def build(conf, params, box):
-        tiles = build_block_tiles(conf, params, box, cutoff + skin, max_tiles, cb)
+        tiles = build_block_tiles(conf, params, box, cutoff + skin, max_tiles, cb, triangular=True)
         return ListState(tiles, torch.argsort(tiles.pad_order[: conf.shape[0]]), tiles.atoms[:, 3:], tiles.overflow)
 
     def sweep(state, conf, box, mode):
         t = state.lists
         atoms = assemble_atoms(conf, box, t.pad_order, state.prows)
-        return nb_tiles(atoms, t.row_start, t.row_count, t.col_ids, tile_scalars(box, beta, cutoff), mode, cb)
+        return nb_tiles(
+            atoms, t.row_start, t.row_count, t.col_ids, tile_scalars(box, beta, cutoff), mode, cb, triangular=True
+        )
 
     return make_list_md_provider(build, sweep, FORCE, UF, rebuild_interval)

@@ -122,7 +122,8 @@ class NonbondedAllPairs(nn.Module):
         counts: the energy/force lists at the bare cutoff, the MD lists at
         cutoff + SKIN (with a sort-cell size from a census of swept slots
         for rowscan systems of 8,192 atoms and up), the du/dp lists at the
-        bare cutoff with column super-blocks DP_CB wide. rowscan_has_w=False
+        bare cutoff with column super-blocks DP_CB wide (the block-tile
+        lists, du/dp and v1, are Newton-triangular). rowscan_has_w=False
         promises that every w offset is zero (as bench.py passes for DHFR)."""
         if kernel not in ("rowscan", "gather", "quad", "dot", "v1"):
             raise ValueError(f"kernel must be 'rowscan', 'gather', 'quad', 'dot' or 'v1', got {kernel!r}")
@@ -137,7 +138,7 @@ class NonbondedAllPairs(nn.Module):
             if self.dot_sort is None:
                 kernel = "rowscan"
         self.kernel = kernel
-        self.dp_max_tiles = nbk.suggest_max_tiles(conf, box, self.cutoff, margin=MARGIN, cb=DP_CB)
+        self.dp_max_tiles = nbk.suggest_max_tiles(conf, box, self.cutoff, margin=MARGIN, cb=DP_CB, triangular=True)
         self.h_coeffs = rs.es_energy_force_series(self.beta, self.cutoff)[0]
         if kernel == "gather":
             self.max_nbrs = gk.suggest_max_nbrs(conf, box, self.cutoff, margin=MARGIN)
@@ -187,7 +188,9 @@ class NonbondedAllPairs(nn.Module):
             self._energy = lambda x, params, box: ef(x, params, box)[0]
             self._energy_force = ef
             self._u = nbk.make_nonbonded_tiles(self.beta, self.cutoff, self.dp_max_tiles, cb=DP_CB)
-            self.md_max_tiles = nbk.suggest_max_tiles(conf, box, self.cutoff + SKIN, margin=MARGIN, cb=DP_CB)
+            self.md_max_tiles = nbk.suggest_max_tiles(
+                conf, box, self.cutoff + SKIN, margin=MARGIN, cb=DP_CB, triangular=True
+            )
             self._md = nbk.make_nonbonded_tiles_md(
                 self.beta, self.cutoff, self.md_max_tiles, skin=SKIN, rebuild_interval=REBUILD_INTERVAL, cb=DP_CB
             )

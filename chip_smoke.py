@@ -42,7 +42,15 @@ against the rowscan configuration's, 500 NPT steps and two bitwise-equal
 100-step runs (quad also: the configuration taken, the constant-shift
 margin, the largest |dU/dx| against the fixed-point range; dot also: the
 sort taken, both list forms, the image-bound margin before and after the
-run, its MD provider's force against rowscan's); the probes [12]: the FP32
+run, its MD provider's force against rowscan's). Phases 10 and 11 also
+print the pair slots listed, kept by the redesigned kernel's column cull
+and swept after chunk padding (held under half the listed; counted by
+cull_census, the plain copy of the kernel's cull and chunking, not by the
+kernel), and the redesign against the first design in F in the same run
+(quad: its first kernel, held under QUAD_REDESIGN_RATIO; dot: the
+symmetric form, its first design, held under DOT_REDESIGN_RATIO); phase 10
+also holds quad's no-w form against its plain version, with its time and
+bound. The probes [12]: the FP32
 FMA rate at INNER and twice INNER (the time must double) beside the data
 sheet's peak, the bf16 and f32 gate rates, each probe bitwise against its
 plain version. Every path runs with all launch and plain-call counts set to
@@ -98,6 +106,15 @@ TOL_ALT_FORCE = 1e-5
 # which DHFR NPT does not survive (1.47e-5 to 1.51e-5; ROADMAP R6), so this
 # check fails a return to it
 TOL_DOT_FORCE = 4e-6
+# the quad and dot redesigns (per-step culls with compaction, list segments)
+# against their first designs, F mode, in the same run: at DHFR they sweep
+# about 32M of the quad lists' 70.4M slots and 35M of the dot lists' 91.1M
+QUAD_REDESIGN_RATIO = 0.60
+DOT_REDESIGN_RATIO = 0.55
+# the culls of the quad and dot redesigns must leave at most this share of
+# the listed slots to sweep at DHFR (as cull_census counts them: the plain
+# copy of each kernel's cull and chunking)
+SWEPT_SHARE = 0.5
 # the FP32 probe's time from INNER to 2 INNER: the chains were not folded
 PROBE_RATIO = (1.8, 2.2)
 # the bound: published H100 SXM peaks (NVIDIA data sheet), FP32 outside the
@@ -120,10 +137,10 @@ PEAK_FP32, PEAK_BYTES, PEAK_BF16_VECTOR = 67e12, 3.35e12, 133.8e12
 # differences, the parameters, the pair function and the row's four sums,
 # and 7 for the reaction's four. dotscan's F mode: the 4 differences, the
 # pair function 48, the 3 pair parameters, the row contraction's 4 sums 7
-# and the column's 7.
+# and the column's 7. quadscan's no-w form as rowscan's main form: 61.
 FLOPS_PER_PAIR = {
     "rowscan_sweep": 61, "rowscan_symmetric": 64, "nb_tiles": 101, "gather_sweep": 64, "quadscan_sweep": 64,
-    "dotscan_sweep": 69,
+    "quadscan_sweep_nw": 61, "dotscan_sweep": 69,
 }
 
 
@@ -753,23 +770,48 @@ def main() -> int:
     atoms10 = rs.assemble_atoms(x_min, box, tiles10.pad_order, state10.prows)
     args10 = (atoms10, tiles10.row_start, tiles10.row_count, tiles10.entries, rs.sweep_scalars(box, nb10.cutoff), series)
     listed10 = int(tiles10.row_count.sum())
-    slots10 = listed10 * qk.PACK * qk.Q * qk.Q
+    census10 = qk.cull_census(*args10[:5])
     print(
         f"[10 shapes] Npad {atoms10.shape[0]}, chunks {tiles10.row_start.shape[0]}, listed tiles {listed10} of "
-        f"capacity {nb10.md_max_tiles} at cutoff + skin, swept slots {slots10} ({slots10 / pairs_min:.2f} per pair "
-        f"within the cutoff); constant-shift margin {float(tiles10.margin):.4f} nm; list build {build10:.3f} ms ({smi})"
+        f"capacity {nb10.md_max_tiles} at cutoff + skin; pair slots listed {census10.listed} "
+        f"({census10.listed / pairs_min:.2f} per pair within the cutoff), kept by the column cull {census10.columns}, "
+        f"swept in chunks of 32 columns {census10.swept} ({census10.swept / pairs_min:.2f} per pair; "
+        f"{census10.swept / census10.listed:.3f} of listed, want <= {SWEPT_SHARE}; counted by the plain cull_census); "
+        f"constant-shift margin {float(tiles10.margin):.4f} nm; list build {build10:.3f} ms ({smi})"
     )
     check(float(tiles10.margin) > 0, "[10] the constant-shift invariant fails at the start")
-    err10, ms10, plain10 = compare_kernel("10", [
-        (label, lambda m=mode: qk.quadscan_sweep(*args10, m), lambda m=mode: qk.quadscan_sweep_plain(*args10, m))
-        for label, mode in (("F", qk.FORCE), ("F+U", qk.FORCE_ENERGY))
-    ])
-    quad_row = kernel_entry(
-        "quadscan_sweep", "quadscan.cu", "quadscan_kernel.py:69", err10, ms10, plain10, pairs_min,
-        tensor_bytes(atoms10, tiles10.row_start, tiles10.row_count) + 4 * qk.PACK * listed10 + 16 * atoms10.shape[0],
+    check(census10.swept <= SWEPT_SHARE * census10.listed, "[10] the culls leave too many slots to sweep")
+    res10 = {}
+    for label, mode, w, first in (
+        ("F", qk.FORCE, True, False), ("F+U", qk.FORCE_ENERGY, True, False), ("no-w F", qk.FORCE, False, False),
+        ("no-w F+U", qk.FORCE_ENERGY, False, False), ("first design F", qk.FORCE, True, True),
+    ):
+        res10[label] = compare_kernel("10", [(
+            label, lambda m=mode, w=w, f=first: qk.quadscan_sweep(*args10, m, has_w=w, first_design=f),
+            lambda m=mode, w=w: qk.quadscan_sweep_plain(*args10, m, has_w=w),
+        )])
+    err10, ms10, plain10 = res10["F"]
+    ms_first10 = res10["first design F"][1]
+    print(
+        f"[10 redesign] F with w {ms10:.4f} ms over {census10.swept} slots swept by the census "
+        f"({census10.swept / ms10 / 1e6:.1f}G slots/s), first design F {ms_first10:.4f} ms over {census10.listed} "
+        f"({census10.listed / ms_first10 / 1e6:.1f}G slots/s); ratio {ms10 / ms_first10:.3f} (want <= "
+        f"{QUAD_REDESIGN_RATIO}) ({smi})"
     )
-    print(f"[10 bound] F-mode bound over pairs {quad_row['bound_ms']:.4f} ms, over swept slots "
-          f"{bound(pair_ops('quadscan_sweep', slots10), 0)[0]:.4f} ms ({smi})")
+    check(ms10 <= QUAD_REDESIGN_RATIO * ms_first10, "[10] the quad redesign is not enough faster than the first design")
+    bytes10 = tensor_bytes(atoms10, tiles10.row_start, tiles10.row_count) + 4 * qk.PACK * listed10 + 16 * atoms10.shape[0]
+    quad_row = kernel_entry("quadscan_sweep", "quadscan.cu", "quadscan_kernel.py:69", err10, ms10, plain10, pairs_min, bytes10)
+    quad_row["ms_by_form_and_mode"] = {label: r[1] for label, r in res10.items()}
+    nw = kernel_entry("quadscan_sweep_nw", "quadscan.cu", "quadscan_kernel.py:69", *res10["no-w F"], pairs_min, bytes10)
+    quad_row["no_w"] = {key: nw[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+    print(
+        f"[10 bound] F-mode bound over pairs {quad_row['bound_ms']:.4f} ms, over the slots the culls keep "
+        f"{bound(pair_ops('quadscan_sweep', census10.columns), 0)[0]:.4f} ms, over the swept slots "
+        f"{bound(pair_ops('quadscan_sweep', census10.swept), 0)[0]:.4f} ms, over the listed slots "
+        f"{bound(pair_ops('quadscan_sweep', census10.listed), 0)[0]:.4f} ms ({FLOPS_PER_PAIR['quadscan_sweep']} per "
+        f"pair); no-w F {res10['no-w F'][1]:.4f} ms against its bound over pairs {nw['bound_ms']:.4f} ms "
+        f"({FLOPS_PER_PAIR['quadscan_sweep_nw']} per pair), plain {res10['no-w F'][2]:.2f} ms ({smi})"
+    )
     # the quad configuration's energy and force are rowscan's: hold its MD
     # provider's net nonbonded force (the quadscan sweep minus the
     # exclusions) against the rowscan configuration's, on the same scale
@@ -787,11 +829,11 @@ def main() -> int:
     )
     print(
         f"[10 invariant] constant-shift margin at cutoff + skin: {float(tiles10.margin):.4f} nm at the start, "
-        f"{margin_end:.4f} nm after {N_ALT} steps; largest |dU/dx| {grad_max:.4e} of the fixed-point range "
-        f"{fixed_range:.4e} kJ/mol/nm ({smi})"
+        f"{margin_end:.4f} nm after {N_ALT} steps; largest |dU/dx| {grad_max:.4e} of the kernel's fixed-point "
+        f"limit {nbk.FIX_LIMIT:.4e} kJ/mol/nm (NaN beyond; {smi})"
     )
     check(margin_end > 0, "[10] the constant-shift invariant fails at the end")
-    check(grad_max < fixed_range, "[10] |dU/dx| beyond the fixed-point range")
+    check(grad_max < nbk.FIX_LIMIT, "[10] |dU/dx| beyond the kernel's fixed-point limit")
     bitwise_repeat("10", bps10)
 
     # -- 11. the kernel="dot" path --------------------------------------------------------
@@ -803,13 +845,18 @@ def main() -> int:
     atoms11 = rs.assemble_atoms(x_min, box, tiles11.pad_order, state11.prows)
     n_rows11 = tiles11.row_start.shape[0]
     listed11 = int(tiles11.row_count.sum())
-    slots11 = (listed11 + n_rows11) * dk.ROW * dk.COL  # the covering tiles are swept too
+    scal11 = rs.sweep_scalars(box, nb11.cutoff)
+    census11 = dk.cull_census(atoms11, tiles11.row_start, tiles11.row_count, tiles11.col_ids, tiles11.rcen_q, scal11)
     print(
         f"[11 shapes] configuration {nb11.kernel!r}, sort {nb11.dot_sort!r}; Npad {atoms11.shape[0]}, row chunks "
-        f"{n_rows11}, listed tiles {listed11} of capacity {nb11.md_max_pairs} at cutoff + skin (triangular), swept "
-        f"slots {slots11} ({slots11 / pairs_min:.2f} per pair within the cutoff, {pairs_min} pairs); image-bound "
-        f"margin {float(tiles11.margin):.4f} nm; list build {build11:.3f} ms ({smi})"
+        f"{n_rows11}, listed tiles {listed11} of capacity {nb11.md_max_pairs} at cutoff + skin (triangular); pair "
+        f"slots listed with the covering tiles {census11.listed} ({census11.listed / pairs_min:.2f} per pair within "
+        f"the cutoff, {pairs_min} pairs), kept by the column cull {census11.columns}, swept in chunks of 32 columns "
+        f"{census11.swept} ({census11.swept / pairs_min:.2f} per pair; {census11.swept / census11.listed:.3f} of "
+        f"listed, want <= {SWEPT_SHARE}; counted by the plain cull_census); image-bound margin {float(tiles11.margin):.4f} nm; list build "
+        f"{build11:.3f} ms ({smi})"
     )
+    check(census11.swept <= SWEPT_SHARE * census11.listed, "[11] the cull leaves too many slots to sweep")
     sym11 = dk.build_dotscan_tiles(
         x_min, box, list_cut, dk.suggest_max_pairs(x_min, box, list_cut, sort=nb11.dot_sort), sort=nb11.dot_sort
     )
@@ -818,19 +865,36 @@ def main() -> int:
 
     def dot_args(form):
         t, tri = forms11[form]
-        return (atoms11, t.row_start, t.row_count, t.col_ids, t.rcen_q, rs.sweep_scalars(box, nb11.cutoff), series), tri
+        return (atoms11, t.row_start, t.row_count, t.col_ids, t.rcen_q, scal11, series), tri
 
-    err11, ms11, plain11 = compare_kernel("11", [
-        (f"{form} {label}", lambda f=form, m=mode: dk.dotscan_sweep(*dot_args(f)[0], m, dot_args(f)[1]),
-         lambda f=form, m=mode: dk.dotscan_sweep_plain(*dot_args(f)[0], m, dot_args(f)[1]))
-        for form in ("tri", "sym") for label, mode in (("F", dk.FORCE), ("F+U", dk.FORCE_ENERGY))
-    ])
+    res11 = {}
+    for form in ("tri", "sym"):
+        for label, mode in (("F", dk.FORCE), ("F+U", dk.FORCE_ENERGY)):
+            res11[f"{form} {label}"] = compare_kernel("11", [(
+                f"{form} {label}", lambda f=form, m=mode: dk.dotscan_sweep(*dot_args(f)[0], m, dot_args(f)[1]),
+                lambda f=form, m=mode: dk.dotscan_sweep_plain(*dot_args(f)[0], m, dot_args(f)[1]),
+            )])
+    err11, ms11, plain11 = res11["tri F"]
+    ms_sym11 = res11["sym F"][1]
+    sym_slots11 = int(sym11.row_count.sum()) * dk.ROW * dk.COL
+    print(
+        f"[11 redesign] triangular F {ms11:.4f} ms over {census11.swept} slots swept by the census "
+        f"({census11.swept / ms11 / 1e6:.1f}G slots/s), symmetric F (the first design) {ms_sym11:.4f} ms over "
+        f"{sym_slots11} ({sym_slots11 / ms_sym11 / 1e6:.1f}G slots/s); ratio {ms11 / ms_sym11:.3f} (want <= "
+        f"{DOT_REDESIGN_RATIO}) ({smi})"
+    )
+    check(ms11 <= DOT_REDESIGN_RATIO * ms_sym11, "[11] the triangular dot redesign is not enough faster than the symmetric form")
     dot_row = kernel_entry(
         "dotscan_sweep", "dotscan.cu", "dotscan_kernel.py:82", err11, ms11, plain11, pairs_min,
         tensor_bytes(atoms11, tiles11.row_start, tiles11.row_count, tiles11.rcen_q) + 4 * listed11 + 16 * atoms11.shape[0],
     )
-    print(f"[11 bound] triangular F-mode bound over pairs {dot_row['bound_ms']:.4f} ms, over swept slots "
-          f"{bound(pair_ops('dotscan_sweep', slots11), 0)[0]:.4f} ms (FP32 peak {PEAK_FP32:.3g}/s; {smi})")
+    dot_row["ms_by_form_and_mode"] = {label: r[1] for label, r in res11.items()}
+    print(
+        f"[11 bound] triangular F-mode bound over pairs {dot_row['bound_ms']:.4f} ms, over the slots the cull keeps "
+        f"{bound(pair_ops('dotscan_sweep', census11.columns), 0)[0]:.4f} ms, over the swept slots "
+        f"{bound(pair_ops('dotscan_sweep', census11.swept), 0)[0]:.4f} ms, over the listed slots "
+        f"{bound(pair_ops('dotscan_sweep', census11.listed), 0)[0]:.4f} ms (FP32 peak {PEAK_FP32:.3g}/s; {smi})"
+    )
     f_md11 = nb11.md_force_provider()[1](state11, x_min, box, 1)[0]
     md_rel11 = float(torch.linalg.vector_norm(f_md11 - f_rs) / torch.linalg.vector_norm(f_ap))
     print(f"[11 force] MD provider (dotscan): net nonbonded force vs rowscan: |diff| / |all-pairs force| "
@@ -851,11 +915,11 @@ def main() -> int:
     )
     print(
         f"[11 invariant] image-bound margin at cutoff + skin: {float(tiles11.margin):.4f} nm at the start, "
-        f"{margin11:.4f} nm after {N_ALT} steps; largest |dU/dx| {grad11:.4e} of the fixed-point range "
-        f"{fixed_range:.4e} kJ/mol/nm ({smi})"
+        f"{margin11:.4f} nm after {N_ALT} steps; largest |dU/dx| {grad11:.4e} of the kernel's fixed-point "
+        f"limit {nbk.FIX_LIMIT:.4e} kJ/mol/nm (NaN beyond; {smi})"
     )
     check(margin11 > 0, "[11] the image bound fails at the end")
-    check(grad11 < fixed_range, "[11] |dU/dx| beyond the fixed-point range")
+    check(grad11 < nbk.FIX_LIMIT, "[11] |dU/dx| beyond the kernel's fixed-point limit")
     bitwise_repeat("11", bps11)
 
     # -- 12. the probes ----------------------------------------------------------------
@@ -869,7 +933,8 @@ def main() -> int:
     ratio = ms_fma2 / ms_fma
     print(
         f"[12 fp32] {fp.GRID} x ({fp.ROWS}, {fp.LANES}) elements, 4 FMA chains: {ms_fma:.4f} ms at INNER {fp.INNER}, "
-        f"{ms_fma2:.4f} ms at {2 * fp.INNER} (device time; ratio {ratio:.3f}, want {PROBE_RATIO[0]}-{PROBE_RATIO[1]}); "
+        f"{ms_fma2:.4f} ms at {2 * fp.INNER} (CUDA events over 20 launches each; ratio {ratio:.3f}, want "
+        f"{PROBE_RATIO[0]}-{PROBE_RATIO[1]}); "
         f"measured FP32 peak {tflops:.2f} TFLOP/s, {fp.flops(x12.numel()) / ((ms_fma2 - ms_fma) * 1e-3) / 1e12:.2f} from "
         f"the difference, against the data sheet's {PEAK_FP32 / 1e12:.0f} ({tflops * 1e12 / PEAK_FP32:.3f}; {smi})"
     )

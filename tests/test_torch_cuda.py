@@ -317,6 +317,45 @@ def test_list_kernels_match_plain(cuda, path, mode_name, size):
     assert torch.equal(out_k, sweep(*args, mode))
 
 
+@pytest.mark.parametrize("size", ["small", "dhfr"])
+@pytest.mark.parametrize("mode_name", list(SWEEP_MODES))
+def test_quad_kernel_without_w_matches_plain(cuda, mode_name, size):
+    """The quad redesign's has_w=False form in both modes, at a small fluid
+    (w lifted, which both sides leave out of r^2; a ragged last chunk) and
+    at DHFR shapes: per-column relative norm within TOL, two launches
+    bitwise equal, padding atoms zero."""
+    conf, params, box = _fluid(cuda, seed=6) if size == "small" else _dhfr(cuda)
+    args = _quad_args(conf, params, box)
+    mode = SWEEP_MODES[mode_name]
+    before = qk.quadscan_sweep.launches
+    out_k = qk.quadscan_sweep(*args, mode, has_w=False)
+    out_p = qk.quadscan_sweep_plain(*args, mode, has_w=False)
+    torch.cuda.synchronize()
+    assert qk.quadscan_sweep.launches == before + 1
+    assert _col_rel(out_k, out_p) < TOL
+    assert torch.equal(out_k, qk.quadscan_sweep(*args, mode, has_w=False))
+    assert not out_k[conf.shape[0] :].any()
+
+
+@pytest.mark.parametrize("size", ["small", "dhfr"])
+def test_quad_first_design_matches_plain(cuda, size):
+    """The quad kernel's first design, kept in F mode with w as the redesign's
+    yardstick: within TOL of the plain version, bitwise on repeat, padding
+    atoms zero; the launcher refuses the forms it is not built for."""
+    conf, params, box = _fluid(cuda, seed=6) if size == "small" else _dhfr(cuda)
+    args = _quad_args(conf, params, box)
+    out_k = qk.quadscan_sweep(*args, rs.FORCE, first_design=True)
+    out_p = qk.quadscan_sweep_plain(*args, rs.FORCE)
+    torch.cuda.synchronize()
+    assert _col_rel(out_k, out_p) < TOL
+    assert torch.equal(out_k, qk.quadscan_sweep(*args, rs.FORCE, first_design=True))
+    assert not out_k[conf.shape[0] :].any()
+    with pytest.raises(ValueError):
+        qk.quadscan_sweep(*args, rs.FORCE_ENERGY, first_design=True)
+    with pytest.raises(ValueError):
+        qk.quadscan_sweep(*args, rs.FORCE, has_w=False, first_design=True)
+
+
 def _real_last_quarter(atoms):
     """The quad sweep's arguments with the all-padding last quarter filled
     by real atoms: chunk 0's, 0.2 nm along x."""
@@ -358,23 +397,37 @@ def test_list_wrappers_reject_what_the_kernel_cannot_take(cuda, path):
 def test_list_providers_run_on_their_kernels(cuda, path):
     """A 5.16 nm lattice fluid at cutoff 0.9 (the quad shift invariant
     holds at cutoff + skin there): two steps across a rebuild and an energy,
-    all on the kernel."""
+    all on the kernel. Its closest pairs (0.042 nm) put |dU/dx| at up to
+    1.65e10, which gather sums in f32 and which is past the quad kernel's
+    fixed-point range (2^30): the quad provider returns NaN there, never a
+    wrapped finite sum, and a finite result on a 6.0 nm fluid at 0.25 nm
+    spacing (|dU/dx| up to 1.5e7)."""
     sweep, plain, _ = SWEEPS[path]
-    conf, params, box = _fluid(cuda, n_side=24, spacing=0.215, seed=7)
     cutoff = 0.9
-    if path == "gather":
-        provider = gk.make_nonbonded_gather_md(BETA, cutoff, gk.suggest_max_nbrs(conf, box, cutoff + 0.1, margin=1.4), rebuild_interval=1)
-    else:
-        assert qk.constant_shift_valid(conf, box, cutoff + 0.1)
-        provider = qk.make_nonbonded_quadscan_md(BETA, cutoff, qk.suggest_max_tiles(conf, box, cutoff + 0.1, margin=1.4), rebuild_interval=1)
-    init, apply, energy = provider
     before_k, before_p = sweep.launches, plain.calls
-    state = init(conf, params, box)
-    for t in range(2):
-        force, state = apply(state, conf, params, box, t)
-    u = energy(state, conf, params, box)
-    assert bool(torch.isfinite(force).all()) and bool(torch.isfinite(u))
-    assert sweep.launches == before_k + 3
+
+    def run(conf, params, box):
+        if path == "gather":
+            max_nbrs = gk.suggest_max_nbrs(conf, box, cutoff + 0.1, margin=1.4)
+            init, apply, energy = gk.make_nonbonded_gather_md(BETA, cutoff, max_nbrs, rebuild_interval=1)
+        else:
+            assert qk.constant_shift_valid(conf, box, cutoff + 0.1)
+            max_tiles = qk.suggest_max_tiles(conf, box, cutoff + 0.1, margin=1.4)
+            init, apply, energy = qk.make_nonbonded_quadscan_md(BETA, cutoff, max_tiles, rebuild_interval=1)
+        state = init(conf, params, box)
+        for t in range(2):
+            force, state = apply(state, conf, params, box, t)
+        return force, energy(state, conf, params, box)
+
+    force, u = run(*_fluid(cuda, n_side=24, spacing=0.215, seed=7))
+    if path == "gather":
+        assert bool(torch.isfinite(force).all()) and bool(torch.isfinite(u))
+        assert sweep.launches == before_k + 3
+    else:
+        assert bool(torch.isnan(force).all()) and bool(torch.isnan(u))
+        force, u = run(*_fluid(cuda, n_side=24, spacing=0.25, seed=7))
+        assert bool(torch.isfinite(force).all()) and bool(torch.isfinite(u))
+        assert sweep.launches == before_k + 6
     assert plain.calls == before_p
 
 
@@ -439,6 +492,84 @@ def test_dotscan_provider_runs_on_the_kernel(cuda):
     assert bool(torch.isnan(force).all())
     assert dk.dotscan_sweep.launches == before_k + 4
     assert dk.dotscan_sweep_plain.calls == before_p
+
+
+# -- the quad and dot redesigns on aged lists, and past the fixed-point range ------
+
+
+def _aged_args(path, device):
+    """A small fluid's quad or triangular dot sweep arguments on lists built
+    before 0.02 nm of random jitter that puts atoms across box faces, the
+    atoms placed as each MD provider places them between rebuilds: quad at
+    their build-time images, dot wrapped afresh."""
+    conf, params, box = _fluid(device, seed=12)
+    jitter = np.random.default_rng(13).normal(0.0, 0.02, tuple(conf.shape))
+    moved = conf + torch.as_tensor(jitter, device=device, dtype=conf.dtype)
+    box_diag = torch.diagonal(box)
+    image = torch.floor(conf / box_diag)
+    assert bool((torch.floor(moved / box_diag) != image).any())  # the jitter put atoms across faces
+    n, cutoff = conf.shape[0], CUTOFF + 0.1
+    if path == "quad":
+        tiles = qk.build_quadscan_tiles(conf, box, cutoff, qk.suggest_max_tiles(conf, box, cutoff))
+        xyz = (moved - box_diag * image)[tiles.pad_order]
+        atoms = torch.cat([xyz, rs.param_rows(params, tiles.pad_order, n), xyz.new_zeros((xyz.shape[0], 1))], dim=1)
+        return (atoms, tiles.row_start, tiles.row_count, tiles.entries, rs.sweep_scalars(box, CUTOFF), SERIES)
+    tiles = dk.build_dotscan_tiles(conf, box, cutoff, 10**6, triangular=True, sort="hilbert")
+    atoms = rs.assemble_atoms(moved, box, tiles.pad_order, rs.param_rows(params, tiles.pad_order, n))
+    return (atoms, tiles.row_start, tiles.row_count, tiles.col_ids, tiles.rcen_q, rs.sweep_scalars(box, CUTOFF), SERIES)
+
+
+# each redesigned form: (its path, the kernel, its plain version), called as f(args, mode)
+REDESIGNED = {
+    "quad": ("quad", lambda a, m: qk.quadscan_sweep(*a, m), lambda a, m: qk.quadscan_sweep_plain(*a, m)),
+    "quad no-w": (
+        "quad", lambda a, m: qk.quadscan_sweep(*a, m, has_w=False),
+        lambda a, m: qk.quadscan_sweep_plain(*a, m, has_w=False),
+    ),
+    "dot": ("dot", lambda a, m: dk.dotscan_sweep(*a, m, True), lambda a, m: dk.dotscan_sweep_plain(*a, m, True)),
+}
+
+
+@pytest.mark.parametrize("mode_name", list(SWEEP_MODES))
+@pytest.mark.parametrize("form", list(REDESIGNED))
+def test_redesigns_on_aged_lists_match_plain(cuda, form, mode_name):
+    """The quad and dot kernels cull at every sweep, on the atoms as they
+    are, so atoms that moved or crossed a box face since the lists were
+    built must lose no pair: each form, in each mode, stays within TOL of
+    its plain version (which sweeps every listed slot) and two launches are
+    bitwise equal."""
+    path, sweep, plain = REDESIGNED[form]
+    args = _aged_args(path, cuda)
+    mode = SWEEP_MODES[mode_name]
+    out_k = sweep(args, mode)
+    out_p = plain(args, mode)
+    torch.cuda.synchronize()
+    assert _col_rel(out_k, out_p) < TOL
+    assert torch.equal(out_k, sweep(args, mode))
+
+
+@pytest.mark.parametrize("mode_name", list(SWEEP_MODES))
+@pytest.mark.parametrize("form", list(REDESIGNED))
+def test_redesigns_fixed_point_overflow_gives_nan(cuda, form, mode_name):
+    """Two atoms 0.01 nm apart with sigma 0.3 nm: a pair force of about
+    1e21 and an energy of about 1e19, far beyond the fixed-point range,
+    come back NaN from the quad and triangular dot kernels (every column,
+    every atom) in F and in F+U (a barostat trial), never a wrapped finite
+    sum; the same fluid without that pair stays finite."""
+    path, sweep, _ = REDESIGNED[form]
+    conf, params, box = _fluid(cuda, seed=11)
+
+    def args(c, p):
+        return _quad_args(c, p, box) if path == "quad" else _dot_args(c, p, box, True, "hilbert")
+
+    mode = SWEEP_MODES[mode_name]
+    assert bool(torch.isfinite(sweep(args(conf, params), mode)).all())
+    conf, params = conf.clone(), params.clone()
+    conf[1] = conf[0] + torch.tensor([0.01, 0.0, 0.0], device=cuda)
+    params[0, 3] = params[1, 3] = 0.0
+    params[:2, 1] = 0.15
+    params[:2, 2] = 1.0
+    assert bool(torch.isnan(sweep(args(conf, params), mode)).all())
 
 
 # -- the probes (csrc/probe_fma.cu, csrc/probe_bf16.cu) ---------------------------

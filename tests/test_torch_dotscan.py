@@ -1,7 +1,8 @@
 """timemachine_torch dot path against timemachine_tpu: the triangular and
 Hilbert rowscan lists, the periodic row centers and image bound, the plain
 dotscan sweep against the JAX Pallas kernel in interpret mode, the MD
-provider, and `configure(kernel="dot")` with its fall-back to rowscan.
+provider, `configure(kernel="dot")` with its fall-back to rowscan, and the
+triangular kernel's per-step cull.
 
 Inputs are made from a seed with numpy, as tests/test_dotscan.py makes them
 (jittered lattice fluids, at most 4,096 atoms), and handed to both packages
@@ -18,6 +19,9 @@ forms r^2 by the dot identity in f32, which DHFR NPT does not survive
 differences on close pairs. Norms are taken in f64.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,6 +33,7 @@ from timemachine_torch.ops import dotscan_kernel as td
 from timemachine_torch.ops import rowscan_kernel as trs
 from timemachine_torch.potentials import Nonbonded, NonbondedAllPairs
 from timemachine_tpu import potentials as jpot
+from timemachine_tpu.md.builders import build_water_system
 from timemachine_tpu.ops.pallas import dotscan_kernel as jd
 
 torch.set_num_threads(1)  # the suite's workers share the host's cores
@@ -393,3 +398,50 @@ def test_langevin_steps_dot_vs_rowscan():
         runs[kernel] = ctxt.get_x_t()
     np.testing.assert_allclose(runs["dot"], runs["rowscan"], rtol=0, atol=1e-9)
     assert np.abs(runs["dot"] - conf).max() > 1e-3
+
+
+@pytest.mark.parametrize("jitter", [0.0, 0.02])
+def test_cull_never_drops_a_pair(jitter):
+    """The triangular kernel's cull (cull_mask: each column atom at the row
+    center's image against the box of the row chunk's atoms at theirs)
+    keeps every column atom that has a row atom within the cutoff at those
+    images (the pair function's f32 differences), on the 3.4 nm water box's
+    Hilbert lists at cutoff + skin, and again after 0.02 nm of random jitter
+    that puts atoms across box faces (wrapped afresh, as every sweep wraps);
+    it drops something, and cull_census counts columns <= swept < listed."""
+    cfg = build_water_system(3.4)
+    conf = np.asarray(cfg.conf, np.float32)
+    params = np.asarray(cfg.host_system.nonbonded_all_pairs.params, np.float32)
+    box_t = _t(cfg.box)
+    tiles = td.build_dotscan_tiles(_t(conf), box_t, 1.2 + SKIN, 10**5, triangular=True, sort="hilbert")
+    assert int(tiles.overflow) == 0
+    moved = _t(conf) + _t(np.random.default_rng(5).normal(0.0, jitter, conf.shape))
+    box_diag = torch.diagonal(box_t)
+    if jitter:  # the jitter put atoms across faces
+        assert bool((torch.floor(moved / box_diag) != torch.floor(_t(conf) / box_diag)).any())
+    n = conf.shape[0]
+    atoms = trs.assemble_atoms(moved, box_t, tiles.pad_order, trs.param_rows(_t(params), tiles.pad_order, n))
+    scalars = td.sweep_scalars(box_t, 1.2)
+    c = td.cull_mask(atoms, tiles.row_start, tiles.row_count, tiles.col_ids, tiles.rcen_q, scalars)
+    n_rows, n_cols = atoms.shape[0] // td.ROW, atoms.shape[0] // td.COL
+    comp = atoms.T.contiguous()
+    cen = tiles.rcen_q.view(n_rows, 4)[:, :3].to(F32) * td.CEN_SCALE
+    rd = torch.stack(trs._row_frame(comp.view(8, n_rows, td.ROW), cen, box_diag, 1.0 / box_diag)[:3], -1)
+    cols = comp.view(8, n_cols, td.COL)[:, c.chunk, None, :]
+    cd = torch.stack(trs._col_frame(cols, cen[c.rows], box_diag, 1.0 / box_diag)[:3], -1)[:, 0]
+    for t0 in range(0, len(c.rows), 512):
+        sl = slice(t0, t0 + 512)
+        d = rd[c.rows[sl]][:, :, None, :] - cd[sl][:, None, :, :]  # (T, 32 rows, 128 cols, 3)
+        near = ((d * d).sum(-1) < 1.2**2).any(1)  # (T, 128): columns with a row atom within the cutoff
+        assert bool(c.column[sl][near].all())
+    census = td.cull_census(atoms, tiles.row_start, tiles.row_count, tiles.col_ids, tiles.rcen_q, scalars)
+    assert 0 < census.columns <= census.swept < census.listed
+    assert census.listed == (int(tiles.row_count.sum()) + n_rows) * td.ROW * td.COL
+
+
+def test_census_constants_mirror_the_kernel_source():
+    """cull_census counts the kernel's work items with WARPS and SPLITS,
+    constants of csrc/dotscan.cu that the module mirrors: they must agree."""
+    source = (Path(td.__file__).parents[1] / "csrc" / "dotscan.cu").read_text()
+    for name in ("WARPS", "SPLITS"):
+        assert re.search(rf"constexpr int {name} = (\d+);", source).group(1) == str(getattr(td, name))

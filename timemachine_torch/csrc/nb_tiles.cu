@@ -79,7 +79,7 @@
 //   are bitwise equal. A reaction or partial sum of FIX_LIMIT or more (half
 //   the accumulator's range), or not finite, raises a flag that turns the
 //   whole result into NaN; a final sum beyond FIX_LIMIT comes back NaN too
-//   (a sum wraps undetected only past 1.5 times the range);
+//   (fixed_point.cuh's add_checked and store_checked);
 // * masked pairs take r2 := 1 before the rsqrt and every output term is a
 //   select on the mask, so no 0 * inf from sig = 0, eps = 0 or padding
 //   reaches a sum. Build without --use_fast_math;
@@ -281,8 +281,6 @@ constexpr int THREADS = WARPS * 32;
 constexpr int STAGES = 3;               // cp.async ring of column super-blocks
 constexpr int SPLITS = 32;              // list segments per row block, each a block
 constexpr float CULL_SLACK = 1e-3f;     // nm, as nonbonded_kernel.CULL_SLACK
-constexpr float FIX_LIMIT = 1073741824.0f;           // 2^30 kJ/mol/nm: half the fixed-point range
-constexpr long long FIX_LIMIT_RAW = 1LL << 62;       // FIX_LIMIT in fixed-point units
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Frame {
@@ -351,16 +349,6 @@ __device__ __forceinline__ bool near(const float4& ca, const float4& ha, const f
   const float gy = fmaxf(fabsf(wrap(ca.y - cb.y, f.by, f.iby)) - (ha.y + hb.y), 0.0f);
   const float gz = fmaxf(fabsf(wrap(ca.z - cb.z, f.bz, f.ibz)) - (ha.z + hb.z), 0.0f);
   return gx * gx + gy * gy + gz * gz < f.cull2;
-}
-
-// acc += v in fixed point; a v of FIX_LIMIT or more, or not finite, raises the flag instead
-__device__ __forceinline__ void add_checked(unsigned long long* acc, float v, unsigned long long* flag) {
-  if (v == 0.0f) return;
-  if (!(fabsf(v) < FIX_LIMIT)) {
-    atomicOr(flag, 1ull);
-    return;
-  }
-  fixed_point::add(acc, v);
 }
 
 // One chunk of a warp's live columns: this lane's row atom (rp, rq; global
@@ -494,33 +482,18 @@ __global__ void __launch_bounds__(THREADS, 4) tri_kernel(
       chunk<MODE, POLY>(pos, par, cidx + base, n_live - base, col0, lane, i, rp, rq, f, s, rsum, col);
       if (base + lane < n_live) {
         const int j = col0 + cidx[base + lane];
-        if (MODE == DP) add_checked(acc + j, col.x, flag);
-        add_checked(acc + n_pad + j, col.y, flag);
-        add_checked(acc + 2 * n_pad + j, col.z, flag);
-        add_checked(acc + 3 * n_pad + j, col.w, flag);
+        if (MODE == DP) fixed_point::add_checked(acc + j, col.x, flag);
+        fixed_point::add_checked(acc + n_pad + j, col.y, flag);
+        fixed_point::add_checked(acc + 2 * n_pad + j, col.z, flag);
+        fixed_point::add_checked(acc + 3 * n_pad + j, col.w, flag);
       }
     }
     __syncwarp();  // every lane is done with cidx before the next tile's compaction
   }
-  if (MODE != F) add_checked(acc + i, rsum.x, flag);
-  add_checked(acc + n_pad + i, rsum.y, flag);
-  add_checked(acc + 2 * n_pad + i, rsum.z, flag);
-  add_checked(acc + 3 * n_pad + i, rsum.w, flag);
-}
-
-// out[i] = the fixed-point sums of atom i, acc (4, n_pad) then the flag: NaN
-// everywhere if the flag is up, NaN for a sum beyond FIX_LIMIT
-__global__ void store_fixed(float4* __restrict__ out, const long long* __restrict__ acc, int n_pad) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_pad) return;
-  const bool flagged = acc[4 * static_cast<size_t>(n_pad)] != 0;
-  auto to_float = [flagged](long long v) {
-    return (flagged || v >= FIX_LIMIT_RAW || v <= -FIX_LIMIT_RAW) ? __int_as_float(0x7fc00000)
-                                                                    : static_cast<float>(static_cast<double>(v) *
-                                                                                         fixed_point::FROM_FIXED);
-  };
-  out[i] = make_float4(to_float(acc[i]), to_float(acc[n_pad + i]), to_float(acc[2 * n_pad + i]),
-                       to_float(acc[3 * n_pad + i]));
+  if (MODE != F) fixed_point::add_checked(acc + i, rsum.x, flag);
+  fixed_point::add_checked(acc + n_pad + i, rsum.y, flag);
+  fixed_point::add_checked(acc + 2 * n_pad + i, rsum.z, flag);
+  fixed_point::add_checked(acc + 3 * n_pad + i, rsum.w, flag);
 }
 
 struct Launch {
@@ -560,7 +533,7 @@ int launch_tri(const Launch& a) {
       a.atoms, a.boxes, a.row_start, a.row_count, a.col_ids, a.scal, a.acc, n_pad, a.cb, a.s);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  store_fixed<<<(n_pad + 255) / 256, 256, 0, a.stream>>>(a.out, reinterpret_cast<const long long*>(a.acc), n_pad);
+  fixed_point::launch_store_checked(a.out, a.acc, n_pad, a.stream);
   return static_cast<int>(cudaGetLastError());
 }
 

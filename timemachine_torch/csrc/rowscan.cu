@@ -414,15 +414,6 @@ __global__ void __launch_bounds__(THREADS) tri_kernel(
   }
 }
 
-// out[i] = the fixed-point sums of atom i, acc (4, n_pad)
-__global__ void store_fixed(float4* __restrict__ out, const long long* __restrict__ acc, int n_pad) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_pad) return;
-  auto to_float = [](long long v) { return static_cast<float>(static_cast<double>(v) * fixed_point::FROM_FIXED); };
-  out[i] = make_float4(to_float(acc[i]), to_float(acc[n_pad + i]), to_float(acc[2 * n_pad + i]),
-                       to_float(acc[3 * n_pad + i]));
-}
-
 struct Launch {
   const float4* atoms;
   const int *row_start, *row_count, *col_ids, *rcen_q;
@@ -451,8 +442,7 @@ int launch(const Launch& a) {
       a.atoms, a.row_start, a.row_count, a.col_ids, a.rcen_q, a.scal, a.acc, a.n_rows, a.s);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_pad = a.n_rows * ROW;
-  store_fixed<<<(n_pad + 255) / 256, 256, 0, a.stream>>>(a.out, reinterpret_cast<const long long*>(a.acc), n_pad);
+  fixed_point::launch_store(a.out, a.acc, a.n_rows * ROW, a.stream);
   return static_cast<int>(cudaGetLastError());
 }
 

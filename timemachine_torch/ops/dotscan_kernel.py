@@ -45,6 +45,12 @@ PyTorch, on CPU tensors. Every sweep wraps the coordinates afresh: the row
 center, not a build-time image, decides each atom's image, so an atom that
 crosses a box face between rebuilds keeps its pairs (unlike quadscan's
 per-entry shifts, ROADMAP P4).
+
+On triangular lists the kernel culls at every sweep, at the bare cutoff +
+CULL_SLACK: each column atom, at the row center's image, against the box of
+the row chunk's atoms at theirs; it sweeps each warp's live columns in
+chunks of 32. `cull_mask` and `cull_census` give the same cull and slot
+counts in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -57,11 +63,15 @@ import torch.nn.functional as F
 
 from timemachine_torch.ops import _build
 from timemachine_torch.ops import rowscan_kernel as rs
-from timemachine_torch.ops.nonbonded_kernel import ListState, make_list_md_provider
+from timemachine_torch.ops.nonbonded_kernel import CULL_SLACK, ListState, make_list_md_provider
 
 ROW, COL = rs.ROW, rs.COL
 CEN_SCALE = rs.CEN_SCALE  # nm per unit of the quantized row centers
 FORCE, FORCE_ENERGY = rs.FORCE, rs.FORCE_ENERGY  # sweep modes, as in csrc/dotscan.cu
+# the triangular kernel's work items, constants of csrc/dotscan.cu mirrored
+# here for cull_census: SPLITS list segments per row chunk, each a block of
+# WARPS warps, warp w on columns [32 w, 32 w + 32) of every tile of the segment
+WARPS, SPLITS = 4, 4
 
 # the lists are rowscan's; size them with the sort and form the provider uses
 suggest_max_pairs = rs.suggest_max_pairs
@@ -122,6 +132,67 @@ def dotscan_valid(conf, box, cutoff: float, headroom: float = 0.1, sort: str = "
     with `headroom` to spare for row chunks that stretch between rebuilds.
     Pass cutoff + skin to gate the MD provider, which builds at that radius."""
     return float(build_dotscan_tiles(conf, box, cutoff, ROW, cell_size, True, sort).margin) > headroom
+
+
+class DotCull(NamedTuple):
+    rows: torch.Tensor  # (T,) row chunk of each swept tile (covering chunk first), in row and list order
+    segment: torch.Tensor  # (T,) the kernel's list segment (block) of the tile within its row
+    chunk: torch.Tensor  # (T,) the tile's column chunk
+    column: torch.Tensor  # (T, COL) bool: column atoms the cull keeps
+
+
+def cull_mask(atoms, row_start, row_count, col_ids, rcen_q, scalars) -> DotCull:
+    """The triangular kernel's cull over the swept tiles (each row's
+    covering chunk, then its list), at the bare cutoff + CULL_SLACK
+    (scalars[3] is the cutoff): a column atom is kept where its image
+    nearest the row chunk's center comes near the box of the row chunk's
+    atoms at their images. Those are the positions the pair function
+    subtracts, and w only adds to r^2, so no pair within the cutoff is
+    dropped."""
+    dev, dt = atoms.device, atoms.dtype
+    n_pad = atoms.shape[0]
+    n_rows, n_cols = n_pad // ROW, n_pad // COL
+    counts = row_count.long() + 1
+    rows = torch.repeat_interleave(torch.arange(n_rows, device=dev), counts)
+    k = torch.arange(rows.shape[0], device=dev) - torch.repeat_interleave(torch.cumsum(counts, 0) - counts, counts)
+    covering = torch.clamp(rows * ROW // COL, max=n_cols - 1)
+    cid = torch.where(k == 0, covering, col_ids[torch.where(k > 0, row_start.long()[rows] + k - 1, 0)].long())
+    bounds = counts[:, None] * torch.arange(SPLITS + 1, device=dev) // SPLITS  # (nR, SPLITS + 1)
+    segment = torch.searchsorted(bounds[rows], k[:, None], right=True)[:, 0] - 1
+    box = scalars[:3]
+    inv_box = 1.0 / box
+    cen = rcen_q.view(n_rows, 4)[:, :3].to(dt) * CEN_SCALE
+    comp = atoms.T.contiguous()
+    rd = torch.stack(rs._row_frame(comp.view(8, n_rows, ROW), cen, box, inv_box)[:3], -1)  # (nR, ROW, 3)
+    lo, hi = rd.amin(1)[rows][:, None], rd.amax(1)[rows][:, None]  # (T, 1, 3)
+    cols = comp.view(8, n_cols, COL)[:, cid, None, :]  # (8, T, 1, COL)
+    cd = torch.stack(rs._col_frame(cols, cen[rows], box, inv_box)[:3], -1)[:, 0]  # (T, COL, 3)
+    g = torch.clamp(torch.maximum(cd - hi, lo - cd), min=0.0)
+    cull = scalars[3] + CULL_SLACK
+    keep = g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1] + g[..., 2] * g[..., 2] < cull * cull
+    return DotCull(rows, segment, cid, keep)
+
+
+class CullCensus(NamedTuple):
+    """Pair slots of the triangular dotscan kernel on one set of lists."""
+
+    listed: int  # 32 x 128 per swept tile, the covering tiles included
+    columns: int  # 32 rows x the column atoms the cull keeps
+    swept: int  # what the kernel sweeps: each warp's live columns in chunks of 32
+
+
+def cull_census(atoms, row_start, row_count, col_ids, rcen_q, scalars) -> CullCensus:
+    """Slot counts of the triangular kernel's cull and chunking, counted by
+    the plain copy of both (cull_mask; each warp's columns of a row's
+    segment are swept in chunks of 32), not by the kernel."""
+    c = cull_mask(atoms, row_start, row_count, col_ids, rcen_q, scalars)
+    per_warp = c.column.view(-1, WARPS, COL // WARPS).sum(2)  # (T, WARPS)
+    live = torch.zeros(row_count.shape[0] * SPLITS, WARPS, dtype=torch.int64, device=atoms.device)
+    live.index_add_(0, c.rows * SPLITS + c.segment, per_warp)
+    return CullCensus(
+        listed=c.rows.shape[0] * ROW * COL, columns=int(c.column.sum()) * ROW,
+        swept=int(((live + ROW - 1) // ROW).sum()) * ROW * ROW,
+    )
 
 
 def dotscan_sweep_plain(atoms, row_start, row_count, col_ids, rcen_q, scalars, series, mode: int, triangular: bool = False):
@@ -216,9 +287,10 @@ def dotscan_sweep(atoms, row_start, row_count, col_ids, rcen_q, scalars, series,
     int32, scalars (4,) f32 [bx by bz cutoff], series the (h, P) coefficient
     tuples of es_energy_force_series, mode FORCE or FORCE_ENERGY (the energy
     column is zero in FORCE), lists symmetric or triangular. A CUDA tensor
-    launches the kernel of csrc/dotscan.cu on the current stream (with an
-    int64 fixed-point scratch for the column reactions in triangular mode);
-    a CPU tensor runs dotscan_sweep_plain."""
+    launches the kernel of csrc/dotscan.cu on the current stream: on
+    triangular lists the redesign, with an int64 fixed-point scratch for the
+    sums (NaN wherever a sum leaves its range), on symmetric lists the first design (the yardstick). A CPU tensor
+    runs dotscan_sweep_plain."""
     if atoms.device.type == "cpu":
         return dotscan_sweep_plain(atoms, row_start, row_count, col_ids, rcen_q, scalars, series, mode, triangular)
     if atoms.device.type != "cuda":
@@ -238,7 +310,7 @@ def dotscan_sweep(atoms, row_start, row_count, col_ids, rcen_q, scalars, series,
     rs.check_tensor("scalars", scalars, torch.float32, dev, (4,))
     h_arg, p_arg = rs.series_args(series)
     out = torch.empty((n_pad, 4), dtype=torch.float32, device=dev)
-    acc = torch.zeros((3, n_pad) if triangular else (0,), dtype=torch.int64, device=dev)
+    acc = torch.zeros((4 * n_pad + 1) if triangular else 0, dtype=torch.int64, device=dev)  # sums, overflow flag
     rc = _launcher()(
         atoms.data_ptr(), row_start.data_ptr(), row_count.data_ptr(), col_ids.data_ptr(), rcen_q.data_ptr(),
         scalars.data_ptr(), out.data_ptr(), acc.data_ptr(), n_rows, mode, int(triangular), h_arg, p_arg,
@@ -263,8 +335,9 @@ def make_nonbonded_dotscan_md(
     sweep per step and an F+U sweep for the energy (JAX maps its
     energy-only request to F+U). Size max_pairs with suggest_max_pairs at
     cutoff + skin, triangular, with the same sort. The result is NaN on
-    overflow and where the build broke the image bound; see
-    nonbonded_kernel.make_list_md_provider."""
+    overflow, where the build broke the image bound, and on the card where a
+    sum leaves the kernel's fixed-point range (nonbonded_kernel.FIX_LIMIT);
+    see nonbonded_kernel.make_list_md_provider."""
     series = rs.es_energy_force_series(beta, cutoff)
 
     def build(conf, params, box):

@@ -92,7 +92,8 @@ class NonbondedAllPairs(nn.Module):
     out of r^2 unless `rowscan_has_w` (a nonzero w then gives NaN).
     kernel="gather": the same pair function over atom-exact
     full neighbour lists, for energy, force and MD. kernel="quad": rowscan
-    for energy and force, the Newton-triangular quadscan sweep for MD; it
+    for energy and force, the Newton-triangular quadscan sweep for MD, with
+    w in r^2 unless `quad_has_w` is False (a nonzero w then gives NaN); it
     falls back to rowscan wholesale where the constant-shift invariant
     fails at cutoff + SKIN (small boxes). kernel="dot": rowscan for energy
     and force, the dotscan sweep (row-center images, forces by contraction) over Newton-triangular lists for MD, on the snake
@@ -117,14 +118,16 @@ class NonbondedAllPairs(nn.Module):
         self._energy = self._energy_force = self._u = self._md = None
         self.kernel = None
 
-    def configure(self, box, conf, kernel: str = "rowscan", rowscan_has_w: bool = True):
+    def configure(self, box, conf, kernel: str = "rowscan", rowscan_has_w: bool = True, quad_has_w: bool = True):
         """Size the lists from this geometry, at MARGIN over the present
         counts: the energy/force lists at the bare cutoff, the MD lists at
         cutoff + SKIN (with a sort-cell size from a census of swept slots
         for rowscan systems of 8,192 atoms and up), the du/dp lists at the
         bare cutoff with column super-blocks DP_CB wide (the block-tile
         lists, du/dp and v1, are Newton-triangular). rowscan_has_w=False
-        promises that every w offset is zero (as bench.py passes for DHFR)."""
+        promises that every w offset is zero (as bench.py passes for DHFR),
+        and so does quad_has_w=False for the quad MD provider (JAX's
+        configure_pallas takes the same two)."""
         if kernel not in ("rowscan", "gather", "quad", "dot", "v1"):
             raise ValueError(f"kernel must be 'rowscan', 'gather', 'quad', 'dot' or 'v1', got {kernel!r}")
         box = torch.as_tensor(box, device=self.params.device)
@@ -160,7 +163,8 @@ class NonbondedAllPairs(nn.Module):
             if kernel == "quad":
                 self.md_max_tiles = qk.suggest_max_tiles(conf, box, self.cutoff + SKIN, margin=MARGIN)
                 self._md = qk.make_nonbonded_quadscan_md(
-                    self.beta, self.cutoff, self.md_max_tiles, skin=SKIN, rebuild_interval=REBUILD_INTERVAL
+                    self.beta, self.cutoff, self.md_max_tiles, skin=SKIN, rebuild_interval=REBUILD_INTERVAL,
+                    has_w=quad_has_w,
                 )
             elif kernel == "dot":
                 self.md_max_pairs = dk.suggest_max_pairs(

@@ -12,9 +12,10 @@ import torch
 def kernel_ms(fn, reps: int, kernel: str) -> float:
     """Median device time of the launches of the CUDA kernel whose name
     contains `kernel` over reps calls of fn (after one), which launches it
-    once a call, from torch.profiler: the probes' kernels run for
+    once a call, from torch.profiler: the bf16 probe's kernels run for
     microseconds, less than the host takes to launch one, so CUDA events
-    around a stream of launches would time the host."""
+    around a stream of launches would time the host (the FP32 probe's run
+    for over 0.1 ms and are timed by CUDA events)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 

@@ -15,15 +15,16 @@ are built here with nvcc for sm_90a, in parallel.
 Phases, one line each or more: the device; the kernel builds; the rowscan
 kernel against its plain PyTorch version at DHFR shapes, in the main path's
 form (Newton-triangular lists, row-center images, no w: JAX's default DHFR
-path, with rowscan_has_w computed as bench.py does) in its three modes and
-in the symmetric form (the kernel's first design) in F mode, with both
+path, with rowscan_has_w computed as bench.py does) in F and U, in the
+energy/force entry's form (triangular, minimum image, w) in F+U, and in
+the symmetric form (the kernel's first design) in F mode, with both
 forms' slots, times and bounds and the main form's F time held under
 REDESIGN_RATIO of the symmetric one's; the main form's MD force against the symmetric form's, and
 the whole force on the card against the same modules on the host CPU; the
 main path (1,000 warm-up and 1,000 timed NPT steps, with ns/day), then 50
 steps under torch.profiler for the device's busy time per step (its table
 goes to standard error), and at the end state the image-bound margin and
-the largest |dU/dx| against the fixed-point range; bitwise determinism of
+the largest |dU/dx| against the kernel's fixed-point limit; bitwise determinism of
 two fresh Contexts;
 the block-tile kernel against its plain version at DHFR shapes in its
 Newton-triangular form (every path's) in modes DP, UF (exact and
@@ -39,16 +40,19 @@ NPT steps; the kernel="gather" path [9], the kernel="quad" path [10] and the
 kernel="dot" path [11], each from the minimized start: list shapes and build
 time, the kernel against its plain version in F and F+U, the net force
 against the rowscan configuration's, 500 NPT steps and two bitwise-equal
-100-step runs (quad also: the configuration taken, the constant-shift
-margin, the largest |dU/dx| against the fixed-point range; dot also: the
-sort taken, both list forms, the image-bound margin before and after the
-run, its MD provider's force against rowscan's). Phases 10 and 11 also
-print the pair slots listed, kept by the redesigned kernel's column cull
-and swept after chunk padding (held under half the listed; counted by
-cull_census, the plain copy of the kernel's cull and chunking, not by the
-kernel), and the redesign against the first design in F in the same run
-(quad: its first kernel, held under QUAD_REDESIGN_RATIO; dot: the
-symmetric form, its first design, held under DOT_REDESIGN_RATIO); phase 10
+100-step runs (gather and quad also: the largest |dU/dx| after the run
+against the kernels' fixed-point limit; quad also: the configuration
+taken, the constant-shift margin; dot also: the sort taken, both list
+forms, the image-bound margin before and after the run, its MD provider's
+force against rowscan's). Phases 9-11 also print the pair slots listed,
+kept by the redesigned kernel's column cull (gather: of its
+Newton-triangular suffixes) and swept after chunk padding (held under
+GATHER_SWEPT_SHARE or SWEPT_SHARE of the listed; counted by cull_census,
+the plain copy of the kernel's cull and chunking, not by the kernel), and
+the redesign against the first design in F in the same run (gather: its
+full-list kernel, held under GATHER_REDESIGN_RATIO; quad: its first
+kernel, held under QUAD_REDESIGN_RATIO; dot: the symmetric form, its
+first design, held under DOT_REDESIGN_RATIO); phase 10
 also holds quad's no-w form against its plain version, with its time and
 bound. The probes [12]: the FP32
 FMA rate at INNER and twice INNER (the time must double) beside the data
@@ -115,6 +119,13 @@ DOT_REDESIGN_RATIO = 0.55
 # the listed slots to sweep at DHFR (as cull_census counts them: the plain
 # copy of each kernel's cull and chunking)
 SWEPT_SHARE = 0.5
+# the gather redesign (the Newton-triangular suffix of the full lists, a
+# per-step column cull with compaction, list pieces) against its first
+# design, F mode, in the same run: at DHFR it sweeps about 30.6M of the full
+# lists' 64.1M slots (cull_census), with reactions the first design has not;
+# and the share of the full lists' slots it may sweep
+GATHER_REDESIGN_RATIO = 0.75
+GATHER_SWEPT_SHARE = 0.55
 # the FP32 probe's time from INNER to 2 INNER: the chains were not folded
 PROBE_RATIO = (1.8, 2.2)
 # the bound: published H100 SXM peaks (NVIDIA data sheet), FP32 outside the
@@ -361,7 +372,12 @@ def main() -> int:
     err3, ms3, plain3 = compare_kernel("3", [
         (f"main form {label}", lambda m=mode: rs.rowscan_sweep(*sweep_args, m, **main_form),
          lambda m=mode: rs.rowscan_sweep_plain(*sweep_args, m, **main_form))
-        for label, mode in (("F", rs.FORCE), ("F+U", rs.FORCE_ENERGY), ("U", rs.ENERGY))
+        for label, mode in (("F", rs.FORCE), ("U", rs.ENERGY))
+    ])
+    # the energy/force entry's form (FIRE, the training forward): triangular, minimum image, w
+    compare_kernel("3", [
+        ("energy/force form F+U", lambda: rs.rowscan_sweep(*sweep_args, rs.FORCE_ENERGY, triangular=True),
+         lambda: rs.rowscan_sweep_plain(*sweep_args, rs.FORCE_ENERGY, triangular=True))
     ])
     _, ms_sym, _ = compare_kernel("3", [
         ("symmetric F", lambda: rs.rowscan_sweep(*sym_args, rs.FORCE), lambda: rs.rowscan_sweep_plain(*sym_args, rs.FORCE))
@@ -478,7 +494,6 @@ def main() -> int:
     count_end = rs.chop_row_counts(atoms_end[:, :3], t_end.rank_mat, t_end.row_count, box_end, nb.cutoff)
     end_args = (atoms_end, t_end.row_start, count_end, t_end.col_ids, rs.sweep_scalars(box_end, nb.cutoff), series)
     end_form = dict(triangular=True, rcen_q=t_end.rcen_q, has_w=has_w)
-    fixed_range = 2.0**63 / rs.FIXED_SCALE
     grad_end = max(
         float(rs.rowscan_sweep(*end_args, rs.FORCE, **end_form)[:, 1:4].abs().max()),
         float(NonbondedAllPairs.energy_force(nb, x_end, box_end)[1].abs().max()),
@@ -486,11 +501,11 @@ def main() -> int:
     ms_end = cuda_ms(lambda: rs.rowscan_sweep(*end_args, rs.FORCE, **end_form), 20)
     print(
         f"[4 invariant] image-bound margin at cutoff + skin: {float(tiles.margin):.4f} nm at the start, "
-        f"{float(t_end.margin):.4f} nm at the end; largest |dU/dx| {grad_end:.4e} of the fixed-point range "
-        f"{fixed_range:.4e} kJ/mol/nm; main form F at the end state {ms_end:.4f} ms over "
+        f"{float(t_end.margin):.4f} nm at the end; largest |dU/dx| {grad_end:.4e} of the kernel's fixed-point "
+        f"limit {nbk.FIX_LIMIT:.4e} kJ/mol/nm (NaN beyond); main form F at the end state {ms_end:.4f} ms over "
         f"{(int(count_end.sum()) + n_rows) * rs.ROW * rs.COL} slots ({smi})"
     )
-    check(grad_end < fixed_range, "[4] |dU/dx| beyond the fixed-point range")
+    check(grad_end < nbk.FIX_LIMIT, "[4] |dU/dx| beyond the kernel's fixed-point limit")
 
     # -- 5. determinism -----------------------------------------------------------------
     bitwise_repeat("5", bps)
@@ -740,26 +755,67 @@ def main() -> int:
     lists = state9.lists
     check(int(lists.overflow) == 0, "[9] neighbour list overflow at DHFR")
     atoms9 = rs.assemble_atoms(x_min, box, lists.pad_order, state9.prows)
-    args9 = (atoms9, lists.counts, lists.nbr, rs.sweep_scalars(box, nb9.cutoff), series)
+    scal9 = rs.sweep_scalars(box, nb9.cutoff)
+    args9 = (atoms9, lists.counts, lists.nbr, lists.tri_start, scal9, series)
+    plain_args9 = (atoms9, lists.counts, lists.nbr, scal9, series)
+    census9 = gk.cull_census(*args9[:5])
     counts9 = lists.counts.double()
-    slots9 = int(lists.counts.sum()) * gk.ROW
     print(
         f"[9 shapes] Npad {atoms9.shape[0]}, row chunks {lists.counts.shape[0]}, max_nbrs {nb9.md_max_nbrs} at "
-        f"cutoff + skin, counts mean {float(counts9.mean()):.1f} max {int(lists.counts.max())}, swept slots {slots9} "
-        f"({slots9 / pairs_min:.2f} per pair within the cutoff, {pairs_min} pairs); list build {build9:.3f} ms ({smi})"
+        f"cutoff + skin, counts mean {float(counts9.mean()):.1f} max {int(lists.counts.max())}; pair slots listed "
+        f"(the full lists) {census9.listed} ({census9.listed / pairs_min:.2f} per pair within the cutoff, {pairs_min} "
+        f"pairs), in the Newton-triangular suffixes {census9.suffix}, kept by the column cull {census9.columns}, "
+        f"swept in chunks of 32 columns {census9.swept} ({census9.swept / pairs_min:.2f} per pair; "
+        f"{census9.swept / census9.listed:.3f} of listed, want <= {GATHER_SWEPT_SHARE}; counted by the plain "
+        f"cull_census); list build {build9:.3f} ms ({smi})"
     )
-    err9, ms9, plain9 = compare_kernel("9", [
-        (label, lambda m=mode: gk.gather_sweep(*args9, m), lambda m=mode: gk.gather_sweep_plain(*args9, m))
-        for label, mode in (("F", gk.FORCE), ("F+U", gk.FORCE_ENERGY))
-    ])
+    check(census9.swept <= GATHER_SWEPT_SHARE * census9.listed, "[9] the suffix and cull leave too many slots to sweep")
+    res9 = {}
+    for label, mode, first in (("F", gk.FORCE, False), ("F+U", gk.FORCE_ENERGY, False), ("first design F", gk.FORCE, True)):
+        res9[label] = compare_kernel("9", [(
+            label, lambda m=mode, f=first: gk.gather_sweep(*args9, m, first_design=f),
+            lambda m=mode: gk.gather_sweep_plain(*plain_args9, m),
+        )])
+    err9, ms9, plain9 = res9["F"]
+    ms_first9 = res9["first design F"][1]
+    print(
+        f"[9 redesign] F {ms9:.4f} ms over {census9.swept} slots swept by the census "
+        f"({census9.swept / ms9 / 1e6:.1f}G slots/s), first design F {ms_first9:.4f} ms over {census9.listed} "
+        f"({census9.listed / ms_first9 / 1e6:.1f}G slots/s); ratio {ms9 / ms_first9:.3f} (want <= "
+        f"{GATHER_REDESIGN_RATIO}) ({smi})"
+    )
+    check(ms9 <= GATHER_REDESIGN_RATIO * ms_first9, "[9] the gather redesign is not enough faster than the first design")
     gather_row = kernel_entry(
         "gather_sweep", "gather.cu", "gather_kernel.py:64", err9, ms9, plain9, pairs_min,
-        tensor_bytes(atoms9, lists.counts) + 4 * int(lists.counts.sum()) + 16 * atoms9.shape[0],
+        tensor_bytes(atoms9, lists.counts, lists.tri_start) + 4 * int(lists.counts.sum()) + 16 * atoms9.shape[0],
     )
-    print(f"[9 bound] F-mode bound over pairs {gather_row['bound_ms']:.4f} ms, over swept slots "
-          f"{bound(pair_ops('gather_sweep', slots9 // 2), 0)[0]:.4f} ms (a full list sweeps each pair twice; {smi})")
-    gather_row["launches"], _, _ = npt_run("9", 'kernel="gather"', bps9, gk.gather_sweep)
+    gather_row["ms_by_form_and_mode"] = {label: r[1] for label, r in res9.items()}
+    print(
+        f"[9 bound] F-mode bound over pairs {gather_row['bound_ms']:.4f} ms, over the slots the cull keeps "
+        f"{bound(pair_ops('gather_sweep', census9.columns), 0)[0]:.4f} ms, over the swept slots "
+        f"{bound(pair_ops('gather_sweep', census9.swept), 0)[0]:.4f} ms; the first design over its pair visits "
+        f"{bound(pair_ops('gather_sweep', census9.listed // 2), 0)[0]:.4f} ms (a full list sweeps each pair twice; "
+        f"{FLOPS_PER_PAIR['gather_sweep']} per pair; {smi})"
+    )
+    gather_row["launches"], x9, box9 = npt_run("9", 'kernel="gather"', bps9, gk.gather_sweep)
     gather_row["path"] = 'DHFR NPT, kernel="gather" (per step)'
+    # the end state: lists rebuilt there, and the kernel's |dU/dx| (row sums
+    # and reactions in int64 fixed point) against its range
+    state_end9 = nb9.md_force_provider()[0](x9, box9)
+    l_end = state_end9.lists
+    check(int(l_end.overflow) == 0, "[9] neighbour list overflow at the end state")
+    atoms_end9 = rs.assemble_atoms(x9, box9, l_end.pad_order, state_end9.prows)
+    grad9 = max(
+        float(gk.gather_sweep(
+            atoms_end9, l_end.counts, l_end.nbr, l_end.tri_start, rs.sweep_scalars(box9, nb9.cutoff), series, gk.FORCE
+        )[:, 1:4].abs().max()),
+        float(NonbondedAllPairs.energy_force(nb9, x9, box9)[1].abs().max()),
+    )
+    print(
+        f"[9 invariant] after {N_ALT} steps: largest |dU/dx| {grad9:.4e} of the kernel's fixed-point limit "
+        f"{nbk.FIX_LIMIT:.4e} kJ/mol/nm (NaN beyond; {smi})"
+    )
+    check(grad9 < nbk.FIX_LIMIT, "[9] |dU/dx| beyond the kernel's fixed-point limit")
     bitwise_repeat("9", bps9)
 
     # -- 10. the kernel="quad" path -------------------------------------------------------

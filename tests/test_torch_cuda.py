@@ -54,7 +54,9 @@ def _fluid(device, n_side=16, spacing=0.31, seed=0):
 
 
 def _sweep_args(conf, params, box, skin=0.1):
-    tiles = rs.build_rowscan_tiles(conf, box, CUTOFF + skin, 10**7)
+    """Rowscan sweep arguments on Newton-triangular lists: the energy/force
+    entry's form (minimum image, w) is built in every mode."""
+    tiles = rs.build_rowscan_tiles(conf, box, CUTOFF + skin, 10**7, triangular=True)
     atoms = rs.assemble_atoms(conf, box, tiles.pad_order, rs.param_rows(params, tiles.pad_order, conf.shape[0]))
     row_count = rs.chop_row_counts(atoms[:, :3], tiles.rank_mat, tiles.row_count, box, CUTOFF)
     series = rs.es_energy_force_series(BETA, CUTOFF)
@@ -69,8 +71,8 @@ def _rel(a, b):
 def test_kernel_matches_plain(cuda, mode):
     args = _sweep_args(*_fluid(cuda))
     before = rs.rowscan_sweep.launches
-    out_k = rs.rowscan_sweep(*args, mode)
-    out_p = rs.rowscan_sweep_plain(*args, mode)
+    out_k = rs.rowscan_sweep(*args, mode, True)
+    out_p = rs.rowscan_sweep_plain(*args, mode, True)
     torch.cuda.synchronize()
     assert rs.rowscan_sweep.launches == before + 1
     if mode != rs.ENERGY:
@@ -88,8 +90,8 @@ def test_kernel_matches_plain_dhfr(cuda):
     args = _sweep_args(conf, hc.host_system.nonbonded_all_pairs.params, box)
     assert args[0].shape == (23_808, 8)
     for mode in (rs.FORCE_ENERGY, rs.ENERGY):
-        out_k = rs.rowscan_sweep(*args, mode)
-        out_p = rs.rowscan_sweep_plain(*args, mode)
+        out_k = rs.rowscan_sweep(*args, mode, True)
+        out_p = rs.rowscan_sweep_plain(*args, mode, True)
         assert _rel(out_k[:, 0], out_p[:, 0]) < TOL
         if mode == rs.FORCE_ENERGY:
             assert _rel(out_k[:, 1:4], out_p[:, 1:4]) < TOL
@@ -97,7 +99,7 @@ def test_kernel_matches_plain_dhfr(cuda):
 
 def test_kernel_is_bitwise_reproducible(cuda):
     args = _sweep_args(*_fluid(cuda, seed=1))
-    assert torch.equal(rs.rowscan_sweep(*args, rs.FORCE_ENERGY), rs.rowscan_sweep(*args, rs.FORCE_ENERGY))
+    assert torch.equal(rs.rowscan_sweep(*args, rs.FORCE_ENERGY, True), rs.rowscan_sweep(*args, rs.FORCE_ENERGY, True))
 
 
 def test_wrapper_rejects_what_the_kernel_cannot_take(cuda):
@@ -115,7 +117,10 @@ def test_wrapper_rejects_what_the_kernel_cannot_take(cuda):
 def _form_args(device, triangular, preshift):
     """Sweep arguments on Hilbert rows at the bare cutoff, where this fluid
     holds the image bound, and the row centers where preshift is asked."""
-    conf, params, box = _fluid(device, seed=1)
+    return _hilbert_form_args(*_fluid(device, seed=1), triangular, preshift)
+
+
+def _hilbert_form_args(conf, params, box, triangular, preshift):
     tiles = dk.build_dotscan_tiles(conf, box, CUTOFF, 10**7, triangular=triangular, sort="hilbert")
     assert int(tiles.invalid) == 0
     atoms = rs.assemble_atoms(conf, box, tiles.pad_order, rs.param_rows(params, tiles.pad_order, conf.shape[0]))
@@ -123,18 +128,35 @@ def _form_args(device, triangular, preshift):
     return args, tiles.rcen_q if preshift else None
 
 
+# the forms (mode, triangular, preshift, has_w) the kernel is built for, the
+# ones a configuration launches: triangular F and U in every form (the MD
+# providers), triangular F+U with minimum image and w (the energy/force
+# entry), symmetric F with minimum image and w (the yardstick)
+ROWSCAN_BUILT = {
+    *((mode, True, pre, w) for mode in (rs.FORCE, rs.ENERGY) for pre in (False, True) for w in (False, True)),
+    (rs.FORCE_ENERGY, True, False, True),
+    (rs.FORCE, False, False, True),
+}
+
+
 @pytest.mark.parametrize("has_w", [True, False])
 @pytest.mark.parametrize("preshift", [False, True])
 @pytest.mark.parametrize("triangular", [False, True])
 @pytest.mark.parametrize("mode", [rs.FORCE, rs.FORCE_ENERGY, rs.ENERGY])
 def test_kernel_forms_match_plain(cuda, mode, triangular, preshift, has_w):
-    """Every instantiation of the kernel (mode x list form x images x w)
+    """Every built form of the kernel (mode x list form x images x w)
     against the plain version per output column, the columns a mode leaves
     out zero, two launches bitwise equal (the triangular form sums in int64
-    fixed point)."""
+    fixed point); a form that is not built is refused by the launcher (CUDA
+    error 1, invalid value) and launches nothing."""
     args, rcen_q = _form_args(cuda, triangular, preshift)
     kw = dict(triangular=triangular, rcen_q=rcen_q, has_w=has_w)
     before = rs.rowscan_sweep.launches
+    if (mode, triangular, preshift, has_w) not in ROWSCAN_BUILT:
+        with pytest.raises(RuntimeError, match="CUDA error 1"):
+            rs.rowscan_sweep(*args, mode, **kw)
+        assert rs.rowscan_sweep.launches == before
+        return
     out_k, out_k2 = rs.rowscan_sweep(*args, mode, **kw), rs.rowscan_sweep(*args, mode, **kw)
     out_p = rs.rowscan_sweep_plain(*args, mode, **kw)
     torch.cuda.synchronize()
@@ -275,7 +297,13 @@ SWEEP_MODES = {"F": rs.FORCE, "F+U": rs.FORCE_ENERGY}
 def _gather_args(conf, params, box, cutoff=CUTOFF + 0.1):
     lists = gk.build_gather_neighbors(conf, box, cutoff, gk.suggest_max_nbrs(conf, box, cutoff))
     atoms = rs.assemble_atoms(conf, box, lists.pad_order, rs.param_rows(params, lists.pad_order, conf.shape[0]))
-    return (atoms, lists.counts, lists.nbr, rs.sweep_scalars(box, CUTOFF), SERIES)
+    return (atoms, lists.counts, lists.nbr, lists.tri_start, rs.sweep_scalars(box, CUTOFF), SERIES)
+
+
+def _gather_plain(atoms, counts, nbr, tri_start, scalars, series, mode):
+    """gather_sweep_plain on gather_sweep's arguments: the full lists (the
+    suffixes start are the kernel's alone)."""
+    return gk.gather_sweep_plain(atoms, counts, nbr, scalars, series, mode)
 
 
 def _quad_args(conf, params, box, cutoff=CUTOFF + 0.1):
@@ -284,9 +312,11 @@ def _quad_args(conf, params, box, cutoff=CUTOFF + 0.1):
     return (atoms, tiles.row_start, tiles.row_count, tiles.entries, rs.sweep_scalars(box, CUTOFF), SERIES)
 
 
+# each list path: (the kernel's wrapper, its plain version as the wrapper
+# is called, the plain version's call counter, the sweep arguments)
 SWEEPS = {
-    "gather": (gk.gather_sweep, gk.gather_sweep_plain, _gather_args),
-    "quad": (qk.quadscan_sweep, qk.quadscan_sweep_plain, _quad_args),
+    "gather": (gk.gather_sweep, _gather_plain, gk.gather_sweep_plain, _gather_args),
+    "quad": (qk.quadscan_sweep, qk.quadscan_sweep_plain, qk.quadscan_sweep_plain, _quad_args),
 }
 
 
@@ -305,7 +335,7 @@ def _dhfr(device):
 def test_list_kernels_match_plain(cuda, path, mode_name, size):
     """Every mode, at a small fluid and at DHFR shapes: per-column relative
     norm within TOL, two launches bitwise equal (no float atomics)."""
-    sweep, plain, make_args = SWEEPS[path]
+    sweep, plain, _, make_args = SWEEPS[path]
     args = make_args(*(_fluid(cuda, seed=6) if size == "small" else _dhfr(cuda)))
     mode = SWEEP_MODES[mode_name]
     before = sweep.launches
@@ -356,6 +386,23 @@ def test_quad_first_design_matches_plain(cuda, size):
         qk.quadscan_sweep(*args, rs.FORCE, has_w=False, first_design=True)
 
 
+@pytest.mark.parametrize("size", ["small", "dhfr"])
+def test_gather_first_design_matches_plain(cuda, size):
+    """The gather kernel's first design, kept in F mode over the full lists
+    as the redesign's yardstick: within TOL of the plain version, bitwise on
+    repeat, padding atoms zero; the wrapper refuses F+U."""
+    conf, params, box = _fluid(cuda, seed=6) if size == "small" else _dhfr(cuda)
+    args = _gather_args(conf, params, box)
+    out_k = gk.gather_sweep(*args, rs.FORCE, first_design=True)
+    out_p = _gather_plain(*args, rs.FORCE)
+    torch.cuda.synchronize()
+    assert _col_rel(out_k, out_p) < TOL
+    assert torch.equal(out_k, gk.gather_sweep(*args, rs.FORCE, first_design=True))
+    assert not out_k[conf.shape[0] :].any()
+    with pytest.raises(ValueError):
+        gk.gather_sweep(*args, rs.FORCE_ENERGY, first_design=True)
+
+
 def _real_last_quarter(atoms):
     """The quad sweep's arguments with the all-padding last quarter filled
     by real atoms: chunk 0's, 0.2 nm along x."""
@@ -381,7 +428,7 @@ def test_quad_kernel_computes_padding_entries(cuda):
 
 @pytest.mark.parametrize("path", list(SWEEPS))
 def test_list_wrappers_reject_what_the_kernel_cannot_take(cuda, path):
-    sweep, _, make_args = SWEEPS[path]
+    sweep, _, _, make_args = SWEEPS[path]
     args = make_args(*_fluid(cuda))
     with pytest.raises(ValueError):
         sweep(args[0].double(), *args[1:], rs.FORCE)
@@ -398,11 +445,10 @@ def test_list_providers_run_on_their_kernels(cuda, path):
     """A 5.16 nm lattice fluid at cutoff 0.9 (the quad shift invariant
     holds at cutoff + skin there): two steps across a rebuild and an energy,
     all on the kernel. Its closest pairs (0.042 nm) put |dU/dx| at up to
-    1.65e10, which gather sums in f32 and which is past the quad kernel's
-    fixed-point range (2^30): the quad provider returns NaN there, never a
-    wrapped finite sum, and a finite result on a 6.0 nm fluid at 0.25 nm
-    spacing (|dU/dx| up to 1.5e7)."""
-    sweep, plain, _ = SWEEPS[path]
+    1.65e10, past the kernels' fixed-point range (2^30): both providers
+    return NaN there, never a wrapped finite sum, and a finite result on a
+    6.0 nm fluid at 0.25 nm spacing (|dU/dx| up to 1.5e7)."""
+    sweep, _, plain, _ = SWEEPS[path]
     cutoff = 0.9
     before_k, before_p = sweep.launches, plain.calls
 
@@ -420,14 +466,10 @@ def test_list_providers_run_on_their_kernels(cuda, path):
         return force, energy(state, conf, params, box)
 
     force, u = run(*_fluid(cuda, n_side=24, spacing=0.215, seed=7))
-    if path == "gather":
-        assert bool(torch.isfinite(force).all()) and bool(torch.isfinite(u))
-        assert sweep.launches == before_k + 3
-    else:
-        assert bool(torch.isnan(force).all()) and bool(torch.isnan(u))
-        force, u = run(*_fluid(cuda, n_side=24, spacing=0.25, seed=7))
-        assert bool(torch.isfinite(force).all()) and bool(torch.isfinite(u))
-        assert sweep.launches == before_k + 6
+    assert bool(torch.isnan(force).all()) and bool(torch.isnan(u))
+    force, u = run(*_fluid(cuda, n_side=24, spacing=0.25, seed=7))
+    assert bool(torch.isfinite(force).all()) and bool(torch.isfinite(u))
+    assert sweep.launches == before_k + 6
     assert plain.calls == before_p
 
 
@@ -494,14 +536,15 @@ def test_dotscan_provider_runs_on_the_kernel(cuda):
     assert dk.dotscan_sweep_plain.calls == before_p
 
 
-# -- the quad and dot redesigns on aged lists, and past the fixed-point range ------
+# -- the redesigns on aged lists, and past the fixed-point range --------------------
 
 
 def _aged_args(path, device):
-    """A small fluid's quad or triangular dot sweep arguments on lists built
-    before 0.02 nm of random jitter that puts atoms across box faces, the
-    atoms placed as each MD provider places them between rebuilds: quad at
-    their build-time images, dot wrapped afresh."""
+    """A small fluid's gather, quad or triangular dot sweep arguments on
+    lists built before 0.02 nm of random jitter that puts atoms across box
+    faces, the atoms placed as each MD provider places them between
+    rebuilds: quad at their build-time images, gather and dot wrapped
+    afresh."""
     conf, params, box = _fluid(device, seed=12)
     jitter = np.random.default_rng(13).normal(0.0, 0.02, tuple(conf.shape))
     moved = conf + torch.as_tensor(jitter, device=device, dtype=conf.dtype)
@@ -509,6 +552,10 @@ def _aged_args(path, device):
     image = torch.floor(conf / box_diag)
     assert bool((torch.floor(moved / box_diag) != image).any())  # the jitter put atoms across faces
     n, cutoff = conf.shape[0], CUTOFF + 0.1
+    if path == "gather":
+        lists = gk.build_gather_neighbors(conf, box, cutoff, gk.suggest_max_nbrs(conf, box, cutoff))
+        atoms = rs.assemble_atoms(moved, box, lists.pad_order, rs.param_rows(params, lists.pad_order, n))
+        return (atoms, lists.counts, lists.nbr, lists.tri_start, rs.sweep_scalars(box, CUTOFF), SERIES)
     if path == "quad":
         tiles = qk.build_quadscan_tiles(conf, box, cutoff, qk.suggest_max_tiles(conf, box, cutoff))
         xyz = (moved - box_diag * image)[tiles.pad_order]
@@ -521,6 +568,7 @@ def _aged_args(path, device):
 
 # each redesigned form: (its path, the kernel, its plain version), called as f(args, mode)
 REDESIGNED = {
+    "gather": ("gather", lambda a, m: gk.gather_sweep(*a, m), lambda a, m: _gather_plain(*a, m)),
     "quad": ("quad", lambda a, m: qk.quadscan_sweep(*a, m), lambda a, m: qk.quadscan_sweep_plain(*a, m)),
     "quad no-w": (
         "quad", lambda a, m: qk.quadscan_sweep(*a, m, has_w=False),
@@ -533,8 +581,8 @@ REDESIGNED = {
 @pytest.mark.parametrize("mode_name", list(SWEEP_MODES))
 @pytest.mark.parametrize("form", list(REDESIGNED))
 def test_redesigns_on_aged_lists_match_plain(cuda, form, mode_name):
-    """The quad and dot kernels cull at every sweep, on the atoms as they
-    are, so atoms that moved or crossed a box face since the lists were
+    """The gather, quad and dot kernels cull at every sweep, on the atoms as
+    they are, so atoms that moved or crossed a box face since the lists were
     built must lose no pair: each form, in each mode, stays within TOL of
     its plain version (which sweeps every listed slot) and two launches are
     bitwise equal."""
@@ -548,28 +596,51 @@ def test_redesigns_on_aged_lists_match_plain(cuda, form, mode_name):
     assert torch.equal(out_k, sweep(args, mode))
 
 
-@pytest.mark.parametrize("mode_name", list(SWEEP_MODES))
-@pytest.mark.parametrize("form", list(REDESIGNED))
+def _rowscan_overflow_form(form):
+    """(sweep arguments from conf, params, box; the sweep on them) of a
+    triangular rowscan form: the energy/force entry's (minimum image, w) or
+    the main path's (row-center images, no w; its F and the barostat's U)."""
+    if form == "rowscan":
+        return (lambda c, p, box: (_sweep_args(c, p, box), None)), {}
+    return (lambda c, p, box: _hilbert_form_args(c, p, box, True, True)), {"has_w": False}
+
+
+# every form that sums in fixed point, in each mode its paths launch
+OVERFLOW_CASES = [(form, m) for form in REDESIGNED for m in SWEEP_MODES] + [
+    ("rowscan", "F"), ("rowscan", "F+U"), ("rowscan main form", "F"), ("rowscan main form", "U"),
+]
+
+
+@pytest.mark.parametrize("form,mode_name", OVERFLOW_CASES)
 def test_redesigns_fixed_point_overflow_gives_nan(cuda, form, mode_name):
     """Two atoms 0.01 nm apart with sigma 0.3 nm: a pair force of about
     1e21 and an energy of about 1e19, far beyond the fixed-point range,
-    come back NaN from the quad and triangular dot kernels (every column,
-    every atom) in F and in F+U (a barostat trial), never a wrapped finite
-    sum; the same fluid without that pair stays finite."""
-    path, sweep, _ = REDESIGNED[form]
+    come back NaN from the gather, quad, triangular dot and triangular
+    rowscan kernels (every column, every atom) in F and in F+U or U (a
+    barostat trial), never a wrapped finite sum; the same fluid without
+    that pair stays finite."""
+    mode = {**SWEEP_MODES, "U": rs.ENERGY}[mode_name]
     conf, params, box = _fluid(cuda, seed=11)
+    if form.startswith("rowscan"):
+        make, kw = _rowscan_overflow_form(form)
 
-    def args(c, p):
-        return _quad_args(c, p, box) if path == "quad" else _dot_args(c, p, box, True, "hilbert")
+        def run(c, p):
+            args, rcen_q = make(c, p, box)
+            return rs.rowscan_sweep(*args, mode, triangular=True, rcen_q=rcen_q, **kw)
+    else:
+        path, sweep, _ = REDESIGNED[form]
+        make_args = {"gather": _gather_args, "quad": _quad_args}.get(path)
 
-    mode = SWEEP_MODES[mode_name]
-    assert bool(torch.isfinite(sweep(args(conf, params), mode)).all())
+        def run(c, p):
+            return sweep(make_args(c, p, box) if make_args else _dot_args(c, p, box, True, "hilbert"), mode)
+
+    assert bool(torch.isfinite(run(conf, params)).all())
     conf, params = conf.clone(), params.clone()
     conf[1] = conf[0] + torch.tensor([0.01, 0.0, 0.0], device=cuda)
     params[0, 3] = params[1, 3] = 0.0
     params[:2, 1] = 0.15
     params[:2, 2] = 1.0
-    assert bool(torch.isnan(sweep(args(conf, params), mode)).all())
+    assert bool(torch.isnan(run(conf, params)).all())
 
 
 # -- the probes (csrc/probe_fma.cu, csrc/probe_bf16.cu) ---------------------------

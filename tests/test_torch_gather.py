@@ -1,6 +1,7 @@
 """timemachine_torch gather path against timemachine_tpu: the full-list
 builder, the plain sweep against the JAX Pallas kernel in interpret mode,
-the MD provider across a rebuild, and `configure(kernel="gather")`.
+the MD provider across a rebuild, `configure(kernel="gather")`, and the
+CUDA kernel's Newton-triangular suffix and per-step column cull.
 
 Inputs are made from a seed with numpy, as tests/test_gather_kernel.py
 makes them (jittered-lattice fluids at water density), and handed to both
@@ -9,6 +10,9 @@ each atom's pairs in different orders (the JAX kernel over 128-lane tiles,
 the port over whole lists), so per-atom energies and gradients agree to a
 relative norm of 1e-5 (measured ~3e-7).
 """
+
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -90,7 +94,7 @@ def _both_sweeps(conf, params, box, mode):
     )
     lists = tg.build_gather_neighbors(_t(conf), _t(box), CUTOFF, max_nbrs)
     atoms = trs.assemble_atoms(_t(conf), _t(box), lists.pad_order, trs.param_rows(_t(params), lists.pad_order, conf.shape[0]))
-    out = tg.gather_sweep(atoms, lists.counts, lists.nbr, trs.sweep_scalars(_t(box), CUTOFF), SERIES, mode)
+    out = tg.gather_sweep(atoms, lists.counts, lists.nbr, lists.tri_start, trs.sweep_scalars(_t(box), CUTOFF), SERIES, mode)
     return out.numpy(), np.concatenate([np.asarray(u_j)[:, None], np.asarray(g_j)], axis=1)
 
 
@@ -141,7 +145,8 @@ def test_md_provider_across_a_rebuild_matches_jax():
     u = float(energy(state, _t(x), _t(params), _t(box)))
     lists = tg.build_gather_neighbors(_t(x), _t(box), CUTOFF, max_nbrs)
     atoms = trs.assemble_atoms(_t(x), _t(box), lists.pad_order, trs.param_rows(_t(params), lists.pad_order, x.shape[0]))
-    scale = float(tg.gather_sweep(atoms, lists.counts, lists.nbr, trs.sweep_scalars(_t(box), CUTOFF), SERIES, tg.FORCE_ENERGY)[:, 0].abs().sum())
+    scalars = trs.sweep_scalars(_t(box), CUTOFF)
+    scale = float(tg.gather_sweep(atoms, lists.counts, lists.nbr, lists.tri_start, scalars, SERIES, tg.FORCE_ENERGY)[:, 0].abs().sum())
     assert abs(u - float(j_ef(jnp.asarray(x), p32, b32)[0])) / scale < 1e-6
 
 
@@ -187,4 +192,115 @@ def test_configure_gather_matches_jax(water_gather):
 def _port_sweep_args(nb, x, box):
     lists = tg.build_gather_neighbors(x, box, nb.cutoff, nb.max_nbrs)
     atoms = trs.assemble_atoms(x, box, lists.pad_order, trs.param_rows(nb.params, lists.pad_order, x.shape[0]))
-    return atoms, lists.counts, lists.nbr, trs.sweep_scalars(box, nb.cutoff), SERIES, tg.FORCE_ENERGY
+    return atoms, lists.counts, lists.nbr, lists.tri_start, trs.sweep_scalars(box, nb.cutoff), SERIES, tg.FORCE_ENERGY
+
+
+# -- the kernel's Newton-triangular suffix and per-step column cull ---------------
+
+
+@pytest.mark.parametrize("n_atoms,width,seed", CASES)
+def test_tri_start_counts_listed_slots_below_the_row_chunk(n_atoms, width, seed):
+    """tri_start[r] is the number of row chunk r's listed slots below 32 r,
+    so the suffix nbr[r, tri_start[r]:counts[r]] starts at its first slot
+    >= 32 r; an overflowing capacity caps it like counts."""
+    conf, _, box = make_waterish_system(n_atoms, width, seed)
+    max_nbrs = tg.suggest_max_nbrs(_t(conf), _t(box), CUTOFF + SKIN)
+    for cap in (max_nbrs, 64):
+        lists = tg.build_gather_neighbors(_t(conf), _t(box), CUTOFF + SKIN, cap)
+        for r in range(lists.counts.shape[0]):
+            listed = lists.nbr[r, : int(lists.counts[r])]
+            assert int(lists.tri_start[r]) == int((listed < tg.ROW * r).sum()), r
+    assert int(lists.overflow) > 0
+
+
+def _water_lists(jitter: float, aged: bool):
+    """The 3.4 nm water box (f32), its atoms after `jitter` nm of random
+    jitter that puts atoms across box faces, wrapped afresh as the MD
+    provider places them, and gather lists at cutoff + skin built on the
+    moved atoms or, if aged, before the jitter. Returns (atoms, lists, box,
+    number of real atoms)."""
+    cfg = build_water_system(3.4)
+    conf = np.asarray(cfg.conf, np.float32)
+    params = _t(np.asarray(cfg.host_system.nonbonded_all_pairs.params, np.float32))
+    box = _t(cfg.box)
+    moved = _t(conf) + _t(np.random.default_rng(5).normal(0.0, jitter, conf.shape))
+    if jitter:  # the jitter put atoms across faces
+        box_diag = torch.diagonal(box)
+        assert bool((torch.floor(moved / box_diag) != torch.floor(_t(conf) / box_diag)).any())
+    lists = tg.build_gather_neighbors(_t(conf) if aged else moved, box, CUTOFF + SKIN, 10**4)
+    assert int(lists.overflow) == 0
+    n = conf.shape[0]
+    atoms = trs.assemble_atoms(moved, box, lists.pad_order, trs.param_rows(params, lists.pad_order, n))
+    return atoms, lists, box, n
+
+
+def _pair_keys_within_cutoff(atoms, box, n):
+    """Sorted keys i * n + j of the sorted slots i < j < n whose
+    minimum-image 4D r^2 passes the sweep's gate, by brute force."""
+    box_diag = torch.diagonal(box).double()
+    x = atoms[:n, :4].double()
+    keys = []
+    for i0 in range(0, n, 512):
+        d = x[i0 : i0 + 512, None, :3] - x[None, :, :3]
+        d = d - box_diag * torch.round(d / box_diag)
+        r2 = (d * d).sum(-1) + (x[i0 : i0 + 512, None, 3] - x[None, :, 3]) ** 2
+        later = torch.arange(i0, min(i0 + 512, n))[:, None] < torch.arange(n)
+        i, j = torch.nonzero((r2 < CUTOFF**2) & (r2 > 1e-7) & later, as_tuple=True)
+        keys.append((i + i0) * n + j)
+    return torch.sort(torch.cat(keys)).values
+
+
+@pytest.mark.parametrize("jitter", [0.0, 0.02])
+def test_suffix_with_its_gate_holds_every_pair_once(jitter):
+    """Each row chunk's suffix, gated to row slot < column slot on the
+    row's own chunk, holds every pair within the cutoff exactly once, on
+    lists built fresh on the water box and on the box after jitter across
+    faces (padding slots left out: they add exact zeros)."""
+    atoms, lists, box, n = _water_lists(jitter, aged=False)
+    keys = []
+    for r in range(lists.counts.shape[0]):
+        j = lists.nbr[r, int(lists.tri_start[r]) : int(lists.counts[r])].long()[None, :]
+        i = torch.arange(r * tg.ROW, (r + 1) * tg.ROW)[:, None]
+        keep = (i < j) & (j < n) & (i < n)
+        keys.append((i * n + j)[keep])
+    swept = torch.sort(torch.cat(keys)).values
+    assert bool((swept[1:] != swept[:-1]).all())  # each pair once
+    want = _pair_keys_within_cutoff(atoms, box, n)
+    assert want.numel() > 0
+    assert bool(torch.isin(want, swept).all())  # every pair within the cutoff
+
+
+@pytest.mark.parametrize("jitter", [0.0, 0.02])
+def test_cull_never_drops_a_pair(jitter):
+    """The kernel's cull (cull_mask: each suffix column atom's per-axis
+    minimum image from the center of the row chunk's box, at its atoms'
+    images nearest the first) keeps every column atom that has a row atom
+    of its chunk within the cutoff (the pair function's f32 minimum-image
+    differences), on lists at cutoff + skin built before 0.02 nm of jitter
+    across faces; it drops something, and cull_census counts listed >=
+    suffix >= columns and swept >= columns."""
+    atoms, lists, box, _ = _water_lists(jitter, aged=True)
+    scalars = trs.sweep_scalars(box, CUTOFF)
+    c = tg.cull_mask(atoms, lists.counts, lists.nbr, lists.tri_start, scalars)
+    box_diag = torch.diagonal(box)
+    rows = atoms[:, :3].view(-1, tg.ROW, 3)
+    for e0 in range(0, len(c.rows), 4096):
+        sl = slice(e0, e0 + 4096)
+        d = rows[c.rows[sl]] - atoms[c.slot[sl], None, :3]  # (E, 32 rows, 3)
+        d = d - box_diag * torch.round(d / box_diag)
+        near = ((d * d).sum(-1) < CUTOFF**2).any(1)  # columns with a row atom within the cutoff
+        assert bool(c.column[sl][near].all())
+    assert not bool(c.column.all())
+    census = tg.cull_census(atoms, lists.counts, lists.nbr, lists.tri_start, scalars)
+    assert census.listed >= census.suffix >= census.columns > 0
+    assert census.swept >= census.columns
+    assert census.listed == int(lists.counts.sum()) * tg.ROW
+    assert census.suffix == int((lists.counts - lists.tri_start).sum()) * tg.ROW
+
+
+def test_census_constants_mirror_the_kernel_source():
+    """cull_census counts the kernel's work items with WARPS and SPLITS,
+    constants of csrc/gather.cu that the module mirrors: they must agree."""
+    source = (Path(tg.__file__).parents[1] / "csrc" / "gather.cu").read_text()
+    for name in ("WARPS", "SPLITS"):
+        assert re.search(rf"constexpr int {name} = (\d+);", source).group(1) == str(getattr(tg, name))

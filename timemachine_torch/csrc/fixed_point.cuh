@@ -1,19 +1,19 @@
 // Order-free sums of the Newton-triangular sweeps: column reactions, and in
-// rowscan.cu, nb_tiles.cu, quadscan.cu and dotscan.cu the row sums too
-// (nb_tiles.cu its dU/dp columns). A block adds each force-sized f32 sum it
-// computes into an int64 fixed-point accumulator (2^32 units per
+// rowscan.cu, nb_tiles.cu, gather.cu, quadscan.cu and dotscan.cu the row
+// sums too (nb_tiles.cu its dU/dp columns). A block adds each force-sized
+// f32 sum it computes into an int64 fixed-point accumulator (2^32 units per
 // kJ/mol/nm, range +-2^31) with integer atomics, which are exact and
 // associative, so the order in which blocks run does not change the sum
 // and two launches are bitwise equal. A second kernel converts the sums
-// (store_sums), or adds the converted column sums to f32 row sums
+// (store_checked), or adds the converted column sums to f32 row sums
 // (add_columns, quadscan.cu's first design).
 //
-// nb_tiles.cu, quadscan.cu and dotscan.cu check the range: a sum of
-// FIX_LIMIT or more (half the accumulator's range), or not finite, raises a
-// flag (add_checked) that turns the whole result into NaN, and a final sum
-// beyond FIX_LIMIT comes back NaN too (store_checked), so a near-overlap
-// gives NaN, never a wrapped finite sum (a sum wraps undetected only past
-// 1.5 times the range).
+// The sums are range-checked: a sum of FIX_LIMIT or more (half the
+// accumulator's range), or not finite, raises a flag (add_checked) that
+// turns the whole result into NaN, and a final sum beyond FIX_LIMIT comes
+// back NaN too (store_checked), so a near-overlap gives NaN, never a
+// wrapped finite sum (a sum wraps undetected only past 1.5 times the
+// range).
 
 #pragma once
 
@@ -54,15 +54,6 @@ __global__ void add_columns(float4* __restrict__ out, const long long* __restric
   out[i] = o;
 }
 
-// out[i] = the fixed-point sums of atom i, acc (4, n_pad) [u, dU/dx, dU/dy, dU/dz]
-__global__ void store_sums(float4* __restrict__ out, const long long* __restrict__ acc, int n_pad) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_pad) return;
-  auto to_float = [](long long v) { return static_cast<float>(static_cast<double>(v) * FROM_FIXED); };
-  out[i] = make_float4(to_float(acc[i]), to_float(acc[n_pad + i]), to_float(acc[2 * n_pad + i]),
-                       to_float(acc[3 * n_pad + i]));
-}
-
 // out[i] = the fixed-point sums of atom i, acc (4, n_pad) then the flag: NaN
 // everywhere if the flag is up, NaN for a sum beyond FIX_LIMIT
 __global__ void store_checked(float4* __restrict__ out, const long long* __restrict__ acc, int n_pad) {
@@ -83,11 +74,6 @@ __global__ void store_checked(float4* __restrict__ out, const long long* __restr
 // Launch store_checked over n_pad atoms on `stream`; acc (4 n_pad + 1) with the flag last.
 inline void launch_store_checked(float4* out, const void* acc, int n_pad, cudaStream_t stream) {
   store_checked<<<(n_pad + 255) / 256, 256, 0, stream>>>(out, static_cast<const long long*>(acc), n_pad);
-}
-
-// Launch store_sums over n_pad atoms on `stream`.
-inline void launch_store(float4* out, const void* acc, int n_pad, cudaStream_t stream) {
-  store_sums<<<(n_pad + 255) / 256, 256, 0, stream>>>(out, static_cast<const long long*>(acc), n_pad);
 }
 
 // Launch add_columns over n_pad atoms on `stream`.

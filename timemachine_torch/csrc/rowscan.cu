@@ -1,13 +1,14 @@
 // Rowscan pair sweep for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_rowscan_kernel` / `_rowscan_row_chunk` of
-// timemachine_tpu/ops/pallas/rowscan_kernel.py in every form it takes:
-// three modes (forces every MD step; forces + energy for FIRE and the
-// stateless energy/force; energy only for the barostat's trial energies,
-// JAX's `u_only`), symmetric or Newton-triangular lists, per-pair minimum
-// image or row-center images ("preshift", `rcen_q`), with or without the 4D
-// w lift. Plain PyTorch version: rowscan_sweep_plain in
-// timemachine_torch/ops/rowscan_kernel.py.
+// timemachine_tpu/ops/pallas/rowscan_kernel.py in the forms a configuration
+// launches, 10 of the 24 that its options make: three modes (forces every
+// MD step; forces + energy for FIRE and the stateless energy/force; energy
+// only for the barostat's trial energies, JAX's `u_only`), symmetric or
+// Newton-triangular lists, per-pair minimum image or row-center images
+// ("preshift", `rcen_q`), with or without the 4D w lift (the launcher lists
+// the 10; it refuses the rest). Plain PyTorch version, in every form:
+// rowscan_sweep_plain in timemachine_torch/ops/rowscan_kernel.py.
 //
 // What it computes, per row atom i: the sum over listed column atoms j with
 // (r2 < cutoff^2) & (r2 > 1e-7) of pair_math.cuh's pair function (LJ +
@@ -41,7 +42,9 @@
 //   Every item adds its row sums and its column
 //   reactions into one int64 fixed-point accumulator (fixed_point.cuh) by
 //   integer atomics, which are order-free: two launches are bitwise equal.
-//   A last pass converts the sums to f32;
+//   A sum past the accumulator's range (a near-overlap in a barostat
+//   trial) turns the whole result into NaN, never a wrapped finite sum. A
+//   last pass converts the sums to f32;
 // * each thread holds two row atoms (l and l + 16) against 16 columns of a
 //   128-column tile, so every column read from shared memory serves two
 //   pairs, and the two pairs give each Horner chain an independent twin;
@@ -148,13 +151,13 @@ __device__ __forceinline__ void pair(const float4& rp, const float4& rq, const f
 
 // -- symmetric lists ------------------------------------------------------------
 
-template <int MODE, bool PRE, bool W>
+// F mode with per-pair minimum image and w, the one symmetric form built
+// (phase 3's yardstick); the plain version keeps the others
 __global__ void __launch_bounds__(THREADS) sym_kernel(
     const float4* __restrict__ atoms,  // (Npad, 8) as 2 float4 per atom
     const int* __restrict__ row_start, const int* __restrict__ row_count, const int* __restrict__ col_ids,
-    const int* __restrict__ rcen_q,  // (n_rows, 4) row centers (preshift)
     const float* __restrict__ scal,  // [box_x, box_y, box_z, cutoff]
-    float4* __restrict__ out,        // (Npad) [u, dU/dx, dU/dy, dU/dz]
+    float4* __restrict__ out,        // (Npad) [0, dU/dx, dU/dy, dU/dz]
     const Series s) {
   __shared__ float4 tile[2 * COL];
   __shared__ float4 part[WARPS][ROW];
@@ -163,17 +166,16 @@ __global__ void __launch_bounds__(THREADS) sym_kernel(
   const int warp = threadIdx.x >> 5;
   const int row = blockIdx.x;
   const int i = row * ROW + lane;
-  const Frame f = make_frame(scal, rcen_q, row, PRE);
+  const Frame f = make_frame(scal, nullptr, row, false);
 
-  float4 ra = atoms[2 * i];            // x y z w
+  const float4 ra = atoms[2 * i];      // x y z w
   const float4 rb = atoms[2 * i + 1];  // q sigma/2 2sqrt(eps) 0
-  if (PRE) ra = row_at_center(ra, f);
 
-  float u = 0.0f, gx = 0.0f, gy = 0.0f, gz = 0.0f;
+  float gx = 0.0f, gy = 0.0f, gz = 0.0f;
   const int start = row_start[row];
   const int count = row_count[row];
 
-  // thread t stages float4 t and t + THREADS of the chunk: positions where t is even
+  // thread t stages float4 t and t + THREADS of the chunk
   float4 next0 = make_float4(0.f, 0.f, 0.f, 0.f), next1 = next0;
   if (count > 0) {
     const float4* c = atoms + static_cast<size_t>(col_ids[start]) * (2 * COL);
@@ -182,10 +184,6 @@ __global__ void __launch_bounds__(THREADS) sym_kernel(
   }
   for (int k = 0; k < count; ++k) {
     __syncthreads();  // every warp is done with the previous chunk
-    if (PRE && !(threadIdx.x & 1)) {
-      next0 = col_at_center(next0, f);
-      next1 = col_at_center(next1, f);
-    }
     tile[threadIdx.x] = next0;
     tile[threadIdx.x + THREADS] = next1;
     __syncthreads();
@@ -198,29 +196,24 @@ __global__ void __launch_bounds__(THREADS) sym_kernel(
     for (int jj = 0; jj < COLS_PER_WARP; ++jj) {
       const int j = warp * COLS_PER_WARP + jj;
       float dx, dy, dz, de_r, e;
-      pair<MODE, PRE, W>(ra, rb, tile[2 * j], tile[2 * j + 1], f, true, s, dx, dy, dz, de_r, e);
-      if (MODE != ENERGY) {
-        gx = fmaf(de_r, dx, gx);
-        gy = fmaf(de_r, dy, gy);
-        gz = fmaf(de_r, dz, gz);
-      }
-      if (MODE != FORCE) u += e;
+      pair<FORCE, false, true>(ra, rb, tile[2 * j], tile[2 * j + 1], f, true, s, dx, dy, dz, de_r, e);
+      gx = fmaf(de_r, dx, gx);
+      gy = fmaf(de_r, dy, gy);
+      gz = fmaf(de_r, dz, gz);
     }
   }
 
-  part[warp][lane] = make_float4(u, gx, gy, gz);
+  part[warp][lane] = make_float4(0.0f, gx, gy, gz);
   __syncthreads();
   if (warp == 0) {
     float4 acc = part[0][lane];
 #pragma unroll
     for (int w = 1; w < WARPS; ++w) {
       const float4 p = part[w][lane];
-      acc.x += p.x;
       acc.y += p.y;
       acc.z += p.z;
       acc.w += p.w;
     }
-    acc.x *= 0.5f;  // each pair's energy was counted from both of its atoms
     out[i] = acc;
   }
 }
@@ -288,7 +281,7 @@ __global__ void __launch_bounds__(THREADS) tri_kernel(
     const int* __restrict__ row_start, const int* __restrict__ row_count, const int* __restrict__ col_ids,
     const int* __restrict__ rcen_q,        // (n_rows, 4) row centers (preshift)
     const float* __restrict__ scal,        // [box_x, box_y, box_z, cutoff]
-    unsigned long long* __restrict__ acc,  // (4, Npad) fixed-point [u, dU/dx, dU/dy, dU/dz], zeroed
+    unsigned long long* __restrict__ acc,  // (4 Npad + 1) fixed-point [u, dU/dx, dU/dy, dU/dz], then the flag; zeroed
     int n_rows, const Series s) {
   extern __shared__ float4 smem[];
   float4* stages = smem;                     // [STAGES][2 * COL] column atoms, as in atoms
@@ -308,6 +301,7 @@ __global__ void __launch_bounds__(THREADS) tri_kernel(
   const int l16 = lane & 15;
   const int grp = 2 * warp + (lane >> 4);
   const int n_pad = n_rows * ROW;
+  unsigned long long* flag = acc + 4 * static_cast<size_t>(n_pad);
   const int start = row_start[row];
   const int cover = min(row * ROW / COL, n_pad / COL - 1);  // clamped for padding row chunks
   const Frame f = make_frame(scal, rcen_q, row, PRE);
@@ -382,12 +376,10 @@ __global__ void __launch_bounds__(THREADS) tri_kernel(
           rz -= gt[2 * plane + r * GSTRIDE + t];
         }
       }
-      if (rx != 0.0f || ry != 0.0f || rz != 0.0f) {
-        const int j = cid * COL + t;
-        fixed_point::add(acc + n_pad + j, rx);
-        fixed_point::add(acc + 2 * n_pad + j, ry);
-        fixed_point::add(acc + 3 * n_pad + j, rz);
-      }
+      const int j = cid * COL + t;
+      fixed_point::add_checked(acc + n_pad + j, rx, flag);
+      fixed_point::add_checked(acc + 2 * n_pad + j, ry, flag);
+      fixed_point::add_checked(acc + 3 * n_pad + j, rz, flag);
     }
   }
 
@@ -405,11 +397,11 @@ __global__ void __launch_bounds__(THREADS) tri_kernel(
       a.w += p.w;
     }
     const int i = row * ROW + t;
-    if (MODE != FORCE && a.x != 0.0f) fixed_point::add(acc + i, a.x);
-    if (MODE != ENERGY && (a.y != 0.0f || a.z != 0.0f || a.w != 0.0f)) {
-      fixed_point::add(acc + n_pad + i, a.y);
-      fixed_point::add(acc + 2 * n_pad + i, a.z);
-      fixed_point::add(acc + 3 * n_pad + i, a.w);
+    if (MODE != FORCE) fixed_point::add_checked(acc + i, a.x, flag);
+    if (MODE != ENERGY) {
+      fixed_point::add_checked(acc + n_pad + i, a.y, flag);
+      fixed_point::add_checked(acc + 2 * n_pad + i, a.z, flag);
+      fixed_point::add_checked(acc + 3 * n_pad + i, a.w, flag);
     }
   }
 }
@@ -425,13 +417,13 @@ struct Launch {
   cudaStream_t stream;
 };
 
-template <int MODE, bool TRI, bool PRE, bool W>
-int launch(const Launch& a) {
-  if (!TRI) {
-    sym_kernel<MODE, PRE, W><<<a.n_rows, THREADS, 0, a.stream>>>(a.atoms, a.row_start, a.row_count, a.col_ids,
-                                                                 a.rcen_q, a.scal, a.out, a.s);
-    return static_cast<int>(cudaGetLastError());
-  }
+int launch_sym(const Launch& a) {
+  sym_kernel<<<a.n_rows, THREADS, 0, a.stream>>>(a.atoms, a.row_start, a.row_count, a.col_ids, a.scal, a.out, a.s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int MODE, bool PRE, bool W>
+int launch_tri(const Launch& a) {
   constexpr int bytes = tri_smem_bytes<MODE, PRE>();
   if (bytes > 48 * 1024) {
     const cudaError_t err =
@@ -442,23 +434,16 @@ int launch(const Launch& a) {
       a.atoms, a.row_start, a.row_count, a.col_ids, a.rcen_q, a.scal, a.acc, a.n_rows, a.s);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  fixed_point::launch_store(a.out, a.acc, a.n_rows * ROW, a.stream);
+  fixed_point::launch_store_checked(a.out, a.acc, a.n_rows * ROW, a.stream);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int MODE, bool TRI, bool PRE>
-int launch_w(const Launch& a, bool w) {
-  return w ? launch<MODE, TRI, PRE, true>(a) : launch<MODE, TRI, PRE, false>(a);
-}
-
-template <int MODE, bool TRI>
-int launch_pre(const Launch& a, bool pre, bool w) {
-  return pre ? launch_w<MODE, TRI, true>(a, w) : launch_w<MODE, TRI, false>(a, w);
-}
-
+// The triangular forms F and U at either images, with or without w (the MD
+// provider's sweep and barostat energy)
 template <int MODE>
-int launch_tri(const Launch& a, bool tri, bool pre, bool w) {
-  return tri ? launch_pre<MODE, true>(a, pre, w) : launch_pre<MODE, false>(a, pre, w);
+int launch_images(const Launch& a, bool pre, bool w) {
+  if (pre) return w ? launch_tri<MODE, true, true>(a) : launch_tri<MODE, true, false>(a);
+  return w ? launch_tri<MODE, false, true>(a) : launch_tri<MODE, false, false>(a);
 }
 
 }  // namespace
@@ -466,10 +451,11 @@ int launch_tri(const Launch& a, bool tri, bool pre, bool w) {
 // Launch the sweep over n_rows row chunks on `stream`. Device pointers:
 // atoms (Npad, 8) f32, row_start/row_count (n_rows,) i32, col_ids i32,
 // rcen_q (n_rows * 4,) i32 (read with preshift only), scal (4,) f32, out
-// (Npad, 4) f32, acc (4, Npad) i64 set to zero (triangular only). h and p
-// are host arrays of 11 floats. mode: 0 forces, 1 forces + energy, 2
-// energy; triangular, preshift, has_w: 0 or 1. Returns the first CUDA
-// error, else 0.
+// (Npad, 4) f32, acc (4 Npad + 1,) i64 set to zero (triangular only). h
+// and p are host arrays of 11 floats. mode: 0 forces, 1 forces + energy, 2
+// energy; triangular, preshift, has_w: 0 or 1. A form that is not built
+// returns cudaErrorInvalidValue and launches nothing; else the first CUDA
+// error, or 0.
 extern "C" int rowscan_sweep_launch(const void* atoms, const void* row_start, const void* row_count,
                                     const void* col_ids, const void* rcen_q, const void* scal, void* out, void* acc,
                                     int n_rows, int mode, int triangular, int preshift, int has_w, const float* h,
@@ -485,14 +471,15 @@ extern "C" int rowscan_sweep_launch(const void* atoms, const void* row_start, co
                  n_rows,
                  make_series(h, p),
                  static_cast<cudaStream_t>(stream)};
-  switch (mode) {
-    case FORCE:
-      return launch_tri<FORCE>(a, triangular, preshift, has_w);
-    case FORCE_ENERGY:
-      return launch_tri<FORCE_ENERGY>(a, triangular, preshift, has_w);
-    case ENERGY:
-      return launch_tri<ENERGY>(a, triangular, preshift, has_w);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  // the 10 forms a configuration reaches: triangular F and U in every form
+  // (the MD providers), triangular F+U with minimum image and w (the
+  // energy/force entry), symmetric F with minimum image and w (the yardstick)
+  if (triangular) {
+    if (mode == FORCE) return launch_images<FORCE>(a, preshift, has_w);
+    if (mode == ENERGY) return launch_images<ENERGY>(a, preshift, has_w);
+    if (mode == FORCE_ENERGY && !preshift && has_w) return launch_tri<FORCE_ENERGY, false, true>(a);
+  } else if (mode == FORCE && !preshift && has_w) {
+    return launch_sym(a);
   }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -448,8 +448,13 @@ def rowscan_sweep(
     or ENERGY (unused columns are zero); lists symmetric or triangular,
     rcen_q (nR * 4,) int32 row centers for preshift (None: minimum image),
     has_w False to leave w out of r^2. A CUDA tensor launches the kernel of
-    csrc/rowscan.cu on the current stream (with an int64 fixed-point scratch
-    in triangular form); a CPU tensor runs rowscan_sweep_plain."""
+    csrc/rowscan.cu on the current stream, in triangular form with an int64
+    fixed-point scratch for the sums (NaN wherever a sum leaves its range).
+    The kernel is built for the forms a configuration launches: triangular
+    F and U in every form, triangular F+U with minimum image and w,
+    symmetric F with minimum image and w; any other form raises
+    RuntimeError (CUDA error 1). A CPU tensor runs rowscan_sweep_plain, in
+    every form."""
     if atoms.device.type == "cpu":
         return rowscan_sweep_plain(atoms, row_start, row_count, col_ids, scalars, series, mode, triangular, rcen_q, has_w)
     if atoms.device.type != "cuda":
@@ -470,7 +475,7 @@ def rowscan_sweep(
         check_tensor("rcen_q", rcen_q, torch.int32, dev, (4 * n_rows,))
     h_arg, p_arg = series_args(series)
     out = torch.empty((n_pad, 4), dtype=torch.float32, device=dev)
-    acc = torch.zeros((4, n_pad) if triangular else (0,), dtype=torch.int64, device=dev)
+    acc = torch.zeros((4 * n_pad + 1) if triangular else 0, dtype=torch.int64, device=dev)  # the sums, then the flag
     rc = _launcher()(
         atoms.data_ptr(), row_start.data_ptr(), row_count.data_ptr(), col_ids.data_ptr(),
         None if rcen_q is None else rcen_q.data_ptr(), scalars.data_ptr(), out.data_ptr(), acc.data_ptr(), n_rows,

@@ -57,7 +57,13 @@ also holds quad's no-w form against its plain version, with its time and
 bound. The probes [12]: the FP32
 FMA rate at INNER and twice INNER (the time must double) beside the data
 sheet's peak, the bf16 and f32 gate rates, each probe bitwise against its
-plain version. Every path runs with all launch and plain-call counts set to
+plain version; the gate probe's redesign and first design in both types at
+ITERS x (1, 4, 8, 16, 32) iterations, with the slope (marginal time per
+ITERS), the intercept (fixed cost per launch), the time from 16 to 32 ITERS
+(held in PROBE_RATIO) and the redesign / first design marginal bf16 time
+(held under GATE_REDESIGN_RATIO), each of the four kernels bitwise against
+the plain version at ITERS and 4 ITERS; the tile census of the DHFR start,
+held to the script's counts. Every path runs with all launch and plain-call counts set to
 0 just before it and read just after. Then a JSON line on the kernels
 (time; launches per NPT step of the path named in `path`, per Adam step of
 the training path where the kernel has one, per run of phase 12 for the
@@ -126,8 +132,17 @@ SWEPT_SHARE = 0.5
 # and the share of the full lists' slots it may sweep
 GATHER_REDESIGN_RATIO = 0.75
 GATHER_SWEPT_SHARE = 0.55
-# the FP32 probe's time from INNER to 2 INNER: the chains were not folded
+# the FP32 probe's time from INNER to 2 INNER, and each gate kernel's from
+# 16 ITERS to 32 ITERS: the loops were not folded, the fixed cost is small
 PROBE_RATIO = (1.8, 2.2)
+# the redesigned bf16 gate (packed compare, shift table, ELEMS pairs a
+# thread, one wave) against the first design: marginal time per ITERS
+# iterations, same run
+GATE_REDESIGN_RATIO = 0.75
+# the tile census of the DHFR start (tiles built, after the chop, with no
+# pair within the cutoff; pairs within the cutoff), as
+# scripts/probe_bf16.py --census counts them (its hits printed as 7.2M)
+CENSUS_DHFR = (24523, 22889, 7531, 7201903)
 # the bound: published H100 SXM peaks (NVIDIA data sheet), FP32 outside the
 # tensor cores and HBM3; bf16 outside the tensor cores (NVIDIA H100 Tensor
 # Core GPU Architecture whitepaper: 133.8 TFLOP/s, twice FP32)
@@ -222,6 +237,7 @@ def main() -> int:
     from timemachine_torch.potentials import DP_CB, SKIN, NonbondedAllPairs
     from timemachine_torch.probes import bf16_rate as br
     from timemachine_torch.probes import fp32_peak as fp
+    from timemachine_torch.probes import tile_census as tc
     from timemachine_torch.testsystems.dhfr import setup_dhfr
 
     dev = torch.device("cuda", 0)
@@ -981,9 +997,11 @@ def main() -> int:
     # -- 12. the probes ----------------------------------------------------------------
     x12 = fp.inputs(dev)
     a12, b12 = br.inputs(dev)
+    bf16 = torch.bfloat16
     zero_counts()
     tflops, ms_fma, ms_fma2 = fp.measure(x12)
-    ms_gate = {dt: br.time_ms(a12, b12, dt) for dt in (torch.float32, torch.bfloat16)}
+    fits = br.measure(a12, b12)
+    ms_gate = {dt: fits[dt, False].profiler_ms for dt in (torch.float32, torch.bfloat16)}
     launches12, plain12 = read_counts()
     check(plain12 == 0, "[12] the probes ran a plain version")
     ratio = ms_fma2 / ms_fma
@@ -1003,6 +1021,30 @@ def main() -> int:
         f"({ms_gate[torch.bfloat16] * 1e9 / slot_iters:.4f}); bf16 speedup over f32 "
         f"{ms_gate[torch.float32] / ms_gate[torch.bfloat16]:.3f}x ({smi})"
     )
+    for (dt, first), f in fits.items():
+        print(
+            f"[12 bf16 slope] {br.KERNELS[dt, first]} ({'first design' if first else 'redesign'}): us per launch at "
+            + ", ".join(f"{k} {ms * 1e3:.3f}" for k, ms in f.ms_by_iters.items())
+            + f" iterations (CUDA events over {br.REPS} launches queued behind a spin kernel); marginal "
+            f"{f.marginal_ms * 1e3:.4f} us per {br.ITERS} iterations, fixed {f.fixed_ms * 1e3:.4f} us per launch, "
+            f"time at {br.ITERS * br.MULTIPLES[-1]} / at {br.ITERS * br.MULTIPLES[-2]} {f.ratio:.3f} (want "
+            f"{PROBE_RATIO[0]}-{PROBE_RATIO[1]}); profiler at {br.ITERS} {f.profiler_ms * 1e3:.3f} us ({smi})"
+        )
+        check(PROBE_RATIO[0] <= f.ratio <= PROBE_RATIO[1], f"[12] {br.KERNELS[dt, first]}'s time is not linear in iterations")
+    for first in (False, True):
+        f32_fit, bf_fit = fits[torch.float32, first], fits[bf16, first]
+        print(
+            f"[12 bf16 slope] {'first design' if first else 'redesign'}: bf16 speedup over f32 "
+            f"{f32_fit.marginal_ms / bf_fit.marginal_ms:.3f}x marginal, "
+            f"{f32_fit.ms_by_iters[br.ITERS] / bf_fit.ms_by_iters[br.ITERS]:.3f}x per launch at {br.ITERS} ({smi})"
+        )
+    gate_ratio = fits[bf16, False].marginal_ms / fits[bf16, True].marginal_ms
+    print(
+        f"[12 redesign] marginal bf16 time per {br.ITERS} iterations, redesign / first design: {gate_ratio:.3f} "
+        f"(limit {GATE_REDESIGN_RATIO}); f32 {fits[torch.float32, False].marginal_ms / fits[torch.float32, True].marginal_ms:.3f} "
+        f"({smi})"
+    )
+    check(gate_ratio <= GATE_REDESIGN_RATIO, "[12] the redesigned bf16 gate is not fast enough against the first design")
     probe_rows = []
     for probe, kernel, plain, ms, ops, peak, nbytes, source, replaces in (
         ("fp32_peak", lambda: fp.fp32_peak(x12), lambda: fp.fp32_peak_plain(x12), ms_fma, fp.flops(x12.numel()),
@@ -1019,8 +1061,34 @@ def main() -> int:
         print(f"[12 {probe}] kernel vs plain bitwise equal (and two launches), finite: {same}; kernel {ms:.4f} ms, plain "
               f"{plain_ms:.2f} ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']} ({smi})")
         check(same, f"[12] {probe} disagrees with its plain version")
+    fit = fits[bf16, False]
+    probe_rows[-1].update(
+        ms_by_iters=fit.ms_by_iters, marginal_ms=fit.marginal_ms, fixed_ms=fit.fixed_ms,
+        first_design_ms=fits[bf16, True].profiler_ms,
+    )
     out_f32 = br.bf16_rate(a12, b12, torch.float32)
     check(torch.equal(out_f32, br.bf16_rate_plain(a12, b12, torch.float32)), "[12] the f32 gate disagrees with plain")
+    for dt in (torch.float32, bf16):
+        for first in (False, True):
+            for iters in (br.ITERS, 4 * br.ITERS):
+                out_k = br.bf16_rate(a12, b12, dt, iters, first_design=first)
+                same = torch.equal(out_k, br.bf16_rate_plain(a12, b12, dt, iters)) and torch.equal(
+                    out_k, br.bf16_rate(a12, b12, dt, iters, first_design=first)
+                )
+                check(same, f"[12] {br.KERNELS[dt, first]} at {iters} iterations disagrees with plain or itself")
+    print(
+        f"[12 bf16 designs] {', '.join(br.KERNELS.values())} at {br.ITERS} and {4 * br.ITERS} iterations: each bitwise "
+        f"equal to bf16_rate_plain, two launches equal ({smi})"
+    )
+    t0 = time.perf_counter()
+    census = tc.tile_census(hc.conf, hc.box, dev)
+    torch.cuda.synchronize()
+    census_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[12 census] DHFR start: {tc.describe(census)}; {census_ms:.1f} ms on the card, host clock ({smi})")
+    check(
+        (census.built, census.chopped, census.empty, census.hits) == CENSUS_DHFR,
+        f"[12] the tile census {census} differs from the script's {CENSUS_DHFR}",
+    )
 
     print(json.dumps({"kernels": [kernel_row, nb_row, gather_row, quad_row, dot_row, *probe_rows]}))
     print(smi)

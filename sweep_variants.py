@@ -8,6 +8,14 @@
         the values in turn and then in reverse), each checked against the
         plain version (relative norm per column <= 1e-4).
 
+    python3 sweep_variants.py bf16-elems [--elems 2 4 8]
+        Builds a copy of timemachine_torch/csrc/probe_bf16.cu for each value
+        of its ELEMS constant (f32 elements or bf16 pairs per thread of the
+        redesigned gate), checks each bitwise against the plain version, and
+        times the redesign in f32 and bf16 by bf16_rate.measure (marginal
+        time per ITERS iterations and fixed cost), the values in turn and
+        then in reverse.
+
     python3 sweep_variants.py rowscan-main [--package-root DIR]
         Times the rowscan sweep's main-path form (Newton-triangular,
         row-center images, no w) in F mode, CUDA events over 20 launches,
@@ -62,6 +70,36 @@ def dhfr_start(dev):
     return conf, nb, torch.as_tensor(hc.box, device=dev, dtype=torch.float32)
 
 
+def build_variants(name: str, constant: str, values) -> dict:
+    """{k: CDLL} of csrc/<name>.cu with `constexpr int <constant> = k;`, one
+    nvcc each, in parallel, under timemachine_torch/_build/variants/."""
+    from timemachine_torch.ops import _build
+
+    source = (_build.CSRC / f"{name}.cu").read_text()
+    pattern = rf"constexpr int {constant} = \d+;"
+    if len(re.findall(pattern, source)) != 1:
+        raise SystemExit(f"sweep_variants: csrc/{name}.cu does not define {constant} once")
+    out_dir = _build.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for k in values:
+        src = _build.CSRC / f"{name}_{constant.lower()}{k}.cu.tmp"  # beside the headers it includes
+        src.write_text(re.sub(pattern, f"constexpr int {constant} = {k};", source))
+        so = out_dir / f"lib{name}_{constant.lower()}{k}.so"
+        cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-x", "cu", "-o", str(so), str(src)]
+        jobs[k] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), src, so)
+    libs = {}
+    for k, (proc, src, so) in jobs.items():
+        out, err = proc.communicate()
+        src.unlink()
+        if proc.returncode != 0:
+            raise SystemExit(f"sweep_variants: nvcc failed for {constant} = {k}:\n{err}")
+        regs = [ln.strip() for ln in (out + err).splitlines() if "registers" in ln]
+        print(f"[build] {constant} {k}: " + " | ".join(regs))
+        libs[k] = ctypes.CDLL(str(so))
+    return libs
+
+
 def gather_splits(splits, smi: str) -> None:
     import torch
 
@@ -70,29 +108,7 @@ def gather_splits(splits, smi: str) -> None:
     from timemachine_torch.ops import rowscan_kernel as rs
     from timemachine_torch.potentials import SKIN
 
-    source = (_build.CSRC / "gather.cu").read_text()
-    pattern = r"constexpr int SPLITS = \d+;"
-    if len(re.findall(pattern, source)) != 1:
-        raise SystemExit("sweep_variants: csrc/gather.cu does not define SPLITS once")
-    out_dir = _build.BUILD_DIR / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for k in splits:
-        src = _build.CSRC / f"gather_splits{k}.cu.tmp"  # beside the headers it includes
-        src.write_text(re.sub(pattern, f"constexpr int SPLITS = {k};", source))
-        so = out_dir / f"libgather_splits{k}.so"
-        cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-x", "cu", "-o", str(so), str(src)]
-        jobs[k] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), src, so)
-    libs = {}
-    for k, (proc, src, so) in jobs.items():
-        out, err = proc.communicate()
-        src.unlink()
-        if proc.returncode != 0:
-            raise SystemExit(f"sweep_variants: nvcc failed for SPLITS = {k}:\n{err}")
-        regs = [ln.strip() for ln in (out + err).splitlines() if "registers" in ln]
-        print(f"[build] SPLITS {k}: " + " | ".join(regs))
-        libs[k] = ctypes.CDLL(str(so))
-
+    libs = build_variants("gather", "SPLITS", splits)
     dev = torch.device("cuda", 0)
     conf, nb, box = dhfr_start(dev)
     cutoff = nb.cutoff
@@ -143,10 +159,39 @@ def rowscan_main(smi: str) -> None:
     print(f"[rowscan main] {rs.__file__}: main form F {ms:.4f} ms (CUDA events over {REPS} launches, DHFR start; {smi})")
 
 
+def bf16_elems(elems, smi: str) -> None:
+    import torch
+
+    from timemachine_torch.ops import _build
+    from timemachine_torch.probes import bf16_rate as br
+
+    libs = build_variants("probe_bf16", "ELEMS", elems)
+    a, b = br.inputs(torch.device("cuda", 0))
+    plain = {dt: br.bf16_rate_plain(a, b, dt) for dt in (torch.float32, torch.bfloat16)}
+    fits = {k: [] for k in elems}
+    for k in [*elems, *reversed(elems)]:
+        _build._libs["probe_bf16"] = libs[k]  # bf16_rate's launcher reads the loaded library from here
+        for dt in plain:
+            if not torch.equal(br.bf16_rate(a, b, dt), plain[dt]):
+                raise SystemExit(f"sweep_variants: ELEMS = {k} disagrees with the plain version in {dt}")
+        fits[k].append(br.measure(a, b, designs=(False,)))
+    for k in elems:
+        for dt in plain:
+            runs = [m[dt, False] for m in fits[k]]
+            print(
+                f"[bf16 elems] ELEMS {k}, {br.KERNELS[dt, False]}: marginal "
+                + " ".join(f"{f.marginal_ms * 1e3:.4f}" for f in runs) + " us per "
+                f"{br.ITERS} iterations, fixed " + " ".join(f"{f.fixed_ms * 1e3:.4f}" for f in runs)
+                + f" us, at {br.ITERS} " + " ".join(f"{f.ms_by_iters[br.ITERS] * 1e3:.4f}" for f in runs)
+                + f" us (bf16_rate.measure, ({br.SUB}, {br.LANE}) elements; {smi})"
+            )
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("what", choices=("gather-splits", "rowscan-main"))
+    parser.add_argument("what", choices=("gather-splits", "rowscan-main", "bf16-elems"))
     parser.add_argument("--splits", type=int, nargs="+", default=[1, 2, 4])
+    parser.add_argument("--elems", type=int, nargs="+", default=[2, 4, 8])
     parser.add_argument("--package-root", default=str(Path(__file__).resolve().parent))
     a = parser.parse_args()
     sys.path.insert(0, a.package_root)
@@ -158,6 +203,8 @@ def main() -> int:
     smi = card_line()
     if a.what == "gather-splits":
         gather_splits(a.splits, smi)
+    elif a.what == "bf16-elems":
+        bf16_elems(a.elems, smi)
     else:
         rowscan_main(smi)
     return 0

@@ -1,6 +1,6 @@
 """The CUDA kernels (rowscan, block-tile, gather, quadscan and dotscan
-sweeps, the FP32 and bf16 probes) against their plain PyTorch versions, on
-a card.
+sweeps, the FP32 and bf16 probes, the latter in both designs) against their
+plain PyTorch versions, and the tile census against its CPU run, on a card.
 
 Every test here needs a CUDA device and skips without one (decided in the
 `cuda` fixture, never at import). This file imports no JAX, so it also runs
@@ -25,6 +25,7 @@ from timemachine_torch.ops import quadscan_kernel as qk
 from timemachine_torch.ops import rowscan_kernel as rs
 from timemachine_torch.probes import bf16_rate as br
 from timemachine_torch.probes import fp32_peak as fp
+from timemachine_torch.probes import tile_census as tc
 
 pytestmark = pytest.mark.cuda
 
@@ -663,3 +664,62 @@ def test_bf16_rate_probe_matches_plain(cuda, dtype):
     out_p = br.bf16_rate_plain(a, b, dtype)
     assert br.bf16_rate.launches == before + 1
     assert torch.equal(out_k, out_p) and float(out_k.sum()) > 0
+
+
+@pytest.mark.parametrize("iters", [br.ITERS, 4 * br.ITERS])
+@pytest.mark.parametrize("first_design", [False, True], ids=["redesign", "first_design"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bf16_rate_designs_match_plain(cuda, dtype, first_design, iters):
+    """Both designs, bit for bit, at ITERS and 4 ITERS (the redesign's shift
+    table holds 256 iterations a chunk), and two launches equal."""
+    a, b = br.inputs(cuda)
+    out_k = br.bf16_rate(a, b, dtype, iters, first_design=first_design)
+    assert torch.equal(out_k, br.bf16_rate_plain(a, b, dtype, iters))
+    assert torch.equal(out_k, br.bf16_rate(a, b, dtype, iters, first_design=first_design))
+
+
+@pytest.mark.parametrize(
+    "dtype, shape, iters",
+    [
+        (torch.float32, (3, 130), br.ITERS), (torch.bfloat16, (3, 130), br.ITERS), (torch.float32, (3, 131), br.ITERS),
+        (torch.float32, (2200, 1030), 301), (torch.bfloat16, (2200, 1030), 301),
+    ],
+    ids=["f32-even-ragged", "bf16-even-ragged", "f32-odd", "f32-past-one-wave", "bf16-past-one-wave"],
+)
+def test_bf16_rate_redesign_ragged_and_long(cuda, dtype, shape, iters):
+    """The redesign on n not a multiple of ELEMS x THREADS (an odd n in f32,
+    which takes any n), and on more elements than one wave holds at an
+    iteration count past one shift-table chunk and not a multiple of the
+    unroll."""
+    a, b = br.inputs(cuda, shape)
+    assert a.numel() % (2 * br.ELEMS * br.THREADS)
+    out_k = br.bf16_rate(a, b, dtype, iters)
+    assert torch.equal(out_k, br.bf16_rate_plain(a, b, dtype, iters))
+
+
+@pytest.mark.parametrize("first_design", [False, True], ids=["redesign", "first_design"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bf16_rate_zero_iterations_give_zeros(cuda, dtype, first_design):
+    a, b = br.inputs(cuda, (8, 256))
+    out = br.bf16_rate(a, b, dtype, 0, first_design=first_design)
+    assert torch.equal(out, torch.zeros_like(a))
+
+
+def test_bf16_rate_wrapper_rejects_what_the_kernel_cannot_take(cuda):
+    a, b = br.inputs(cuda, (3, 131))
+    with pytest.raises(ValueError, match="even"):
+        br.bf16_rate(a, b, torch.bfloat16)
+    a, b = br.inputs(cuda, (64, 128))
+    with pytest.raises(ValueError, match="contiguous"):
+        br.bf16_rate(a.t(), b.t())
+    with pytest.raises(ValueError, match="aligned"):
+        br.bf16_rate(a.view(-1)[2:], b.view(-1)[2:])
+    with pytest.raises(ValueError, match="iters"):
+        br.bf16_rate(a, b, iters=-1)
+
+
+def test_tile_census_on_the_card_equals_its_cpu_run(cuda):
+    from timemachine_torch.testsystems.dhfr import setup_dhfr
+
+    hc = setup_dhfr(waters_first=True, device="cpu")
+    assert tc.tile_census(hc.conf, hc.box, cuda) == tc.tile_census(hc.conf, hc.box, "cpu")

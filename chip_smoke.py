@@ -63,7 +63,18 @@ ITERS), the intercept (fixed cost per launch), the time from 16 to 32 ITERS
 (held in PROBE_RATIO) and the redesign / first design marginal bf16 time
 (held under GATE_REDESIGN_RATIO), each of the four kernels bitwise against
 the plain version at ITERS and 4 ITERS; the tile census of the DHFR start,
-held to the script's counts. Every path runs with all launch and plain-call counts set to
+held to the script's counts. The solvent RBFE leg [13]: the 12 ethanol -> propane
+windows of timemachine_torch/testsystems/cache/ (6,404 atoms, the hybrid
+ligand masked out of the host term) loaded on the card; the rowscan kernel
+in the masked form (triangular, minimum image, w) against its plain version
+in F, U and F+U, with two masked atoms on one point and two at r^2 = 2.5e-7,
+and the block-tile DP pass under the mask; each window-0 term's force on the
+card against the host CPU's; run_sims_sequential over the 12 windows in one
+reused Context (depth cut to N13_EQ equilibration steps and N13_FRAMES
+frames of N13_STEPS_PER_FRAME; ns/day per window on the host clock) and pair
+BAR, the host term's works exactly zero; a window step's device idle share;
+a window in a fresh Context against the same window after reset_for_state,
+bitwise. Every path runs with all launch and plain-call counts set to
 0 just before it and read just after. Then a JSON line on the kernels
 (time; launches per NPT step of the path named in `path`, per Adam step of
 the training path where the kernel has one, per run of phase 12 for the
@@ -84,6 +95,10 @@ TEMP, DT, FRICTION, PRESSURE, BAROSTAT_INTERVAL = 300.0, 2.5e-3, 1.0, 1.013, 25
 N_FIRE, N_STEPS, N_PROFILE, N_DET = 400, 1000, 50, 100
 N_FRAMES, FRAME_INTERVAL, N_ADAM, ADAM_LR, S_START = 8, 100, 5, 2e-3, 1.01
 N_ALT = 500
+# phase 13, the solvent RBFE leg: depth cut from the JAX package's
+# DEFAULT_MD_PARAMS (fe/rbfe.py: 10,000 equilibration steps, 1,000 frames of
+# 400 steps) to fit the script's time; the 12 windows and 6,404 atoms are not cut
+N13_EQ, N13_FRAMES, N13_STEPS_PER_FRAME, N13_TIMED, N13_REUSE = 500, 20, 50, 200, 60
 # whole force on the card vs on the host CPU, both f32, relative to the
 # all-pairs force: the net force is what is left after the exclusions
 # cancel the all-pairs term's huge bonded-neighbour forces, so f32 rounding
@@ -167,6 +182,9 @@ PEAK_FP32, PEAK_BYTES, PEAK_BF16_VECTOR = 67e12, 3.35e12, 133.8e12
 FLOPS_PER_PAIR = {
     "rowscan_sweep": 61, "rowscan_symmetric": 64, "nb_tiles": 101, "gather_sweep": 64, "quadscan_sweep": 64,
     "quadscan_sweep_nw": 61, "dotscan_sweep": 69,
+    # the RBFE host term's masked form (triangular, minimum image, w): the
+    # symmetric form's function, each pair once with its reaction
+    "rowscan_sweep_masked": 64,
 }
 
 
@@ -220,6 +238,8 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from timemachine_torch.constants import BOLTZ
+    from timemachine_torch.fe import free_energy as fe13
+    from timemachine_torch.fe.free_energy import MDParams, configure_all_pairs, get_context
     from timemachine_torch.fe.loss import pseudo_huber_loss
     from timemachine_torch.fe.model_utils import apply_hmr
     from timemachine_torch.fe.reweighting import construct_mixture_reweighting_estimator
@@ -234,11 +254,12 @@ def main() -> int:
     from timemachine_torch.ops import nonbonded_kernel as nbk
     from timemachine_torch.ops import quadscan_kernel as qk
     from timemachine_torch.ops import rowscan_kernel as rs
-    from timemachine_torch.potentials import DP_CB, SKIN, NonbondedAllPairs
+    from timemachine_torch.potentials import DP_CB, SKIN, Nonbonded, NonbondedAllPairs
     from timemachine_torch.probes import bf16_rate as br
     from timemachine_torch.probes import fp32_peak as fp
     from timemachine_torch.probes import tile_census as tc
     from timemachine_torch.testsystems.dhfr import setup_dhfr
+    from timemachine_torch.testsystems.rbfe_solvent import load_rbfe_solvent
 
     dev = torch.device("cuda", 0)
     f32 = torch.float32
@@ -1001,7 +1022,7 @@ def main() -> int:
     zero_counts()
     tflops, ms_fma, ms_fma2 = fp.measure(x12)
     fits = br.measure(a12, b12)
-    ms_gate = {dt: fits[dt, False].profiler_ms for dt in (torch.float32, torch.bfloat16)}
+    ms_gate = {dt: fits[dt, False].device_ms for dt in (torch.float32, torch.bfloat16)}
     launches12, plain12 = read_counts()
     check(plain12 == 0, "[12] the probes ran a plain version")
     ratio = ms_fma2 / ms_fma
@@ -1016,7 +1037,7 @@ def main() -> int:
     n12 = a12.numel()
     slot_iters = n12 * br.ITERS
     print(
-        f"[12 bf16] ({br.SUB}, {br.LANE}) x {br.ITERS} slot-iterations, device time: f32 {ms_gate[torch.float32] * 1e3:.2f} us "
+        f"[12 bf16] ({br.SUB}, {br.LANE}) x {br.ITERS} slot-iterations, device time ({fits[torch.float32, False].timed_by}, {fits[bf16, False].timed_by}): f32 {ms_gate[torch.float32] * 1e3:.2f} us "
         f"({ms_gate[torch.float32] * 1e9 / slot_iters:.4f} ps/slot-iteration), bf16 {ms_gate[torch.bfloat16] * 1e3:.2f} us "
         f"({ms_gate[torch.bfloat16] * 1e9 / slot_iters:.4f}); bf16 speedup over f32 "
         f"{ms_gate[torch.float32] / ms_gate[torch.bfloat16]:.3f}x ({smi})"
@@ -1028,7 +1049,7 @@ def main() -> int:
             + f" iterations (CUDA events over {br.REPS} launches queued behind a spin kernel); marginal "
             f"{f.marginal_ms * 1e3:.4f} us per {br.ITERS} iterations, fixed {f.fixed_ms * 1e3:.4f} us per launch, "
             f"time at {br.ITERS * br.MULTIPLES[-1]} / at {br.ITERS * br.MULTIPLES[-2]} {f.ratio:.3f} (want "
-            f"{PROBE_RATIO[0]}-{PROBE_RATIO[1]}); profiler at {br.ITERS} {f.profiler_ms * 1e3:.3f} us ({smi})"
+            f"{PROBE_RATIO[0]}-{PROBE_RATIO[1]}); {f.timed_by} at {br.ITERS} {f.device_ms * 1e3:.3f} us ({smi})"
         )
         check(PROBE_RATIO[0] <= f.ratio <= PROBE_RATIO[1], f"[12] {br.KERNELS[dt, first]}'s time is not linear in iterations")
     for first in (False, True):
@@ -1064,7 +1085,7 @@ def main() -> int:
     fit = fits[bf16, False]
     probe_rows[-1].update(
         ms_by_iters=fit.ms_by_iters, marginal_ms=fit.marginal_ms, fixed_ms=fit.fixed_ms,
-        first_design_ms=fits[bf16, True].profiler_ms,
+        first_design_ms=fits[bf16, True].device_ms, ms_timed_by=fits[bf16, False].timed_by,
     )
     out_f32 = br.bf16_rate(a12, b12, torch.float32)
     check(torch.equal(out_f32, br.bf16_rate_plain(a12, b12, torch.float32)), "[12] the f32 gate disagrees with plain")
@@ -1090,7 +1111,197 @@ def main() -> int:
         f"[12] the tile census {census} differs from the script's {CENSUS_DHFR}",
     )
 
-    print(json.dumps({"kernels": [kernel_row, nb_row, gather_row, quad_row, dot_row, *probe_rows]}))
+    # -- 13. the solvent RBFE leg ------------------------------------------------------
+    # the 12 ethanol -> propane windows of the committed cache on the card:
+    # the masked rowscan form against its plain version, the window's force
+    # against the host CPU's, run_sims_sequential in one reused Context and
+    # pair BAR, and a reused window against a fresh one
+    t0 = time.perf_counter()
+    states13 = load_rbfe_solvent(device=dev, dtype=f32)
+    configure_all_pairs(states13[0])
+    torch.cuda.synchronize()
+    t_load13 = time.perf_counter() - t0
+    s13 = states13[0]
+    pots13 = s13.potentials
+    host_i = next(i for i, p in enumerate(pots13) if isinstance(p, Nonbonded))
+    nb13 = pots13[host_i]
+    x13 = torch.as_tensor(s13.x0, device=dev, dtype=f32)
+    box13 = torch.as_tensor(s13.box0, device=dev, dtype=f32)
+    n13, mask13 = x13.shape[0], nb13.atom_mask
+    n_masked = int((~mask13).sum())
+    check(nb13.kernel == "rowscan" and not nb13.md_preshift, "[13] the host term is not the masked rowscan form")
+    state13 = nb13.md_force_provider()[0](x13, box13)
+    t13 = state13.lists
+    check(int(state13.invalid) == 0, "[13] masked lists invalid at window 0")
+    atoms13 = rs.assemble_atoms(x13, box13, t13.pad_order, state13.prows)
+    count13 = rs.chop_row_counts(atoms13[:, :3], t13.rank_mat, t13.row_count, box13, nb13.cutoff)
+    n_rows13 = t13.row_start.shape[0]
+    slots13 = (int(count13.sum()) + n_rows13) * rs.ROW * rs.COL
+    host_idx13 = torch.nonzero(mask13).squeeze(1)
+    pairs13 = pairs_within_cutoff(x13[host_idx13], box13, nb13.params[host_idx13, 3].to(f32), nb13.cutoff)
+    print(
+        f"[13 shapes] ethanol -> propane solvent leg: {n13} atoms, {n_masked} masked in the host term (the hybrid "
+        f"ligand), {len(states13)} windows (λ {', '.join(f'{s.lamb:.3f}' for s in states13)}); host term: "
+        f"max_pairs {nb13.max_pairs}, MD max_pairs {nb13.md_max_pairs} (cell {nb13.md_cell_size} nm), DP tiles "
+        f"{nb13.dp_max_tiles}; listed tiles {int(t13.row_count.sum())}, swept slots/step {slots13} with the covering "
+        f"tiles, pairs within the cutoff {pairs13}; interaction group {len(pots13[-1].row_atom_idxs)} x "
+        f"{len(pots13[-1].col_atom_idxs)}; loaded and configured in {t_load13:.2f} s ({smi})"
+    )
+    series13 = rs.es_energy_force_series(nb13.beta, nb13.cutoff)
+    args13 = (atoms13, t13.row_start, count13, t13.col_ids, rs.sweep_scalars(box13, nb13.cutoff), series13)
+    masked_form = dict(triangular=True, has_w=True)
+    err13, ms13, plain13 = compare_kernel("13", [
+        (f"masked form {label}", lambda m=mode: rs.rowscan_sweep(*args13, m, **masked_form),
+         lambda m=mode: rs.rowscan_sweep_plain(*args13, m, **masked_form))
+        for label, mode in (("F", rs.FORCE), ("U", rs.ENERGY), ("F+U", rs.FORCE_ENERGY))
+    ])
+    out13 = rs.rowscan_sweep(*args13, rs.FORCE_ENERGY, **masked_form)
+    lig_rows = ~mask13[t13.pad_order] | (torch.arange(atoms13.shape[0], device=dev) >= n13)
+    check(not bool(out13[lig_rows].any()), "[13] masked atoms or padding got a force or an energy from the sweep")
+    # two masked atoms on one point and two 5e-4 nm apart (r^2 = 2.5e-7, inside the gate)
+    lig = torch.as_tensor(s13.ligand_idxs, device=dev, dtype=torch.int64)
+    x_c = x13.clone()
+    x_c[lig[1]] = x_c[lig[0]]
+    x_c[lig[3]] = x_c[lig[2]] + torch.tensor([5e-4, 0.0, 0.0], device=dev)
+    atoms_c = rs.assemble_atoms(x_c, box13, t13.pad_order, state13.prows)
+    args_c = (atoms_c,) + args13[1:]
+    compare_kernel("13", [(
+        "coincident masked pair F+U", lambda: rs.rowscan_sweep(*args_c, rs.FORCE_ENERGY, **masked_form),
+        lambda: rs.rowscan_sweep_plain(*args_c, rs.FORCE_ENERGY, **masked_form),
+    )])
+    tiles_dp13 = nbk.build_block_tiles(x13, nb13.params, box13, nb13.cutoff, nb13.dp_max_tiles, DP_CB, True, mask13)
+    check(int(tiles_dp13.overflow) == 0, "[13] masked block-tile list overflow")
+    dp_args13 = (tiles_dp13.atoms, tiles_dp13.row_start, tiles_dp13.row_count, tiles_dp13.col_ids,
+                 nbk.tile_scalars(box13, nb13.beta, nb13.cutoff))
+    compare_kernel("13", [(
+        "block tiles DP under the mask", lambda: nbk.nb_tiles(*dp_args13, nbk.DP, DP_CB, triangular=True),
+        lambda: nbk.nb_tiles_plain(*dp_args13, nbk.DP, DP_CB, triangular=True),
+    )])
+    dp_out13 = nbk.nb_tiles(*dp_args13, nbk.DP, DP_CB, triangular=True)
+    check(not bool(dp_out13[tiles_dp13.atoms[:, 7] == 0].any()), "[13] masked atoms got a nonzero dU/dp")
+    masked_row = kernel_entry(
+        "rowscan_sweep_masked", "rowscan.cu", "rowscan_kernel.py:111", err13, ms13, plain13, pairs13,
+        tensor_bytes(atoms13, t13.row_start, count13) + 4 * int(count13.sum()) + 16 * atoms13.shape[0],
+    )
+    print(
+        f"[13 kernel] masked form (triangular, minimum image, w) F {ms13:.4f} ms over {slots13} slots "
+        f"({slots13 / ms13 / 1e6:.1f}G slots/s); bound {masked_row['bound_ms']:.4f} ms by {masked_row['bound_by']} "
+        f"({FLOPS_PER_PAIR['rowscan_sweep_masked']} FP32 operations per pair within the cutoff, {pairs13} pairs) ({smi})"
+    )
+
+    cpu13 = load_rbfe_solvent(device="cpu", dtype=f32, windows=[0])[0]
+    configure_all_pairs(cpu13)
+    f_terms = [p.energy_force(x13, box13)[1] for p in pots13]
+    f_terms_cpu = [p.energy_force(x13.cpu(), box13.cpu())[1] for p in cpu13.potentials]
+    f_ap13 = NonbondedAllPairs.energy_force(nb13, x13, box13)[1]
+    ap13 = float(torch.linalg.vector_norm(f_ap13))
+    per_term = " ".join(
+        f"{type(p).__name__} {float(torch.linalg.vector_norm(a.cpu() - b)) / max(float(torch.linalg.vector_norm(b)), 1e-30):.2e}"
+        for p, a, b in zip(pots13, f_terms, f_terms_cpu)
+    )
+    f_rel13 = float(torch.linalg.vector_norm(sum(f_terms).cpu() - sum(f_terms_cpu))) / ap13
+    grad13 = max(float(f.abs().max()) for f in f_terms + [f_ap13])
+    print(
+        f"[13 force] window 0, card vs host CPU per term (|diff| / |term force|): {per_term}; total |diff| / "
+        f"|all-pairs force| {f_rel13:.3e} (tol {TOL_FORCE_REL_NORM:g}); largest |dU/dx| {grad13:.4e} of the "
+        f"fixed-point limit {nbk.FIX_LIMIT:.4e} ({smi})"
+    )
+    check(f_rel13 <= TOL_FORCE_REL_NORM, "[13] the window's force on the card disagrees with the host CPU")
+    check(grad13 < nbk.FIX_LIMIT, "[13] |dU/dx| beyond the kernel's fixed-point limit")
+
+    md13 = MDParams(n_frames=N13_FRAMES, n_eq_steps=N13_EQ, steps_per_frame=N13_STEPS_PER_FRAME, seed=2023)
+    steps13 = N13_EQ + N13_FRAMES * N13_STEPS_PER_FRAME
+    window_s, window_launches = [], []
+    sample_fn = fe13.sample_with_context
+
+    def timed_sample(*args, **kwargs):
+        """sample_with_context on the host clock, with the kernels it launched."""
+        torch.cuda.synchronize()
+        before = rs.rowscan_sweep.launches
+        t_start = time.perf_counter()
+        traj = sample_fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        window_s.append(time.perf_counter() - t_start)
+        window_launches.append(rs.rowscan_sweep.launches - before)
+        return traj
+
+    fe13.sample_with_context = timed_sample
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        result13, trajs13 = fe13.run_sims_sequential(states13, md13, TEMP)
+    finally:
+        fe13.sample_with_context = sample_fn
+    torch.cuda.synchronize()
+    t_run13 = time.perf_counter() - t0
+    launches13, plain13_calls = read_counts()
+    for k, (s, traj) in enumerate(zip(states13, trajs13)):
+        finite = all(np.isfinite(f).all() for f in traj.frames) and np.isfinite(traj.final_velocities).all()
+        print(
+            f"[13 run] window {k} λ {s.lamb:.4f}: {steps13 * s.integrator.dt / 1000.0 / window_s[k] * 86_400.0:.2f} ns/day "
+            f"({window_s[k] * 1e3 / steps13:.4f} ms/step over {steps13} steps, host clock; {smi}); final box "
+            f"{traj.boxes[-1][0, 0]:.4f} nm, barostat volume scale {traj.final_barostat_volume_scale_factor:.6g} nm^3; "
+            f"rowscan launches {window_launches[k]}; finite {finite}"
+        )
+        check(finite, f"[13] window {k} not finite")
+    print(
+        f"[13 run] run_sims_sequential, {len(states13)} windows in one reused Context: {t_run13:.1f} s with the u_kln "
+        f"and pair BAR; depth cut from DEFAULT_MD_PARAMS (10,000 equilibration steps, 1,000 frames of 400 steps) to "
+        f"{N13_EQ} equilibration steps and {N13_FRAMES} frames of {N13_STEPS_PER_FRAME}; atoms and windows not cut; "
+        f"launches in the run {launches13}, plain calls {plain13_calls} ({smi})"
+    )
+    check(plain13_calls == 0, "[13] the leg ran a plain sweep")
+    check(launches13["rowscan_sweep"] >= len(states13) * steps13, "[13] the leg did not launch the rowscan kernel every step")
+    masked_row["launches"] = sum(window_launches) / (len(states13) * steps13)
+    masked_row["path"] = "the solvent RBFE leg, run_sims_sequential over 12 windows (per window step)"
+
+    mid13 = len(states13) // 2
+    ctx13 = get_context(states13[mid13], md13)
+    ctx13.multiple_steps(N_PROFILE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ctx13.multiple_steps(N13_TIMED)
+    torch.cuda.synchronize()
+    step13_ms = (time.perf_counter() - t0) * 1e3 / N13_TIMED
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof13:
+        ctx13.multiple_steps(N_PROFILE)
+        torch.cuda.synchronize()
+    events13 = prof13.key_averages()
+    busy13 = sum(e.self_device_time_total for e in events13 if e.device_type == DeviceType.CUDA) / 1e3 / N_PROFILE
+    print(f"{smi}; {N_PROFILE} steps of RBFE window {mid13}\n{events13.table(sort_by='cuda_time_total', row_limit=30)}", file=sys.stderr)
+    busy13_text = (
+        f"device busy {busy13:.4f} ms/step, {1 - busy13 / step13_ms:.3f} of the unprofiled step idle"
+        if busy13 > 0 else "device busy not measured (the profiler saw no device time)"
+    )
+    print(f"[13 profile] window {mid13}: {step13_ms:.4f} ms/step unprofiled over {N13_TIMED} steps; {N_PROFILE} profiled "
+          f"steps: {busy13_text} ({smi}); table on stderr")
+
+    fresh13 = get_context(states13[mid13 - 1], md13)
+    reused13 = get_context(states13[0], md13)
+    reused13.multiple_steps(N13_REUSE)
+    reused13.reset_for_state(states13[mid13 - 1])
+    for c in (fresh13, reused13):
+        c.multiple_steps(N13_REUSE)
+    same13 = all(np.array_equal(f(fresh13), f(reused13)) for f in (Context.get_x_t, Context.get_v_t, Context.get_box))
+    print(f"[13 reuse] window {mid13 - 1}: a fresh Context and one reset from window 0 after {N13_REUSE} steps there, "
+          f"{N13_REUSE} steps each (barostat every {BAROSTAT_INTERVAL}): x, v, box bitwise equal: {same13} ({smi})")
+    check(same13, "[13] a reused Context differs from a fresh one")
+
+    u13 = result13.u_kln_by_component_by_lambda
+    host_works = np.concatenate([(u13[:, host_i, 0, 1] - u13[:, host_i, 0, 0]).ravel(),
+                                 (u13[:, host_i, 1, 0] - u13[:, host_i, 1, 1]).ravel()])
+    for k, r in enumerate(result13.bar_results):
+        print(f"[13 bar] pair {k}-{k + 1}: dG {r.dG:.4f} +- {r.dG_err:.4f} kJ/mol, overlap {r.overlap:.4f}")
+    dG13 = float(np.sum(result13.dGs))
+    dG13_err = float(np.linalg.norm(result13.dG_errs))
+    finite13 = bool(np.isfinite(result13.dGs).all() and np.isfinite(result13.dG_errs).all() and np.isfinite(result13.overlaps).all())
+    print(f"[13 bar] edge ethanol -> propane, solvent: dG {dG13:.4f} +- {dG13_err:.4f} kJ/mol ({N13_FRAMES} frames a "
+          f"window: not converged); all finite: {finite13}; host term works exactly zero: {not host_works.any()} "
+          f"({host_works.size} works) ({smi})")
+    check(finite13, "[13] a pair BAR result is not finite")
+    check(not host_works.any(), "[13] the host term's works are not exactly zero")
+
+    print(json.dumps({"kernels": [kernel_row, masked_row, nb_row, gather_row, quad_row, dot_row, *probe_rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

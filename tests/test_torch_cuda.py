@@ -705,6 +705,17 @@ def test_bf16_rate_zero_iterations_give_zeros(cuda, dtype, first_design):
     assert torch.equal(out, torch.zeros_like(a))
 
 
+def test_kernel_ms_times_by_events_where_the_profiler_sees_no_launch(cuda):
+    """A name no launch carries stands for a session whose kernel records
+    CUPTI dropped: kernel_ms tries the profiler PROFILER_TRIES times, then
+    times each call between CUDA events queued behind a spin."""
+    from timemachine_torch.probes import kernel_ms
+
+    a, b = br.inputs(cuda)
+    ms, how = kernel_ms(lambda: br.bf16_rate(a, b), 20, "no launch has this name")
+    assert how == "events" and 0 < ms < 1
+
+
 def test_bf16_rate_wrapper_rejects_what_the_kernel_cannot_take(cuda):
     a, b = br.inputs(cuda, (3, 131))
     with pytest.raises(ValueError, match="even"):

@@ -132,10 +132,13 @@ def test_no_import_of_jax_anywhere_in_the_port_or_chip_smoke():
 def _default_device_constructions():
     """Entry points called with no device argument, each returning the
     tensors it made."""
+    from timemachine_torch.fe.free_energy import get_context
+    from timemachine_torch.fe.system import HostGuestSystem
     from timemachine_torch.integrators import LangevinIntegrator
     from timemachine_torch.md.barostat import MonteCarloBarostat
     from timemachine_torch.md.context import Context
     from timemachine_torch.ops.segment import SegmentSum
+    from timemachine_torch.testsystems import rbfe_solvent
 
     x = np.zeros((3, 3))
 
@@ -146,15 +149,32 @@ def _default_device_constructions():
         xt = torch.zeros((3, 3), **cuda)
         return list(move(baro.init_state("cuda", torch.float64), xt, xt, 3.0 * torch.eye(3, **cuda))[1:])
 
+    def context_step():
+        # the Context follows the state's potentials, loaded with no device argument
+        ctxt = get_context(rbfe_solvent.load_rbfe_solvent(windows=[0])[0])
+        ctxt.step()
+        return [ctxt._x, ctxt._v, ctxt._box, *(b for p in ctxt.potentials for b in p.buffers())]
+
     return {
         "setup_dhfr": lambda: [b for p in setup_dhfr().host_system.get_U_fns() for b in p.buffers()],
         "Context": lambda: [Context(x, x, 3.0 * np.eye(3), LangevinIntegrator(300.0, 1e-3, 1.0, np.ones(3), 0), [])._x],
         "SegmentSum": lambda: list(SegmentSum([0, 1, 1], 2).buffers()),
         "MonteCarloBarostat": barostat_move,
+        "HostGuestSystem.from_arrays": lambda: [
+            b for p in HostGuestSystem.from_arrays(rbfe_solvent.window_arrays(rbfe_solvent.load_arrays(), 0)).get_U_fns()
+            for b in p.buffers()
+        ],
+        "load_rbfe_solvent": lambda: [
+            b for p in rbfe_solvent.load_rbfe_solvent(windows=[0])[0].potentials for b in p.buffers()
+        ],
+        "get_context": context_step,
     }
 
 
-@pytest.mark.parametrize("entry", ["setup_dhfr", "Context", "SegmentSum", "MonteCarloBarostat"])
+@pytest.mark.parametrize(
+    "entry",
+    ["setup_dhfr", "Context", "SegmentSum", "MonteCarloBarostat", "HostGuestSystem.from_arrays", "load_rbfe_solvent", "get_context"],
+)
 def test_default_device_is_the_card(entry):
     """With no device argument the port builds on the card: where there is
     one, every tensor comes out on cuda; where there is none, construction

@@ -1,5 +1,5 @@
-"""Langevin integrator, BAOAB with a half-step rotation
-(counterpart of timemachine_tpu/integrators.py)."""
+"""Langevin integrator, BAOAB with a half-step rotation, and the
+velocity Verlet integrator (counterpart of timemachine_tpu/integrators.py)."""
 
 from __future__ import annotations
 
@@ -47,3 +47,20 @@ class LangevinIntegrator:
         """(ca, cb (N, 1), cc (N, 1)) in numpy f64."""
         ca, cb, cc = langevin_coefficients(self.temperature, self.dt, self.friction, self.masses)
         return ca, cb[:, None], cc[:, None]
+
+
+@dataclass(frozen=True)
+class VelocityVerletIntegrator:
+    """Deterministic leapfrog: a Context enters the half-step velocity
+    lattice with a -1/2 kick, takes kick-drift steps, and leaves it with a
+    +1/2 kick (JAX's Context contract)."""
+
+    dt: float
+    masses: np.ndarray
+
+    def coefficients(self):
+        """(ca, cb (N, 1), cc (N, 1)) = (1, dt/m, 0) in numpy f64; infinite
+        masses give cb = 0 (frozen atoms)."""
+        cb = self.dt / np.asarray(self.masses, dtype=np.float64)
+        cb = np.where(np.isfinite(cb), cb, 0.0)[:, None]
+        return 1.0, cb, np.zeros_like(cb)

@@ -1,7 +1,9 @@
 """Context: the MD step loop (counterpart of the canonical step of
 timemachine_tpu/md/context.py).
 
-`multiple_steps(n_steps, store_x_interval)` advances Langevin BAOAB steps;
+`multiple_steps(n_steps, store_x_interval)` advances Langevin BAOAB steps,
+or velocity Verlet kick-drift steps between a -1/2 and a +1/2 kick (JAX's
+initialize/finalize contract, so each call starts and ends on-step);
 movers fire on steps where (t + 1) % interval == 0. Everything stays on the
 device: the rebuild and mover schedules read the host's step counter, the
 barostat's accept and the list-overflow poison are torch.where on device,
@@ -11,18 +13,22 @@ Potentials with an `md_force_provider` (the nonbonded term) keep list
 state that is carried across calls, so how steps are split into calls does
 not change the trajectory; set_x_t, set_box and set_params drop it. The
 Langevin noise and every mover draw from their own torch.Generator, seeded
-from the integrator's and the movers' seeds.
+from the integrator's and the movers' seeds; reset_for_state reseeds them
+from the new state's, so a window run in a reused Context is the same
+trajectory as in a fresh one.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from dataclasses import replace
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from timemachine_torch.device import resolve_device
-from timemachine_torch.integrators import LangevinIntegrator, langevin_step
+from timemachine_torch.integrators import LangevinIntegrator, VelocityVerletIntegrator, langevin_step
+from timemachine_torch.md.barostat import MonteCarloBarostat
 
 
 class Context:
@@ -31,7 +37,7 @@ class Context:
         x0,
         v0,
         box0,
-        integrator: LangevinIntegrator,
+        integrator: LangevinIntegrator | VelocityVerletIntegrator,
         bps: Sequence,
         movers: Sequence = (),
         device=None,
@@ -46,12 +52,13 @@ class Context:
         self.integrator = integrator
         self.potentials = list(bps)
         self.movers = list(movers)
+        self._verlet = isinstance(integrator, VelocityVerletIntegrator)
         ca, cb, cc = integrator.coefficients()
         self._ca = float(ca)
         self._cb = torch.as_tensor(cb, device=self.device, dtype=dtype)
         self._cc = torch.as_tensor(cc, device=self.device, dtype=dtype)
         self._noise = torch.Generator(device=self.device)
-        self._noise.manual_seed(integrator.seed)
+        self._noise.manual_seed(getattr(integrator, "seed", 0))
         self._mover_states = [m.init_state(self.device, dtype) for m in self.movers]
         self._step = 0
         self._providers = {}
@@ -60,13 +67,11 @@ class Context:
             if md is not None:
                 self._providers[i] = md()
         self._prov_states = None
-        self._move_fns = [
-            m.make_move_fn(
-                lambda x, box, _rigid=getattr(m, "rigid_group_move", False): self._mover_energy(x, box, _rigid),
-                self.device,
-            )
-            for m in self.movers
-        ]
+        self._move_fns = [self._make_move_fn(m) for m in self.movers]
+
+    def _make_move_fn(self, mover):
+        rigid = getattr(mover, "rigid_group_move", False)
+        return mover.make_move_fn(lambda x, box: self._mover_energy(x, box, rigid), self.device)
 
     # -- observers ------------------------------------------------------------
 
@@ -82,9 +87,22 @@ class Context:
     def get_mover_states(self) -> list:
         return list(self._mover_states)
 
+    def get_params(self) -> list:
+        return [pot.params.cpu().numpy() for pot in self.potentials]
+
+    def get_barostat(self):
+        """(barostat, its state), or None without a barostat."""
+        for m, st in zip(self.movers, self._mover_states):
+            if isinstance(m, MonteCarloBarostat):
+                return m, st
+        return None
+
     def set_x_t(self, x):
         self._x = torch.as_tensor(x, device=self.device, dtype=self._x.dtype)
         self._prov_states = None
+
+    def set_v_t(self, v):
+        self._v = torch.as_tensor(v, device=self.device, dtype=self._x.dtype)
 
     def set_box(self, box):
         self._box = torch.as_tensor(box, device=self.device, dtype=self._x.dtype)
@@ -97,6 +115,42 @@ class Context:
         for pot, p in zip(self.potentials, params_list):
             pot.params.copy_(torch.as_tensor(p))
         self._prov_states = None
+
+    def reset_for_state(self, initial_state):
+        """Point this Context at another compatible InitialState: swap x, v,
+        box and every parameter, restart the step count, reseed the noise
+        from the state's integrator seed, and rebuild every mover's state,
+        the barostat's generator from the state's own barostat seed. The run
+        that follows is the one a fresh Context of the state would take."""
+        self.set_x_t(initial_state.x0)
+        self.set_v_t(initial_state.v0)
+        self.set_box(initial_state.box0)
+        self.set_params([pot.params for pot in initial_state.potentials])
+        self._step = 0
+        self._noise.manual_seed(getattr(initial_state.integrator, "seed", 0))
+        for i, m in enumerate(self.movers):
+            if isinstance(m, MonteCarloBarostat) and initial_state.barostat is not None:
+                self.movers[i] = replace(m, seed=initial_state.barostat.seed)
+        self._mover_states = [m.init_state(self.device, self._x.dtype) for m in self.movers]
+        return self
+
+    def set_barostat_interval(self, interval: int) -> Optional[int]:
+        """Fire the barostat every `interval` steps from now on, keeping its
+        state and generator; returns the previous interval, or None without
+        a barostat."""
+        for i, m in enumerate(self.movers):
+            if isinstance(m, MonteCarloBarostat):
+                if m.interval != interval:
+                    self.movers[i] = replace(m, interval=interval)
+                    self._move_fns[i] = self._make_move_fn(self.movers[i])
+                return m.interval
+        return None
+
+    def compute_u_t(self) -> float:
+        """The total energy at the current state: the sum of every
+        potential's u(x, params, box)."""
+        with torch.no_grad():
+            return float(sum(pot.u(self._x, pot.params, self._box) for pot in self.potentials))
 
     # -- stepping -------------------------------------------------------------
 
@@ -124,8 +178,14 @@ class Context:
             else:
                 f = pot.energy_force(x, box)[1]
             force = force + f
-        noise = torch.randn(x.shape, generator=self._noise, device=self.device, dtype=x.dtype)
-        self._x, self._v = langevin_step(x, self._v, force, noise, self._ca, self._cb, self._cc, self.integrator.dt)
+        if self._verlet:
+            self._v = self._v + self._cb * force
+            self._x = x + self.integrator.dt * self._v
+        else:
+            noise = torch.randn(x.shape, generator=self._noise, device=self.device, dtype=x.dtype)
+            self._x, self._v = langevin_step(
+                x, self._v, force, noise, self._ca, self._cb, self._cc, self.integrator.dt
+            )
         for k, (mover, move) in enumerate(zip(self.movers, self._move_fns)):
             if (t + 1) % mover.interval == 0:
                 self._mover_states[k], self._x, self._v, self._box = move(
@@ -142,15 +202,28 @@ class Context:
         with torch.no_grad():
             if self._prov_states is None:
                 self._prov_states = {i: prov[0](self._x, self._box) for i, prov in self._providers.items()}
+            if self._verlet:
+                self._half_kick(-0.5)
             for s in range(1, n_steps + 1):
                 self._one_step()
                 if s % interval == 0 and len(frames) < n_frames:
                     frames.append(self._x)  # steps rebind x and box, never write them in place
                     boxes.append(self._box)
+            if self._verlet:
+                self._half_kick(0.5)
         self._validate_state()
         if not frames:
             return np.zeros((0, *self._x.shape)), np.zeros((0, 3, 3))
         return torch.stack(frames).cpu().numpy(), torch.stack(boxes).cpu().numpy()
+
+    def _half_kick(self, sign: float):
+        """v += sign dt/m F(x): the Verlet path's entry and exit kicks."""
+        force = sum(pot.energy_force(self._x, self._box)[1] for pot in self.potentials)
+        self._v = self._v + sign * self._cb * force
+
+    def step(self):
+        """One step, stored nowhere."""
+        self.multiple_steps(1)
 
     def _validate_state(self):
         """Coordinate and box checks, one host sync."""

@@ -210,3 +210,104 @@ def water_exclusion_energy_force(conf, params, box, nw: int, cutoff, h_coeffs):
         grad[:, a] += g
         grad[:, b] -= g
     return u, torch.cat([grad.reshape(3 * nw, 3), conf.new_zeros((conf.shape[0] - 3 * nw, 3))])
+
+
+def _exact_pair_terms(d, dw, qij, sig_ij, eps_ij, beta, cutoff):
+    """(vdW, es, dvdW/dr, des/dr) per pair: the energies of
+    _exact_pair_energy and their closed-form derivatives in the lifted
+    distance r = sqrt(|d|^2 + dw^2), zero at or beyond the cutoff and for
+    coincident points."""
+    vdw, es = _exact_pair_energy(d, dw, qij, sig_ij, eps_ij, beta, cutoff)
+    d2 = torch.sum(d * d, dim=-1) + dw * dw
+    r = torch.sqrt(torch.where(d2 > 0, d2, 1.0))
+    live = (d2 > 0) & (r < cutoff)
+    inv_r = 1.0 / r
+    sig6 = (sig_ij * inv_r) ** 6
+    dvdw = torch.where(live & (eps_ij != 0), 4.0 * eps_ij * inv_r * (6.0 * sig6 - 12.0 * sig6 * sig6), 0.0)
+    erfc_r = torch.special.erfc(beta * r)
+    a = 0.5 * math.pi * (r / SWITCH_CUTOFF) ** 8  # the switch's argument; da/dr = 8 a / r
+    inside = r < SWITCH_CUTOFF
+    sw = torch.where(inside, torch.cos(a) ** 3, 0.0)
+    dsw = torch.where(inside, -3.0 * torch.cos(a) ** 2 * torch.sin(a) * (8.0 * a * inv_r), 0.0)
+    derfc = -2.0 * beta / math.sqrt(math.pi) * torch.exp(-((beta * r) ** 2))
+    des = torch.where(live, qij * ((derfc - erfc_r * inv_r) * inv_r * sw + erfc_r * inv_r * dsw), 0.0)
+    return vdw, es, dvdw, des
+
+
+def _pair_grad(d, dw, de_dr):
+    """dU/d(x_l) of pairs (l, r) from dU/dr in the lifted distance."""
+    d2 = torch.sum(d * d, dim=-1) + dw * dw
+    inv_r = torch.where(d2 > 0, torch.rsqrt(torch.where(d2 > 0, d2, 1.0)), 0.0)
+    return (de_dr * inv_r)[..., None] * d
+
+
+def specific_pairs_exact_energy_force(conf, params, box, pairs, beta, cutoff, rescale_mask, assemble):
+    """(u, force) of nonbonded_on_specific_pairs summed: u the sum of the
+    scaled pair energies, force = -dU/dx in closed form, summed onto atoms
+    by `assemble`, a SegmentSum over cat([pairs[:, 0], pairs[:, 1]])."""
+    l, r = pairs[:, 0], pairs[:, 1]
+    q, sig, eps, w = params.unbind(1)
+    d = periodic_delta(conf[l], conf[r], box)
+    dw = w[l] - w[r]
+    vdw, es, dvdw, des = _exact_pair_terms(
+        d, dw, q[l] * q[r], combine_sigma(sig[l], sig[r]), combine_epsilon(eps[l], eps[r]), beta, cutoff
+    )
+    s_q, s_lj = rescale_mask[:, 0], rescale_mask[:, 1]
+    vdw, dvdw = (torch.where(s_lj != 0, t * s_lj, 0.0) for t in (vdw, dvdw))
+    es, des = (torch.where(s_q != 0, t * s_q, 0.0) for t in (es, des))
+    g = _pair_grad(d, dw, dvdw + des)
+    return torch.sum(vdw) + torch.sum(es), assemble(torch.cat([-g, g]))
+
+
+def nonbonded_on_precomputed_pairs(conf, params, box, pairs, beta, cutoff):
+    """Per-pair (vdW, es) of a pair list whose parameter rows are already
+    combined, [q_ij, sigma_ij, eps_ij, dw_ij] (the single-topology ligand's
+    intramolecular term), exact erfc electrostatics. Differentiable."""
+    l, r = pairs[:, 0], pairs[:, 1]
+    q_ij, sig_ij, eps_ij, dw = params.unbind(1)
+    return _exact_pair_energy(periodic_delta(conf[l], conf[r], box), dw, q_ij, sig_ij, eps_ij, beta, cutoff)
+
+
+def precomputed_pairs_energy_force(conf, params, box, pairs, beta, cutoff, assemble):
+    """(u, force) of nonbonded_on_precomputed_pairs summed, force in closed
+    form, summed onto atoms by `assemble` as in specific_pairs_exact_energy_force."""
+    l, r = pairs[:, 0], pairs[:, 1]
+    q_ij, sig_ij, eps_ij, dw = params.unbind(1)
+    d = periodic_delta(conf[l], conf[r], box)
+    vdw, es, dvdw, des = _exact_pair_terms(d, dw, q_ij, sig_ij, eps_ij, beta, cutoff)
+    g = _pair_grad(d, dw, dvdw + des)
+    return torch.sum(vdw) + torch.sum(es), assemble(torch.cat([-g, g]))
+
+
+def _group_grid(conf, params, box, a_idxs, b_idxs, beta, cutoff):
+    """The (R, C) grid of rows a_idxs x columns b_idxs: displacements and
+    _exact_pair_terms."""
+    q, sig, eps, w = params.unbind(1)
+    d = periodic_delta(conf[a_idxs][:, None, :], conf[b_idxs][None, :, :], box)
+    dw = w[a_idxs][:, None] - w[b_idxs][None, :]
+    terms = _exact_pair_terms(
+        d, dw, q[a_idxs][:, None] * q[b_idxs][None, :], combine_sigma(sig[a_idxs][:, None], sig[b_idxs][None, :]),
+        combine_epsilon(eps[a_idxs][:, None], eps[b_idxs][None, :]), beta, cutoff,
+    )
+    return d, dw, terms
+
+
+def nonbonded_interaction_groups(conf, params, box, a_idxs, b_idxs, beta, cutoff):
+    """Per-pair (vdW, es), each (R * C,), of every row atom a_idxs[i] with
+    every column atom b_idxs[j] (disjoint sets), exact erfc electrostatics.
+    Differentiable."""
+    _, _, (vdw, es, _, _) = _group_grid(conf, params, box, a_idxs, b_idxs, beta, cutoff)
+    return vdw.reshape(-1), es.reshape(-1)
+
+
+def interaction_group_energy_force(conf, params, box, a_idxs, b_idxs, beta, cutoff):
+    """(u, force) of the interaction group in grid form: each side's force
+    is a sum over the other axis of the (R, C) grid, and the two sides are
+    written by assignment at their own (disjoint, unique) atoms, so the
+    result is the same bits on any device."""
+    d, dw, (vdw, es, dvdw, des) = _group_grid(conf, params, box, a_idxs, b_idxs, beta, cutoff)
+    g = _pair_grad(d, dw, dvdw + des)  # dU/d(x_a) per pair
+    force = torch.zeros_like(conf)
+    force[a_idxs] = -torch.sum(g, dim=1)
+    force[b_idxs] = torch.sum(g, dim=0)
+    return torch.sum(vdw) + torch.sum(es), force

@@ -153,11 +153,14 @@ def hilbert_order(wrapped, box_diag):
     return torch.argsort(hilbert_keys(frac - torch.floor(frac)), stable=True)
 
 
-def param_rows(params, pad_order, n: int):
-    """(Npad, 5) sorted rows [w q sig/2 sqrt(eps) valid], zero on padding."""
+def param_rows(params, pad_order, n: int, atom_mask=None):
+    """(Npad, 5) sorted rows [w q sig/2 sqrt(eps) valid], zero on padding;
+    atoms outside atom_mask (N,) bool, where given, have valid = 0 and join
+    no pair."""
     real = (torch.arange(pad_order.shape[0], device=params.device) < n).to(params.dtype)[:, None]
     p = params[pad_order]
-    return torch.stack([p[:, 3], p[:, 0], p[:, 1], p[:, 2], torch.ones_like(p[:, 0])], dim=1) * real
+    valid = torch.ones_like(p[:, 0]) if atom_mask is None else atom_mask[pad_order].to(params.dtype)
+    return torch.stack([p[:, 3], p[:, 0], p[:, 1], p[:, 2], valid], dim=1) * real
 
 
 def assemble_atoms(conf, box, pad_order, prows):
@@ -168,13 +171,17 @@ def assemble_atoms(conf, box, pad_order, prows):
     return torch.cat([xyz[pad_order] * prows[:, 4:], prows], dim=1)
 
 
-def build_block_tiles(conf, params, box, cutoff: float, max_tiles: int, cb: int = 1, triangular: bool = False):
+def build_block_tiles(
+    conf, params, box, cutoff: float, max_tiles: int, cb: int = 1, triangular: bool = False, atom_mask=None,
+):
     """Snake sort, 128-atom block bounding boxes and the symmetric list of
     (row block, column super-block) tiles whose boxes come within `cutoff`,
     in CSR form with every row's own column kept; triangular=True keeps of
     it only the super-blocks c that reach the row block r's diagonal, c cb +
     cb - 1 >= r (the own column among them). The sort and the boxes run in
-    f32, as in the JAX builder; the atom rows take conf's dtype."""
+    f32, as in the JAX builder; the atom rows take conf's dtype. Atoms
+    outside atom_mask (N,) bool, where given, are invalid rows: they join
+    no box and no pair, as in JAX's builder."""
     n = conf.shape[0]
     dev = conf.device
     n_pad = padded_size(n, cb)
@@ -183,10 +190,11 @@ def build_block_tiles(conf, params, box, cutoff: float, max_tiles: int, cb: int 
     box_diag = torch.diagonal(box).to(torch.float32)
     order = snake_order(x32, box_diag, CELL_SIZE)
     pad_order = torch.cat([order, order.new_zeros(n_pad - n)])
-    atoms = assemble_atoms(conf, box.to(conf.dtype), pad_order, param_rows(params.to(conf.dtype), pad_order, n))
+    prows = param_rows(params.to(conf.dtype), pad_order, n, atom_mask)
+    atoms = assemble_atoms(conf, box.to(conf.dtype), pad_order, prows)
 
     wrapped = (x32 - box_diag * torch.floor(x32 / box_diag))[pad_order]
-    valid = (torch.arange(n_pad, device=dev) < n)[:, None]
+    valid = prows[:, 4:] > 0
     lo = torch.where(valid, wrapped, 1e9).view(n_blocks, BLOCK, 3).amin(1)
     hi = torch.where(valid, wrapped, -1e9).view(n_blocks, BLOCK, 3).amax(1)
     clo, chi = lo.view(n_cols, cb, 3).amin(1), hi.view(n_cols, cb, 3).amax(1)
@@ -222,14 +230,17 @@ def build_block_tiles(conf, params, box, cutoff: float, max_tiles: int, cb: int 
     )
 
 
-def suggest_max_tiles(conf, box, cutoff: float, margin: float = 1.3, cb: int = 1, triangular: bool = False) -> int:
+def suggest_max_tiles(
+    conf, box, cutoff: float, margin: float = 1.3, cb: int = 1, triangular: bool = False, atom_mask=None,
+) -> int:
     """Host-side capacity: the listed tile count at this geometry, times
     margin for diffusion between rebuilds, rounded up to 128."""
     n_pad = padded_size(conf.shape[0], cb)
     cap = (n_pad // BLOCK) * (n_pad // (BLOCK * cb))
     conf = torch.as_tensor(conf)
     params = conf.new_zeros((conf.shape[0], 4))
-    count = int(build_block_tiles(conf, params, torch.as_tensor(box), cutoff, cap, cb, triangular).row_count.sum())
+    tiles = build_block_tiles(conf, params, torch.as_tensor(box), cutoff, cap, cb, triangular, atom_mask)
+    count = int(tiles.row_count.sum())
     want = int(np.ceil(count * margin / 128) * 128)
     return min(max(want, 128), cap)
 
@@ -531,10 +542,10 @@ def poison_on_overflow(overflow, val):
     return torch.where(overflow > 0, torch.nan, val)
 
 
-def _sweep(conf, params, box, beta, cutoff, max_tiles, mode, cb, es_coeffs=None):
+def _sweep(conf, params, box, beta, cutoff, max_tiles, mode, cb, es_coeffs=None, atom_mask=None):
     """(Npad, 4) sweep over triangular lists built for this call, with the
     inverse order."""
-    tiles = build_block_tiles(conf, params, box, cutoff, max_tiles, cb, triangular=True)
+    tiles = build_block_tiles(conf, params, box, cutoff, max_tiles, cb, triangular=True, atom_mask=atom_mask)
     out = nb_tiles(
         tiles.atoms, tiles.row_start, tiles.row_count, tiles.col_ids, tile_scalars(box.to(conf.dtype), beta, cutoff),
         mode, cb, es_coeffs, triangular=True,
@@ -550,10 +561,12 @@ def run_uf(conf, params, box, beta, cutoff, max_tiles, es_coeffs=None, cb: int =
     return poison_on_overflow(overflow, torch.sum(out[:, 0])), poison_on_overflow(overflow, out[inv, 1:4])
 
 
-def run_dp(conf, params, box, beta, cutoff, max_tiles, cb: int = 1):
+def run_dp(conf, params, box, beta, cutoff, max_tiles, cb: int = 1, atom_mask=None):
     """One DP pass over triangular lists of max_tiles: (N, 4) dU/dp in
-    params' column order [q, sig/2, sqrt(eps), w], NaN on list overflow."""
-    out, inv, overflow = _sweep(conf, params, box, beta, cutoff, max_tiles, DP, cb)
+    params' column order [q, sig/2, sqrt(eps), w], NaN on list overflow;
+    zero for atoms outside atom_mask (N,) bool, where given (JAX's
+    _run_dp(atom_mask=))."""
+    out, inv, overflow = _sweep(conf, params, box, beta, cutoff, max_tiles, DP, cb, atom_mask=atom_mask)
     return poison_on_overflow(overflow, out[inv])
 
 

@@ -135,6 +135,7 @@ def _wrap(xyz, box_diag):
 
 def build_rowscan_tiles(
     conf, box, cutoff: float, max_pairs: int, cell_size: float = 0.65, triangular: bool = False, sort: str = "snake",
+    atom_mask=None,
 ) -> RowscanTiles:
     """Spatial sort + per-row-chunk column lists culled at `cutoff` by
     bounding-box gap, ordered by that gap so that `chop_row_counts` can cut
@@ -146,7 +147,12 @@ def build_rowscan_tiles(
     rows; triangular lists hold, for row chunk r, only the column chunks
     strictly after the one that covers r, as JAX's do: a Newton-triangular
     sweep peels the covering chunk itself. Unlike JAX's, the lists are not
-    padded per row to a multiple of 4 (the TPU kernel's unroll)."""
+    padded per row to a multiple of 4 (the TPU kernel's unroll).
+
+    atom_mask (N,) bool, where given, keeps only its atoms in the chunk
+    boxes, as JAX's builder does: a chunk with no atom of the subset lists
+    nothing (its rows still sweep their covering chunk in triangular form,
+    where the masked atoms' zero q and eps make every pair vanish)."""
     if sort not in ("snake", "hilbert"):
         raise ValueError(f"sort must be 'snake' or 'hilbert', got {sort!r}")
     n = conf.shape[0]
@@ -161,6 +167,8 @@ def build_rowscan_tiles(
 
     xs = wrapped[pad_order]
     valid = (torch.arange(n_pad, device=dev) < n)[:, None]
+    if atom_mask is not None:
+        valid = valid & atom_mask[pad_order][:, None]
     lo = torch.where(valid, xs, 1e9)
     hi = torch.where(valid, xs, -1e9)
     d2 = _bbox_gap2(
@@ -225,13 +233,14 @@ def chop_row_counts(xyz, rank_mat, row_count, box, cutoff: float):
 
 def suggest_max_pairs(
     conf, box, cutoff: float, margin: float = 1.3, cell_size: float = 0.65, triangular: bool = False,
-    sort: str = "snake",
+    sort: str = "snake", atom_mask=None,
 ) -> int:
     """Host-side capacity: the listed (row chunk, column chunk) count at this
     geometry, times margin for diffusion between rebuilds."""
     n_pad = padded_size(conf.shape[0])
     cap = (n_pad // ROW) * (n_pad // COL)
-    total = int(build_rowscan_tiles(conf, box, cutoff, cap, cell_size, triangular, sort).row_count.sum())
+    tiles = build_rowscan_tiles(conf, box, cutoff, cap, cell_size, triangular, sort, atom_mask)
+    total = int(tiles.row_count.sum())
     want = int(np.ceil(total * margin / 128) * 128)
     return min(max(want, 128), cap)
 
@@ -265,10 +274,14 @@ def suggest_cell_size(conf, box, cutoff: float, skin: float = 0.1, candidates=(0
     return best
 
 
-def param_rows(params, pad_order, n: int):
-    """(Npad, 4) sorted rows [w, q, sigma/2, 2 sqrt(eps)]; padding slots
-    carry q = eps = 0 so their pairs vanish arithmetically."""
-    valid = (torch.arange(pad_order.shape[0], device=params.device) < n).to(params.dtype)
+def param_rows(params, pad_order, n: int, atom_mask=None):
+    """(Npad, 4) sorted rows [w, q, sigma/2, 2 sqrt(eps)]; padding slots,
+    and atoms outside atom_mask (N,) bool where given, carry q = eps = 0 so
+    their pairs vanish arithmetically."""
+    valid = torch.arange(pad_order.shape[0], device=params.device) < n
+    if atom_mask is not None:
+        valid = valid & atom_mask[pad_order]
+    valid = valid.to(params.dtype)
     pr = params[pad_order]
     return torch.stack([pr[:, 3], pr[:, 0] * valid, pr[:, 1], 2.0 * pr[:, 2] * valid], dim=1)
 
@@ -493,7 +506,7 @@ rowscan_sweep.launches = 0
 
 def make_nonbonded_rowscan_md(
     beta: float, cutoff: float, max_pairs: int, skin: float = 0.1, rebuild_interval: int = 20,
-    cell_size: float = 0.65, preshift: bool = False, has_w: bool = True,
+    cell_size: float = 0.65, preshift: bool = False, has_w: bool = True, atom_mask=None,
 ):
     """MD force provider over Newton-triangular rowscan tiles (counterpart
     of JAX's make_nonbonded_rowscan_md with its default triangular=True),
@@ -506,7 +519,12 @@ def make_nonbonded_rowscan_md(
     rechecks the image bound at every rebuild; configure it only where
     dotscan_valid holds. has_w=False is the caller's promise that every w
     offset is zero. The result is NaN on overflow, where a rebuild breaks
-    the image bound, and where a rebuild finds a nonzero w without has_w."""
+    the image bound, and where a rebuild finds a nonzero w without has_w.
+    atom_mask (N,) bool restricts the term to a subset of the atoms, as
+    build_rowscan_tiles and param_rows take it; it excludes preshift, as in
+    JAX's configuration."""
+    if preshift and atom_mask is not None:
+        raise ValueError("make_nonbonded_rowscan_md: preshift takes no atom subset")
     series = es_energy_force_series(beta, cutoff)
 
     def build(conf, params, box):
@@ -516,12 +534,14 @@ def make_nonbonded_rowscan_md(
             tiles = build_dotscan_tiles(conf, box, cutoff + skin, max_pairs, cell_size, triangular=True)
             invalid = tiles.invalid
         else:
-            tiles = build_rowscan_tiles(conf, box, cutoff + skin, max_pairs, cell_size, triangular=True)
+            tiles = build_rowscan_tiles(
+                conf, box, cutoff + skin, max_pairs, cell_size, triangular=True, atom_mask=atom_mask
+            )
             invalid = tiles.overflow
         if not has_w:
             invalid = invalid + (params[:, 3] != 0).any().to(invalid.dtype)
         n = conf.shape[0]
-        prows = param_rows(params.to(conf.dtype), tiles.pad_order, n)
+        prows = param_rows(params.to(conf.dtype), tiles.pad_order, n, atom_mask)
         return ListState(tiles, torch.argsort(tiles.pad_order[:n]), prows, invalid)
 
     def sweep(state, conf, box, mode):
@@ -536,17 +556,21 @@ def make_nonbonded_rowscan_md(
     return make_list_md_provider(build, sweep, FORCE, ENERGY, rebuild_interval)
 
 
-def make_nonbonded_rowscan_energy_force(beta: float, cutoff: float, max_pairs: int, cell_size: float = 0.65):
+def make_nonbonded_rowscan_energy_force(
+    beta: float, cutoff: float, max_pairs: int, cell_size: float = 0.65, atom_mask=None,
+):
     """(conf, params, box, mode=FORCE_ENERGY) -> (u, force) in one sweep over
     Newton-triangular lists built for this call at the bare cutoff, as in
     JAX (use the MD provider in a step loop); size max_pairs with
-    suggest_max_pairs, triangular. With mode=ENERGY the force is zero."""
+    suggest_max_pairs, triangular. With mode=ENERGY the force is zero.
+    atom_mask (N,) bool restricts the term to a subset of the atoms."""
     series = es_energy_force_series(beta, cutoff)
 
     def energy_force(conf, params, box, mode: int = FORCE_ENERGY):
-        tiles = build_rowscan_tiles(conf, box, cutoff, max_pairs, cell_size, triangular=True)
+        tiles = build_rowscan_tiles(conf, box, cutoff, max_pairs, cell_size, triangular=True, atom_mask=atom_mask)
         n = conf.shape[0]
-        atoms = assemble_atoms(conf, box, tiles.pad_order, param_rows(params.to(conf.dtype), tiles.pad_order, n))
+        prows = param_rows(params.to(conf.dtype), tiles.pad_order, n, atom_mask)
+        atoms = assemble_atoms(conf, box, tiles.pad_order, prows)
         out = rowscan_sweep(
             atoms, tiles.row_start, tiles.row_count, tiles.col_ids, sweep_scalars(box, cutoff), series, mode, True
         )
@@ -556,19 +580,23 @@ def make_nonbonded_rowscan_energy_force(beta: float, cutoff: float, max_pairs: i
     return energy_force
 
 
-def make_nonbonded_rowscan(beta: float, cutoff: float, max_pairs: int, dp_max_tiles: int, dp_cb: int = 2):
+def make_nonbonded_rowscan(
+    beta: float, cutoff: float, max_pairs: int, dp_max_tiles: int, dp_cb: int = 2, atom_mask=None,
+):
     """Differentiable energy(conf, params, box): the forward runs one F+U
     sweep over lists built for the call and stashes dU/dx; dU/dp comes from
     the block-tile kernel's DP pass (exact electrostatics, as in the JAX
-    package's custom VJP) over lists of dp_max_tiles at dp_cb."""
-    ef = make_nonbonded_rowscan_energy_force(beta, cutoff, max_pairs)
+    package's custom VJP) over lists of dp_max_tiles at dp_cb. Under
+    atom_mask (N,) bool both passes see only the subset: atoms outside it
+    get zero dU/dx and zero dU/dp."""
+    ef = make_nonbonded_rowscan_energy_force(beta, cutoff, max_pairs, atom_mask=atom_mask)
 
     def energy_grad(conf, params, box):
         u, force = ef(conf, params, box)
         return u, -force
 
     def dp(conf, params, box):
-        return run_dp(conf, params, box, beta, cutoff, dp_max_tiles, cb=dp_cb)
+        return run_dp(conf, params, box, beta, cutoff, dp_max_tiles, cb=dp_cb, atom_mask=atom_mask)
 
     def energy(conf, params, box):
         return StashedGradEnergy.apply(conf, params, box, energy_grad, dp)

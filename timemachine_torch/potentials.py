@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from timemachine_torch.device import resolve_device
-from timemachine_torch.ops import bonded, nonbonded
+from timemachine_torch.ops import bonded, chiral, nonbonded
 from timemachine_torch.ops import dotscan_kernel as dk
 from timemachine_torch.ops import gather_kernel as gk
 from timemachine_torch.ops import nonbonded_kernel as nbk
@@ -80,6 +80,128 @@ class PeriodicTorsion(_BondedTerm):
     _contribs = staticmethod(bonded.torsion_force_contribs)
 
 
+class ChiralAtomRestraint(_BondedTerm):
+    """k v^2 on positive pyramidal volumes; idxs (C, 4), params (C,)."""
+
+    _energy = staticmethod(chiral.chiral_atom_restraint)
+    _contribs = staticmethod(chiral.chiral_atom_contribs)
+
+
+class ChiralBondRestraint(_BondedTerm):
+    """k v^2 on torsion volumes of the sign s; idxs (C, 4), params (C,),
+    signs (C,). Not flagged rigid-invariant, as in the JAX package."""
+
+    rigid_group_invariant = False
+
+    def __init__(self, idxs, signs, params, num_atoms: int, device=None, dtype=torch.float64):
+        super().__init__(idxs, params, num_atoms, device=device, dtype=dtype)
+        self.register_buffer("signs", torch.tensor(np.ascontiguousarray(signs), device=self.params.device, dtype=dtype))
+
+    def u(self, x, params, box):
+        return chiral.chiral_bond_restraint(x, params, box, self.idxs, self.signs.to(params.dtype))
+
+    def energy_force(self, x, box):
+        u, contribs = chiral.chiral_bond_contribs(x, self.params, self.idxs, self.signs)
+        return u, self.assemble(torch.cat(contribs))
+
+
+class _PairListTerm(_BondedTerm):
+    """Shared shape of the explicit pair-list terms: idxs (P, 2), exact erfc
+    electrostatics, forces in closed form summed by the SegmentSum."""
+
+    def __init__(self, idxs, params, beta: float, cutoff: float, num_atoms: int, device=None, dtype=torch.float64):
+        super().__init__(np.reshape(idxs, (-1, 2)), params, num_atoms, device=device, dtype=dtype)
+        self.beta, self.cutoff = float(beta), float(cutoff)
+
+
+class NonbondedPairList(_PairListTerm):
+    """LJ + switched erfc Coulomb over listed pairs, each scaled by its row
+    of rescale_mask [q_scale, lj_scale]; per-atom params rows."""
+
+    rigid_group_invariant = False
+    sign = 1.0
+
+    def __init__(self, idxs, rescale_mask, params, beta, cutoff, num_atoms, device=None, dtype=torch.float64):
+        super().__init__(idxs, params, beta, cutoff, num_atoms, device=device, dtype=dtype)
+        mask = np.ascontiguousarray(rescale_mask, dtype=np.float64).reshape(-1, 2)
+        self.register_buffer("rescale_mask", torch.tensor(mask, device=self.params.device, dtype=dtype))
+
+    def u(self, x, params, box):
+        vdw, es = nonbonded.nonbonded_on_specific_pairs(
+            x, params, box, self.idxs, self.beta, self.cutoff, self.rescale_mask.to(params.dtype)
+        )
+        return self.sign * (torch.sum(vdw) + torch.sum(es))
+
+    def energy_force(self, x, box):
+        u, f = nonbonded.specific_pairs_exact_energy_force(
+            x, self.params, box, self.idxs, self.beta, self.cutoff, self.rescale_mask, self.assemble
+        )
+        return self.sign * u, self.sign * f
+
+
+class NonbondedExclusions(NonbondedPairList):
+    """The negated pair list: cancels excluded pairs out of an all-pairs sum."""
+
+    rigid_group_invariant = True  # bond-graph-local pairs
+    sign = -1.0
+
+
+class NonbondedPairListPrecomputed(_PairListTerm):
+    """Pair list whose parameter rows are already combined, [q_ij, sigma_ij,
+    eps_ij, dw_ij]: the single-topology ligand's intramolecular term."""
+
+    rigid_group_invariant = True  # intramolecular ligand pairs
+
+    def u(self, x, params, box):
+        vdw, es = nonbonded.nonbonded_on_precomputed_pairs(x, params, box, self.idxs, self.beta, self.cutoff)
+        return torch.sum(vdw) + torch.sum(es)
+
+    def energy_force(self, x, box):
+        return nonbonded.precomputed_pairs_energy_force(
+            x, self.params, box, self.idxs, self.beta, self.cutoff, self.assemble
+        )
+
+
+class NonbondedInteractionGroup(nn.Module):
+    """Row atoms x column atoms (the ligand x its environment), exact erfc
+    electrostatics, in grid form; col_atom_idxs None means every atom not
+    in row_atom_idxs. Plain PyTorch, as in the JAX package, where it is
+    plain XLA."""
+
+    rigid_group_invariant = False
+
+    def __init__(
+        self, num_atoms: int, row_atom_idxs, beta: float, cutoff: float, params, col_atom_idxs=None,
+        device=None, dtype=torch.float64,
+    ):
+        super().__init__()
+        device = resolve_device(device)
+        rows = np.asarray(row_atom_idxs, dtype=np.int64)
+        cols = np.setdiff1d(np.arange(num_atoms), rows) if col_atom_idxs is None else np.asarray(col_atom_idxs, np.int64)
+        if len(set(rows.tolist()) | set(cols.tolist())) != rows.size + cols.size:
+            raise ValueError("NonbondedInteractionGroup: row and column atoms must be distinct and disjoint")
+        if min(rows.min(initial=0), cols.min(initial=0)) < 0 or max(rows.max(initial=0), cols.max(initial=0)) >= num_atoms:
+            raise ValueError("NonbondedInteractionGroup: atom index out of range")
+        self.num_atoms, self.beta, self.cutoff = num_atoms, float(beta), float(cutoff)
+        self.register_buffer("row_atom_idxs", torch.tensor(rows, device=device))
+        self.register_buffer("col_atom_idxs", torch.tensor(cols, device=device))
+        self.register_buffer("params", torch.tensor(np.ascontiguousarray(params), device=device, dtype=dtype))
+
+    def u(self, x, params, box):
+        vdw, es = nonbonded.nonbonded_interaction_groups(
+            x, params, box, self.row_atom_idxs, self.col_atom_idxs, self.beta, self.cutoff
+        )
+        return torch.sum(vdw) + torch.sum(es)
+
+    def energy(self, x, box):
+        return self.u(x, self.params, box)
+
+    def energy_force(self, x, box):
+        return nonbonded.interaction_group_energy_force(
+            x, self.params, box, self.row_atom_idxs, self.col_atom_idxs, self.beta, self.cutoff
+        )
+
+
 class NonbondedAllPairs(nn.Module):
     """All-pairs LJ + switched Coulomb in 4D, no exclusions. Call
     `configure(box, conf, kernel)` once before use: it picks the kernel and
@@ -102,17 +224,31 @@ class NonbondedAllPairs(nn.Module):
     kernel="v1": the block-tile sweep with exact electrostatics, lists at
     cutoff + SKIN for MD. `kernel` then names the configuration taken. Either way `u(x, params, box)` is
     differentiable in params through the block-tile kernel's DP pass (exact
-    electrostatics, as in the JAX package)."""
+    electrostatics, as in the JAX package).
+
+    atom_idxs restricts the term to a subset of the atoms (the RBFE host
+    term's host atoms), as JAX's `_atom_mask`: the others get q = eps = 0
+    in the sweeps, leave the chunk boxes, and get zero force and dU/dp.
+    Under a subset configure keeps JAX's rules (quad falls back to rowscan,
+    rowscan's MD provider takes no preshift); gather, dot and v1 raise,
+    since the port's builders for them take no subset yet."""
 
     rigid_group_invariant = False
 
-    def __init__(self, num_atoms: int, beta: float, cutoff: float, params, device=None, dtype=torch.float64):
+    def __init__(
+        self, num_atoms: int, beta: float, cutoff: float, params, atom_idxs=None, device=None, dtype=torch.float64,
+    ):
         super().__init__()
         device = resolve_device(device)
         self.num_atoms = num_atoms
         self.beta = float(beta)
         self.cutoff = float(cutoff)
         self.register_buffer("params", torch.tensor(np.ascontiguousarray(params), device=device, dtype=dtype))
+        mask = None
+        if atom_idxs is not None:
+            mask = torch.zeros(num_atoms, dtype=torch.bool, device=device)
+            mask[torch.as_tensor(np.asarray(atom_idxs, dtype=np.int64), device=device)] = True
+        self.register_buffer("atom_mask", mask)
         # the exclusion corrections' electrostatics: the rowscan polynomial, or None for exact erfc
         self.h_coeffs = rs.es_energy_force_series(self.beta, self.cutoff)[0]
         self._energy = self._energy_force = self._u = self._md = None
@@ -130,9 +266,14 @@ class NonbondedAllPairs(nn.Module):
         configure_pallas takes the same two)."""
         if kernel not in ("rowscan", "gather", "quad", "dot", "v1"):
             raise ValueError(f"kernel must be 'rowscan', 'gather', 'quad', 'dot' or 'v1', got {kernel!r}")
+        mask = self.atom_mask
+        if mask is not None and kernel in ("gather", "dot", "v1"):
+            raise ValueError(
+                f"kernel={kernel!r} takes no atom subset in the port yet (ROADMAP queue 1 item 5); use 'rowscan'"
+            )
         box = torch.as_tensor(box, device=self.params.device)
         conf = torch.as_tensor(conf, device=self.params.device)
-        if kernel == "quad" and not qk.constant_shift_valid(conf, box, self.cutoff + SKIN):
+        if kernel == "quad" and (mask is not None or not qk.constant_shift_valid(conf, box, self.cutoff + SKIN)):
             kernel = "rowscan"
         self.dot_sort = None
         if kernel == "dot":
@@ -141,7 +282,9 @@ class NonbondedAllPairs(nn.Module):
             if self.dot_sort is None:
                 kernel = "rowscan"
         self.kernel = kernel
-        self.dp_max_tiles = nbk.suggest_max_tiles(conf, box, self.cutoff, margin=MARGIN, cb=DP_CB, triangular=True)
+        self.dp_max_tiles = nbk.suggest_max_tiles(
+            conf, box, self.cutoff, margin=MARGIN, cb=DP_CB, triangular=True, atom_mask=mask
+        )
         self.h_coeffs = rs.es_energy_force_series(self.beta, self.cutoff)[0]
         if kernel == "gather":
             self.max_nbrs = gk.suggest_max_nbrs(conf, box, self.cutoff, margin=MARGIN)
@@ -154,11 +297,13 @@ class NonbondedAllPairs(nn.Module):
                 self.beta, self.cutoff, self.md_max_nbrs, skin=SKIN, rebuild_interval=REBUILD_INTERVAL
             )
         elif kernel in ("rowscan", "quad", "dot"):
-            pairs = rs.suggest_max_pairs(conf, box, self.cutoff, margin=MARGIN, triangular=True)
-            ef = rs.make_nonbonded_rowscan_energy_force(self.beta, self.cutoff, pairs)
+            pairs = rs.suggest_max_pairs(conf, box, self.cutoff, margin=MARGIN, triangular=True, atom_mask=mask)
+            ef = rs.make_nonbonded_rowscan_energy_force(self.beta, self.cutoff, pairs, atom_mask=mask)
             self._energy = lambda x, params, box: ef(x, params, box, rs.ENERGY)[0]
             self._energy_force = ef
-            self._u = rs.make_nonbonded_rowscan(self.beta, self.cutoff, pairs, self.dp_max_tiles, dp_cb=DP_CB)
+            self._u = rs.make_nonbonded_rowscan(
+                self.beta, self.cutoff, pairs, self.dp_max_tiles, dp_cb=DP_CB, atom_mask=mask
+            )
             self.max_pairs = pairs
             if kernel == "quad":
                 self.md_max_tiles = qk.suggest_max_tiles(conf, box, self.cutoff + SKIN, margin=MARGIN)
@@ -179,12 +324,12 @@ class NonbondedAllPairs(nn.Module):
                 if conf.shape[0] >= 8192:
                     cell = rs.suggest_cell_size(conf, box, self.cutoff, skin=SKIN)
                 md_pairs = rs.suggest_max_pairs(
-                    conf, box, self.cutoff + SKIN, margin=MARGIN, cell_size=cell, triangular=True
+                    conf, box, self.cutoff + SKIN, margin=MARGIN, cell_size=cell, triangular=True, atom_mask=mask
                 )
-                preshift = dk.dotscan_valid(conf, box, self.cutoff + SKIN, cell_size=cell)
+                preshift = mask is None and dk.dotscan_valid(conf, box, self.cutoff + SKIN, cell_size=cell)
                 self._md = rs.make_nonbonded_rowscan_md(
                     self.beta, self.cutoff, md_pairs, skin=SKIN, rebuild_interval=REBUILD_INTERVAL, cell_size=cell,
-                    preshift=preshift, has_w=rowscan_has_w,
+                    preshift=preshift, has_w=rowscan_has_w, atom_mask=mask,
                 )
                 self.md_max_pairs, self.md_cell_size, self.md_preshift = md_pairs, cell, preshift
         else:
@@ -246,13 +391,16 @@ class Nonbonded(NonbondedAllPairs):
     explicit pair list."""
 
     def __init__(
-        self, num_atoms: int, exclusion_idxs, scale_factors, beta: float, cutoff: float, params,
+        self, num_atoms: int, exclusion_idxs, scale_factors, beta: float, cutoff: float, params, atom_idxs=None,
         device=None, dtype=torch.float64,
     ):
-        super().__init__(num_atoms, beta, cutoff, params, device=device, dtype=dtype)
+        super().__init__(num_atoms, beta, cutoff, params, atom_idxs=atom_idxs, device=device, dtype=dtype)
         device = self.params.device
         exc = np.ascontiguousarray(exclusion_idxs, dtype=np.int64).reshape(-1, 2)
         scales = np.ascontiguousarray(scale_factors, dtype=np.float64).reshape(-1, 2)
+        if atom_idxs is not None:  # keep the exclusions inside the subset, in order (JAX's filter_exclusions)
+            inside = np.isin(exc, np.asarray(atom_idxs)).all(axis=1)
+            exc, scales = exc[inside], scales[inside]
         self.num_waters = nonbonded.leading_water_exclusions(exc, scales)
         tail = exc[3 * self.num_waters :]
         self.register_buffer("tail_idxs", torch.tensor(tail, device=device))

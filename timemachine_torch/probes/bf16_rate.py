@@ -144,8 +144,9 @@ def bf16_rate(a, b, dtype=torch.bfloat16, iters: int = ITERS, cut2: float = CUT2
 bf16_rate.launches = 0
 
 
-def time_ms(a, b, dtype, reps: int = 200, first_design: bool = False) -> float:
-    """Device time per launch at ITERS on a's card (profiler)."""
+def time_ms(a, b, dtype, reps: int = 200, first_design: bool = False) -> tuple:
+    """(device time per launch at ITERS on a's card, how it was timed):
+    probes.kernel_ms."""
     return kernel_ms(lambda: bf16_rate(a, b, dtype, first_design=first_design), reps, KERNELS[dtype, first_design])
 
 
@@ -187,7 +188,8 @@ class GateFit:
     marginal_ms: float  # least-squares slope: ms per ITERS iterations
     fixed_ms: float  # its intercept: ms per launch at no iterations
     ratio: float  # ms at 32 ITERS / ms at 16 ITERS (2 if the time is linear)
-    profiler_ms: float  # profiler device time per launch at ITERS
+    device_ms: float  # the kernel's own device time per launch at ITERS
+    timed_by: str  # "profiler", or "events" where the profiler saw no launch (probes.kernel_ms)
 
 
 def fit(ms_by_iters: dict) -> tuple:
@@ -201,7 +203,7 @@ def measure(a, b, designs=(False, True)) -> dict:
     """{(dtype, first_design): GateFit} for f32 and bf16 and each of
     `designs` on a's card: after WARM_S seconds of launches that bring the
     clocks up, each kernel's time per launch at ITERS x MULTIPLES
-    iterations (backlogged_ms), and its profiler device time at ITERS."""
+    iterations (backlogged_ms), and its own device time at ITERS (time_ms)."""
     t0 = time.perf_counter()
     while time.perf_counter() - t0 < WARM_S:
         bf16_rate(a, b, torch.float32, ITERS * MULTIPLES[-1], first_design=True)
@@ -212,7 +214,7 @@ def measure(a, b, designs=(False, True)) -> dict:
             ms = {ITERS * m: backlogged_ms(lambda k=ITERS * m: bf16_rate(a, b, dt, k, first_design=first)) for m in MULTIPLES}
             slope, intercept = fit(ms)
             ratio = ms[ITERS * MULTIPLES[-1]] / ms[ITERS * MULTIPLES[-2]]
-            fits[dt, first] = GateFit(ms, slope, intercept, ratio, time_ms(a, b, dt, first_design=first))
+            fits[dt, first] = GateFit(ms, slope, intercept, ratio, *time_ms(a, b, dt, first_design=first))
     return fits
 
 
@@ -287,7 +289,7 @@ if __name__ == "__main__":
         print(
             f"{KERNELS[dt, first]}: " + ", ".join(f"{k} it {ms * 1e3:.3f} us" for k, ms in f.ms_by_iters.items())
             + f"; marginal {f.marginal_ms * 1e3:.3f} us per {ITERS} iterations, fixed {f.fixed_ms * 1e3:.3f} us, "
-            f"ratio 32/16 {f.ratio:.3f}, profiler at {ITERS} {f.profiler_ms * 1e3:.3f} us"
+            f"ratio 32/16 {f.ratio:.3f}, {f.timed_by} at {ITERS} {f.device_ms * 1e3:.3f} us"
         )
     for first in (False, True):
         f32, bf = fits[torch.float32, first], fits[torch.bfloat16, first]

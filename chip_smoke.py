@@ -8,7 +8,8 @@ nonbonded term runs through the hand-written rowscan kernel
 kernel="v1" configuration run through the hand-written block-tile kernel
 (timemachine_torch/csrc/nb_tiles.cu); the kernel="gather", kernel="quad" and
 kernel="dot" configurations run through the hand-written gather, quadscan
-and dotscan kernels (csrc/gather.cu, csrc/quadscan.cu, csrc/dotscan.cu); two
+and dotscan kernels (csrc/gather.cu, csrc/quadscan.cu, csrc/dotscan.cu);
+HREX's replicas run through the rowscan kernel's replica-batched form; two
 probes measure the card (csrc/probe_fma.cu, csrc/probe_bf16.cu). All seven
 are built here with nvcc for sm_90a, in parallel.
 
@@ -74,11 +75,26 @@ reused Context (depth cut to N13_EQ equilibration steps and N13_FRAMES
 frames of N13_STEPS_PER_FRAME; ns/day per window on the host clock) and pair
 BAR, the host term's works exactly zero; a window step's device idle share;
 a window in a fresh Context against the same window after reset_for_state,
-bitwise. Every path runs with all launch and plain-call counts set to
+bitwise. HREX over the same 12 windows [14]: the replica-batched masked
+sweep (one launch for every replica, csrc/rowscan.cu's system axis) in F
+over the K = 12 replicas and in U over the banded energies' K (2
+max_delta_states + 1) = 108 systems, each system bitwise against its
+single launch and per column against rowscan_sweep_batched_plain, with
+its time, K (or 108) single launches' time, the plain time and the bound;
+the banded U_kl after a segment against single-system f64 sums of each
+term's u at the target state's parameters (TOL_BANDED_REL, the +inf
+pattern identical); the kernel launches of a step without a rebuild or a
+barostat move at K = 2 and K = 12, counted in a CUDA graph that captures
+the step, which must be equal; run_sims_hrex
+(depth cut to N14_EQ equilibration steps and N14_FRAMES iterations of
+N14_STEPS_PER_FRAME) with the time per iteration, replica-steps per second
+against phase 13's sequential window step, the swap acceptance per pair,
+pair BAR and the edge's dG; the batched step's time and device idle share.
+Every path runs with all launch and plain-call counts set to
 0 just before it and read just after. Then a JSON line on the kernels
 (time; launches per NPT step of the path named in `path`, per Adam step of
-the training path where the kernel has one, per run of phase 12 for the
-probes; bound; plain time), the card's name and power limit from
+the training path where the kernel has one, per replica-step of HREX for
+the batched form, per run of phase 12 for the probes; bound; plain time), the card's name and power limit from
 nvidia-smi, and as the last line {"ok": true, "device": {...}}.
 
 Usage, from the repository root:  python3 chip_smoke.py
@@ -86,10 +102,12 @@ Without a CUDA card, or when any phase fails, the script exits non-zero and
 prints no result.
 """
 
+import ctypes
 import json
 import subprocess
 import sys
 import time
+from collections import Counter
 
 TEMP, DT, FRICTION, PRESSURE, BAROSTAT_INTERVAL = 300.0, 2.5e-3, 1.0, 1.013, 25
 N_FIRE, N_STEPS, N_PROFILE, N_DET = 400, 1000, 50, 100
@@ -99,6 +117,16 @@ N_ALT = 500
 # DEFAULT_MD_PARAMS (fe/rbfe.py: 10,000 equilibration steps, 1,000 frames of
 # 400 steps) to fit the script's time; the 12 windows and 6,404 atoms are not cut
 N13_EQ, N13_FRAMES, N13_STEPS_PER_FRAME, N13_TIMED, N13_REUSE = 500, 20, 50, 200, 60
+# phase 14, HREX over the same 12 windows: DEFAULT_HREX_PARAMS (fe/rbfe.py:
+# max_delta_states 4, K^3 swap attempts an iteration) with its depth cut as
+# phase 13's (10,000 equilibration steps, 1,000 frames of 400 steps in the
+# JAX package); the windows, atoms and replicas are not cut
+N14_EQ, N14_FRAMES, N14_STEPS_PER_FRAME, N14_MAX_DELTA, N14_TIMED = 500, 20, 50, 4, 40
+# the banded U_kl against single-system sums of each term's u at the target
+# state's parameters: both accumulate in f64 (the host term's per-atom
+# energies come bitwise from the same kernel), so only the f32 terms' own
+# rounding is left (about 1e-8 of U)
+TOL_BANDED_REL = 1e-6
 # whole force on the card vs on the host CPU, both f32, relative to the
 # all-pairs force: the net force is what is left after the exclusions
 # cancel the all-pairs term's huge bonded-neighbour forces, so f32 rounding
@@ -185,6 +213,11 @@ FLOPS_PER_PAIR = {
     # the RBFE host term's masked form (triangular, minimum image, w): the
     # symmetric form's function, each pair once with its reaction
     "rowscan_sweep_masked": 64,
+    # the same form batched over HREX's replicas: F mode as the masked form;
+    # U mode (the barostat's and the banded U_kl's) 53: the pair function in
+    # U mode 45 (F mode's 48 with the energy's expression, 3 fewer than the
+    # force's), the 4 differences, the 3 pair parameters and the row energy sum
+    "rowscan_sweep_batched": 64, "rowscan_sweep_batched_U": 53,
 }
 
 
@@ -236,10 +269,11 @@ def main() -> int:
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
 
     from timemachine_torch.constants import BOLTZ
     from timemachine_torch.fe import free_energy as fe13
-    from timemachine_torch.fe.free_energy import MDParams, configure_all_pairs, get_context
+    from timemachine_torch.fe.free_energy import HREXParams, MDParams, configure_all_pairs, get_context
     from timemachine_torch.fe.loss import pseudo_huber_loss
     from timemachine_torch.fe.model_utils import apply_hmr
     from timemachine_torch.fe.reweighting import construct_mixture_reweighting_estimator
@@ -254,6 +288,7 @@ def main() -> int:
     from timemachine_torch.ops import nonbonded_kernel as nbk
     from timemachine_torch.ops import quadscan_kernel as qk
     from timemachine_torch.ops import rowscan_kernel as rs
+    from timemachine_torch.parallel.replica_exchange import ReplicaExchangeRunner
     from timemachine_torch.potentials import DP_CB, SKIN, Nonbonded, NonbondedAllPairs
     from timemachine_torch.probes import bf16_rate as br
     from timemachine_torch.probes import fp32_peak as fp
@@ -265,10 +300,13 @@ def main() -> int:
     f32 = torch.float32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    sweeps = (rs.rowscan_sweep, nbk.nb_tiles, gk.gather_sweep, qk.quadscan_sweep, dk.dotscan_sweep, fp.fp32_peak, br.bf16_rate)
+    sweeps = (
+        rs.rowscan_sweep, rs.rowscan_sweep_batched, nbk.nb_tiles, gk.gather_sweep, qk.quadscan_sweep,
+        dk.dotscan_sweep, fp.fp32_peak, br.bf16_rate,
+    )
     plains = (
-        rs.rowscan_sweep_plain, nbk.nb_tiles_plain, gk.gather_sweep_plain, qk.quadscan_sweep_plain,
-        dk.dotscan_sweep_plain, fp.fp32_peak_plain, br.bf16_rate_plain,
+        rs.rowscan_sweep_plain, rs.rowscan_sweep_batched_plain, nbk.nb_tiles_plain, gk.gather_sweep_plain,
+        qk.quadscan_sweep_plain, dk.dotscan_sweep_plain, fp.fp32_peak_plain, br.bf16_rate_plain,
     )
 
     def zero_counts():
@@ -1301,7 +1339,294 @@ def main() -> int:
     check(finite13, "[13] a pair BAR result is not finite")
     check(not host_works.any(), "[13] the host term's works are not exactly zero")
 
-    print(json.dumps({"kernels": [kernel_row, masked_row, nb_row, gather_row, quad_row, dot_row, *probe_rows]}))
+    # -- 14. HREX over the 12 windows ----------------------------------------------------
+    # run_sims_hrex over the same windows, all K replicas in one batched step;
+    # first the replica-batched masked sweep at the slice's shapes against K
+    # (or K (2 max_delta + 1)) single launches and its plain version
+    K14, D14 = len(states13), N14_MAX_DELTA
+    S14 = 2 * D14 + 1
+    md14 = MDParams(
+        n_frames=N14_FRAMES, n_eq_steps=N14_EQ, steps_per_frame=N14_STEPS_PER_FRAME, seed=2023,
+        hrex_params=HREXParams(n_frames_bisection=100, max_delta_states=D14),
+    )
+    ctx14 = get_context(states13[0], md14)
+
+    def make_runner(k):
+        """A runner over the first k windows at their x0, lists built."""
+        r = ReplicaExchangeRunner(
+            ctx14, [[p.params for p in s.potentials] for s in states13[:k]], temperature=TEMP,
+            neighbor_pairs=[(i, i + 1) for i in range(k - 1)], n_swap_attempts_per_iter=k**3, max_delta_states=D14,
+            seed=2023,
+        )
+        r.initialize([s.x0 for s in states13[:k]], [s.v0 for s in states13[:k]], [s.box0 for s in states13[:k]])
+        r.batch.multiple_steps(0)
+        return r
+
+    run14 = make_runner(K14)
+    ps14 = run14.batch._prov_states[host_i]
+    xs14, boxes14 = run14.batch._x, run14.batch._box
+    cols14 = torch.clamp(torch.arange(K14, device=dev)[:, None] + torch.arange(-D14, D14 + 1, device=dev), 0, K14 - 1)
+    host_sets = run14._params_by_state[host_i][cols14].to(f32)  # (K, S, N, 4)
+    pad_sets = ps14.lists.pad_order[:, None, :].expand(K14, S14, -1)
+    prows_u = rs.param_rows(host_sets, pad_sets, n13, mask13).reshape(K14 * S14, -1, 4)
+    lists_f = torch.arange(K14, device=dev, dtype=torch.int32)
+    args_f = rs.batched_sweep_inputs(ps14.lists, xs14, ps14.prows, boxes14, lists_f, nb13.cutoff)
+    args_u = rs.batched_sweep_inputs(ps14.lists, xs14, prows_u, boxes14, lists_f.repeat_interleave(S14), nb13.cutoff)
+    host_pairs14 = [
+        pairs_within_cutoff(xs14[k][host_idx13], boxes14[k], nb13.params[host_idx13, 3].to(f32), nb13.cutoff)
+        for k in range(K14)
+    ]
+    print(
+        f"[14 shapes] HREX over {K14} windows of {n13} atoms: K {K14} replicas in one batched step, max_delta_states "
+        f"{D14}, {S14} parameter sets a replica, B = K (2 max_delta + 1) = {K14 * S14} systems on the banded U call, "
+        f"K^3 = {K14**3} swap attempts an iteration; Npad {args_f[0].shape[1]}, row chunks {args_f[1].shape[1]}, lists "
+        f"(K, max_pairs) {tuple(args_f[3].shape)}; host-term pairs within the cutoff per replica "
+        f"{min(host_pairs14)}-{max(host_pairs14)} ({smi})"
+    )
+
+    def batched_check(label, args, mode, flops_name, plain_reps):
+        """The batched launch against a single launch per system (bitwise)
+        and the plain version (per column); ms of the batched launch, of B
+        single launches and of the plain version; the bound over the
+        systems' pairs."""
+        atoms_b, row_start_b, count_b, col_ids_b, lists_b, scal_b = args
+        lists_host = lists_b.tolist()
+
+        def singles():
+            return [
+                rs.rowscan_sweep(atoms_b[b], row_start_b[k], count_b[k], col_ids_b[k], scal_b[b], series13, mode,
+                                 triangular=True)
+                for b, k in enumerate(lists_host)
+            ]
+
+        out, out2, plain = (rs.rowscan_sweep_batched(*args, series13, mode), rs.rowscan_sweep_batched(*args, series13, mode),
+                            rs.rowscan_sweep_batched_plain(*args, series13, mode))
+        torch.cuda.synchronize()
+        same_single = all(torch.equal(out[b], o) for b, o in enumerate(singles()))
+        rels = []
+        for b in range(out.shape[0]):
+            for col in range(4):
+                norm = float(torch.linalg.vector_norm(plain[b, :, col]))
+                if norm == 0:
+                    check(not bool(out[b, :, col].any()), f"[14] batched {label} column {col} of system {b} not zero")
+                else:
+                    rels.append(float(torch.linalg.vector_norm(out[b, :, col] - plain[b, :, col])) / norm)
+        max_abs = float((out - plain).abs().max())
+        ms = cuda_ms(lambda: rs.rowscan_sweep_batched(*args, series13, mode), 20)
+        ms_singles = cuda_ms(singles, 20)
+        plain_ms = cuda_ms(lambda: rs.rowscan_sweep_batched_plain(*args, series13, mode), plain_reps)
+        pairs = sum(host_pairs14[k] for k in lists_host)
+        nbytes = tensor_bytes(atoms_b, row_start_b, count_b, scal_b, lists_b) + 4 * int(
+            sum(int(count_b[k].sum()) for k in lists_host)) + 16 * atoms_b.shape[0] * atoms_b.shape[1]
+        bound_ms, bound_by = bound(pair_ops(flops_name, pairs), nbytes)
+        print(
+            f"[14 kernel {label}] {out.shape[0]} systems in one launch: each bitwise its single launch {same_single}, two "
+            f"launches bitwise equal {torch.equal(out, out2)}; vs plain rel_norm per column max {max(rels):.3e} (tol "
+            f"{TOL_KERNEL_COL:g}), max_abs {max_abs:.3e}; batched {ms:.4f} ms, {out.shape[0]} single launches "
+            f"{ms_singles:.4f} ms (CUDA events over 20), plain {plain_ms:.2f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+            f"({FLOPS_PER_PAIR[flops_name]} FP32 operations per pair, {pairs} pairs within the cutoff over the "
+            f"systems) ({smi})"
+        )
+        check(same_single, f"[14] a system of the batched {label} launch differs from its single launch")
+        check(torch.equal(out, out2), f"[14] two batched {label} launches differ")
+        check(max(rels) <= TOL_KERNEL_COL, f"[14] the batched {label} launch disagrees with its plain version")
+        return max_abs, ms, plain_ms, ms_singles, bound_ms, bound_by
+
+    err14, ms14f, plain14f, singles14f, _, _ = batched_check("F", args_f, rs.FORCE, "rowscan_sweep_batched", 2)
+    _, ms14u, _, singles14u, bound14u, _ = batched_check("U", args_u, rs.ENERGY, "rowscan_sweep_batched_U", 1)
+    batched_row = kernel_entry(
+        "rowscan_sweep_batched", "rowscan.cu", "rowscan_kernel.py:111", err14, ms14f, plain14f, sum(host_pairs14),
+        tensor_bytes(*args_f[:3], args_f[5]) + 4 * int(args_f[2].sum()) + 16 * args_f[0].shape[0] * args_f[0].shape[1],
+    )
+
+    # the banded U_kl after a short segment against single-system sums of
+    # each term's u at the target state's parameters, in f64 (the host
+    # term: a single launch on the replica's lists, its exclusions)
+    run14.equilibrate(N14_STEPS_PER_FRAME)
+    res14 = run14.advance_frame(N14_STEPS_PER_FRAME)
+    own14 = np.argsort(res14.replica_idx_by_state)
+    ps14 = run14.batch._prov_states[host_i]
+    f64 = torch.float64
+    ref14 = np.full((K14, K14), np.inf)
+    with torch.no_grad():
+        for r in range(K14):
+            x_r, box_r = run14.batch._x[r], run14.batch._box[r]
+            t_r = type(ps14.lists)(*(f[r] for f in ps14.lists))
+            for lam in range(max(0, own14[r] - D14), min(K14, own14[r] + D14 + 1)):
+                params_l = [p.params for p in states13[lam].potentials]
+                atoms_r = rs.assemble_atoms(x_r, box_r, t_r.pad_order, rs.param_rows(params_l[host_i].to(f32), t_r.pad_order, n13, mask13))
+                count_r = rs.chop_row_counts(atoms_r[:, :3], t_r.rank_mat, t_r.row_count, box_r, nb13.cutoff)
+                u_all = rs.rowscan_sweep(atoms_r, t_r.row_start, count_r, t_r.col_ids, rs.sweep_scalars(box_r, nb13.cutoff),
+                                         series13, rs.ENERGY, triangular=True)[:, 0].to(f64).sum()
+                u_exc = nb13.exclusion_energy(x_r.to(f64), params_l[host_i].to(f64), box_r.to(f64))
+                u_host = u_all - u_exc
+                if r == 0 and lam == own14[0]:
+                    host_parts = float(u_all), float(u_exc)
+                u_rest = sum(pot.u(x_r.to(f64), p.to(f64), box_r.to(f64)) for i, (pot, p) in enumerate(zip(ctx14.potentials, params_l)) if i != host_i)
+                ref14[r, lam] = float(u_host + u_rest)
+    finite14 = np.isfinite(ref14)
+    same_inf = bool((np.isfinite(res14.U_kl) == finite14).all())
+    banded_rel = float(np.max(np.abs(res14.U_kl[finite14] - ref14[finite14]) / np.abs(ref14[finite14])))
+    print(
+        f"[14 banded] U_kl after {N14_STEPS_PER_FRAME + N14_STEPS_PER_FRAME} steps: {int(finite14.sum())} finite entries of "
+        f"{K14 * K14} (the band |l - state(r)| <= {D14}), +inf pattern identical to the single sums: {same_inf}; max "
+        f"|U - single| / |single| {banded_rel:.3e} (tol {TOL_BANDED_REL:g}; f64 sums, the host term's per-atom energies "
+        f"from single launches on the replica's lists); U range {np.min(ref14[finite14]):.2f} to "
+        f"{np.max(ref14[finite14]):.2f} kJ/mol; replica 0's host term: all-pairs sum {host_parts[0]:.2f}, its "
+        f"exclusions {host_parts[1]:.2f}, net {host_parts[0] - host_parts[1]:.2f} kJ/mol (an f32 unit in the last place "
+        f"at the all-pairs sum: {float(np.spacing(np.float32(abs(host_parts[0])))):.4f}) ({smi})"
+    )
+    check(same_inf, "[14] the banded U_kl's +inf pattern differs from the band")
+    check(banded_rel <= TOL_BANDED_REL, "[14] the banded U_kl disagrees with single-system sums")
+
+    # launches of a step that neither rebuilds nor moves the box, at K = 2
+    # and K = 12, counted exactly: step 4 is captured into a CUDA graph
+    # (never replayed; its noise draw too) and the graph's nodes are read
+    # through the driver API. Profiler traces lose records, and lose them
+    # together within a process (on an H100 80GB HBM3 one run read 913
+    # kernels in all eight traces of such steps, another 947: the step's 936
+    # and the state check's 11), so a trace's count at K = 2 and at 12 can
+    # differ where the step's do not. Beside it, the aten operations step 3
+    # dispatches.
+    class CountOps(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    libcuda = ctypes.CDLL("libcuda.so.1")
+
+    def graph_nodes(fn, generator):
+        """Counter {CUgraphNodeType: nodes} of the CUDA graph that captures fn()
+        (0 a kernel, 1 a memory copy, 2 a memory set)."""
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        graph.register_generator_state(generator)
+        with torch.cuda.graph(graph):
+            fn()
+        torch.cuda.synchronize()
+        handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+        check(libcuda.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0, "[14] cuGraphGetNodes failed")
+        nodes = (ctypes.c_void_p * n.value)()
+        check(libcuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0, "[14] cuGraphGetNodes failed")
+        kinds = Counter()
+        for node in nodes:
+            kind = ctypes.c_int(-1)
+            check(libcuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0, "[14] cuGraphNodeGetType failed")
+            kinds[kind.value] += 1
+        return kinds
+
+    def step_launches(k):
+        r = make_runner(k)
+        r.batch.multiple_steps(2)  # the rebuild at step 1, then step 2
+        with torch.no_grad(), CountOps() as ops:
+            r.batch._one_step()  # step 3
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            nodes = graph_nodes(r.batch._one_step, r.batch._noise)  # step 4; the runner is left unusable
+        return nodes, ops.n
+
+    nodes2, ops2 = step_launches(2)
+    nodes12, ops12 = step_launches(K14)
+    l2, l12 = nodes2[0], nodes12[0]
+    print(
+        f"[14 launches] a step without a rebuild or a barostat move, captured in a CUDA graph: {l2} kernels at K = 2, "
+        f"{l12} at K = {K14} (memory sets {nodes2[2]}, {nodes12[2]}; copies {nodes2[1]}, {nodes12[1]}; other nodes "
+        f"{sum(nodes2.values()) - l2 - nodes2[1] - nodes2[2]}, {sum(nodes12.values()) - l12 - nodes12[1] - nodes12[2]}); "
+        f"aten operations dispatched by the step before it: {ops2} at K = 2, {ops12} at K = {K14} ({smi})"
+    )
+    check(l2 > 0 and nodes2 == nodes12 and ops2 == ops12, "[14] a batched step's kernel launches grow with K")
+
+    # the run: run_sims_hrex over the 12 windows, each iteration timed
+    iter_s, eq_s = [], []
+    advance_fn, equilibrate_fn = ReplicaExchangeRunner.advance_frame, ReplicaExchangeRunner.equilibrate
+
+    def timed_advance(self, n_steps):
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        out = advance_fn(self, n_steps)
+        iter_s.append(time.perf_counter() - t_start)
+        return out
+
+    def timed_equilibrate(self, n_steps, *args, **kwargs):
+        t_start = time.perf_counter()
+        equilibrate_fn(self, n_steps, *args, **kwargs)
+        torch.cuda.synchronize()
+        eq_s.append(time.perf_counter() - t_start)
+
+    ReplicaExchangeRunner.advance_frame, ReplicaExchangeRunner.equilibrate = timed_advance, timed_equilibrate
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        result14, trajs14, diag14, _ = fe13.run_sims_hrex(states13, md14, print_diagnostics_interval=None)
+    finally:
+        ReplicaExchangeRunner.advance_frame, ReplicaExchangeRunner.equilibrate = advance_fn, equilibrate_fn
+    torch.cuda.synchronize()
+    t_run14 = time.perf_counter() - t0
+    launches14, plain14_calls = read_counts()
+    steps14 = N14_EQ + N14_FRAMES * N14_STEPS_PER_FRAME
+    seg_s = sum(iter_s) + sum(eq_s)
+    rate14 = K14 * steps14 / seg_s
+    rate13 = 1e3 / step13_ms
+    print(
+        f"[14 run] run_sims_hrex, {K14} replicas: {t_run14:.1f} s with the u_kln and pair BAR; equilibration "
+        f"{N14_EQ} steps {sum(eq_s):.2f} s ({sum(eq_s) * 1e3 / N14_EQ:.2f} ms/step); {N14_FRAMES} iterations of "
+        f"{N14_STEPS_PER_FRAME} steps, each with its banded U_kl and {K14**3} swap attempts: "
+        f"{np.mean(iter_s):.4f} s per iteration (min {min(iter_s):.4f}, max {max(iter_s):.4f}); {rate14:.1f} "
+        f"replica-steps/s over the run's segments, against phase 13's sequential window step {step13_ms:.4f} ms "
+        f"({rate13:.1f} replica-steps/s), ratio {rate14 / rate13:.2f} (host clock); launches in the run {launches14}, "
+        f"plain calls {plain14_calls}; depth cut from DEFAULT_HREX_PARAMS (10,000 equilibration steps, 1,000 frames "
+        f"of 400 steps) to {N14_EQ} and {N14_FRAMES} of {N14_STEPS_PER_FRAME}; windows, atoms and replicas not cut "
+        f"({smi})"
+    )
+    check(plain14_calls == 0, "[14] HREX ran a plain sweep")
+    check(launches14["rowscan_sweep_batched"] >= steps14 + N14_FRAMES, "[14] HREX did not launch the batched sweep every step")
+    batched_row["launches"] = launches14["rowscan_sweep_batched"] / (K14 * steps14)
+    batched_row["path"] = "HREX over the 12 windows, run_sims_hrex (per replica-step; one F launch a step for all replicas)"
+    rates14 = diag14.cumulative_swap_acceptance_rates[-1]
+    print(f"[14 swaps] acceptance per neighbour pair over {N14_FRAMES} iterations: "
+          + " ".join(f"{k}-{k + 1} {r:.3f}" for k, r in enumerate(rates14))
+          + f"; final permutation {diag14.replica_idx_by_state_by_iter[-1]}; normalized KL divergence "
+          f"{diag14.normalized_kl_divergence:.4f} ({smi})")
+
+    # the batched step's device idle share, 20 steps profiled (one rebuild, one barostat move)
+    run12 = make_runner(K14)
+    run12.batch.multiple_steps(N14_TIMED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run12.batch.multiple_steps(N14_TIMED)
+    torch.cuda.synchronize()
+    step14_ms = (time.perf_counter() - t0) * 1e3 / N14_TIMED
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof14:
+        run12.batch.multiple_steps(20)
+        torch.cuda.synchronize()
+    events14 = prof14.key_averages()
+    busy14 = sum(e.self_device_time_total for e in events14 if e.device_type == DeviceType.CUDA) / 1e3 / 20
+    print(f"{smi}; 20 batched steps of {K14} replicas\n{events14.table(sort_by='cuda_time_total', row_limit=30)}", file=sys.stderr)
+    busy14_text = (
+        f"device busy {busy14:.4f} ms/step, {1 - busy14 / step14_ms:.3f} of the unprofiled step idle"
+        if busy14 > 0 else "device busy not measured (the profiler saw no device time)"
+    )
+    print(f"[14 profile] the batched step of {K14} replicas: {step14_ms:.4f} ms/step unprofiled over {N14_TIMED} steps "
+          f"({K14 * 1e3 / step14_ms:.1f} replica-steps/s); 20 profiled steps: {busy14_text} ({smi}); table on stderr")
+
+    finite_res = bool(np.isfinite(result14.dGs).all() and np.isfinite(result14.dG_errs).all())
+    for k, r in enumerate(result14.bar_results):
+        print(f"[14 bar] pair {k}-{k + 1}: dG {r.dG:.4f} +- {r.dG_err:.4f} kJ/mol, overlap {r.overlap:.4f}")
+    frames_ok = len(trajs14) == K14 and all(len(t.frames) == N14_FRAMES and np.isfinite(t.frames).all() for t in trajs14)
+    print(
+        f"[14 bar] edge ethanol -> propane, solvent, HREX: dG {float(np.sum(result14.dGs)):.4f} +- "
+        f"{float(np.linalg.norm(result14.dG_errs)):.4f} kJ/mol ({N14_FRAMES} frames a state: not converged); "
+        f"{len(result14.bar_results)} pairs, all finite {finite_res}; {len(trajs14)} trajectories of {N14_FRAMES} "
+        f"frames, finite {frames_ok}; diagnostics: transition matrix {diag14.transition_matrix.shape}, relaxation time "
+        f"{diag14.relaxation_time:.3f} ({smi})"
+    )
+    check(len(result14.bar_results) == K14 - 1 and finite_res, "[14] the HREX pair BAR results are not 11 finite pairs")
+    check(frames_ok, "[14] the HREX trajectories are not 12 finite ones of the frames asked for")
+
+    print(json.dumps({"kernels": [kernel_row, masked_row, batched_row, nb_row, gather_row, quad_row, dot_row, *probe_rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

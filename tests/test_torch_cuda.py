@@ -1,6 +1,7 @@
-"""The CUDA kernels (rowscan, block-tile, gather, quadscan and dotscan
-sweeps, the FP32 and bf16 probes, the latter in both designs) against their
-plain PyTorch versions, and the tile census against its CPU run, on a card.
+"""The CUDA kernels (rowscan, with its replica-batched masked form,
+block-tile, gather, quadscan and dotscan sweeps, the FP32 and bf16 probes,
+the latter in both designs) against their plain PyTorch versions, and the
+tile census against its CPU run, on a card.
 
 Every test here needs a CUDA device and skips without one (decided in the
 `cuda` fixture, never at import). This file imports no JAX, so it also runs
@@ -172,7 +173,7 @@ def test_kernel_forms_match_plain(cuda, mode, triangular, preshift, has_w):
 
 def test_provider_runs_on_the_kernel(cuda):
     conf, params, box = _fluid(cuda, seed=2)
-    init, apply, energy = rs.make_nonbonded_rowscan_md(BETA, CUTOFF, max_pairs=10**6)
+    init, apply, energy, _ = rs.make_nonbonded_rowscan_md(BETA, CUTOFF, max_pairs=10**6)
     before_k, before_p = rs.rowscan_sweep.launches, rs.rowscan_sweep_plain.calls
     state = init(conf, params, box)
     force, state = apply(state, conf, params, box, 0)
@@ -180,6 +181,124 @@ def test_provider_runs_on_the_kernel(cuda):
     assert bool(torch.isfinite(force).all()) and bool(torch.isfinite(u))
     assert rs.rowscan_sweep.launches == before_k + 2
     assert rs.rowscan_sweep_plain.calls == before_p
+
+
+# -- the replica-batched masked form (rowscan_sweep_batched) ------------------------
+
+
+def _batched_case(device, n_replicas=3, n_sets=3, overlap_in=None):
+    """K replicas of a masked fluid (the first 9 atoms outside the subset),
+    each with its own coordinates and lists, S parameter sets a replica:
+    the batched sweep's arguments over B = K S systems (system b reads the
+    lists of replica b // S), and each system's single-sweep arguments.
+    overlap_in: a system whose atoms 9 and 10 sit 0.01 nm apart."""
+    lists, systems = [], []
+    mask = None
+    for k in range(n_replicas):
+        conf, params, box = _fluid(device, seed=20 + k)
+        mask = torch.ones(conf.shape[0], dtype=torch.bool, device=device)
+        mask[:9] = False
+        tiles = rs.build_rowscan_tiles(conf, box, CUTOFF + 0.1, 10**7, triangular=True, atom_mask=mask)
+        lists.append(tiles)
+        for s in range(n_sets):
+            b = len(systems)
+            c, prm = conf, params * (1.0 + 0.03 * s)
+            if b == overlap_in:
+                c, prm = conf.clone(), prm.clone()
+                c[10] = c[9] + torch.tensor([0.01, 0.0, 0.0], device=device)
+                prm[9:11, 1], prm[9:11, 2] = 0.15, 1.0
+            atoms = rs.assemble_atoms(c, box, tiles.pad_order, rs.param_rows(prm, tiles.pad_order, c.shape[0], mask))
+            row_count = rs.chop_row_counts(atoms[:, :3], tiles.rank_mat, tiles.row_count, box, CUTOFF)
+            systems.append((atoms, tiles.row_start, row_count, tiles.col_ids, rs.sweep_scalars(box, CUTOFF)))
+    # the chop of a replica's lists is the same for its parameter sets (one set of coordinates)
+    row_count = torch.stack([systems[k * n_sets][2] for k in range(n_replicas)])
+    series = rs.es_energy_force_series(BETA, CUTOFF)
+    batched = (
+        torch.stack([a for a, *_ in systems]), torch.stack([t.row_start for t in lists]), row_count,
+        torch.stack([t.col_ids for t in lists]),
+        torch.arange(n_replicas, device=device, dtype=torch.int32).repeat_interleave(n_sets),
+        torch.stack([sc for *_, sc in systems]), series,
+    )
+    return batched, [(*sys_, series) for sys_ in systems]
+
+
+@pytest.mark.parametrize("mode", [rs.FORCE, rs.ENERGY])
+def test_batched_kernel_is_each_systems_launch(cuda, mode):
+    """The replica-batched masked form over 3 replicas x 3 parameter sets
+    (list_of_system shared by each replica's sets) in one launch: every
+    system's output bitwise its single-system rowscan_sweep launch, and
+    within 1e-4 per column of rowscan_sweep_batched_plain; two launches
+    bitwise equal."""
+    batched, singles = _batched_case(cuda)
+    before = rs.rowscan_sweep_batched.launches
+    out = rs.rowscan_sweep_batched(*batched, mode)
+    out2 = rs.rowscan_sweep_batched(*batched, mode)
+    plain = rs.rowscan_sweep_batched_plain(*batched, mode)
+    torch.cuda.synchronize()
+    assert rs.rowscan_sweep_batched.launches == before + 2 and torch.equal(out, out2)
+    assert out.shape == (9, *singles[0][0].shape[:1], 4)
+    for b, args in enumerate(singles):
+        assert torch.equal(out[b], rs.rowscan_sweep(*args, mode, triangular=True)), b
+        for col in range(4):
+            if not plain[b, :, col].any():
+                assert not out[b, :, col].any()
+            else:
+                assert _rel(out[b, :, col], plain[b, :, col]) < TOL, (b, col)
+
+
+def test_batched_kernel_overflow_is_per_system(cuda):
+    """A system with a pair 0.01 nm apart (a force far past the fixed-point
+    range) comes back NaN in every row; the other systems, one of them on
+    the same replica's lists, stay finite and bitwise their single launches."""
+    batched, singles = _batched_case(cuda, overlap_in=4)
+    for mode in (rs.FORCE, rs.ENERGY):
+        out = rs.rowscan_sweep_batched(*batched, mode)
+        assert bool(torch.isnan(out[4]).all())
+        for b in (0, 3, 5, 8):
+            assert bool(torch.isfinite(out[b]).all())
+            assert torch.equal(out[b], rs.rowscan_sweep(*singles[b], mode, triangular=True))
+
+
+def test_batched_wrapper_rejects_what_the_kernel_cannot_take(cuda):
+    batched, _ = _batched_case(cuda, n_replicas=2, n_sets=1)
+    before = rs.rowscan_sweep_batched.launches
+    with pytest.raises(ValueError):  # F+U is not a batched mode
+        rs.rowscan_sweep_batched(*batched, rs.FORCE_ENERGY)
+    with pytest.raises(ValueError):
+        rs.rowscan_sweep_batched(batched[0].double(), *batched[1:], rs.FORCE)
+    with pytest.raises(ValueError):  # one scalar row for two systems
+        rs.rowscan_sweep_batched(*batched[:5], batched[5][:1].contiguous(), batched[6], rs.FORCE)
+    with pytest.raises(ValueError):
+        rs.rowscan_sweep_batched(*batched[:4], batched[4].long(), *batched[5:], rs.FORCE)
+    assert rs.rowscan_sweep_batched.launches == before
+
+
+def test_batched_provider_runs_on_the_kernel(cuda):
+    """make_nonbonded_rowscan_md_batched on the card: a non-rebuild step and
+    the energies are one batched launch each, no plain sweep; each
+    replica's force is the single provider's, bitwise; the energy under its
+    own parameters is its energy (to 1e-6: sums of other shapes)."""
+    confs, params = [], []
+    for k in range(3):
+        c, p, box = _fluid(cuda, seed=30 + k)
+        confs.append(c)
+        params.append(p)
+    xs, ps, boxes = torch.stack(confs), torch.stack(params), box.expand(3, 3, 3).contiguous()
+    init, apply, energy, energy_with_params = rs.make_nonbonded_rowscan_md_batched(BETA, CUTOFF, 10**6)
+    single = rs.make_nonbonded_rowscan_md(BETA, CUTOFF, 10**6)
+    state = init(xs, ps, boxes)
+    before_k, before_p = rs.rowscan_sweep_batched.launches, rs.rowscan_sweep_plain.calls
+    f, state = apply(state, xs, ps, boxes, 1)
+    u = energy(state, xs, boxes)
+    u_sets = energy_with_params(state, xs, torch.stack([ps, 1.1 * ps], 1), boxes)
+    torch.cuda.synchronize()
+    assert rs.rowscan_sweep_batched.launches == before_k + 3 and rs.rowscan_sweep_plain.calls == before_p
+    assert u_sets.shape == (3, 2) and bool(torch.isfinite(u_sets).all())
+    for k in range(3):
+        st = single[0](xs[k], ps[k], box)
+        assert torch.equal(f[k], single[1](st, xs[k], ps[k], box, 1)[0])
+        # two reductions of the same per-atom energies, of other shapes: rounding apart
+        assert float(u[k]) == pytest.approx(float(u_sets[k, 0]), rel=1e-6)
 
 
 # -- the block-tile kernel (csrc/nb_tiles.cu) -----------------------------------
@@ -456,11 +575,11 @@ def test_list_providers_run_on_their_kernels(cuda, path):
     def run(conf, params, box):
         if path == "gather":
             max_nbrs = gk.suggest_max_nbrs(conf, box, cutoff + 0.1, margin=1.4)
-            init, apply, energy = gk.make_nonbonded_gather_md(BETA, cutoff, max_nbrs, rebuild_interval=1)
+            init, apply, energy, _ = gk.make_nonbonded_gather_md(BETA, cutoff, max_nbrs, rebuild_interval=1)
         else:
             assert qk.constant_shift_valid(conf, box, cutoff + 0.1)
             max_tiles = qk.suggest_max_tiles(conf, box, cutoff + 0.1, margin=1.4)
-            init, apply, energy = qk.make_nonbonded_quadscan_md(BETA, cutoff, max_tiles, rebuild_interval=1)
+            init, apply, energy, _ = qk.make_nonbonded_quadscan_md(BETA, cutoff, max_tiles, rebuild_interval=1)
         state = init(conf, params, box)
         for t in range(2):
             force, state = apply(state, conf, params, box, t)
@@ -524,13 +643,13 @@ def test_dotscan_provider_runs_on_the_kernel(cuda):
     conf, params, box = _fluid(cuda, seed=10)
     cutoff = 0.9
     before_k, before_p = dk.dotscan_sweep.launches, dk.dotscan_sweep_plain.calls
-    init, apply, energy = dk.make_nonbonded_dotscan_md(BETA, cutoff, 10**6, rebuild_interval=1, sort="hilbert")
+    init, apply, energy, _ = dk.make_nonbonded_dotscan_md(BETA, cutoff, 10**6, rebuild_interval=1, sort="hilbert")
     state = init(conf, params, box)
     for t in range(2):
         force, state = apply(state, conf, params, box, t)
     u = energy(state, conf, params, box)
     assert int(state.invalid) == 0 and bool(torch.isfinite(force).all()) and bool(torch.isfinite(u))
-    init, apply, _ = dk.make_nonbonded_dotscan_md(BETA, cutoff, 8, sort="hilbert")
+    init, apply, *_ = dk.make_nonbonded_dotscan_md(BETA, cutoff, 8, sort="hilbert")
     force, _ = apply(init(conf, params, box), conf, params, box, 1)
     assert bool(torch.isnan(force).all())
     assert dk.dotscan_sweep.launches == before_k + 4

@@ -289,7 +289,7 @@ def test_md_provider_across_a_rebuild_matches_jax(fluid):
     cutoff = 0.9
     max_pairs = td.suggest_max_pairs(_t(conf), _t(box), cutoff + SKIN, margin=1.4, triangular=True, sort="hilbert")
     j_init, j_apply, j_energy, *_ = _j_provider(cutoff, 2 * max_pairs, rebuild_interval=2)
-    init, apply, energy = td.make_nonbonded_dotscan_md(BETA, cutoff, max_pairs, skin=SKIN, rebuild_interval=2, sort="hilbert")
+    init, apply, energy, _ = td.make_nonbonded_dotscan_md(BETA, cutoff, max_pairs, skin=SKIN, rebuild_interval=2, sort="hilbert")
     p32 = _j(params)
     j_state = j_init(_j(conf), p32, _j(box))
     state = init(_t(conf), _t(params), _t(box))
@@ -314,7 +314,7 @@ def test_provider_poisons_like_jax(fluid):
     p32 = _j(params)
     for cap, scale in ((8, 1.0), (10**5, 0.45)):
         j_init, j_apply, j_energy, *_ = _j_provider(cutoff, cap)
-        init, apply, energy = td.make_nonbonded_dotscan_md(BETA, cutoff, cap, skin=SKIN, sort="hilbert")
+        init, apply, energy, _ = td.make_nonbonded_dotscan_md(BETA, cutoff, cap, skin=SKIN, sort="hilbert")
         state, j_state = init(_t(conf), _t(params), _t(box)), j_init(_j(conf), p32, _j(box))
         c, b = conf * scale, box * scale
         t = 1 if scale == 1.0 else 0  # the shrunken box is seen at a rebuild
@@ -336,7 +336,7 @@ def test_atom_crossing_a_box_face_between_rebuilds():
     0.6 + skin."""
     conf, params, box = lattice_fluid(16, 0.03, seed=2)
     cutoff = 0.6
-    init, apply, _ = td.make_nonbonded_dotscan_md(BETA, cutoff, 10**5, skin=SKIN, sort="hilbert")
+    init, apply, *_ = td.make_nonbonded_dotscan_md(BETA, cutoff, 10**5, skin=SKIN, sort="hilbert")
     state = init(_t(conf), _t(params), _t(box))
     k = int(np.argmin(np.abs(conf[:, 0])))
     assert abs(conf[k, 0]) < 0.02
@@ -372,7 +372,7 @@ def test_configure_dot_matches_jax(fluid, dense, case, cutoff, want, want_sort):
     if want == "dot":
         rows, dots = trs.rowscan_sweep_plain.calls, td.dotscan_sweep_plain.calls
         nb.energy_force(_t(conf), _t(box))
-        init, apply, _, _ = nb.md_force_provider()
+        init, apply, _, _, _ = nb.md_force_provider()
         apply(init(_t(conf), _t(box)), _t(conf), _t(box), 0)
         assert (trs.rowscan_sweep_plain.calls, td.dotscan_sweep_plain.calls) == (rows + 1, dots + 1)
 

@@ -131,7 +131,7 @@ def test_md_provider_across_a_rebuild_matches_jax():
     max_nbrs = jg.suggest_max_nbrs(conf, box, CUTOFF + SKIN, margin=1.5)
     j_init, j_apply = jg.make_nonbonded_gather_md(BETA, CUTOFF, max_nbrs, skin=SKIN, rebuild_interval=5, interpret=True)
     j_ef = jg.make_nonbonded_gather_energy_force(BETA, CUTOFF, jg.suggest_max_nbrs(conf, box, CUTOFF), interpret=True)
-    init, apply, energy = tg.make_nonbonded_gather_md(BETA, CUTOFF, max_nbrs, skin=SKIN, rebuild_interval=5)
+    init, apply, energy, _ = tg.make_nonbonded_gather_md(BETA, CUTOFF, max_nbrs, skin=SKIN, rebuild_interval=5)
     c32, p32, b32 = (jnp.asarray(a, jnp.float32) for a in (conf, params, box))
     j_state = j_init(c32, p32, b32)
     state = init(_t(conf), _t(params), _t(box))
@@ -182,7 +182,7 @@ def test_configure_gather_matches_jax(water_gather):
     assert abs(float(u) - float(u_j)) / u_scale < 1e-5
     assert _rel(f.numpy(), f_j) * np.linalg.norm(f_j) / float(torch.linalg.vector_norm(f_ap)) < 1e-5
     assert float(nb.energy(x, box)) == float(u)
-    init, apply, energy, _ = nb.md_force_provider()
+    init, apply, energy, _, _ = nb.md_force_provider()
     state = init(x, box)
     f_md, state = apply(state, x, box, 0)
     assert float(torch.linalg.vector_norm(f_md - f)) / float(torch.linalg.vector_norm(f_ap)) < 1e-6

@@ -201,7 +201,7 @@ def test_overflow_gives_nan(water):
     u, du_dx = nbk.run_uf(conf, params, box, BETA, CUTOFF, max_tiles=8, cb=2)
     assert bool(torch.isnan(u)) and bool(torch.isnan(du_dx).all())
     assert bool(torch.isnan(nbk.run_dp(conf, params, box, BETA, CUTOFF, max_tiles=8, cb=2)).all())
-    init, apply, energy = nbk.make_nonbonded_tiles_md(BETA, CUTOFF, max_tiles=8, cb=2)
+    init, apply, energy, _ = nbk.make_nonbonded_tiles_md(BETA, CUTOFF, max_tiles=8, cb=2)
     force, state = apply(init(conf, params, box), conf, params, box, 0)
     assert bool(torch.isnan(force).all()) and bool(torch.isnan(energy(state, conf, params, box)))
 
@@ -269,7 +269,7 @@ def test_v1_md_provider(v1_pair):
     path's force through its lists (1e-5 of the all-pairs force norm) and
     its energy through the same lists."""
     _, _, nb, x, box = v1_pair
-    init, apply, energy, rigid = nb.md_force_provider()
+    init, apply, energy, rigid, _ = nb.md_force_provider()
     s0 = init(x, box)
     assert apply(s0, x, box, 7)[1] is s0 and apply(s0, x, box, 20)[1] is not s0
     f, _ = apply(s0, x, box, 1)

@@ -108,7 +108,7 @@ def test_provider_rebuild_schedule(provider):
     """apply rebuilds exactly when t % 20 == 0 and otherwise hands back the
     state it was given."""
     nb, x, box = provider
-    init, apply, _, _ = nb.md_force_provider()
+    init, apply, _, _, _ = nb.md_force_provider()
     s0 = init(x, box)
     for t in (1, 7, 19, 21, 39):
         assert apply(s0, x, box, t)[1] is s0
@@ -124,7 +124,7 @@ def test_provider_reuses_lists_within_skin(provider):
     force scale, measured 1.9e-7; energies 1e-6 relative, as the JAX
     provider's test)."""
     nb, x, box = provider
-    init, apply, energy, rigid = nb.md_force_provider()
+    init, apply, energy, rigid, _ = nb.md_force_provider()
     stale = init(x, box)
     rng = np.random.default_rng(1)
     moved = x + torch.as_tensor(rng.normal(0, 0.012, x.shape), dtype=x.dtype)
@@ -143,7 +143,7 @@ def test_provider_overflow_poisons_with_nan(water):
     """Lists that do not fit max_pairs give NaN forces and energies, never
     forces that silently miss interactions."""
     nb, x, box = _port_nb(water, torch.float32)
-    init, apply, energy = trs.make_nonbonded_rowscan_md(BETA, CUTOFF, max_pairs=128)
+    init, apply, energy, _ = trs.make_nonbonded_rowscan_md(BETA, CUTOFF, max_pairs=128)
     state = init(x, nb.params, box)
     assert int(state.lists.overflow) > 0
     f, state = apply(state, x, nb.params, box, 0)

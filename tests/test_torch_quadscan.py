@@ -141,7 +141,7 @@ def test_md_provider_across_a_rebuild_matches_jax(valid_fluid):
     j_init, j_apply, j_energy, *_ = jq.make_nonbonded_quadscan_md(
         BETA, cutoff, max_tiles, skin=SKIN, rebuild_interval=2, interpret=True
     )
-    init, apply, energy = tq.make_nonbonded_quadscan_md(BETA, cutoff, max_tiles, skin=SKIN, rebuild_interval=2)
+    init, apply, energy, _ = tq.make_nonbonded_quadscan_md(BETA, cutoff, max_tiles, skin=SKIN, rebuild_interval=2)
     p32 = _j(params)
     j_state = j_init(_j(conf), p32, _j(box))
     state = init(_t(conf), _t(params), _t(box))
@@ -176,7 +176,7 @@ def test_atom_crossing_a_box_face_between_rebuilds(valid_fluid):
     conf, params, box = valid_fluid
     cutoff = 0.6
     assert tq.constant_shift_valid(_t(conf), _t(box), cutoff + SKIN)
-    init, apply, _ = tq.make_nonbonded_quadscan_md(BETA, cutoff, 10**4, skin=SKIN)
+    init, apply, *_ = tq.make_nonbonded_quadscan_md(BETA, cutoff, 10**4, skin=SKIN)
     state = init(_t(conf), _t(params), _t(box))
     k = int(np.argmin(np.abs(conf[:, 0])))
     assert abs(conf[k, 0]) < 0.02
@@ -200,7 +200,7 @@ def test_broken_invariant_poisons_the_provider():
     """On the 3.4 nm lattice one shift per entry is wrong for some pairs:
     the builder's margin is negative and the provider returns NaN."""
     conf, params, box = lattice_fluid(1100, 11, 0.04, seed=0)
-    init, apply, energy = tq.make_nonbonded_quadscan_md(BETA, CUTOFF, 10**4, skin=SKIN)
+    init, apply, energy, _ = tq.make_nonbonded_quadscan_md(BETA, CUTOFF, 10**4, skin=SKIN)
     state = init(_t(conf), _t(params), _t(box))
     assert float(state.lists.margin) < 0
     force, state = apply(state, _t(conf), _t(params), _t(box), 1)
@@ -230,7 +230,7 @@ def test_configure_quad_takes_quad_where_valid(valid_fluid):
     rows, quads = trs.rowscan_sweep_plain.calls, tq.quadscan_sweep_plain.calls
     _, f = nb.energy_force(_t(conf), _t(box))
     assert trs.rowscan_sweep_plain.calls == rows + 1
-    init, apply, _, _ = nb.md_force_provider()
+    init, apply, _, _, _ = nb.md_force_provider()
     f_md, _ = apply(init(_t(conf), _t(box)), _t(conf), _t(box), 0)
     assert tq.quadscan_sweep_plain.calls == quads + 1
     assert _rel(f_md.numpy(), f.numpy()) < 1e-5
@@ -279,7 +279,7 @@ def test_md_provider_without_w_across_a_rebuild_matches_jax(valid_fluid):
     j_init, j_apply, j_energy, *_ = jq.make_nonbonded_quadscan_md(
         BETA, cutoff, max_tiles, skin=SKIN, rebuild_interval=2, interpret=True, has_w=False
     )
-    init, apply, energy = tq.make_nonbonded_quadscan_md(BETA, cutoff, max_tiles, skin=SKIN, rebuild_interval=2, has_w=False)
+    init, apply, energy, _ = tq.make_nonbonded_quadscan_md(BETA, cutoff, max_tiles, skin=SKIN, rebuild_interval=2, has_w=False)
     p32 = _j(params)
     j_state = j_init(_j(conf), p32, _j(box))
     state = init(_t(conf), _t(params), _t(box))
@@ -316,7 +316,7 @@ def test_configure_quad_without_w_matches_jax(valid_fluid):
     j_init, j_apply, *_ = pot.md_force_provider()
     p32 = _j(params)
     _, f_j, _ = j_apply(j_init(_j(conf), p32, _j(box)), _j(conf), p32, _j(box), jnp.asarray(0))
-    init, apply, _, _ = nb.md_force_provider()
+    init, apply, _, _, _ = nb.md_force_provider()
     f, state = apply(init(_t(conf), _t(box)), _t(conf), _t(box), 0)
     assert int(state.invalid) == 0 and _rel(f.numpy(), f_j) < 1e-5
 
@@ -326,7 +326,7 @@ def test_nonzero_w_without_has_w_poisons_the_provider(valid_fluid):
     one that is not, the force and the energy are NaN (ROADMAP P9; JAX's
     provider leaves w out silently)."""
     conf, params, box = _lifted(valid_fluid)
-    init, apply, energy = tq.make_nonbonded_quadscan_md(BETA, 1.0, 10**4, skin=SKIN, has_w=False)
+    init, apply, energy, _ = tq.make_nonbonded_quadscan_md(BETA, 1.0, 10**4, skin=SKIN, has_w=False)
     f, state = apply(init(_t(conf), _t(params), _t(box)), _t(conf), _t(params), _t(box), 0)
     assert int(state.invalid) > 0 and bool(torch.isnan(f).all())
     assert np.isnan(float(energy(state, _t(conf), _t(params), _t(box))))

@@ -106,7 +106,7 @@ def test_masked_md_provider_matches_jax():
     conf, params, box, mask = masked_fluid(2)
     mask_t = torch.as_tensor(mask)
     max_pairs = trs.suggest_max_pairs(_t(conf), _t(box), CUTOFF + SKIN, margin=1.4, triangular=True, atom_mask=mask_t)
-    init, apply, energy = trs.make_nonbonded_rowscan_md(
+    init, apply, energy, _ = trs.make_nonbonded_rowscan_md(
         BETA, CUTOFF, max_pairs, skin=SKIN, rebuild_interval=2, atom_mask=mask_t
     )
     j_init, j_apply, j_energy, *_ = jrs.make_nonbonded_rowscan_md(
@@ -183,7 +183,7 @@ def test_configure_under_a_subset(kernel):
     pot = jpot.NonbondedAllPairs(n, beta=BETA, cutoff=cutoff, atom_idxs=idxs)
     pot.configure_pallas(box, conf, interpret=True, kernel=kernel)
     assert nb.kernel == pot.pallas_kernel == "rowscan" and not nb.md_preshift
-    init, apply, _, _ = nb.md_force_provider()
+    init, apply, _, _, _ = nb.md_force_provider()
     f, _ = apply(init(_t(conf), _t(box)), _t(conf), _t(box), 0)
     assert _rel_norm(f.numpy(), nb.energy_force(_t(conf), _t(box))[1].numpy()) < TOL
     assert not f[~torch.as_tensor(mask)].any()

@@ -179,7 +179,7 @@ def test_md_provider_across_a_rebuild_matches_jax(fluid):
     conf, params, box = fluid
     max_pairs = trs.suggest_max_pairs(_t(conf), _t(box), CUTOFF + SKIN, margin=1.4, cell_size=CELL, triangular=True)
     j_init, j_apply, j_energy, *_ = _j_provider(2 * max_pairs, rebuild_interval=2)
-    init, apply, energy = trs.make_nonbonded_rowscan_md(
+    init, apply, energy, _ = trs.make_nonbonded_rowscan_md(
         BETA, CUTOFF, max_pairs, skin=SKIN, rebuild_interval=2, cell_size=CELL, preshift=True, has_w=False
     )
     p32 = _j(params)
@@ -218,7 +218,7 @@ def test_configure_rowscan_matches_jax(has_w):
     p32 = _j(params)
     j_state = j_init(_j(conf), p32, _j(box))
     _, f_j, j_state = j_apply(j_state, _j(conf), p32, _j(box), jnp.asarray(0))
-    init, apply, energy, _ = nb.md_force_provider()
+    init, apply, energy, _, _ = nb.md_force_provider()
     f, state = apply(init(_t(conf), _t(box)), _t(conf), _t(box), 0)
     assert _max_rel(f.numpy(), f_j) < TOL
     scale = float(_port_sweep(conf, params, box, trs.ENERGY, True, False, True, cutoff=cutoff)[0][:, 0].abs().sum())
@@ -236,7 +236,7 @@ def test_nonzero_w_without_has_w_gives_nan(lifted):
     assert params[:, 3].any()
     p32 = _j(params)
     for preshift in (False, True):
-        init, apply, energy = trs.make_nonbonded_rowscan_md(
+        init, apply, energy, _ = trs.make_nonbonded_rowscan_md(
             BETA, CUTOFF, 10**5, skin=SKIN, cell_size=CELL, preshift=preshift, has_w=False
         )
         f, state = apply(init(_t(conf), _t(params), _t(box)), _t(conf), _t(params), _t(box), 0)
@@ -255,7 +255,7 @@ def test_atom_crossing_a_box_face_between_rebuilds():
     centers and summation orders), every force does to 1e-5 relative norm,
     and the JAX provider's cached force agrees to 1e-5."""
     conf, params, box = lattice_fluid(16, 0.03, seed=2)
-    init, apply, _ = trs.make_nonbonded_rowscan_md(
+    init, apply, *_ = trs.make_nonbonded_rowscan_md(
         BETA, CUTOFF, 10**5, skin=SKIN, cell_size=CELL, preshift=True, has_w=False
     )
     state = init(_t(conf), _t(params), _t(box))
@@ -285,7 +285,7 @@ def test_small_box_configures_without_preshift():
     nb = NonbondedAllPairs(conf.shape[0], BETA, 1.2, params, device="cpu", dtype=F32)
     nb.configure(_t(box), _t(conf), rowscan_has_w=False)
     assert not nb.md_preshift
-    init, apply, _, _ = nb.md_force_provider()
+    init, apply, _, _, _ = nb.md_force_provider()
     f, state = apply(init(_t(conf), _t(box)), _t(conf), _t(box), 0)
     assert not hasattr(state.lists, "rcen_q") and int(state.invalid) == 0
     assert _max_rel(f.numpy(), nb.energy_force(_t(conf), _t(box))[1].numpy()) < TOL

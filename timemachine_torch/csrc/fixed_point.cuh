@@ -55,10 +55,16 @@ __global__ void add_columns(float4* __restrict__ out, const long long* __restric
 }
 
 // out[i] = the fixed-point sums of atom i, acc (4, n_pad) then the flag: NaN
-// everywhere if the flag is up, NaN for a sum beyond FIX_LIMIT
-__global__ void store_checked(float4* __restrict__ out, const long long* __restrict__ acc, int n_pad) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_pad) return;
+// everywhere if the flag is up, NaN for a sum beyond FIX_LIMIT. With
+// n_systems > 1, out is (n_systems, n_pad) and acc n_systems such blocks,
+// each system read against its own flag
+__global__ void store_checked(float4* __restrict__ out, const long long* __restrict__ acc, int n_pad,
+                              int n_systems) {
+  const int gi = blockIdx.x * blockDim.x + threadIdx.x;
+  if (gi >= n_pad * n_systems) return;
+  out += gi - gi % n_pad;
+  acc += static_cast<size_t>(gi / n_pad) * (4 * static_cast<size_t>(n_pad) + 1);
+  const int i = gi % n_pad;
   const bool flagged = acc[4 * static_cast<size_t>(n_pad)] != 0;
   auto to_float = [flagged](long long v) {
     return (flagged || v >= FIX_LIMIT_RAW || v <= -FIX_LIMIT_RAW) ? __int_as_float(0x7fc00000)
@@ -71,9 +77,11 @@ __global__ void store_checked(float4* __restrict__ out, const long long* __restr
 
 }  // namespace
 
-// Launch store_checked over n_pad atoms on `stream`; acc (4 n_pad + 1) with the flag last.
-inline void launch_store_checked(float4* out, const void* acc, int n_pad, cudaStream_t stream) {
-  store_checked<<<(n_pad + 255) / 256, 256, 0, stream>>>(out, static_cast<const long long*>(acc), n_pad);
+// Launch store_checked over n_pad atoms of each of n_systems systems on
+// `stream`; acc (4 n_pad + 1) a system, with the flag last.
+inline void launch_store_checked(float4* out, const void* acc, int n_pad, cudaStream_t stream, int n_systems = 1) {
+  store_checked<<<(n_pad * n_systems + 255) / 256, 256, 0, stream>>>(out, static_cast<const long long*>(acc), n_pad,
+                                                                      n_systems);
 }
 
 // Launch add_columns over n_pad atoms on `stream`.

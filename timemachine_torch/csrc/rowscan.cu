@@ -10,6 +10,15 @@
 // the 10; it refuses the rest). Plain PyTorch version, in every form:
 // rowscan_sweep_plain in timemachine_torch/ops/rowscan_kernel.py.
 //
+// The triangular forms take a system axis (gridDim.z): one launch sweeps B
+// systems, each with its own atoms, scalars and accumulator, reading the
+// lists of the replica list_of_system[b]. It is the counterpart of JAX's
+// vmap of the Pallas sweep over the replicas of HREX
+// (timemachine_tpu/parallel/replica_exchange.py: each replica's step, and
+// the banded energies of 2 max_delta_states + 1 parameter sets a replica).
+// rowscan_sweep_batched_launch builds the masked form's F and U (minimum
+// image); plain version: rowscan_sweep_batched_plain, a loop over systems.
+//
 // What it computes, per row atom i: the sum over listed column atoms j with
 // (r2 < cutoff^2) & (r2 > 1e-7) of pair_math.cuh's pair function (LJ +
 // polynomial electrostatics) and of its gradient (dU/dr / r) (x_i - x_j).
@@ -282,7 +291,9 @@ __global__ void __launch_bounds__(THREADS) tri_kernel(
     const int* __restrict__ rcen_q,        // (n_rows, 4) row centers (preshift)
     const float* __restrict__ scal,        // [box_x, box_y, box_z, cutoff]
     unsigned long long* __restrict__ acc,  // (4 Npad + 1) fixed-point [u, dU/dx, dU/dy, dU/dz], then the flag; zeroed
-    int n_rows, const Series s) {
+    int n_rows, const Series s,
+    const int* __restrict__ list_of_system,  // (gridDim.z,) the lists each system reads; nullptr: list 0
+    int max_pairs) {                          // col_ids entries of one list
   extern __shared__ float4 smem[];
   float4* stages = smem;                     // [STAGES][2 * COL] column atoms, as in atoms
   float4* rpos = stages + STAGES * 2 * COL;  // [ROW] the row atoms at the center's image (preshift)
@@ -290,6 +301,17 @@ __global__ void __launch_bounds__(THREADS) tri_kernel(
   float* gt = reinterpret_cast<float*>(part + GROUPS * ROW);
 
   const int row = blockIdx.x;
+  // system blockIdx.z: its own atoms, scalars and accumulator, the lists of list_of_system[z]
+  const int n_pad = n_rows * ROW;
+  const int sys = blockIdx.z;
+  const int list = list_of_system == nullptr ? 0 : list_of_system[sys];
+  atoms += static_cast<size_t>(sys) * 2 * n_pad;
+  scal += 4 * sys;
+  acc += static_cast<size_t>(sys) * (4 * static_cast<size_t>(n_pad) + 1);
+  row_start += static_cast<size_t>(list) * n_rows;
+  row_count += static_cast<size_t>(list) * n_rows;
+  col_ids += static_cast<size_t>(list) * max_pairs;
+  if (PRE) rcen_q += static_cast<size_t>(list) * 4 * n_rows;
   // this block's segment [k0, k1) of the row's list, the covering chunk at 0
   const int len = row_count[row] + 1;
   const int k0 = len * blockIdx.y / gridDim.y;
@@ -300,7 +322,6 @@ __global__ void __launch_bounds__(THREADS) tri_kernel(
   const int lane = t & 31, warp = t >> 5;
   const int l16 = lane & 15;
   const int grp = 2 * warp + (lane >> 4);
-  const int n_pad = n_rows * ROW;
   unsigned long long* flag = acc + 4 * static_cast<size_t>(n_pad);
   const int start = row_start[row];
   const int cover = min(row * ROW / COL, n_pad / COL - 1);  // clamped for padding row chunks
@@ -415,6 +436,8 @@ struct Launch {
   int n_rows;
   Series s;
   cudaStream_t stream;
+  const int* list_of_system;  // nullptr: one system
+  int n_systems, max_pairs;
 };
 
 int launch_sym(const Launch& a) {
@@ -430,11 +453,12 @@ int launch_tri(const Launch& a) {
         cudaFuncSetAttribute(tri_kernel<MODE, PRE, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  tri_kernel<MODE, PRE, W><<<dim3(a.n_rows, SPLITS), THREADS, bytes, a.stream>>>(
-      a.atoms, a.row_start, a.row_count, a.col_ids, a.rcen_q, a.scal, a.acc, a.n_rows, a.s);
+  tri_kernel<MODE, PRE, W><<<dim3(a.n_rows, SPLITS, a.n_systems), THREADS, bytes, a.stream>>>(
+      a.atoms, a.row_start, a.row_count, a.col_ids, a.rcen_q, a.scal, a.acc, a.n_rows, a.s, a.list_of_system,
+      a.max_pairs);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  fixed_point::launch_store_checked(a.out, a.acc, a.n_rows * ROW, a.stream);
+  fixed_point::launch_store_checked(a.out, a.acc, a.n_rows * ROW, a.stream, a.n_systems);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -470,7 +494,10 @@ extern "C" int rowscan_sweep_launch(const void* atoms, const void* row_start, co
                  static_cast<unsigned long long*>(acc),
                  n_rows,
                  make_series(h, p),
-                 static_cast<cudaStream_t>(stream)};
+                 static_cast<cudaStream_t>(stream),
+                 nullptr,
+                 1,
+                 0};
   // the 10 forms a configuration reaches: triangular F and U in every form
   // (the MD providers), triangular F+U with minimum image and w (the
   // energy/force entry), symmetric F with minimum image and w (the yardstick)
@@ -481,5 +508,38 @@ extern "C" int rowscan_sweep_launch(const void* atoms, const void* row_start, co
   } else if (mode == FORCE && !preshift && has_w) {
     return launch_sym(a);
   }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Launch the masked form (triangular, minimum image; F or U, with or without
+// w) over n_systems systems in one grid, on `stream`: system b sweeps its
+// own atoms (atoms + b Npad rows), scalars (scal + 4 b) and accumulator
+// (acc + b (4 Npad + 1)) over the lists list_of_system[b] of row_start and
+// row_count (n_lists, n_rows) and col_ids (n_lists, max_pairs), so that
+// several parameter sets of one replica share its lists. Each system's
+// output (out + b Npad) is bitwise its single-system launch: the same body
+// and order-free fixed-point sums. A form that is not built returns
+// cudaErrorInvalidValue and launches nothing; else the first CUDA error, or 0.
+extern "C" int rowscan_sweep_batched_launch(const void* atoms, const void* row_start, const void* row_count,
+                                            const void* col_ids, const void* list_of_system, const void* scal,
+                                            void* out, void* acc, int n_rows, int n_systems, int max_pairs, int mode,
+                                            int has_w, const float* h, const float* p, void* stream) {
+  const Launch a{static_cast<const float4*>(atoms),
+                 static_cast<const int*>(row_start),
+                 static_cast<const int*>(row_count),
+                 static_cast<const int*>(col_ids),
+                 nullptr,
+                 static_cast<const float*>(scal),
+                 static_cast<float4*>(out),
+                 static_cast<unsigned long long*>(acc),
+                 n_rows,
+                 make_series(h, p),
+                 static_cast<cudaStream_t>(stream),
+                 static_cast<const int*>(list_of_system),
+                 n_systems,
+                 max_pairs};
+  if (n_systems < 1 || n_systems > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (mode == FORCE) return launch_images<FORCE>(a, false, has_w);
+  if (mode == ENERGY) return launch_images<ENERGY>(a, false, has_w);
   return static_cast<int>(cudaErrorInvalidValue);
 }

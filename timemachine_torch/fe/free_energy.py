@@ -1,6 +1,7 @@
-"""Free-energy driver: λ-window states, sampling in one reused Context and
-pair BAR (counterpart of the fixed-grid path of
-timemachine_tpu/fe/free_energy.py: run_sims_sequential and what it runs).
+"""Free-energy driver: λ-window states, sampling in one reused Context or
+by HREX with every replica in one batched step, and pair BAR (counterpart
+of the fixed-grid paths of timemachine_tpu/fe/free_energy.py:
+run_sims_sequential, run_sims_hrex and what they run).
 
 An InitialState holds the port's potential modules on their device. Frames
 come back from the card as numpy and stay in memory (the JAX package's
@@ -11,8 +12,9 @@ the rowscan configuration at every size, since the port has no dense MD path.
 from __future__ import annotations
 
 import copy
+import time
 from dataclasses import dataclass
-from typing import Iterator, Optional, Sequence
+from typing import Callable, Iterator, Optional, Sequence
 from warnings import warn
 
 import numpy as np
@@ -28,20 +30,56 @@ from timemachine_torch.fe.bar import (
 from timemachine_torch.integrators import LangevinIntegrator
 from timemachine_torch.md.barostat import MonteCarloBarostat
 from timemachine_torch.md.context import Context
+from timemachine_torch.md.hrex import HREX, HREXDiagnostics, get_swap_attempts_per_iter_heuristic
 from timemachine_torch.potentials import Nonbonded, NonbondedAllPairs, NonbondedInteractionGroup
+from timemachine_torch.utils import batches
+
+
+@dataclass(frozen=True)
+class RESTParams:
+    """REST(2)-style effective-temperature scaling of a region. Not ported
+    yet: HREXParams refuses one."""
+
+    max_temperature_scale: float
+    temperature_scale_interpolation: str = "exponential"
+
+
+@dataclass(frozen=True)
+class HREXParams:
+    """HREX's protocol: n_frames_bisection frames a bisection step (the
+    bisection itself is not ported), one frame an iteration, swaps between
+    states at most max_delta_states apart scored by the banded U_kl (None:
+    every state), an overlap target for the bisection, and REST, which
+    raises NotImplementedError when set."""
+
+    n_frames_bisection: int = 100
+    n_frames_per_iter: int = 1
+    max_delta_states: Optional[int] = 4
+    optimize_target_overlap: Optional[float] = None
+    rest_params: Optional[RESTParams] = None
+
+    def __post_init__(self):
+        assert self.n_frames_bisection > 0
+        assert self.n_frames_per_iter == 1, "n_frames_per_iter must be 1"
+        assert self.max_delta_states is None or self.max_delta_states > 0
+        assert self.optimize_target_overlap is None or 0.0 < self.optimize_target_overlap < 1.0
+        if self.rest_params is not None:
+            raise NotImplementedError("REST is not ported yet (ROADMAP queue 1)")
 
 
 @dataclass(frozen=True)
 class MDParams:
     """Sampling protocol: n_eq_steps of equilibration, then n_frames frames
-    steps_per_frame steps apart, from seed. local MD and water sampling are
-    not ported yet: the drivers raise where either is asked for."""
+    steps_per_frame steps apart, from seed; with hrex_params, run_sims_hrex's
+    protocol. Local MD and water sampling are not ported yet: the drivers
+    raise where either is asked for."""
 
     n_frames: int
     n_eq_steps: int
     steps_per_frame: int
     seed: int
     local_md_params: Optional[object] = None
+    hrex_params: Optional[HREXParams] = None
     water_sampling_params: Optional[object] = None
 
     def __post_init__(self):
@@ -68,6 +106,16 @@ class InitialState:
     def __post_init__(self):
         assert self.ligand_idxs.dtype in (np.int32, np.int64)
         assert self.protein_idxs.dtype in (np.int32, np.int64)
+
+    def total_energy_fn(self) -> Callable:
+        """U(x, box) with this state's parameters bound: the sum of every
+        potential's u(x, params, box)."""
+        pots = self.potentials
+
+        def U(x, box):
+            return sum(pot.u(x, pot.params, box) for pot in pots)
+
+        return U
 
 
 @dataclass
@@ -103,8 +151,16 @@ class PairBarResult:
         return self._per_pair("dG_err")
 
     @property
+    def dG_err_by_component_by_lambda(self) -> np.ndarray:
+        return np.array(self._per_pair("dG_err_by_component"))
+
+    @property
     def overlaps(self) -> list:
         return self._per_pair("overlap")
+
+    @property
+    def overlap_by_component_by_lambda(self) -> np.ndarray:
+        return np.array(self._per_pair("overlap_by_component"))
 
     @property
     def u_kln_by_component_by_lambda(self) -> np.ndarray:
@@ -123,6 +179,64 @@ class Trajectory:
     def __post_init__(self):
         if len(self.boxes) != len(self.frames):
             raise ValueError("frames and boxes must have equal length")
+
+    def extend(self, other: "Trajectory"):
+        """Append other's frames; other's final state wins."""
+        self.frames.extend(other.frames)
+        self.boxes.extend(other.boxes)
+        self.final_velocities = other.final_velocities
+        self.final_barostat_volume_scale_factor = other.final_barostat_volume_scale_factor
+
+    @classmethod
+    def empty(cls) -> "Trajectory":
+        return Trajectory([], [], None, None)
+
+
+@dataclass
+class SimulationResult:
+    final_result: PairBarResult
+    plots: Optional[object]
+    trajectories: list
+    md_params: MDParams
+    intermediate_results: list
+
+    @property
+    def frames(self) -> list:
+        return [traj.frames for traj in self.trajectories]
+
+    @property
+    def boxes(self) -> list:
+        return [np.array(traj.boxes) for traj in self.trajectories]
+
+    def compute_u_kn(self) -> tuple:
+        return compute_u_kn(self.trajectories, self.final_result.initial_states)
+
+
+@dataclass
+class HREXSimulationResult(SimulationResult):
+    hrex_diagnostics: HREXDiagnostics = None  # type: ignore[assignment]
+    hrex_plots: Optional[object] = None
+    water_sampling_diagnostics: Optional[object] = None
+
+    def extract_trajectories_by_replica(self, atom_idxs) -> np.ndarray:
+        """(n_replicas, n_frames, len(atom_idxs), 3) trajectories per replica."""
+        trajs_by_state = np.array([np.asarray(traj.frames)[:, atom_idxs] for traj in self.trajectories])
+        replica_idx_by_iter_by_state = np.asarray(self.hrex_diagnostics.replica_idx_by_state_by_iter).T
+        state_idx_by_iter_by_replica = np.argsort(replica_idx_by_iter_by_state, axis=0)
+        return np.take_along_axis(trajs_by_state, state_idx_by_iter_by_replica[:, :, None, None], axis=0)
+
+    def extract_ligand_trajectories_by_replica(self) -> np.ndarray:
+        ligand_idxs = self.final_result.initial_states[0].ligand_idxs
+        assert all(np.all(s.ligand_idxs == ligand_idxs) for s in self.final_result.initial_states)
+        return self.extract_trajectories_by_replica(ligand_idxs)
+
+
+def trajectories_by_replica_to_by_state(trajectory_by_iter_by_replica: np.ndarray, replica_idx_by_state_by_iter) -> np.ndarray:
+    """(replica, iter, ...) trajectories reordered to (state, iter, ...)."""
+    assert len(trajectory_by_iter_by_replica.shape) == 4
+    replica_idx_by_iter_by_state = np.asarray(replica_idx_by_state_by_iter).T
+    assert replica_idx_by_iter_by_state.shape == trajectory_by_iter_by_replica.shape[:2]
+    return np.take_along_axis(trajectory_by_iter_by_replica, replica_idx_by_iter_by_state[:, :, None, None], axis=0)
 
 
 def get_potential_by_type(potentials: Sequence, pot_type):
@@ -216,14 +330,6 @@ def get_context(initial_state: InitialState, md_params: Optional[MDParams] = Non
         movers=movers,
         device=params.device,
     )
-
-
-def batches(n: int, batch_size: int) -> Iterator[int]:
-    """Sizes of consecutive batches covering n items."""
-    full, rem = divmod(n, batch_size)
-    yield from [batch_size] * full
-    if rem:
-        yield rem
 
 
 def sample_with_context_iter(
@@ -359,3 +465,189 @@ def run_sims_sequential(
     neighbor_ulkns = generate_pair_bar_ulkns(initial_states, trajectories, temperature)
     pair_bar_results = [estimate_free_energy_bar(u, temperature) for u in neighbor_ulkns]
     return PairBarResult(list(initial_states), pair_bar_results), trajectories
+
+
+def _state_energies(pots, params, frames, boxes) -> np.ndarray:
+    """(n_frames,) f64 total energy of frames under one state's parameters
+    (one per potential), through the modules `pots` on their device."""
+    dev, dt = pots[0].params.device, pots[0].params.dtype
+    xs = torch.as_tensor(np.asarray(frames), device=dev, dtype=dt)
+    bs = torch.as_tensor(np.asarray(boxes), device=dev, dtype=dt)
+    with torch.no_grad():
+        us = [sum(pot.u(x, p, b) for pot, p in zip(pots, params)) for x, b in zip(xs, bs)]
+    return torch.stack(us).cpu().numpy().astype(np.float64)
+
+
+def make_u_kl_fxn(trajs: Sequence[Trajectory], initial_states: Sequence[InitialState]) -> Callable:
+    """fxn(k, l): the reduced energies of trajs[k]'s frames in state l's
+    ensemble, NaN -> +inf, through the first state's modules."""
+    kBTs = [BOLTZ * state.integrator.temperature for state in initial_states]
+    assert len(set(kBTs)) == 1
+    s_0 = initial_states[0]
+    for s in initial_states[1:]:
+        assert_ensembles_compatible(s_0, s)
+        assert_potentials_compatible(s_0.potentials, s.potentials)
+    configure_all_pairs(s_0)
+
+    def u_kl(k: int, l: int) -> np.ndarray:
+        params = [pot.params for pot in initial_states[l].potentials]
+        us = _state_energies(s_0.potentials, params, trajs[k].frames, trajs[k].boxes)
+        return np.nan_to_num(us, nan=+np.inf) / kBTs[l]
+
+    return u_kl
+
+
+def compute_u_kn(trajs: Sequence[Trajectory], initial_states: Sequence[InitialState]) -> tuple:
+    """MBAR's input (u_kn, N_k) over all states."""
+    from timemachine_torch.fe.mbar import kln_to_kn
+
+    u_kl = make_u_kl_fxn(trajs, initial_states)
+    N_k = [len(traj.frames) for traj in trajs]
+    K = len(N_k)
+    assert len(initial_states) == K
+    u_kln = np.nan * np.zeros((K, K, max(N_k)))
+    for k in range(K):
+        for l in range(K):
+            u_kln[k, l, : N_k[k]] = u_kl(k, l)
+    return kln_to_kn(u_kln, np.array(N_k)), np.array(N_k)
+
+
+def compute_potential_matrix(
+    potential: Callable, hrex: HREX, params_by_state: Sequence, max_delta_states: Optional[int] = None
+) -> np.ndarray:
+    """(n_replicas, n_states) energies potential(x_r, params_by_state[l],
+    box_r) of each replica (a CoordsVelBox) under each state's parameters,
+    +inf for states more than max_delta_states from the replica's own; one
+    call a (replica, state) pair (the plain form of the replica-exchange
+    runner's banded energies)."""
+    n_states = len(hrex.replicas)
+    state_idx = np.argsort(hrex.replica_idx_by_state)
+    k = n_states if max_delta_states is None else max_delta_states
+    U_kl = np.full((n_states, n_states), np.inf)
+    with torch.no_grad():
+        for r, replica in enumerate(hrex.replicas):
+            for l in range(max(0, state_idx[r] - k), min(n_states, state_idx[r] + k + 1)):
+                U_kl[r, l] = float(potential(replica.coords, params_by_state[l], replica.box))
+    return U_kl
+
+
+def verify_and_sanitize_potential_matrix(U_kl: np.ndarray, replica_idx_by_state, abs_energy_threshold: float = 1e9) -> np.ndarray:
+    """Check that every replica's energy at its own state is finite and
+    below abs_energy_threshold in magnitude; NaN -> +inf, with a warning."""
+    replica_energies = np.diagonal(U_kl[np.asarray(replica_idx_by_state)])
+    assert np.all(np.isfinite(replica_energies)), "Replicas have non-finite energies"
+    assert np.all(np.abs(replica_energies) < abs_energy_threshold), "Energies larger in magnitude than tolerated"
+    if np.any(np.isnan(U_kl)):
+        warn("Encountered NaNs in potential matrix. Replacing each instance with inf", IndeterminateEnergyWarning)
+        U_kl = np.where(np.isnan(U_kl), np.inf, U_kl)
+    return U_kl
+
+
+def run_sims_hrex(
+    initial_states: Sequence[InitialState],
+    md_params: MDParams,
+    n_swap_attempts_per_iter: Optional[int] = None,
+    print_diagnostics_interval: Optional[int] = 10,
+) -> tuple:
+    """Nearest-neighbor HREX over a ladder of states on one card: every
+    iteration advances all K replicas' segments in one batched step
+    (parallel/replica_exchange.py), computes the banded U_kl on the card
+    and runs the swap batch on the host. Returns (PairBarResult,
+    trajectories by state, HREXDiagnostics, None: water sampling is not
+    ported). Raises for local MD and water sampling."""
+    from timemachine_torch.md.barostat import MonteCarloBarostat
+    from timemachine_torch.parallel.replica_exchange import ReplicaExchangeRunner
+
+    assert md_params.hrex_params is not None
+    if md_params.local_md_params is not None:
+        raise NotImplementedError("local MD inside HREX is not ported yet (ROADMAP queue 1)")
+    for s in initial_states[1:]:
+        assert_ensembles_compatible(initial_states[0], s)
+        assert_potentials_compatible(initial_states[0].potentials, s.potentials)
+
+    n_states = len(initial_states)
+    if n_swap_attempts_per_iter is None:
+        n_swap_attempts_per_iter = get_swap_attempts_per_iter_heuristic(n_states)
+    context = get_context(initial_states[0], md_params=md_params)
+    temperature = initial_states[0].integrator.temperature
+
+    state_idxs = list(range(n_states))
+    neighbor_pairs = list(zip(state_idxs, state_idxs[1:]))
+    strip_identity_pair = False
+    if n_states == 2:
+        # an identity move keeps the two-state chain aperiodic
+        neighbor_pairs = [(0, 0), *neighbor_pairs]
+        strip_identity_pair = True
+
+    runner = ReplicaExchangeRunner(
+        context,
+        [[pot.params for pot in s.potentials] for s in initial_states],
+        temperature=temperature,
+        neighbor_pairs=neighbor_pairs,
+        n_swap_attempts_per_iter=n_swap_attempts_per_iter,
+        max_delta_states=md_params.hrex_params.max_delta_states,
+        seed=md_params.seed,
+    )
+    runner.initialize([s.x0 for s in initial_states], [s.v0 for s in initial_states], [s.box0 for s in initial_states])
+    runner.equilibrate(md_params.n_eq_steps)
+    barostat_idx = [i for i, m in enumerate(context.movers) if isinstance(m, MonteCarloBarostat)]
+
+    samples_by_state = [Trajectory.empty() for _ in initial_states]
+    replica_idx_by_state_by_iter: list = []
+    fraction_accepted_by_pair_by_iter: list = []
+    begin_loop_time = last_update_time = time.perf_counter()
+
+    for current_frame in range(md_params.n_frames):
+        res = runner.advance_frame(md_params.steps_per_frame)
+        perm = res.replica_idx_by_state
+        for s, samples in enumerate(samples_by_state):
+            samples.frames.append(res.frames_by_state[s])
+            samples.boxes.append(res.boxes_by_state[s])
+        pair_stats = list(zip(res.accepted_by_pair.tolist(), res.proposed_by_pair.tolist()))
+        if strip_identity_pair:
+            pair_stats = pair_stats[1:]
+        replica_idx_by_state_by_iter.append(perm.tolist())
+        fraction_accepted_by_pair_by_iter.append(pair_stats)
+
+        if print_diagnostics_interval and (current_frame + 1) % print_diagnostics_interval == 0:
+            current_time = time.perf_counter()
+            _print_hrex_progress(
+                current_frame, md_params.n_frames, begin_loop_time, last_update_time, print_diagnostics_interval,
+                pair_stats, fraction_accepted_by_pair_by_iter, perm,
+            )
+            last_update_time = current_time
+
+    final_x, final_v, final_boxes = runner.final_state_arrays()
+    final_scales = runner.mover_state_field_by_state(barostat_idx[0], "volume_scale") if barostat_idx else None
+    for s, samples in enumerate(samples_by_state):
+        samples.final_velocities = final_v[s]
+        samples.final_barostat_volume_scale_factor = float(final_scales[s]) if final_scales is not None else None
+
+    neighbor_ulkns_by_component = generate_pair_bar_ulkns(initial_states, samples_by_state, temperature)
+    pair_bar_results = [estimate_free_energy_bar(u, temperature) for u in neighbor_ulkns_by_component]
+    diagnostics = HREXDiagnostics(replica_idx_by_state_by_iter, fraction_accepted_by_pair_by_iter)
+    return PairBarResult(list(initial_states), pair_bar_results), samples_by_state, diagnostics, None
+
+
+def _print_hrex_progress(
+    current_frame, n_frames, begin_loop_time, last_update_time, interval, pair_stats, stats_by_iter, perm,
+):
+    current_time = time.perf_counter()
+
+    def rates(stats):
+        return [acc / prop if prop else np.nan for acc, prop in stats]
+
+    def format_rates(rs):
+        return " |".join(f"{r * 100.0:5.1f}%" for r in rs)
+
+    per_frame = (current_time - begin_loop_time) / (current_frame + 1)
+    per_frame_now = (current_time - last_update_time) / interval
+    print("Frame", current_frame + 1)
+    print(
+        f"{per_frame * (n_frames - (current_frame + 1)):.1f} s remaining at {per_frame:.2f} s/frame "
+        f"({per_frame_now:.2f} s/frame since last message)"
+    )
+    print("HREX acceptance rates, current:", format_rates(rates(pair_stats)))
+    print("HREX acceptance rates, average:", format_rates(rates(np.sum(stats_by_iter, axis=0))))
+    print("HREX replica permutation      :", perm.tolist())
+    print()

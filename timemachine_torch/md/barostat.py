@@ -7,6 +7,10 @@ w = dU + P dV - N_mol kT ln(V'/V) > 0 and u > exp(-w / kT). With adaptive
 scaling, s starts at 0.01 V and, per window of at least 10 attempts, shrinks
 by 1.1 below 25% acceptance and grows by 1.1 (capped at 0.3 V) above 75%.
 The decision is a torch.where on the device: a move never syncs the host.
+A move is written over leading batch dimensions: with coordinates (K, N,
+3), boxes (K, 3, 3) and a state of (K,) tensors it moves K replicas at
+once, each with its own volume, proposal width and counters (HREX's
+batched step), drawing (K, 2) uniforms from the state's one generator.
 """
 
 from __future__ import annotations
@@ -51,12 +55,17 @@ class CentroidRescaler(nn.Module):
         self.segment_sum = SegmentSum(scatter, len(sizes), device=device)
 
     def compute_centroids(self, coords):
-        return self.segment_sum(coords) / self.group_sizes.to(coords.dtype)[:, None]
+        """(..., M, 3) molecule centroids of coords (..., N, 3)."""
+        sums = self.segment_sum(coords.movedim(-2, 0)).movedim(0, -2)
+        return sums / self.group_sizes.to(coords.dtype)[:, None]
 
     def scale_centroids(self, coords, center, scale):
+        """coords (..., N, 3) with each molecule moved rigidly so that its
+        centroid is center + scale (centroid - center); scale broadcasts
+        against (..., 1, 1)."""
         centroids = self.compute_centroids(coords)
         displacement = (center + scale * (centroids - center)) - centroids
-        return coords + torch.where(self.grouped_mask, displacement[self.scatter_idxs], 0.0)
+        return coords + torch.where(self.grouped_mask, displacement.index_select(-2, self.scatter_idxs), 0.0)
 
 
 @dataclass
@@ -84,12 +93,13 @@ class MonteCarloBarostat:
     adaptive_scaling_enabled: bool = True
     initial_volume_scale_factor: float = 0.0
 
-    def init_state(self, device, dtype) -> BarostatState:
+    def init_state(self, device, dtype, shape=()) -> BarostatState:
+        """The state of one system, or of a batch of `shape` systems (one generator)."""
         gen = torch.Generator(device=device)
         gen.manual_seed(self.seed)
-        zero = torch.zeros((), dtype=torch.int32, device=device)
+        zero = torch.zeros(shape, dtype=torch.int32, device=device)
         return BarostatState(
-            torch.tensor(self.initial_volume_scale_factor, dtype=dtype, device=device), zero, zero, zero, zero, gen
+            torch.full(shape, self.initial_volume_scale_factor, dtype=dtype, device=device), zero, zero, zero, zero, gen
         )
 
     def make_move_fn(self, energy_fn, device=None):
@@ -98,8 +108,8 @@ class MonteCarloBarostat:
         move_with = self.make_move_with_uniforms(energy_fn, device)
 
         def move(state, x, v, box):
-            u = torch.rand(2, generator=state.generator, device=box.device, dtype=box.dtype)
-            return move_with(state, x, v, box, u[0], u[1])
+            u = torch.rand((*box.shape[:-2], 2), generator=state.generator, device=box.device, dtype=box.dtype)
+            return move_with(state, x, v, box, u[..., 0], u[..., 1])
 
         return move
 
@@ -113,7 +123,7 @@ class MonteCarloBarostat:
         adaptive = self.adaptive_scaling_enabled
 
         def move(state: BarostatState, x, v, box, u_dv, u_acc):
-            volume = box[0, 0] * box[1, 1] * box[2, 2]
+            volume = box[..., 0, 0] * box[..., 1, 1] * box[..., 2, 2]
             vs = state.volume_scale
             if adaptive:
                 vs = torch.where(vs == 0.0, 0.01 * volume, vs)
@@ -121,8 +131,8 @@ class MonteCarloBarostat:
             new_volume = volume + delta_volume
             length_scale = (new_volume / volume) ** (1.0 / 3.0)
 
-            x_prop = rescaler.scale_centroids(x, x.new_zeros(3), length_scale.to(x.dtype))
-            box_prop = box * length_scale.to(box.dtype)
+            x_prop = rescaler.scale_centroids(x, x.new_zeros(3), length_scale.to(x.dtype)[..., None, None])
+            box_prop = box * length_scale.to(box.dtype)[..., None, None]
             du = energy_fn(x_prop, box_prop) - energy_fn(x, box)
             du = torch.where(torch.isnan(du), torch.inf, du)
             w = du + pressure_kj_nm3 * delta_volume - num_mols * kt * torch.log(new_volume / volume)
@@ -147,6 +157,7 @@ class MonteCarloBarostat:
                 total_accepted=state.total_accepted + accepted.to(torch.int32),
                 total_attempted=state.total_attempted + 1,
             )
-            return new_state, torch.where(accepted, x_prop, x), v, torch.where(accepted, box_prop, box)
+            keep = accepted[..., None, None]
+            return new_state, torch.where(keep, x_prop, x), v, torch.where(keep, box_prop, box)
 
         return move

@@ -168,7 +168,8 @@ class Context:
                 total = total + pot.energy(x, box)
         return total
 
-    def _one_step(self):
+    def _one_step(self, noise=None):
+        """One step; the Langevin noise from the Context's generator unless given."""
         t = self._step
         x, box = self._x, self._box
         force = torch.zeros_like(x)
@@ -182,7 +183,8 @@ class Context:
             self._v = self._v + self._cb * force
             self._x = x + self.integrator.dt * self._v
         else:
-            noise = torch.randn(x.shape, generator=self._noise, device=self.device, dtype=x.dtype)
+            if noise is None:
+                noise = torch.randn(x.shape, generator=self._noise, device=self.device, dtype=x.dtype)
             self._x, self._v = langevin_step(
                 x, self._v, force, noise, self._ca, self._cb, self._cc, self.integrator.dt
             )
@@ -237,3 +239,149 @@ class Context:
         cutoffs = [p.cutoff for p in self.potentials if getattr(p, "cutoff", None) is not None]
         if cutoffs and min(box_diag) < 2 * max(cutoffs):
             raise RuntimeError(f"Context: box {box_diag} smaller than twice the nonbonded cutoff {max(cutoffs)}")
+
+
+class BatchedContext:
+    """K replicas of one Context's system, stepped together over a leading
+    replica axis: the counterpart of the JAX Context's step under jax.vmap
+    in timemachine_tpu/parallel/replica_exchange.py.
+
+    x, v (K, N, 3), box (K, 3, 3) and every term's parameters (K, ...) are
+    stacked. A step evaluates each term for all K at once: the terms with a
+    batched MD provider (the RBFE host term: one rowscan_sweep_batched
+    launch, its exclusions vmapped) through it, every other term's closed
+    form `u_force` under torch.func.vmap. Langevin BAOAB broadcasts over the
+    batch with one (K, N, 3) noise draw a step from one torch.Generator; the
+    barostat moves every replica at once, with (K,) volumes, widths and
+    counters and (K, 2) uniforms from its own generator. A step that does
+    not rebuild the lists runs the same launches whatever K.
+
+    Langevin only (HREX's integrator). set_params drops the providers'
+    lists, which the next step rebuilds from the new parameters.
+    """
+
+    def __init__(self, context: Context, xs, vs, boxes, params, seed: int):
+        if context._verlet:
+            raise NotImplementedError("BatchedContext steps Langevin BAOAB only")
+        self.device = context.device
+        dtype = context._x.dtype
+        self.potentials = context.potentials
+        self.integrator = context.integrator
+        self.movers = list(context.movers)
+        self._ca, self._cb, self._cc = context._ca, context._cb, context._cc
+        self._x = torch.as_tensor(xs, device=self.device, dtype=dtype)
+        self._v = torch.as_tensor(vs, device=self.device, dtype=dtype)
+        self._box = torch.as_tensor(boxes, device=self.device, dtype=dtype)
+        k = self._x.shape[0]
+        if self._x.shape != self._v.shape or self._box.shape != (k, 3, 3):
+            raise ValueError("xs and vs must be (K, N, 3) and boxes (K, 3, 3)")
+        self._noise = torch.Generator(device=self.device)
+        self._noise.manual_seed(seed)
+        self._mover_states = [m.init_state(self.device, dtype, shape=(k,)) for m in self.movers]
+        self._move_fns = [self._make_move_fn(m) for m in self.movers]
+        self._providers = {}
+        self._u_force, self._u = {}, {}
+        for i, pot in enumerate(self.potentials):
+            batched = getattr(pot, "md_force_provider_batched", None)
+            if batched is not None:
+                self._providers[i] = batched()
+            else:
+                self._u_force[i] = torch.func.vmap(pot.u_force)
+                self._u[i] = torch.func.vmap(pot.u)
+        self._prov_states = None
+        self._step = 0
+        self.set_params(params)
+
+    # the same code over (K, ...) tensors: a barostat's energy is _mover_energy's (K,) energies
+    _make_move_fn = Context._make_move_fn
+    set_barostat_interval = Context.set_barostat_interval
+    get_x_t, get_v_t, get_box, get_mover_states = Context.get_x_t, Context.get_v_t, Context.get_box, Context.get_mover_states
+
+    def set_params(self, params):
+        """Every term's parameters, one (K, ...) tensor a term."""
+        if len(params) != len(self.potentials):
+            raise ValueError("one parameter tensor per potential")
+        self._params = [torch.as_tensor(p, device=self.device, dtype=pot.params.dtype) for p, pot in zip(params, self.potentials)]
+        self._prov_states = None
+
+    def _ensure_lists(self):
+        if self._prov_states is None:
+            self._prov_states = {i: prov[0](self._x, self._params[i], self._box) for i, prov in self._providers.items()}
+
+    def _mover_energy(self, xs, boxes, rigid: bool):
+        """(K,) energies with the providers reusing their lists; a rigid
+        mover skips rigid-invariant terms and takes the providers' rigid
+        energy, as Context._mover_energy."""
+        total = xs.new_zeros(xs.shape[0])
+        for i, pot in enumerate(self.potentials):
+            if rigid and getattr(pot, "rigid_group_invariant", False):
+                continue
+            if i in self._providers:
+                total = total + self._providers[i][3 if rigid else 2](self._prov_states[i], xs, self._params[i], boxes)
+            else:
+                total = total + self._u[i](xs, self._params[i], boxes)
+        return total
+
+    def energies_with_params(self, params_sets):
+        """(K, S) float64 energy of each replica's coordinates under S
+        parameter sets of its own, params_sets one (K, S, ...) tensor a term:
+        the providers through their current lists (one U launch of K * S
+        systems), the other terms' u in float64 under two nested vmaps. The
+        swaps read differences of these energies of a few kT, which float32
+        sums of the host term's all-pairs energy (its exclusions cancel it
+        to a far smaller net) would round away."""
+        self._ensure_lists()
+        f64 = torch.float64
+        x64, box64 = self._x.to(f64), self._box.to(f64)
+        with torch.no_grad():
+            total = 0.0
+            for i, ps in enumerate(params_sets):
+                if i in self._providers:
+                    u = self._providers[i][4](self._prov_states[i], self._x, ps, self._box)
+                else:
+                    u = torch.func.vmap(torch.func.vmap(self.potentials[i].u, in_dims=(None, 0, None)))(x64, ps.to(f64), box64)
+                total = total + u
+        return total
+
+    def _one_step(self, noise=None):
+        """One step of every replica; the (K, N, 3) noise from the generator unless given."""
+        t = self._step
+        x, box = self._x, self._box
+        force = torch.zeros_like(x)
+        for i in range(len(self.potentials)):
+            if i in self._providers:
+                f, self._prov_states[i] = self._providers[i][1](self._prov_states[i], x, self._params[i], box, t)
+            else:
+                f = self._u_force[i](x, self._params[i], box)[1]
+            force = force + f
+        if noise is None:
+            noise = torch.randn(x.shape, generator=self._noise, device=self.device, dtype=x.dtype)
+        self._x, self._v = langevin_step(x, self._v, force, noise, self._ca, self._cb, self._cc, self.integrator.dt)
+        for k, (mover, move) in enumerate(zip(self.movers, self._move_fns)):
+            if (t + 1) % mover.interval == 0:
+                self._mover_states[k], self._x, self._v, self._box = move(
+                    self._mover_states[k], self._x, self._v, self._box
+                )
+        self._step = t + 1
+
+    def multiple_steps(self, n_steps: int):
+        """Advance every replica n_steps; one host sync, at the end."""
+        with torch.no_grad():
+            self._ensure_lists()
+            for _ in range(n_steps):
+                self._one_step()
+        self._validate_state()
+
+    def _validate_state(self):
+        """Coordinate and box checks over every replica, one host sync."""
+        x_finite, max_coord, min_box = torch.stack([
+            torch.isfinite(self._x).all().to(self._x.dtype), self._x.abs().max(),
+            torch.diagonal(self._box, dim1=-2, dim2=-1).min(),
+        ]).tolist()
+        if not x_finite:
+            raise RuntimeError("BatchedContext: coordinates are not finite (simulation blew up)")
+        if max_coord > 1e5:
+            raise RuntimeError(f"BatchedContext: coordinates exploded (|x|max = {max_coord})")
+        cutoffs = [p.cutoff for p in self.potentials if getattr(p, "cutoff", None) is not None]
+        if cutoffs and min_box < 2 * max(cutoffs):
+            raise RuntimeError(f"BatchedContext: a box side {min_box} is smaller than twice the nonbonded cutoff {max(cutoffs)}")

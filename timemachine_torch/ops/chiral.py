@@ -5,8 +5,8 @@ They keep stereocenters from inverting while the bonded terms are
 interpolated across alchemical states. Energies take (conf, params, box,
 idxs[, signs]); the box is unused. The `*_contribs` functions return (u,
 per-role forces) in the form of ops/bonded.py, for a SegmentSum onto atoms:
-each term's gradient is taken by autograd on its own four gathered atoms, so
-nothing is scattered.
+each term's gradient is taken by torch.func.grad on its own four gathered
+atoms, so nothing is scattered.
 """
 
 from __future__ import annotations
@@ -60,11 +60,10 @@ def chiral_bond_restraint(conf, params, box, idxs, signs):
 def _contribs(terms, conf, params, idxs, signs=None):
     if idxs.shape[0] == 0:
         return conf.new_zeros(()), [conf.new_zeros((0, 3))] * 4
-    with torch.enable_grad():
-        x = conf[idxs].detach().requires_grad_(True)
-        u = torch.sum(terms(x, params, signs))
-        (g,) = torch.autograd.grad(u, x)
-    return u.detach(), [-g[:, k] for k in range(4)]
+    # torch.func rather than autograd.grad: the same gradient, and it runs
+    # under torch.func.vmap over replicas (a batched step) and under no_grad
+    g, u = torch.func.grad_and_value(lambda x: torch.sum(terms(x, params, signs)))(conf[idxs])
+    return u, [-g[:, k] for k in range(4)]
 
 
 def chiral_atom_contribs(conf, params, idxs):

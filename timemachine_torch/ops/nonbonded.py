@@ -199,16 +199,16 @@ def water_exclusion_energy_force(conf, params, box, nw: int, cutoff, h_coeffs):
     x = conf[: 3 * nw].reshape(nw, 3, 3)
     p = params[: 3 * nw].reshape(nw, 3, 4)
     u = conf.new_zeros(())
-    grad = torch.zeros_like(x)
+    g = {}
     for a, b in ((0, 1), (0, 2), (1, 2)):
         pa, pb = p[:, a], p[:, b]
-        u_ab, g = _poly_pair_grad(
+        u_ab, g[a, b] = _poly_pair_grad(
             periodic_delta(x[:, a], x[:, b], box), pa[:, 3] - pb[:, 3], pa[:, 0] * pb[:, 0],
             combine_sigma(pa[:, 1], pb[:, 1]), combine_epsilon(pa[:, 2], pb[:, 2]), cutoff, h_coeffs,
         )
         u = u + torch.sum(u_ab)
-        grad[:, a] += g
-        grad[:, b] -= g
+    # out of place, so that it vmaps with params batched and conf not
+    grad = torch.stack([g[0, 1] + g[0, 2], -g[0, 1] + g[1, 2], -g[0, 2] - g[1, 2]], dim=1)
     return u, torch.cat([grad.reshape(3 * nw, 3), conf.new_zeros((conf.shape[0] - 3 * nw, 3))])
 
 

@@ -642,26 +642,30 @@ class ListState(NamedTuple):
     image: torch.Tensor | None = None  # (N, 3) whole boxes the build wrapped each atom by, where the layout keeps it
 
 
-def make_list_md_provider(build, sweep, force_mode: int, energy_mode: int, rebuild_interval: int):
+def make_list_md_provider(build, sweep, force_mode: int, energy_mode: int, rebuild_interval: int, prows_fn=None):
     """The stateful MD force provider of every list layout (counterpart of
     make_tile_md_provider in the JAX rowscan module):
 
       build(conf, params, box) -> ListState        lists at cutoff + skin
       sweep(state, conf, box, mode) -> (Npad, 4)   [u_i, dU/dx_i], sorted
+      prows_fn(params, pad_order) -> prows         the layout's parameter rows
 
     The lists are rebuilt when the step t is a multiple of rebuild_interval;
     the sweep's gate applies the bare cutoff. Returns (init_fn, apply_fn,
-    energy_fn):
+    energy_fn, energy_with_params_fn):
 
       init_fn(conf, params, box) -> state
       apply_fn(state, conf, params, box, t) -> (force, state)    force_mode sweep
       energy_fn(state, conf, params, box) -> energy              energy_mode sweep
+      energy_with_params_fn(state, conf, params, box) -> energy  the same under
+          other parameters: their rows re-gathered through the cached order
+          (JAX's energy_with_params_fn; raises without prows_fn)
 
-    Both are NaN where state.invalid is nonzero. The parameter rows are
-    cached at rebuild: params must not change between rebuilds. energy_fn
-    runs through the cached lists, valid for any conf within skin/2 of the
-    build conf, which covers a barostat trial move. t is the host's step
-    count, so the rebuild decision reads nothing from the device."""
+    All are NaN where state.invalid is nonzero. The parameter rows are
+    cached at rebuild: params must not change between rebuilds. The
+    energies run through the cached lists, valid for any conf within skin/2
+    of the build conf, which covers a barostat trial move. t is the host's
+    step count, so the rebuild decision reads nothing from the device."""
 
     def apply_fn(state, conf, params, box, t: int):
         if t % rebuild_interval == 0:
@@ -672,7 +676,83 @@ def make_list_md_provider(build, sweep, force_mode: int, energy_mode: int, rebui
     def energy_fn(state, conf, params, box):
         return poison_on_overflow(state.invalid, torch.sum(sweep(state, conf, box, energy_mode)[:, 0]))
 
-    return build, apply_fn, energy_fn
+    def energy_with_params_fn(state, conf, params, box):
+        if prows_fn is None:
+            raise NotImplementedError("this list layout has no energy under other parameters")
+        return energy_fn(state._replace(prows=prows_fn(params.to(conf.dtype), state.lists.pad_order)), conf, params, box)
+
+    return build, apply_fn, energy_fn, energy_with_params_fn
+
+
+class BatchedListState(NamedTuple):
+    """A batched MD provider's state between rebuilds: K replicas' lists
+    stacked at one capacity."""
+
+    lists: NamedTuple  # the layout's lists, each field (K, ...)
+    inv: torch.Tensor  # (K, N) sorted slot of each atom
+    prows: torch.Tensor  # (K, Npad, 4) sorted parameter rows, cached at rebuild
+    invalid: torch.Tensor  # (K,) nonzero where a replica's lists must not be trusted
+
+
+def make_batched_list_md_provider(
+    build, sweep_batched, prows_fn, force_mode: int, energy_mode: int, rebuild_interval: int,
+):
+    """The MD force provider of K replicas of one system, stepped together
+    (the counterpart of the JAX provider under jax.vmap over replicas):
+
+      build(conf, params, box) -> ListState    one replica's lists, as make_list_md_provider's
+      sweep_batched(state, xyz, prows, box, lists_of, mode) -> (B, Npad, 4)
+          B systems in one sweep: coordinates xyz (B, N, 3) [or (K, N, 3)
+          broadcast], prows (B, Npad, 4), box (B, 3, 3), lists_of (B,) the
+          replica whose lists each system reads
+      prows_fn(params, pad_order) -> prows     the layout's parameter rows
+
+    Returns (init_fn, apply_fn, energy_fn, energy_with_params_fn):
+
+      init_fn(xs, params, boxes) -> state          K list builds, stacked
+      apply_fn(state, xs, params, boxes, t) -> (forces (K, N, 3), state)
+      energy_fn(state, xs, boxes) -> (K,)          one energy_mode sweep
+      energy_with_params_fn(state, xs, params_sets, boxes) -> (K, S)
+          each replica's energy under S parameter sets (K, S, N, 4), one
+          energy_mode sweep of K * S systems through the replicas' lists,
+          the per-atom energies summed in float64 (HREX's banded energies)
+
+    The rebuild loops over the K replicas (a rebuild step's launches grow
+    with K); every other step runs a fixed number of launches whatever K.
+    A replica whose lists are invalid gets NaN, the others are untouched."""
+
+    def init_fn(xs, params, boxes):
+        states = [build(xs[k], params[k], boxes[k]) for k in range(xs.shape[0])]
+        lists = type(states[0].lists)(*(torch.stack(f) for f in zip(*(st.lists for st in states))))
+        return BatchedListState(
+            lists, torch.stack([st.inv for st in states]), torch.stack([st.prows for st in states]),
+            torch.stack([st.invalid for st in states]),
+        )
+
+    def _poison(state, val):
+        return torch.where((state.invalid > 0).view(-1, *([1] * (val.dim() - 1))), torch.nan, val)
+
+    def apply_fn(state, xs, params, boxes, t: int):
+        if t % rebuild_interval == 0:
+            state = init_fn(xs, params, boxes)
+        lists_of = torch.arange(xs.shape[0], device=xs.device, dtype=torch.int32)
+        out = sweep_batched(state, xs, state.prows, boxes, lists_of, force_mode)
+        force = -torch.take_along_dim(out[..., 1:4], state.inv[..., None], dim=-2)
+        return _poison(state, force), state
+
+    def energy_fn(state, xs, boxes):
+        lists_of = torch.arange(xs.shape[0], device=xs.device, dtype=torch.int32)
+        return _poison(state, torch.sum(sweep_batched(state, xs, state.prows, boxes, lists_of, energy_mode)[..., 0], -1))
+
+    def energy_with_params_fn(state, xs, params_sets, boxes):
+        k, s = params_sets.shape[:2]
+        pad_order = state.lists.pad_order[:, None, :].expand(k, s, -1)
+        prows = prows_fn(params_sets.to(xs.dtype), pad_order).reshape(k * s, *state.prows.shape[1:])
+        lists_of = torch.arange(k, device=xs.device, dtype=torch.int32).repeat_interleave(s)
+        out = sweep_batched(state, xs, prows, boxes, lists_of, energy_mode)
+        return _poison(state, torch.sum(out[..., 0], -1, dtype=torch.float64).view(k, s))
+
+    return init_fn, apply_fn, energy_fn, energy_with_params_fn
 
 
 def make_nonbonded_tiles_md(

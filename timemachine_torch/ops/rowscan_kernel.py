@@ -48,6 +48,7 @@ from timemachine_torch.ops.nonbonded_kernel import (
     ListState,
     StashedGradEnergy,
     hilbert_order,
+    make_batched_list_md_provider,
     make_list_md_provider,
     poison_on_overflow,
     run_dp,
@@ -120,13 +121,15 @@ class RowscanTiles(NamedTuple):
 
 
 def _bbox_gap2(rmin, rmax, cmin, cmax, box_diag):
-    """(nR, nC) squared minimum-image gap between row and column chunk boxes."""
+    """(..., nR, nC) squared minimum-image gap between row and column chunk
+    boxes (..., nR | nC, 3), box_diag (..., 3)."""
     rcen, rhal = 0.5 * (rmin + rmax), 0.5 * (rmax - rmin)
     ccen, chal = 0.5 * (cmin + cmax), 0.5 * (cmax - cmin)
-    dc = rcen[:, None, :] - ccen[None, :, :]
+    dc = rcen[..., :, None, :] - ccen[..., None, :, :]
+    box_diag = box_diag[..., None, None, :]
     dc = dc - box_diag * torch.floor(dc / box_diag + 0.5)
-    gap = torch.clamp(torch.abs(dc) - (rhal[:, None, :] + chal[None, :, :]), min=0.0)
-    return torch.sum(gap * gap, dim=2)
+    gap = torch.clamp(torch.abs(dc) - (rhal[..., :, None, :] + chal[..., None, :, :]), min=0.0)
+    return torch.sum(gap * gap, dim=-1)
 
 
 def _wrap(xyz, box_diag):
@@ -208,7 +211,8 @@ def build_rowscan_tiles(
 def chop_row_counts(xyz, rank_mat, row_count, box, cutoff: float):
     """Per-step list truncation: from the current sorted coordinates (Npad,
     3), drop every listed tile past the last one whose bounding-box gap is
-    within the bare cutoff. Exact: a tile whose current gap exceeds the
+    within the bare cutoff. Leading dimensions of xyz (..., Npad, 3),
+    rank_mat, row_count and box (..., 3, 3) chop a batch of systems. Exact: a tile whose current gap exceeds the
     cutoff holds no pair within it. Padding slots duplicate atom 0, which
     only widens boxes.
 
@@ -218,17 +222,18 @@ def chop_row_counts(xyz, rank_mat, row_count, box, cutoff: float):
     wrapped coordinates, where one such atom keeps every list that meets
     its chunk whole). Any images give a lower bound on each pair's
     distance, so the chop stays exact."""
-    n_pad = xyz.shape[0]
-    box_diag = torch.diagonal(box).to(xyz.dtype)
+    n_pad = xyz.shape[-2]
+    box_diag = torch.diagonal(box, dim1=-2, dim2=-1).to(xyz.dtype)
 
     def boxes(size):
-        x = xyz.reshape(n_pad // size, size, 3)
-        x = x - box_diag * torch.round((x - x[:, :1]) / box_diag)
-        return x.amin(1), x.amax(1)
+        x = xyz.reshape(*xyz.shape[:-2], n_pad // size, size, 3)
+        diag = box_diag[..., None, None, :]
+        x = x - diag * torch.round((x - x[..., :1, :]) / diag)
+        return x.amin(-2), x.amax(-2)
 
     d2 = _bbox_gap2(*boxes(ROW), *boxes(COL), box_diag)
     keep_rank = torch.where(d2 < cutoff * cutoff, rank_mat, -1)
-    return torch.minimum(row_count, keep_rank.amax(1) + 1)
+    return torch.minimum(row_count, keep_rank.amax(-1) + 1)
 
 
 def suggest_max_pairs(
@@ -277,25 +282,35 @@ def suggest_cell_size(conf, box, cutoff: float, skin: float = 0.1, candidates=(0
 def param_rows(params, pad_order, n: int, atom_mask=None):
     """(Npad, 4) sorted rows [w, q, sigma/2, 2 sqrt(eps)]; padding slots,
     and atoms outside atom_mask (N,) bool where given, carry q = eps = 0 so
-    their pairs vanish arithmetically."""
-    valid = torch.arange(pad_order.shape[0], device=params.device) < n
+    their pairs vanish arithmetically. Leading dimensions of params (...,
+    N, 4) and pad_order (..., Npad), which must match, give a batch."""
+    valid = torch.arange(pad_order.shape[-1], device=params.device) < n
     if atom_mask is not None:
         valid = valid & atom_mask[pad_order]
     valid = valid.to(params.dtype)
-    pr = params[pad_order]
-    return torch.stack([pr[:, 3], pr[:, 0] * valid, pr[:, 1], 2.0 * pr[:, 2] * valid], dim=1)
+    pr = torch.take_along_dim(params, pad_order[..., None], dim=-2)
+    return torch.stack([pr[..., 3], pr[..., 0] * valid, pr[..., 1], 2.0 * pr[..., 2] * valid], dim=-1)
+
+
+def param_rows_of(atom_mask=None):
+    """The list providers' prows_fn: (params (..., N, 4), pad_order (...,
+    Npad)) -> param_rows under atom_mask."""
+    return lambda params, pad_order: param_rows(params, pad_order, params.shape[-2], atom_mask)
 
 
 def assemble_atoms(conf, box, pad_order, prows):
     """(Npad, 8) sweep rows [x y z w q sigma/2 2 sqrt(eps) 0], coordinates
-    wrapped into the box and sorted."""
-    xyz = _wrap(conf[:, :3], torch.diagonal(box))[pad_order]
-    return torch.cat([xyz, prows, prows.new_zeros((prows.shape[0], 1))], dim=1)
+    wrapped into the box and sorted. Leading dimensions of conf (..., N, 3),
+    box (..., 3, 3), pad_order and prows give a batch."""
+    box_diag = torch.diagonal(box, dim1=-2, dim2=-1)[..., None, :]
+    xyz = torch.take_along_dim(_wrap(conf[..., :3], box_diag), pad_order[..., None], dim=-2)
+    return torch.cat([xyz, prows, prows.new_zeros((*prows.shape[:-1], 1))], dim=-1)
 
 
 def sweep_scalars(box, cutoff: float):
-    """(4,) [box_x, box_y, box_z, cutoff] on box's device, without a host copy."""
-    return F.pad(torch.diagonal(box), (0, 1), value=cutoff)
+    """(..., 4) [box_x, box_y, box_z, cutoff] of box (..., 3, 3) on its
+    device, without a host copy."""
+    return F.pad(torch.diagonal(box, dim1=-2, dim2=-1), (0, 1), value=cutoff)
 
 
 def pair_terms(d, dw, qq, sg, e4, cut2, listed, series, mode: int):
@@ -504,28 +519,82 @@ def rowscan_sweep(
 rowscan_sweep.launches = 0
 
 
-def make_nonbonded_rowscan_md(
-    beta: float, cutoff: float, max_pairs: int, skin: float = 0.1, rebuild_interval: int = 20,
-    cell_size: float = 0.65, preshift: bool = False, has_w: bool = True, atom_mask=None,
-):
-    """MD force provider over Newton-triangular rowscan tiles (counterpart
-    of JAX's make_nonbonded_rowscan_md with its default triangular=True),
-    chopped to the bare cutoff at every sweep: an F sweep per step, a U
-    sweep for the energy; see nonbonded_kernel.make_list_md_provider. Size
-    max_pairs with suggest_max_pairs at cutoff + skin, triangular, at the
-    same cell size.
+def rowscan_sweep_batched_plain(atoms, row_start, row_count, col_ids, list_of_system, scalars, series, mode: int,
+                                has_w: bool = True):
+    """rowscan_sweep_batched in plain PyTorch: rowscan_sweep_plain of each
+    system in the masked form (triangular, minimum image), stacked."""
+    rowscan_sweep_batched_plain.calls += 1
+    return torch.stack([
+        rowscan_sweep_plain(atoms[b], row_start[k], row_count[k], col_ids[k], scalars[b], series, mode, True, None, has_w)
+        for b, k in enumerate(list_of_system.tolist())
+    ])
 
-    preshift takes the lists and row centers from build_dotscan_tiles, which
-    rechecks the image bound at every rebuild; configure it only where
-    dotscan_valid holds. has_w=False is the caller's promise that every w
-    offset is zero. The result is NaN on overflow, where a rebuild breaks
-    the image bound, and where a rebuild finds a nonzero w without has_w.
-    atom_mask (N,) bool restricts the term to a subset of the atoms, as
-    build_rowscan_tiles and param_rows take it; it excludes preshift, as in
-    JAX's configuration."""
-    if preshift and atom_mask is not None:
-        raise ValueError("make_nonbonded_rowscan_md: preshift takes no atom subset")
-    series = es_energy_force_series(beta, cutoff)
+
+rowscan_sweep_batched_plain.calls = 0
+
+
+def _batched_launcher():
+    fn = _build.load_library("rowscan").rowscan_sweep_batched_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_float)] * 2 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def rowscan_sweep_batched(atoms, row_start, row_count, col_ids, list_of_system, scalars, series, mode: int,
+                          has_w: bool = True):
+    """(B, Npad, 4) [u_i, dU/dx_i] of B systems in one sweep, in the masked
+    form (Newton-triangular lists, minimum image; with w unless has_w is
+    False), mode FORCE or ENERGY.
+
+    atoms (B, Npad, 8) f32 and scalars (B, 4) f32 are each system's own;
+    the lists row_start/row_count (L, nR) and col_ids (L, max_pairs) int32
+    hold L replicas' lists, and list_of_system (B,) int32, each in [0, L),
+    names the lists each system sweeps (several parameter sets of one
+    replica share its lists). A CUDA tensor launches the kernel of
+    csrc/rowscan.cu once for all B systems on the current stream (each
+    system's output bitwise its rowscan_sweep launch, NaN past the
+    fixed-point range per system); a CPU tensor runs
+    rowscan_sweep_batched_plain."""
+    if atoms.device.type == "cpu":
+        return rowscan_sweep_batched_plain(atoms, row_start, row_count, col_ids, list_of_system, scalars, series, mode, has_w)
+    if atoms.device.type != "cuda":
+        raise ValueError(f"rowscan_sweep_batched: no kernel for device {atoms.device}")
+    if mode not in (FORCE, ENERGY):
+        raise ValueError(f"rowscan_sweep_batched: mode must be FORCE or ENERGY, got {mode}")
+    dev = atoms.device
+    if atoms.dim() != 3 or atoms.shape[1] % COL:
+        raise ValueError(f"rowscan_sweep_batched: atoms must be (B, Npad, 8) with Npad a multiple of {COL}")
+    n_sys, n_pad = atoms.shape[:2]
+    n_rows = n_pad // ROW
+    n_lists = row_start.shape[0]
+    check_tensor("atoms", atoms, torch.float32, dev, (n_sys, n_pad, 8))
+    check_tensor("row_start", row_start, torch.int32, dev, (n_lists, n_rows))
+    check_tensor("row_count", row_count, torch.int32, dev, (n_lists, n_rows))
+    check_tensor("col_ids", col_ids, torch.int32, dev)
+    if col_ids.dim() != 2 or col_ids.shape[0] != n_lists:
+        raise ValueError(f"col_ids: want ({n_lists}, max_pairs), got {tuple(col_ids.shape)}")
+    check_tensor("list_of_system", list_of_system, torch.int32, dev, (n_sys,))
+    check_tensor("scalars", scalars, torch.float32, dev, (n_sys, 4))
+    h_arg, p_arg = series_args(series)
+    out = torch.empty((n_sys, n_pad, 4), dtype=torch.float32, device=dev)
+    acc = torch.zeros(n_sys * (4 * n_pad + 1), dtype=torch.int64, device=dev)  # a system's sums, then its flag
+    rc = _batched_launcher()(
+        atoms.data_ptr(), row_start.data_ptr(), row_count.data_ptr(), col_ids.data_ptr(), list_of_system.data_ptr(),
+        scalars.data_ptr(), out.data_ptr(), acc.data_ptr(), n_rows, n_sys, col_ids.shape[1], mode, int(has_w),
+        h_arg, p_arg, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"rowscan_sweep_batched: kernel launch failed with CUDA error {rc}")
+    rowscan_sweep_batched.launches += 1
+    return out
+
+
+rowscan_sweep_batched.launches = 0
+
+
+def _md_build(cutoff: float, max_pairs: int, skin: float, cell_size: float, preshift: bool, has_w: bool, atom_mask):
+    """The rowscan MD providers' build(conf, params, box) -> ListState."""
 
     def build(conf, params, box):
         if preshift:
@@ -544,6 +613,33 @@ def make_nonbonded_rowscan_md(
         prows = param_rows(params.to(conf.dtype), tiles.pad_order, n, atom_mask)
         return ListState(tiles, torch.argsort(tiles.pad_order[:n]), prows, invalid)
 
+    return build
+
+
+def make_nonbonded_rowscan_md(
+    beta: float, cutoff: float, max_pairs: int, skin: float = 0.1, rebuild_interval: int = 20,
+    cell_size: float = 0.65, preshift: bool = False, has_w: bool = True, atom_mask=None,
+):
+    """MD force provider over Newton-triangular rowscan tiles (counterpart
+    of JAX's make_nonbonded_rowscan_md with its default triangular=True),
+    chopped to the bare cutoff at every sweep: an F sweep per step, a U
+    sweep for the energy, and the energy under other parameters through the
+    same lists; see nonbonded_kernel.make_list_md_provider. Size max_pairs
+    with suggest_max_pairs at cutoff + skin, triangular, at the same cell
+    size.
+
+    preshift takes the lists and row centers from build_dotscan_tiles, which
+    rechecks the image bound at every rebuild; configure it only where
+    dotscan_valid holds. has_w=False is the caller's promise that every w
+    offset is zero. The result is NaN on overflow, where a rebuild breaks
+    the image bound, and where a rebuild finds a nonzero w without has_w.
+    atom_mask (N,) bool restricts the term to a subset of the atoms, as
+    build_rowscan_tiles and param_rows take it; it excludes preshift, as in
+    JAX's configuration."""
+    if preshift and atom_mask is not None:
+        raise ValueError("make_nonbonded_rowscan_md: preshift takes no atom subset")
+    series = es_energy_force_series(beta, cutoff)
+
     def sweep(state, conf, box, mode):
         t = state.lists
         atoms = assemble_atoms(conf, box, t.pad_order, state.prows)
@@ -553,7 +649,49 @@ def make_nonbonded_rowscan_md(
             t.rcen_q if preshift else None, has_w,
         )
 
-    return make_list_md_provider(build, sweep, FORCE, ENERGY, rebuild_interval)
+    build = _md_build(cutoff, max_pairs, skin, cell_size, preshift, has_w, atom_mask)
+    return make_list_md_provider(build, sweep, FORCE, ENERGY, rebuild_interval, prows_fn=param_rows_of(atom_mask))
+
+
+def batched_sweep_inputs(lists, xs, prows, boxes, lists_of, cutoff: float):
+    """rowscan_sweep_batched's inputs up to the series: (atoms, row_start,
+    row_count, col_ids, list_of_system, scalars) of B systems from K
+    replicas' stacked lists (RowscanTiles, each field (K, ...)), their
+    coordinates xs (K, N, 3) and boxes (K, 3, 3), the systems' parameter
+    rows prows (B, Npad, 4) and the replica each reads, lists_of (B,).
+    Every replica's tiles are chopped once, at its own coordinates."""
+    box_diag = torch.diagonal(boxes, dim1=-2, dim2=-1)[..., None, :]
+    xyz = torch.take_along_dim(_wrap(xs[..., :3], box_diag), lists.pad_order[..., None], dim=-2)
+    row_count = chop_row_counts(xyz, lists.rank_mat, lists.row_count, boxes, cutoff)
+    if prows.shape[0] != xs.shape[0]:  # several parameter sets a replica: each system reads its replica's rows
+        idx = lists_of.long()
+        xyz, boxes = xyz[idx], boxes[idx]
+    atoms = torch.cat([xyz, prows, prows.new_zeros((*prows.shape[:-1], 1))], dim=-1)
+    return atoms, lists.row_start, row_count, lists.col_ids, lists_of, sweep_scalars(boxes, cutoff)
+
+
+def make_nonbonded_rowscan_md_batched(
+    beta: float, cutoff: float, max_pairs: int, skin: float = 0.1, rebuild_interval: int = 20,
+    cell_size: float = 0.65, has_w: bool = True, atom_mask=None,
+):
+    """make_nonbonded_rowscan_md for K replicas of one system stepped
+    together, in the masked form (triangular, minimum image; the RBFE host
+    term's): each replica's lists are built as the single provider builds
+    them and stacked at max_pairs (a rebuild loops over the replicas); a
+    step assembles and chops every replica's tiles at once and runs one
+    rowscan_sweep_batched launch, F for the forces, U for the energies (K
+    systems, or K * S for S parameter sets a replica); see
+    nonbonded_kernel.make_batched_list_md_provider. Each replica's result
+    is bitwise the single provider's sweep; a replica whose lists overflow
+    gets NaN alone."""
+    series = es_energy_force_series(beta, cutoff)
+
+    def sweep_batched(state, xs, prows, boxes, lists_of, mode):
+        args = batched_sweep_inputs(state.lists, xs, prows, boxes, lists_of, cutoff)
+        return rowscan_sweep_batched(*args, series, mode, has_w)
+
+    build = _md_build(cutoff, max_pairs, skin, cell_size, False, has_w, atom_mask)
+    return make_batched_list_md_provider(build, sweep_batched, param_rows_of(atom_mask), FORCE, ENERGY, rebuild_interval)
 
 
 def make_nonbonded_rowscan_energy_force(

@@ -1,0 +1,165 @@
+"""Replica-parallel HREX on one card (counterpart of
+timemachine_tpu/parallel/replica_exchange.py, without its mesh).
+
+All K replicas advance their MD segments together in one BatchedContext
+(the JAX runner vmaps the production step over a leading replica axis);
+the banded replica-by-state energy matrix U[r, l] (|l - state(r)| <=
+max_delta_states, +inf outside, NaN -> +inf) is computed on the card, each
+replica's 2 max_delta_states + 1 parameter sets in one batched energy
+sweep; then the (K, K) matrix comes to the host, where the neighbor-swap
+scan (md/hrex.neighbor_swap_scan) runs. Replicas never move: only the
+permutation state -> replica, and with it the parameter rows each replica
+reads, changes.
+
+Randomness: one torch.Generator, seeded from `seed`, draws every step's
+(K, N, 3) Langevin noise; the barostat draws (K, 2) uniforms a move from
+its own, seeded from the template Context's barostat seed; a swap batch
+draws from numpy default_rng((seed, iteration)). The JAX runner folds a key
+per replica and per step, and draws its swaps from a key folded with the
+iteration. Both are reproducible from the seed.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from timemachine_torch.constants import BOLTZ
+from timemachine_torch.md.context import BatchedContext
+from timemachine_torch.md.hrex import draw_swap_randomness, neighbor_swap_scan
+
+
+@dataclass
+class IterationResult:
+    """One HREX iteration's outputs on the host, ordered by state."""
+
+    frames_by_state: np.ndarray  # (K, N, 3)
+    boxes_by_state: np.ndarray  # (K, 3, 3)
+    replica_idx_by_state: np.ndarray  # (K,) the permutation during the segment
+    accepted_by_pair: np.ndarray  # (n_pairs,)
+    proposed_by_pair: np.ndarray  # (n_pairs,)
+    U_kl: np.ndarray  # (K, K) replica-by-state energies (+inf outside the band)
+
+
+class ReplicaExchangeRunner:
+    """Drives K states of one topology, all replicas in one batched step.
+
+    Built from a template Context (its potentials, configured, its
+    integrator and movers) and per-state parameter lists; the states must
+    be potentials-compatible (the same terms, other parameters)."""
+
+    def __init__(
+        self,
+        context,
+        params_list_by_state: Sequence[Sequence],
+        *,
+        temperature: float,
+        neighbor_pairs,
+        n_swap_attempts_per_iter: int,
+        max_delta_states: Optional[int],
+        seed: int,
+    ):
+        self._context = context
+        self.n_states = len(params_list_by_state)
+        self.kT = BOLTZ * temperature
+        self.neighbor_pairs = np.asarray(neighbor_pairs).reshape(-1, 2)
+        self.n_swap_attempts = n_swap_attempts_per_iter
+        self.max_delta = max_delta_states if max_delta_states is not None else self.n_states
+        self.seed = seed
+        dev = context.device
+        self._params_by_state = [
+            torch.stack([torch.as_tensor(pls[i], device=dev, dtype=pot.params.dtype) for pls in params_list_by_state])
+            for i, pot in enumerate(context.potentials)
+        ]
+        self._batch: Optional[BatchedContext] = None
+        self.perm = np.arange(self.n_states)
+        self.t = 0
+        self.iteration = 0
+
+    # -- setup ----------------------------------------------------------------
+
+    def initialize(self, xs0, vs0, boxes0):
+        """Stack the replicas' dynamic state; replica r starts at state r."""
+        assert len(xs0) == self.n_states
+        self.perm = np.arange(self.n_states)
+        self._batch = BatchedContext(
+            self._context, np.stack(xs0), np.stack(vs0), np.stack(boxes0), self._params_of_replicas(), self.seed
+        )
+        self.t = 0
+        self.iteration = 0
+
+    @property
+    def batch(self) -> BatchedContext:
+        return self._batch
+
+    def _state_of_replica(self) -> np.ndarray:
+        return np.argsort(self.perm)
+
+    def _params_of_replicas(self) -> list:
+        idx = torch.as_tensor(self._state_of_replica(), device=self._context.device)
+        return [p[idx] for p in self._params_by_state]
+
+    def _segment(self, n_steps: int):
+        """n_steps of every replica at its current state; the lists are
+        rebuilt at the start from the replicas' current parameters (swaps
+        re-point replicas at other parameter rows), as in JAX's segment."""
+        self._batch.set_params(self._params_of_replicas())
+        self._batch.multiple_steps(n_steps)
+        self.t += n_steps
+
+    # -- public stepping ------------------------------------------------------
+
+    def equilibrate(self, n_eq_steps: int, barostat_interval: Optional[int] = 15):
+        """Advance every replica n_eq_steps at its current state, with no
+        swaps and no frames, the barostat every barostat_interval steps."""
+        if n_eq_steps <= 0:
+            return
+        prev = self._batch.set_barostat_interval(barostat_interval) if barostat_interval is not None else None
+        self._segment(n_eq_steps)
+        if prev is not None:
+            self._batch.set_barostat_interval(prev)
+        assert np.all(np.isfinite(self._batch.get_x_t())), "Equilibration resulted in a nan"
+
+    def banded_energies(self) -> np.ndarray:
+        """(K, K) U[r, l]: replica r's coordinates under state l's
+        parameters for |l - state(r)| <= max_delta_states (clipped to the
+        ladder, as JAX's), +inf elsewhere and where U is NaN; on the host."""
+        K = self.n_states
+        delta = min(self.max_delta, K - 1)
+        s_r = torch.as_tensor(self._state_of_replica(), device=self._context.device)
+        cols = torch.clamp(s_r[:, None] + torch.arange(-delta, delta + 1, device=s_r.device), 0, K - 1)  # (K, S)
+        u = self._batch.energies_with_params([p[cols] for p in self._params_by_state])
+        U = torch.full((K, K), torch.inf, dtype=u.dtype, device=u.device).scatter_(1, cols, u)
+        U = torch.where(torch.isnan(U), torch.inf, U)
+        return U.cpu().numpy().astype(np.float64)
+
+    def advance_frame(self, n_steps: int) -> IterationResult:
+        """One HREX iteration: the MD segment, the banded U_kl and a swap batch."""
+        perm_during_segment = self.perm.copy()
+        self._segment(n_steps)
+        frames = self._batch.get_x_t()[perm_during_segment]
+        boxes = self._batch.get_box()[perm_during_segment]
+        U = self.banded_energies()
+        own_state = np.argsort(perm_during_segment)
+        assert np.all(np.isfinite(U[np.arange(self.n_states), own_state])), "Replicas have non-finite energies"
+        pair_idxs, uniforms = draw_swap_randomness(
+            (self.seed, self.iteration), len(self.neighbor_pairs), self.n_swap_attempts
+        )
+        self.perm, accepted, proposed = neighbor_swap_scan(
+            perm_during_segment, -U / self.kT, self.neighbor_pairs, pair_idxs, uniforms
+        )
+        self.iteration += 1
+        return IterationResult(frames, boxes, perm_during_segment, accepted, proposed, U)
+
+    # -- state-ordered observers ----------------------------------------------
+
+    def final_state_arrays(self):
+        """(coords, velocities, boxes) ordered by state."""
+        return self._batch.get_x_t()[self.perm], self._batch.get_v_t()[self.perm], self._batch.get_box()[self.perm]
+
+    def mover_state_field_by_state(self, mover_idx: int, field: str) -> np.ndarray:
+        """A per-replica mover-state field, ordered by state."""
+        return getattr(self._batch.get_mover_states()[mover_idx], field).cpu().numpy()[self.perm]

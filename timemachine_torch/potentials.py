@@ -7,6 +7,8 @@ potential + params) and offers
   energy(x, box) -> u
   energy_force(x, box) -> (u, force),  force = -dU/dx, closed form
   u(x, params, box) -> u,  differentiable in x and params (du/dp)
+  u_force(x, params, box) -> (u, force)  (all but the all-pairs terms), the
+      closed form at other parameters: what a batched step vmaps over replicas
 
 Bonded terms sum their per-term forces with a fixed-order SegmentSum, so a
 step is bitwise reproducible on the card. `Nonbonded` also offers the
@@ -60,9 +62,12 @@ class _BondedTerm(nn.Module):
     def energy(self, x, box):
         return self.u(x, self.params, box)
 
-    def energy_force(self, x, box):
-        u, contribs = type(self)._contribs(x, self.params, self.idxs)
+    def u_force(self, x, params, box):
+        u, contribs = type(self)._contribs(x, params, self.idxs)
         return u, self.assemble(torch.cat(contribs))
+
+    def energy_force(self, x, box):
+        return self.u_force(x, self.params, box)
 
 
 class HarmonicBond(_BondedTerm):
@@ -100,8 +105,8 @@ class ChiralBondRestraint(_BondedTerm):
     def u(self, x, params, box):
         return chiral.chiral_bond_restraint(x, params, box, self.idxs, self.signs.to(params.dtype))
 
-    def energy_force(self, x, box):
-        u, contribs = chiral.chiral_bond_contribs(x, self.params, self.idxs, self.signs)
+    def u_force(self, x, params, box):
+        u, contribs = chiral.chiral_bond_contribs(x, params, self.idxs, self.signs.to(params.dtype))
         return u, self.assemble(torch.cat(contribs))
 
 
@@ -132,9 +137,9 @@ class NonbondedPairList(_PairListTerm):
         )
         return self.sign * (torch.sum(vdw) + torch.sum(es))
 
-    def energy_force(self, x, box):
+    def u_force(self, x, params, box):
         u, f = nonbonded.specific_pairs_exact_energy_force(
-            x, self.params, box, self.idxs, self.beta, self.cutoff, self.rescale_mask, self.assemble
+            x, params, box, self.idxs, self.beta, self.cutoff, self.rescale_mask.to(params.dtype), self.assemble
         )
         return self.sign * u, self.sign * f
 
@@ -156,10 +161,8 @@ class NonbondedPairListPrecomputed(_PairListTerm):
         vdw, es = nonbonded.nonbonded_on_precomputed_pairs(x, params, box, self.idxs, self.beta, self.cutoff)
         return torch.sum(vdw) + torch.sum(es)
 
-    def energy_force(self, x, box):
-        return nonbonded.precomputed_pairs_energy_force(
-            x, self.params, box, self.idxs, self.beta, self.cutoff, self.assemble
-        )
+    def u_force(self, x, params, box):
+        return nonbonded.precomputed_pairs_energy_force(x, params, box, self.idxs, self.beta, self.cutoff, self.assemble)
 
 
 class NonbondedInteractionGroup(nn.Module):
@@ -196,10 +199,13 @@ class NonbondedInteractionGroup(nn.Module):
     def energy(self, x, box):
         return self.u(x, self.params, box)
 
-    def energy_force(self, x, box):
+    def u_force(self, x, params, box):
         return nonbonded.interaction_group_energy_force(
-            x, self.params, box, self.row_atom_idxs, self.col_atom_idxs, self.beta, self.cutoff
+            x, params, box, self.row_atom_idxs, self.col_atom_idxs, self.beta, self.cutoff
         )
+
+    def energy_force(self, x, box):
+        return self.u_force(x, self.params, box)
 
 
 class NonbondedAllPairs(nn.Module):
@@ -251,7 +257,7 @@ class NonbondedAllPairs(nn.Module):
         self.register_buffer("atom_mask", mask)
         # the exclusion corrections' electrostatics: the rowscan polynomial, or None for exact erfc
         self.h_coeffs = rs.es_energy_force_series(self.beta, self.cutoff)[0]
-        self._energy = self._energy_force = self._u = self._md = None
+        self._energy = self._energy_force = self._u = self._md = self._md_batched = None
         self.kernel = None
 
     def configure(self, box, conf, kernel: str = "rowscan", rowscan_has_w: bool = True, quad_has_w: bool = True):
@@ -266,6 +272,7 @@ class NonbondedAllPairs(nn.Module):
         configure_pallas takes the same two)."""
         if kernel not in ("rowscan", "gather", "quad", "dot", "v1"):
             raise ValueError(f"kernel must be 'rowscan', 'gather', 'quad', 'dot' or 'v1', got {kernel!r}")
+        self._md_batched = None
         mask = self.atom_mask
         if mask is not None and kernel in ("gather", "dot", "v1"):
             raise ValueError(
@@ -331,6 +338,11 @@ class NonbondedAllPairs(nn.Module):
                     self.beta, self.cutoff, md_pairs, skin=SKIN, rebuild_interval=REBUILD_INTERVAL, cell_size=cell,
                     preshift=preshift, has_w=rowscan_has_w, atom_mask=mask,
                 )
+                if not preshift:
+                    self._md_batched = rs.make_nonbonded_rowscan_md_batched(
+                        self.beta, self.cutoff, md_pairs, skin=SKIN, rebuild_interval=REBUILD_INTERVAL,
+                        cell_size=cell, has_w=rowscan_has_w, atom_mask=mask,
+                    )
                 self.md_max_pairs, self.md_cell_size, self.md_preshift = md_pairs, cell, preshift
         else:
             ef = nbk.make_nonbonded_tiles_energy_force(self.beta, self.cutoff, self.dp_max_tiles, cb=DP_CB)
@@ -366,10 +378,12 @@ class NonbondedAllPairs(nn.Module):
 
     def md_force_provider(self):
         """(init(x, box), apply(state, x, box, t) -> (force, state),
-        energy(state, x, box), rigid_energy(state, x, box)); the energies
-        reuse the state's lists."""
+        energy(state, x, box), rigid_energy(state, x, box),
+        energy_with_params(state, x, params, box)); the energies reuse the
+        state's lists, the last with another state's parameters (JAX's
+        provider slot 4, which the HREX runner's banded energies read)."""
         self._configured()
-        init, apply, energy = self._md
+        init, apply, energy, energy_with_params = self._md
 
         def init_fn(x, box):
             return init(x, self.params, box)
@@ -380,7 +394,30 @@ class NonbondedAllPairs(nn.Module):
         def energy_fn(state, x, box):
             return energy(state, x, self.params, box)
 
-        return init_fn, apply_fn, energy_fn, energy_fn
+        return init_fn, apply_fn, energy_fn, energy_fn, energy_with_params
+
+    def md_force_provider_batched(self):
+        """The provider of K replicas stepped together, each with its own
+        parameters: (init(xs, params, boxes), apply(state, xs, params, boxes,
+        t) -> (forces, state), energy(state, xs, params, boxes) -> (K,),
+        rigid_energy(state, xs, params, boxes), energy_with_params(state,
+        xs, params_sets (K, S, N, 4), boxes) -> (K, S)), over one
+        rowscan_sweep_batched launch a step. The energies run through the
+        lists of the state's last rebuild, whose parameter rows the first
+        two use. Only the rowscan configuration without preshift has one
+        (the RBFE host term's); others raise."""
+        self._configured()
+        if self._md_batched is None:
+            raise NotImplementedError(
+                f"no batched MD provider for kernel={self.kernel!r} (preshift {getattr(self, 'md_preshift', None)}): "
+                "only the rowscan configuration without preshift has one"
+            )
+        init, apply, energy, energy_with_params = self._md_batched
+
+        def energy_fn(state, xs, params, boxes):
+            return energy(state, xs, boxes)
+
+        return init, apply, energy_fn, energy_fn, energy_with_params
 
 
 class Nonbonded(NonbondedAllPairs):
@@ -460,7 +497,7 @@ class Nonbonded(NonbondedAllPairs):
         and in the energy. The rigid energy (4th) is all-pairs only: in a
         rigid move the bond-graph-local exclusions cancel exactly, and
         leaving them out avoids f32 cancellation of their large sums."""
-        init_fn, apply_ap, energy_ap, _ = super().md_force_provider()
+        init_fn, apply_ap, energy_ap, _, energy_params_ap = super().md_force_provider()
 
         def apply_fn(state, x, box, t):
             f, state = apply_ap(state, x, box, t)
@@ -469,4 +506,33 @@ class Nonbonded(NonbondedAllPairs):
         def energy_fn(state, x, box):
             return energy_ap(state, x, box) - self.exclusion_energy_force(x, box)[0]
 
-        return init_fn, apply_fn, energy_fn, energy_ap
+        def energy_with_params_fn(state, x, params, box):
+            return energy_params_ap(state, x, params, box) - self.exclusion_energy(x, params, box)
+
+        return init_fn, apply_fn, energy_fn, energy_ap, energy_with_params_fn
+
+    def md_force_provider_batched(self):
+        """As NonbondedAllPairs', with the exclusions subtracted for every
+        replica (and parameter set) at once by torch.func.vmap, in the
+        rowscan polynomial's closed form; the rigid energy is all-pairs
+        only, as md_force_provider's. The energy under parameter sets is
+        float64: the exclusions are evaluated in it, from which the
+        all-pairs sum (its per-atom energies summed in float64) cancels."""
+        init, apply_ap, energy_ap, _, energy_params_ap = super().md_force_provider_batched()
+        exc_uf = torch.func.vmap(self._exclusion_energy_force_poly)
+        exc_u_sets = torch.func.vmap(torch.func.vmap(self.exclusion_energy, in_dims=(None, 0, None)))
+
+        def apply_fn(state, xs, params, boxes, t):
+            f, state = apply_ap(state, xs, params, boxes, t)
+            return f + exc_uf(xs, params, boxes)[1], state
+
+        def energy_fn(state, xs, params, boxes):
+            return energy_ap(state, xs, params, boxes) - exc_uf(xs, params, boxes)[0]
+
+        def energy_with_params_fn(state, xs, params_sets, boxes):
+            f64 = torch.float64
+            return energy_params_ap(state, xs, params_sets, boxes) - exc_u_sets(
+                xs.to(f64), params_sets.to(f64), boxes.to(f64)
+            )
+
+        return init, apply_fn, energy_fn, energy_ap, energy_with_params_fn

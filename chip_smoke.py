@@ -90,6 +90,21 @@ the step, which must be equal; run_sims_hrex
 N14_STEPS_PER_FRAME) with the time per iteration, replica-steps per second
 against phase 13's sequential window step, the swap acceptance per pair,
 pair BAR and the edge's dG; the batched step's time and device idle share.
+The state builder [15]: the same 12 windows built on this machine by
+timemachine_torch's builder (testsystems/rbfe_solvent.py build_rbfe_solvent:
+SMILES, the cache's conformers, AM1 charges in strict mode, the force field,
+the atom mapping, the single topology, the water box, setup_initial_state;
+only x0 and box0 from the cache), each stage's host seconds; the core, every
+window's index arrays, masses, barostat groups and seeds, interacting atoms
+and v0 equal to the cache's, every parameter within TOL_BUILD_REL of its
+column's largest |value| but the columns of the AM1 charges, held in charge
+units within TOL_CHARGE_E (their relative difference, the host's numpy and
+OpenBLAS kernels printed); the count of windows bitwise the cache's and of
+equal integrator seeds (printed); at window N15_WINDOW the total force at
+the cache's x0 against the cache-loaded state's (TOL_BUILD_FORCE of the
+all-pairs norm), and N15_STEPS steps from the built state, finite, on the
+masked rowscan kernel every step, and with the cache's integrator seed
+bitwise the cache-loaded state's run.
 Every path runs with all launch and plain-call counts set to
 0 just before it and read just after. Then a JSON line on the kernels
 (time; launches per NPT step of the path named in `path`, per Adam step of
@@ -104,10 +119,12 @@ prints no result.
 
 import ctypes
 import json
+import os
 import subprocess
 import sys
 import time
 from collections import Counter
+from dataclasses import replace
 
 TEMP, DT, FRICTION, PRESSURE, BAROSTAT_INTERVAL = 300.0, 2.5e-3, 1.0, 1.013, 25
 N_FIRE, N_STEPS, N_PROFILE, N_DET = 400, 1000, 50, 100
@@ -122,6 +139,18 @@ N13_EQ, N13_FRAMES, N13_STEPS_PER_FRAME, N13_TIMED, N13_REUSE = 500, 20, 50, 200
 # phase 13's (10,000 equilibration steps, 1,000 frames of 400 steps in the
 # JAX package); the windows, atoms and replicas are not cut
 N14_EQ, N14_FRAMES, N14_STEPS_PER_FRAME, N14_MAX_DELTA, N14_TIMED = 500, 20, 50, 4, 40
+# phase 15, the state builder: the window whose force and run are held, the
+# run's steps; the built parameters against the cache's relative to each
+# column's largest |value|, and the force on phase 13's all-pairs norm. The
+# columns that carry the ligands' AM1 charges (the interaction group's q, the
+# pair list's q_i q_j) are held in charge units to the AM1 tolerance
+# TOL_CHARGE_E instead, and their relative difference is printed: the AM1 SCF
+# stops at |dE| < 1e-7, so the host's OpenBLAS build and kernels move the
+# charges' last digits (by 9.9e-12 e against the cache on an H100 host with
+# numpy 2.3.5's OpenBLAS, which is 1.07e-10 of the pair list's largest
+# q_i q_j; `python -m timemachine_torch.probes.am1_host` measures it)
+N15_WINDOW, N15_STEPS = 6, 200
+TOL_BUILD_REL, TOL_BUILD_FORCE, TOL_CHARGE_E = 1e-10, 1e-6, 1e-10
 # the banded U_kl against single-system sums of each term's u at the target
 # state's parameters: both accumulate in f64 (the host term's per-atom
 # energies come bitwise from the same kernel), so only the f32 terms' own
@@ -294,7 +323,11 @@ def main() -> int:
     from timemachine_torch.probes import fp32_peak as fp
     from timemachine_torch.probes import tile_census as tc
     from timemachine_torch.testsystems.dhfr import setup_dhfr
-    from timemachine_torch.testsystems.rbfe_solvent import load_rbfe_solvent
+    from timemachine_torch.ff.handlers import AM1ELF10_CHARGE_CACHE, GASTEIGER_CHARGE_CACHE
+    from timemachine_torch.probes.am1_host import blas_kernels
+    from timemachine_torch.testsystems.rbfe_solvent import build_differences, build_rbfe_solvent, load_rbfe_solvent, term_differences
+    from timemachine_torch.testsystems.rbfe_solvent import load_arrays as rbfe_cache_arrays
+    from timemachine_torch.testsystems.rbfe_solvent import metadata as rbfe_cache_metadata
 
     dev = torch.device("cuda", 0)
     f32 = torch.float32
@@ -1625,6 +1658,125 @@ def main() -> int:
     )
     check(len(result14.bar_results) == K14 - 1 and finite_res, "[14] the HREX pair BAR results are not 11 finite pairs")
     check(frames_ok, "[14] the HREX trajectories are not 12 finite ones of the frames asked for")
+
+    # -- 15. the state builder ------------------------------------------------------------
+    # the 12 windows built on this machine from the cache's recorded inputs
+    # (SMILES, conformers, box, seed, λ grid) by the port's builder, held
+    # against the cache's arrays; only x0 and box0 still come from the cache
+    t_phase15 = time.perf_counter()
+    f64 = torch.float64
+    strict_before = os.environ.get("TM_STRICT_CHARGES")
+    os.environ["TM_STRICT_CHARGES"] = "1"  # AM1 or fail: no Gasteiger charges stand in
+    try:
+        rec15 = {}
+        t0 = time.perf_counter()
+        states15 = build_rbfe_solvent(device=dev, dtype=f64, record=rec15)
+        torch.cuda.synchronize()
+        t_build15 = time.perf_counter() - t0
+        st15 = rec15["single_topology"]
+        for mol in (st15.mol_a, st15.mol_b):
+            check(AM1ELF10_CHARGE_CACHE in mol.props and GASTEIGER_CHARGE_CACHE not in mol.props,
+                  f"[15] {mol.name}'s base charges are not AM1ELF10")
+        refs15 = load_rbfe_solvent(device=dev, dtype=f64)
+        # window 6 again in the MD path's dtype, for its force and its run
+        rec15b = {}
+        built15 = build_rbfe_solvent(device=dev, dtype=f32, windows=[N15_WINDOW], record=rec15b)[0]
+        ref15 = load_rbfe_solvent(device=dev, dtype=f32, windows=[N15_WINDOW])[0]
+    finally:
+        if strict_before is None:
+            os.environ.pop("TM_STRICT_CHARGES")
+        else:
+            os.environ["TM_STRICT_CHARGES"] = strict_before
+    sec15 = rec15["seconds"]
+    stages15 = ", ".join(f"{k} {v:.3f} s" for k, v in sec15.items() if k != "windows")
+    print(
+        f"[15 build] build_rbfe_solvent, 12 windows on the card in {t_build15:.2f} s, host clock: {stages15}; "
+        f"setup_initial_state per window {' '.join(f'{v:.3f}' for v in sec15['windows'])} s; built again for window "
+        f"{N15_WINDOW} in f32: {', '.join(f'{k} {v:.3f} s' for k, v in rec15b['seconds'].items() if k != 'windows')}, "
+        f"the window {rec15b['seconds']['windows'][0]:.3f} s ({smi})"
+    )
+    a15 = rbfe_cache_arrays()
+    core_ok = np.array_equal(rec15["core"], rbfe_cache_metadata(a15)["core"])
+    print(f"[15 core] {len(rec15['core'])} mapped atoms, the cache's core: {core_ok}")
+    check(core_ok, "[15] the core differs from the cache's")
+    d15 = build_differences(states15, refs15)
+    same15 = all(
+        np.array_equal(s.integrator.masses, r.integrator.masses) and np.array_equal(s.v0, r.v0)
+        and np.array_equal(s.interacting_atoms, r.interacting_atoms) and s.barostat.seed == r.barostat.seed
+        and len(s.barostat.group_idxs) == len(r.barostat.group_idxs)
+        and all(np.array_equal(g, h) for g, h in zip(s.barostat.group_idxs, r.barostat.group_idxs))
+        for s, r in zip(states15, refs15)
+    )
+    print(
+        f"[15 arrays] 12 windows x {len(states15[0].potentials)} terms: index arrays equal {d15['indices_equal']}; "
+        f"largest difference of a column without the AM1 charges {d15['other_rel']:.3e} of its largest |value| (tol "
+        f"{TOL_BUILD_REL:g}); masses, barostat groups and seeds, interacting atoms and v0 equal {same15}"
+    )
+    print(
+        f"[15 charges] the ligand charges (interaction group's q) within {d15['q_e']:.3e} e, the pair list's q_i q_j "
+        f"within {d15['qq_e']:.3e} e a charge (tol {TOL_CHARGE_E:g} e); the same columns relative to their largest "
+        f"|value| (the other columns' measure, printed): {d15['q_rel']:.3e} and {d15['qq_rel']:.3e}; numpy {np.__version__}, "
+        f"OpenBLAS {blas_kernels()} (the AM1 SCF's stop follows their rounding: probes/am1_host.py)"
+    )
+    print(
+        f"[15 seeds] windows bitwise the cache's in every parameter: {len(d15['bitwise'])} of 12 {d15['bitwise']}; "
+        f"integrator seeds equal: {len(d15['seeds'])} of 12 {d15['seeds']} (the seed hashes the parameters' bytes: "
+        f"ROADMAP P18)"
+    )
+    check(d15["indices_equal"], "[15] an index array differs from the cache's")
+    check(d15["other_rel"] <= TOL_BUILD_REL, "[15] a parameter differs from the cache's")
+    check(max(d15["q_e"], d15["qq_e"]) <= TOL_CHARGE_E, "[15] a ligand charge differs from the cache's")
+    check(same15, "[15] masses, groups, seeds, interacting atoms or v0 differ from the cache's")
+
+    # window 6 in the MD path's dtype: the force at the cache's x0 and 200 steps
+    for s in (built15, ref15):
+        configure_all_pairs(s)
+    x15 = torch.as_tensor(built15.x0, device=dev, dtype=f32)
+    box15 = torch.as_tensor(built15.box0, device=dev, dtype=f32)
+    f_built = sum(p.energy_force(x15, box15)[1] for p in built15.potentials)
+    f_ref = sum(p.energy_force(x15, box15)[1] for p in ref15.potentials)
+    nb15 = next(p for p in ref15.potentials if isinstance(p, Nonbonded))
+    ap15 = float(torch.linalg.vector_norm(NonbondedAllPairs.energy_force(nb15, x15, box15)[1]))
+    f_rel15 = float(torch.linalg.vector_norm(f_built - f_ref)) / ap15
+    print(f"[15 force] window {N15_WINDOW} at the cache's x0, built vs cache-loaded total force: |diff| / |all-pairs "
+          f"force| {f_rel15:.3e} (tol {TOL_BUILD_FORCE:g}) ({smi})")
+    check(f_rel15 <= TOL_BUILD_FORCE, "[15] the built window's force disagrees with the cache-loaded one's")
+
+    def run15(state):
+        ctx = get_context(state, MDParams(n_frames=1, n_eq_steps=0, steps_per_frame=1, seed=2023))
+        ctx.multiple_steps(N15_STEPS)
+        torch.cuda.synchronize()
+        return [f(ctx) for f in (Context.get_x_t, Context.get_v_t, Context.get_box)]
+
+    zero_counts()
+    t0 = time.perf_counter()
+    out_built = run15(built15)
+    t_run15 = time.perf_counter() - t0
+    launches15, plain15_calls = read_counts()
+    finite15 = all(np.isfinite(v).all() for v in out_built)
+    # where the f32 parameters are the cache's bits, the run under the cache's
+    # integrator seed must be bitwise the cache-loaded state's run
+    same_f32 = all(d["bitwise"] and d["indices_equal"] for d in term_differences(built15, ref15).values())
+    same_seed = built15.integrator.seed == ref15.integrator.seed
+    bitwise_run = None
+    if same_f32:
+        reseeded = replace(built15, integrator=replace(built15.integrator, seed=ref15.integrator.seed))
+        out_ref = run15(ref15)
+        bitwise_run = all(np.array_equal(u, v) for u, v in zip(run15(reseeded), out_ref))
+        if same_seed:
+            bitwise_run &= all(np.array_equal(u, v) for u, v in zip(out_built, out_ref))
+    print(
+        f"[15 run] window {N15_WINDOW} from the built state: {N15_STEPS} steps in {t_run15:.2f} s host clock, finite "
+        f"{finite15}; launches {launches15}, plain calls {plain15_calls}; integrator seed {built15.integrator.seed} "
+        f"(cache {ref15.integrator.seed}); f32 parameters bitwise the cache's {same_f32}; under the cache's seed, "
+        f"x, v, box bitwise the cache-loaded run's: {bitwise_run} ({smi})"
+    )
+    check(finite15, "[15] the built window's run is not finite")
+    check(plain15_calls == 0, "[15] the built window ran a plain sweep")
+    check(launches15["rowscan_sweep"] >= N15_STEPS, "[15] the built window did not launch the rowscan kernel every step")
+    check(bitwise_run is not False, "[15] the built window's run differs from the cache-loaded one's")
+    masked_row["launches_from_built_states"] = launches15["rowscan_sweep"] / N15_STEPS
+    print(f"[15 time] phase 15 took {time.perf_counter() - t_phase15:.1f} s, host clock ({smi})")
 
     print(json.dumps({"kernels": [kernel_row, masked_row, batched_row, nb_row, gather_row, quad_row, dot_row, *probe_rows]}))
     print(smi)

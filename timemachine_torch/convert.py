@@ -5,7 +5,8 @@ the port's modules.
 Reads the JAX objects by duck typing (`bp.potential.idxs`, `bp.params`,
 `exclusion_idxs`, `scale_factors`, `beta`, `cutoff`, the potentials' class
 names) through np.asarray, so this module imports neither jax nor the JAX
-package. Every nonbonded configuration (`configure(kernel=...)`, "dot"
+package; the port's own builders' terms (fe/terms.py) have the same shape
+and go through the same functions. Every nonbonded configuration (`configure(kernel=...)`, "dot"
 included) reads the same parameters, so nothing more is carried for any of
 them.
 """

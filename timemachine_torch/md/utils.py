@@ -7,6 +7,12 @@ import numpy as np
 from timemachine_torch.constants import BOLTZ
 
 
+def get_bond_list(harmonic_bond_potential) -> list[tuple[int, int]]:
+    """Topology read off a harmonic-bond potential's indices (every valence
+    bond is assumed to be there)."""
+    return [(int(i), int(j)) for i, j in harmonic_bond_potential.idxs]
+
+
 def get_group_indices(bond_list, num_atoms: int) -> list[np.ndarray]:
     """Connected components of the bond graph over all atoms (unbonded atoms
     are singleton groups), each sorted ascending, components ordered by their

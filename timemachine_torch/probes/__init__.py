@@ -3,7 +3,9 @@ PyTorch version: the FP32 FMA peak (`fp32_peak`, counterpart of
 scripts/probe_mfu.py's kernel) and the bf16 vs f32 rate of the pair sweeps'
 distance-and-gate sequence (`bf16_rate`, counterpart of
 scripts/probe_bf16.py's kernel); and the tile census of the pair sweep
-(`tile_census`, counterpart of scripts/probe_bf16.py --census)."""
+(`tile_census`, counterpart of scripts/probe_bf16.py --census). One probe
+is of the host, not the card: `am1_host`, how far the host's OpenBLAS
+kernels move the AM1 charges of the solvent leg's built windows."""
 
 import statistics
 import sys

@@ -104,7 +104,20 @@ equal integrator seeds (printed); at window N15_WINDOW the total force at
 the cache's x0 against the cache-loaded state's (TOL_BUILD_FORCE of the
 all-pairs norm), and N15_STEPS steps from the built state, finite, on the
 masked rowscan kernel every step, and with the cache's integrator seed
-bitwise the cache-loaded state's run.
+bitwise the cache-loaded state's run. The solvent leg from two SMILES
+[16]: fe/rbfe.py run_solvent as a user calls it, on ethanol and propane
+embedded from SMILES (N16_WINDOWS windows, depth cut to N16_EQ
+equilibration steps, N16_FRAMES frames of N16_STEPS_PER_FRAME and
+N16_FRAMES_BISECTION bisection frames), with each stage's host seconds
+(the embedding, the host's FIRE and NPT, the anchors' λ-chain
+minimization, bisection, HREX); the conformers against the cache's
+(TOL_EMBED) and the core; the ligand bitwise unmoved through the host's
+NPT run, the host's largest |F| under MAX_FORCE_NORM and its box volume
+against the cache's box0; per anchor window its BFGS calls, its float64
+energy before and after (it must fall) and its largest displacement (at
+most N16_MIN_CUTOFF); window 0 minimized again, bitwise; the bisection's λ
+schedule and overlaps; HREX's acceptance, ΔG and 11 finite BAR pairs; the
+rowscan launches by stage and form, with no plain sweep.
 Every path runs with all launch and plain-call counts set to
 0 just before it and read just after. Then a JSON line on the kernels
 (time; launches per NPT step of the path named in `path`, per Adam step of
@@ -133,7 +146,8 @@ N_ALT = 500
 # phase 13, the solvent RBFE leg: depth cut from the JAX package's
 # DEFAULT_MD_PARAMS (fe/rbfe.py: 10,000 equilibration steps, 1,000 frames of
 # 400 steps) to fit the script's time; the 12 windows and 6,404 atoms are not cut
-N13_EQ, N13_FRAMES, N13_STEPS_PER_FRAME, N13_TIMED, N13_REUSE = 500, 20, 50, 200, 60
+# (cut to 250 and 10 since phase 16 drives the leg end to end)
+N13_EQ, N13_FRAMES, N13_STEPS_PER_FRAME, N13_TIMED, N13_REUSE = 250, 10, 50, 200, 60
 # phase 14, HREX over the same 12 windows: DEFAULT_HREX_PARAMS (fe/rbfe.py:
 # max_delta_states 4, K^3 swap attempts an iteration) with its depth cut as
 # phase 13's (10,000 equilibration steps, 1,000 frames of 400 steps in the
@@ -150,6 +164,28 @@ N14_EQ, N14_FRAMES, N14_STEPS_PER_FRAME, N14_MAX_DELTA, N14_TIMED = 500, 20, 50,
 # numpy 2.3.5's OpenBLAS, which is 1.07e-10 of the pair list's largest
 # q_i q_j; `python -m timemachine_torch.probes.am1_host` measures it)
 N15_WINDOW, N15_STEPS = 6, 200
+# phase 16, run_solvent from two SMILES: ethanol -> propane embedded with
+# seed 7 (the cache's embedding), 12 windows against DEFAULT_NUM_WINDOWS'
+# 48, and DEFAULT_HREX_PARAMS' depth (10,000 equilibration steps, 1,000
+# frames of 400 steps, 100 frames a bisection state) cut to 200, 20 of 50
+# and 10; the anchors' displacements held at min_cutoff 0.7 nm (JAX's
+# estimators' default) and the embedded conformers to TOL_EMBED of the cache's
+N16_EMBED_SEED, N16_WINDOWS, N16_MIN_CUTOFF, TOL_EMBED = 7, 12, 0.7, 1e-10
+N16_EQ, N16_FRAMES, N16_STEPS_PER_FRAME, N16_FRAMES_BISECTION = 200, 20, 50, 10
+# the minimizer's float64 energy on the card (an f32 sweep, its per-atom
+# energies summed in f64, the exclusions in f64 at the f32-rounded
+# coordinates) against the same state built in float64 on the CPU (the plain
+# sweep, all f64), at window 0's input and minimized coordinates, in units of
+# one f32 rounding of the all-pairs term (2^-24 |U_all-pairs|: the noise a
+# float32 total would put on every energy BFGS compares). The change of dU
+# between the two coordinates, what BFGS and the energy-decrease check read,
+# must stay under one such rounding. dU itself is mostly an offset: the
+# water's rigid, identical pairs round alike, so their sweep errors add
+# coherently (0.78-0.87 of a rounding on the CPU's plain f32 sweep,
+# tests/test_torch_rbfe_coords.py), and it may reach 16, room for the
+# kernel's approximate rsqrt (2 ulp) and its order of sums. The gradient on
+# TOL_FORCE_REL_NORM's scale, the all-pairs force norm
+TOL_F64_U_CHANGE_ROUNDINGS, TOL_F64_U_ROUNDINGS = 1.0, 16.0
 TOL_BUILD_REL, TOL_BUILD_FORCE, TOL_CHARGE_E = 1e-10, 1e-6, 1e-10
 # the banded U_kl against single-system sums of each term's u at the target
 # state's parameters: both accumulate in f64 (the host term's per-atom
@@ -287,6 +323,278 @@ def pairs_within_cutoff(x, box, w, cutoff: float) -> int:
         later = torch.arange(i0, min(i0 + 1024, n), device=x.device)[:, None] < torch.arange(n, device=x.device)
         total += int(((r2 < cutoff * cutoff) & (r2 > 1e-7) & later).sum())
     return total
+
+
+def phase16(dev, smi, zero_counts, read_counts, masked_row, batched_row):
+    """run_solvent as a user calls it: the ligands embedded from SMILES, AM1,
+    the mapping, the water box, the host's pre-equilibration, the anchors'
+    λ-chain minimization, bisection and HREX, on `dev`, with every count
+    zeroed just before run_solvent and read just after; the cache is read
+    only for the comparisons printed. Adds run_solvent's launches to the
+    masked and batched rowscan rows."""
+    import numpy as np
+    import torch
+
+    from timemachine_torch.chem import mol_from_smiles
+    from timemachine_torch.chem.embed import embed_mol
+    from timemachine_torch.constants import DEFAULT_ATOM_MAPPING_KWARGS, MAX_FORCE_NORM
+    from timemachine_torch.fe import rbfe as rbfe16
+    from timemachine_torch.fe.atom_mapping import get_cores
+    from timemachine_torch.constants import DEFAULT_TEMP
+    from timemachine_torch.fe.free_energy import HREXParams, MDParams
+    from timemachine_torch.fe.single_topology import SingleTopology
+    from timemachine_torch.ff import Forcefield
+    from timemachine_torch.md import minimizer as minimizer16
+    from timemachine_torch.md.context import Context
+    from timemachine_torch.ops import rowscan_kernel as rs
+    from timemachine_torch.potentials import NonbondedAllPairs
+    from timemachine_torch.testsystems.rbfe_solvent import load_arrays as rbfe_cache_arrays
+    from timemachine_torch.testsystems.rbfe_solvent import metadata as rbfe_cache_metadata
+    from timemachine_torch.testsystems.rbfe_solvent import window_arrays as window_arrays16
+
+    t_phase16 = time.perf_counter()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sec16, stage16, forms16 = {}, ["setup"], Counter()
+    calls16, chains16, host16, call_s16 = [], [], {}, []
+    mode_names = {rs.FORCE: "F", rs.FORCE_ENERGY: "F+U", rs.ENERGY: "U"}
+
+    def form_launches():
+        """Every rowscan launch so far by form, from the wrappers' own counts."""
+        made = Counter()
+        for (mode, triangular, preshift, has_w), n in rs.rowscan_sweep.launches_by_form.items():
+            made[f"{mode_names[mode]} {'triangular' if triangular else 'symmetric'} "
+                 f"{'preshift' if preshift else 'minimum image'} {'w' if has_w else 'no w'}"] += n
+        for (mode, has_w), n in rs.rowscan_sweep_batched.launches_by_form.items():
+            made[f"batched {mode_names[mode]} {'w' if has_w else 'no w'}"] += n
+        return made
+
+    def staged(module, attr, stage, record=None):
+        """Wrap module.attr: its host seconds under `stage`, and the rowscan
+        launches made inside it under `stage`, less those of a stage nested
+        in it (each launch is tallied under its innermost stage)."""
+        fn = getattr(module, attr)
+
+        def wrapper(*args, **kwargs):
+            sync()
+            stage16.append(stage)
+            before = form_launches()
+            t_start = time.perf_counter()
+            try:
+                out = fn(*args, **kwargs)
+                sync()
+            finally:
+                stage16.pop()
+            sec16[stage] = sec16.get(stage, 0.0) + time.perf_counter() - t_start
+            for form, n in (form_launches() - before).items():
+                forms16[stage, form] += n
+                forms16[stage16[-1], form] -= n
+            if record is not None:
+                record(args, kwargs, out)
+            return out
+
+        setattr(module, attr, wrapper)
+        return fn
+
+    def record_host(args, kwargs, out):
+        host16.update(mols=args[0], config=args[1], x_host=out[0], box=out[1])
+
+    def record_chain(args, kwargs, out):
+        """The anchors, their minimized coordinates and each one's largest
+        displacement, taken before setup_initial_states writes x0."""
+        disp = [float(rbfe16.displacements(state, x)[1].max()) for state, x in zip(args[0], out)]
+        for state, x in zip(args[0], out):
+            rbfe16._check_displacements(state, x, N16_MIN_CUTOFF)
+        chains16.append((list(args[0]), out, disp))
+
+    def record_call(args, kwargs, out):
+        calls16.append((args, kwargs, out))
+        call_s16.append(sec16["minimize"] - sum(call_s16))
+
+    def count_vg(fn):
+        """Keep every val_and_grad function made (each counts its calls)."""
+
+        def wrapper(*args, **kwargs):
+            vgs16.append(fn(*args, **kwargs))
+            return vgs16[-1]
+
+        return wrapper
+
+    vgs16 = []
+    originals16 = [
+        (minimizer16, "fire_minimize_host", staged(minimizer16, "fire_minimize_host", "fire")),
+        (minimizer16, "pre_equilibrate_host", staged(minimizer16, "pre_equilibrate_host", "npt", record_host)),
+        (minimizer16, "Context", getattr(minimizer16, "Context")),
+        (minimizer16, "get_val_and_grad_fn", getattr(minimizer16, "get_val_and_grad_fn")),
+        (rbfe16, "optimize_coordinates", staged(rbfe16, "optimize_coordinates", "minimize anchors", record_chain)),
+        (rbfe16, "optimize_coords_state", staged(rbfe16, "optimize_coords_state", "minimize", record_call)),
+        (rbfe16, "run_sims_bisection", staged(rbfe16, "run_sims_bisection", "bisection")),
+        (rbfe16, "run_sims_hrex", staged(rbfe16, "run_sims_hrex", "hrex")),
+    ]
+    contexts16 = []
+
+    def catching_context(*args, **kwargs):
+        contexts16.append(Context(*args, **kwargs))
+        return contexts16[-1]
+
+    minimizer16.Context = catching_context
+    minimizer16.get_val_and_grad_fn = count_vg(originals16[3][2])
+    try:
+        a16 = rbfe_cache_arrays()
+        meta16 = rbfe_cache_metadata(a16)
+        t0 = time.perf_counter()
+        mols16 = [mol_from_smiles(str(smi), add_hs=True, name=str(nm)) for smi, nm in zip(meta16["smiles"], meta16["names"])]
+        for mol in mols16:
+            embed_mol(mol, seed=N16_EMBED_SEED)
+        sec16["embed"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ff16 = Forcefield.load_default()
+        core16 = get_cores(*mols16, **DEFAULT_ATOM_MAPPING_KWARGS)[0]
+        sec16["mapping"] = time.perf_counter() - t0
+        md16 = MDParams(
+            n_frames=N16_FRAMES, n_eq_steps=N16_EQ, steps_per_frame=N16_STEPS_PER_FRAME, seed=2023,
+            hrex_params=HREXParams(n_frames_bisection=N16_FRAMES_BISECTION),
+        )
+        zero_counts()
+        forms_before16 = form_launches()
+        t0 = time.perf_counter()
+        res16, cfg16 = rbfe16.run_solvent(mols16[0], mols16[1], core16, ff16, None, md_params=md16, n_windows=N16_WINDOWS)
+        sync()
+        t_run16 = time.perf_counter() - t0
+        launches16, plain16_calls = read_counts()
+        forms_run16 = form_launches() - forms_before16
+        for form, n in forms_run16.items():
+            forms16["setup", form] += n
+    finally:
+        for module, attr, fn in originals16:
+            setattr(module, attr, fn)
+    other16 = t_run16 - sum(v for k, v in sec16.items() if k in ("npt", "minimize anchors", "bisection", "hrex"))
+    print(
+        f"[16 time] run_solvent {t_run16:.1f} s: host pre-equilibration {sec16['npt']:.1f} s (FIRE {sec16['fire']:.1f}), "
+        f"anchor minimization {sec16['minimize anchors']:.1f} s, bisection {sec16['bisection']:.1f} s (its new λ "
+        f"minimizations {sum(call_s16[len(chains16[0][0]):]):.1f} s), HREX {sec16['hrex']:.1f} s, the rest "
+        f"(SingleTopology, water box, window states) {other16:.1f} s; before it embedding {sec16['embed']:.1f} s, force "
+        f"field and mapping {sec16['mapping']:.2f} s; host clock ({smi})"
+    )
+
+    emb16 = [float(np.abs(m.get_conf() - meta16[k]).max()) for m, k in zip(mols16, ("conf_a", "conf_b"))]
+    print(f"[16 embed] embed_mol(seed {N16_EMBED_SEED}) of {', '.join(str(n) for n in meta16['names'])} from SMILES against "
+          f"the cache's recorded conformers (the JAX package's embedding): largest |diff| {emb16[0]:.3e}, {emb16[1]:.3e} nm "
+          f"(tol {TOL_EMBED:g}); core {len(core16)} atoms, the cache's: {np.array_equal(core16, meta16['core'])}")
+    check(max(emb16) <= TOL_EMBED, "[16] an embedded conformer differs from the cache's")
+    check(np.array_equal(core16, meta16["core"]), "[16] the core differs from the cache's")
+
+    n_host16 = host16["config"].conf.shape[0]
+    ctx16 = contexts16[0]
+    lig16 = np.concatenate([m.get_conf() for m in host16["mols"]])
+    x_end16 = ctx16.get_x_t()
+    frozen16 = bool(np.array_equal(x_end16[n_host16:], lig16.astype(x_end16.dtype)))
+    with torch.no_grad():
+        f_end16 = minimizer16.total_force(ctx16.potentials, torch.as_tensor(x_end16, device=dev), ctx16._box)
+    fmax16 = float(torch.linalg.vector_norm(f_end16[:n_host16], dim=-1).max())
+    vol16 = float(np.prod(np.diagonal(host16["box"])))
+    vol_cache = float(np.prod(np.diagonal(window_arrays16(a16, 0)["box0"])))
+    vol_start = float(np.prod(np.diagonal(cfg16.box)))
+    print(
+        f"[16 host] {n_host16} host atoms, {len(lig16)} ligand atoms at infinite mass: FIRE {sec16['fire']:.2f} s (2 λ "
+        f"windows of 500 steps), NPT {sec16['npt'] - sec16['fire']:.2f} s (1,000 steps, barostat every 5); ligand "
+        f"bitwise unmoved: {frozen16}; the host's largest |F| {fmax16:.1f} kJ/mol/nm (limit MAX_FORCE_NORM "
+        f"{MAX_FORCE_NORM:g}); box volume {vol16:.4f} nm^3 from {vol_start:.4f}, the cache's box0 {vol_cache:.4f} "
+        f"(ratio {vol16 / vol_cache:.4f}) ({smi})"
+    )
+    check(frozen16, "[16] the ligand moved during the host's pre-equilibration")
+    check(fmax16 < MAX_FORCE_NORM, "[16] the pre-equilibrated host's forces exceed MAX_FORCE_NORM")
+    check(0.7 * vol_start < vol16 < 1.3 * vol_start, "[16] the pre-equilibrated box volume left (0.7, 1.3) of the start")
+
+    (anchors16, xs16, disp16), = chains16
+    n_anchor = len(anchors16)
+    for state, x_opt, disp in zip(anchors16, xs16, disp16):
+        k = next(i for i, c in enumerate(calls16[:n_anchor]) if c[0][0] is state.potentials)
+        potentials, x_in, box_in = calls16[k][0][:3]
+        check_vg = minimizer16.get_val_and_grad_fn(potentials, box_in)
+        u_in, u_out = check_vg(x_in)[0], check_vg(x_opt)[0]
+        print(f"[16 minimize] anchor λ {state.lamb:.4f}: {vgs16[k].calls} BFGS energy/force calls in {call_s16[k]:.2f} s, "
+              f"U {u_in:.4f} -> {u_out:.4f} kJ/mol (float64 sums), largest displacement of the interacting atoms "
+              f"{disp:.4f} nm (min_cutoff {N16_MIN_CUTOFF}, checked)")
+        check(np.isfinite(u_out) and u_out < u_in, f"[16] anchor λ {state.lamb} did not lower its energy")
+
+    # window 0's card energy against the same state in float64 on the CPU
+    state0 = anchors16[0]
+    k0 = next(i for i, c in enumerate(calls16[:n_anchor]) if c[0][0] is state0.potentials)
+    cfg_h = host16["config"]
+    host_cpu = rbfe16.Host(cfg_h.host_system, cfg_h.masses, host16["x_host"], host16["box"], cfg_h.num_water_atoms,
+                           cfg_h.host_topology)
+    state_cpu = rbfe16.setup_initial_state(SingleTopology(mols16[0], mols16[1], core16, ff16), state0.lamb, host_cpu,
+                                           DEFAULT_TEMP, md16.seed, torch.device("cpu"), torch.float64)
+    check(np.array_equal(state_cpu.x0, calls16[k0][0][1]), "[16] the CPU rebuild of window 0 starts elsewhere")
+    vg_card = minimizer16.get_val_and_grad_fn(state0.potentials, state0.box0)
+    vg_cpu = minimizer16.get_val_and_grad_fn(state_cpu.potentials, state0.box0)
+    ap_cpu = next(p for p in state_cpu.potentials if isinstance(p, NonbondedAllPairs))
+    d_us, u_hs = [], []
+    for label, x_at in (("input", calls16[k0][0][1]), ("minimized", xs16[0])):
+        (u_c, g_c), (u_h, g_h) = vg_card(x_at), vg_cpu(x_at)
+        with torch.no_grad():
+            x_h = torch.as_tensor(x_at, dtype=torch.float64)
+            u_ap, f_ap = NonbondedAllPairs.energy_force_f64(ap_cpu, x_h, torch.as_tensor(state0.box0))
+        d_us.append(u_c - u_h)
+        u_hs.append(u_h)
+        rounding, d_g = 2.0**-24 * abs(float(u_ap)), float(np.linalg.norm(g_c - g_h))
+        norm_ap = float(torch.linalg.vector_norm(f_ap))
+        print(f"[16 minimize] window 0 at its {label} coordinates, the card's float64 energy against the CPU's (float64 "
+              f"throughout, plain sweep): U {u_c:.6f} vs {u_h:.6f} kJ/mol, dU {d_us[-1]:.3e} = "
+              f"{d_us[-1] / rounding:.3f} f32 roundings of U_all-pairs {float(u_ap):.1f} (limit {TOL_F64_U_ROUNDINGS:g}); "
+              f"|d grad| {d_g:.3e} = {d_g / np.linalg.norm(g_h):.3e} of |grad|, {d_g / norm_ap:.3e} of the all-pairs "
+              f"force norm (limit {TOL_FORCE_REL_NORM:g}) ({smi})")
+        check(abs(d_us[-1]) <= TOL_F64_U_ROUNDINGS * rounding,
+              f"[16] window 0's card energy at its {label} coordinates is off the CPU's float64")
+        check(d_g <= TOL_FORCE_REL_NORM * norm_ap, f"[16] window 0's card gradient at its {label} coordinates is off the CPU's")
+    print(f"[16 minimize] window 0's dU changed by {d_us[1] - d_us[0]:.3e} kJ/mol from its input to its minimized "
+          f"coordinates = {(d_us[1] - d_us[0]) / rounding:.3f} f32 roundings (limit {TOL_F64_U_CHANGE_ROUNDINGS:g}); "
+          f"the minimization lowered the CPU's U by {u_hs[0] - u_hs[1]:.4f} kJ/mol ({smi})")
+    check(abs(d_us[1] - d_us[0]) <= TOL_F64_U_CHANGE_ROUNDINGS * rounding,
+          "[16] window 0's card energy change off the CPU's float64 change")
+    args0, kwargs0, out0 = calls16[0]
+    t0 = time.perf_counter()
+    again16 = rbfe16.optimize_coords_state(*args0, **kwargs0)
+    t_again16 = time.perf_counter() - t0
+    same16 = bool(np.array_equal(again16, out0))
+    print(f"[16 minimize] {n_anchor} anchors, {sum(v.calls for v in vgs16[:n_anchor])} calls; "
+          f"{len(calls16) - n_anchor} more minimizations for bisection's new λ "
+          f"({', '.join(str(vg_.calls) for vg_ in vgs16[n_anchor:])} calls); window 0 minimized again "
+          f"({t_again16:.2f} s): bitwise the first {same16} ({smi})")
+    check(same16, "[16] a repeated minimization of window 0 differs from the first")
+
+    bis16 = res16.intermediate_results[-1]
+    print(f"[16 bisection] {len(res16.intermediate_results) - 1} bisections: λ schedule "
+          + " ".join(f"{s.lamb:.4f}" for s in bis16.initial_states) + "; BAR overlaps "
+          + " ".join(f"{o:.3f}" for o in bis16.overlaps) + f" ({N16_FRAMES_BISECTION} frames a state)")
+    rates16 = res16.hrex_diagnostics.cumulative_swap_acceptance_rates[-1]
+    fin16 = res16.final_result
+    finite16 = bool(np.isfinite(fin16.dGs).all() and np.isfinite(fin16.dG_errs).all())
+    dG16 = float(np.sum(fin16.dGs))
+    print(f"[16 hrex] {len(fin16.initial_states)} replicas, {N16_FRAMES} iterations of {N16_STEPS_PER_FRAME} steps: swap "
+          f"acceptance " + " ".join(f"{r:.3f}" for r in rates16) + f"; dG {dG16:.4f} +- "
+          f"{float(np.linalg.norm(fin16.dG_errs)):.4f} kJ/mol ({len(fin16.bar_results)} BAR pairs, finite {finite16}; "
+          f"not converged); plots {res16.plots}, {res16.hrex_plots} ({smi})")
+    check(len(fin16.bar_results) == N16_WINDOWS - 1 and finite16, "[16] HREX did not give 11 finite BAR pairs")
+
+    by_stage = {}
+    for (stage, form), n in sorted(forms16.items()):
+        if n:
+            by_stage.setdefault(stage, []).append(f"{form} {n}")
+    print("[16 kernels] rowscan launches in run_solvent by stage and form: "
+          + "; ".join(f"{stage}: {', '.join(v)}" for stage, v in by_stage.items())
+          + f"; totals {launches16}; plain sweeps {plain16_calls} ({smi})")
+    check(plain16_calls == 0, "[16] run_solvent ran a plain sweep")
+    check(launches16["rowscan_sweep"] > 0 and launches16["rowscan_sweep_batched"] > 0,
+          "[16] run_solvent did not launch the rowscan kernel and its batched form")
+    check(all(n == 0 for (stage, _), n in forms16.items() if stage == "setup"),
+          "[16] a rowscan launch outside the stages")
+    check(sum(n for form, n in forms_run16.items() if not form.startswith("batched")) == launches16["rowscan_sweep"]
+          and sum(n for form, n in forms_run16.items() if form.startswith("batched")) == launches16["rowscan_sweep_batched"],
+          "[16] the launches by form do not add up to the wrappers' counts")
+    masked_row["launches_run_solvent"] = launches16["rowscan_sweep"]
+    batched_row["launches_run_solvent"] = launches16["rowscan_sweep_batched"]
+    print(f"[16 time] phase 16 took {time.perf_counter() - t_phase16:.1f} s, host clock ({smi})")
 
 
 def main() -> int:
@@ -1777,6 +2085,9 @@ def main() -> int:
     check(bitwise_run is not False, "[15] the built window's run differs from the cache-loaded one's")
     masked_row["launches_from_built_states"] = launches15["rowscan_sweep"] / N15_STEPS
     print(f"[15 time] phase 15 took {time.perf_counter() - t_phase15:.1f} s, host clock ({smi})")
+
+    # -- 16. the solvent leg from two SMILES ------------------------------------------------
+    phase16(dev, smi, zero_counts, read_counts, masked_row, batched_row)
 
     print(json.dumps({"kernels": [kernel_row, masked_row, batched_row, nb_row, gather_row, quad_row, dot_row, *probe_rows]}))
     print(smi)

@@ -4,7 +4,8 @@ largest |value|) with equal index arrays on ethanol, propane, toluene,
 phenol and acetate; the exclusion list equal in order; the gradient of a
 charge loss and of an LJ loss through torch autograd within 1e-10 of
 jax.grad; every shipped force field JSON deserializes to the same handlers.
-Where AM1 cannot run (a degenerate conformer), the base charges are JAX's
+Where AM1 cannot run (a degenerate conformer that embedding leaves
+degenerate: embed_mol patched), the base charges are JAX's
 Gasteiger charges bitwise, with a GasteigerFallbackWarning, and the AM1CCC
 handler's charges on them within 1e-12 relative of JAX's handler given the
 same base charges; under TM_STRICT_CHARGES=1 the fallback is an error."""
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 from tests.test_torch_chem import QM_PANEL, mol_pair
+from timemachine_torch.chem import embed as tembed
 from timemachine_torch.ff import Forcefield as TF
 from timemachine_torch.ff import handlers as th
 from timemachine_torch.ff.serialize import builtin_params_dir
@@ -108,11 +110,13 @@ def test_builtin_forcefields_deserialize_as_in_jax(path):
     assert tf.serialize(fmt="json") == jf.serialize(fmt="json")
 
 
-def _degenerate_pair(smiles):
-    """(JAX Mol, port Mol); the port's has every atom at the origin, so its
-    AM1 SCF cannot run (am1_mol_charges raises on a degenerate conformer)."""
+def _degenerate_pair(smiles, monkeypatch):
+    """(JAX Mol, port Mol); the port's has every atom at the origin and its
+    embedding is patched to leave it so, so its AM1 SCF cannot run
+    (am1_mol_charges raises on a conformer that stays degenerate)."""
     j, t = mol_pair(smiles)
     t.set_conf(np.zeros((t.num_atoms, 3)))
+    monkeypatch.setattr(tembed, "embed_mol", lambda mol, *args, **kwargs: mol)
     return j, t
 
 
@@ -125,7 +129,7 @@ def test_gasteiger_fallback_matches_jax(ffs, monkeypatch, smiles):
     charges within 1e-12 relative."""
     monkeypatch.delenv("TM_STRICT_CHARGES", raising=False)
     jf, tf = ffs
-    j, t = _degenerate_pair(smiles)
+    j, t = _degenerate_pair(smiles, monkeypatch)
     with pytest.warns(th.GasteigerFallbackWarning):
         q = th.compute_or_load_base_charges(t, mode=tf.q_handle.base_mode)
     ref = jax_gasteiger_charges(j) * np.sqrt(jconstants.ONE_4PI_EPS0)
@@ -146,7 +150,7 @@ def test_strict_mode_refuses_the_gasteiger_fallback(ffs, monkeypatch, smiles):
     cached by an earlier call without strict mode are refused too; a molecule
     with supplied charges, or with a real conformer (AM1), passes silently."""
     _, tf = ffs
-    _, t = _degenerate_pair(smiles)
+    _, t = _degenerate_pair(smiles, monkeypatch)
     monkeypatch.setenv("TM_STRICT_CHARGES", "1")
     with warnings.catch_warnings():
         warnings.simplefilter("error", th.GasteigerFallbackWarning)
@@ -161,7 +165,7 @@ def test_strict_mode_refuses_the_gasteiger_fallback(ffs, monkeypatch, smiles):
         monkeypatch.setenv("TM_STRICT_CHARGES", "1")
         with pytest.raises(th.MissingBaseChargesError):
             th.compute_or_load_base_charges(t)
-        _, supplied = _degenerate_pair(smiles)
+        _, supplied = _degenerate_pair(smiles, monkeypatch)
         supplied.props["PartialCharges"] = " ".join("0.01" for _ in range(supplied.num_atoms))
         np.testing.assert_array_equal(
             th.compute_or_load_base_charges(supplied), np.full(supplied.num_atoms, 0.01) * np.sqrt(jconstants.ONE_4PI_EPS0)

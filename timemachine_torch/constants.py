@@ -30,6 +30,10 @@ DEFAULT_CHIRAL_BOND_RESTRAINT_K = 999.9
 DEFAULT_BOND_IS_PRESENT_K = 50.0
 DEFAULT_POSITIONAL_RESTRAINT_K = 4000.0
 
+# the largest per-atom |force| (kJ/mol/nm) a minimized or pre-equilibrated
+# state may keep
+MAX_FORCE_NORM = 20_000.0
+
 # RBFE window defaults (timemachine_tpu/fe/rbfe.py): seeds are folded into
 # [0, MAX_SEED_VALUE), Langevin at MD_DT ps and MD_FRICTION 1/ps, a barostat
 # move every BAROSTAT_INTERVAL steps

@@ -1,7 +1,7 @@
 """Free-energy driver: λ-window states, sampling in one reused Context or
 by HREX with every replica in one batched step, and pair BAR (counterpart
-of the fixed-grid paths of timemachine_tpu/fe/free_energy.py:
-run_sims_sequential, run_sims_hrex and what they run).
+of timemachine_tpu/fe/free_energy.py: run_sims_sequential, the greedy
+bisection run_sims_bisection, run_sims_hrex and what they run).
 
 An InitialState holds the port's potential modules on their device. Frames
 come back from the card as numpy and stay in memory (the JAX package's
@@ -14,6 +14,7 @@ from __future__ import annotations
 import copy
 import time
 from dataclasses import dataclass
+from functools import cache
 from typing import Callable, Iterator, Optional, Sequence
 from warnings import warn
 
@@ -46,11 +47,10 @@ class RESTParams:
 
 @dataclass(frozen=True)
 class HREXParams:
-    """HREX's protocol: n_frames_bisection frames a bisection step (the
-    bisection itself is not ported), one frame an iteration, swaps between
-    states at most max_delta_states apart scored by the banded U_kl (None:
-    every state), an overlap target for the bisection, and REST, which
-    raises NotImplementedError when set."""
+    """HREX's protocol: n_frames_bisection frames a bisection step, one
+    frame an iteration, swaps between states at most max_delta_states apart
+    scored by the banded U_kl (None: every state), an overlap target for
+    the bisection, and REST, which raises NotImplementedError when set."""
 
     n_frames_bisection: int = 100
     n_frames_per_iter: int = 1
@@ -379,6 +379,10 @@ class IndeterminateEnergyWarning(UserWarning):
     pass
 
 
+class MinOverlapWarning(UserWarning):
+    pass
+
+
 def estimate_free_energy_bar(u_kln_by_component: np.ndarray, temperature: float) -> BarResult:
     """Pair BAR with the error split by component; NaN energies become +inf."""
     if np.any(np.isnan(u_kln_by_component)):
@@ -465,6 +469,109 @@ def run_sims_sequential(
     neighbor_ulkns = generate_pair_bar_ulkns(initial_states, trajectories, temperature)
     pair_bar_results = [estimate_free_energy_bar(u, temperature) for u in neighbor_ulkns]
     return PairBarResult(list(initial_states), pair_bar_results), trajectories
+
+
+def run_sims_bisection(
+    initial_lambdas: Sequence[float],
+    make_initial_state: Callable[[float], InitialState],
+    md_params: MDParams,
+    n_bisections: int,
+    temperature: float,
+    min_overlap: Optional[float] = None,
+    verbose: bool = True,
+) -> tuple[list, list]:
+    """Greedy bisection of the λ interval: sample the states of
+    initial_lambdas, then n_bisections times split the adjacent pair of the
+    lowest BAR overlap at its midpoint and sample the new state, stopping
+    early once every overlap exceeds min_overlap (ref free_energy.py:1006-1146).
+    Every state is sampled in one reused Context, reset between states.
+    Returns (a PairBarResult per iteration, the final schedule's
+    trajectories)."""
+    from timemachine_torch.fe.energy_decomposition import (
+        EnergyDecomposedState,
+        compute_energy_decomposed_u_kln,
+        get_batch_u_fns,
+    )
+    from timemachine_torch.fe.protocol_refinement import greedy_bisection_step
+
+    assert len(initial_lambdas) >= 2
+    assert np.all(np.diff(initial_lambdas) > 0), "initial lambda schedule must be monotonically increasing"
+
+    lambdas = list(initial_lambdas)
+    get_initial_state = cache(make_initial_state)
+    contexts: list = []  # the one Context, made for the first state sampled
+
+    @cache
+    def get_samples(lamb: float) -> Trajectory:
+        initial_state = get_initial_state(lamb)
+        if not contexts:
+            contexts.append(get_context(initial_state, md_params))
+        ctxt = contexts[0]
+        ctxt.reset_for_state(initial_state)
+        return sample_with_context(
+            ctxt, md_params, initial_state.integrator.temperature, initial_state.ligand_idxs, max_buffer_frames=100
+        )
+
+    state_0 = get_initial_state(lambdas[0])
+    configure_all_pairs(state_0)
+    pots = state_0.potentials
+
+    def get_state(lamb: float):
+        initial_state = get_initial_state(lamb)
+        assert_potentials_compatible(initial_state.potentials, pots)
+        traj = get_samples(lamb)
+        batch_u_fns = get_batch_u_fns(pots, [p.params for p in initial_state.potentials], temperature)
+        return EnergyDecomposedState(traj.frames, traj.boxes, batch_u_fns)
+
+    @cache
+    def get_bar_result(lamb1: float, lamb2: float) -> BarResult:
+        u_kln_by_component = compute_energy_decomposed_u_kln([get_state(lamb1), get_state(lamb2)])
+        return estimate_free_energy_bar(u_kln_by_component, temperature)
+
+    # the greedy step splits the pair with the highest cost = -log(overlap)
+    def cost_fn(lamb1: float, lamb2: float) -> float:
+        overlap = get_bar_result(lamb1, lamb2).overlap
+        return -np.log(overlap) if overlap != 0.0 else float("inf")
+
+    def schedule_result(schedule: Sequence[float]) -> PairBarResult:
+        return PairBarResult(
+            [get_initial_state(lamb) for lamb in schedule],
+            [get_bar_result(l1, l2) for l1, l2 in zip(schedule, schedule[1:])],
+        )
+
+    def narrate(schedule, iteration, costs, left_idx, lamb_new):
+        lo, hi = schedule[left_idx], schedule[left_idx + 1]
+        threshold = f" <= {min_overlap:.3g} " if min_overlap is not None else " (min_overlap == None) "
+        print(
+            f"Bisection iteration {iteration} (of {n_bisections}): "
+            f"Current minimum BAR overlap {np.exp(-max(costs)):.3g}{threshold}"
+            f"between states at λ={lo:.3g} and λ={hi:.3g}. Sampling new state at λ={lamb_new:.3g}…"
+        )
+
+    results = [schedule_result(lambdas)]
+    converged = False
+    for iteration in range(n_bisections):
+        if min_overlap is not None and min(results[-1].overlaps) > min_overlap:
+            converged = True
+            if verbose:
+                print(f"All BAR overlaps exceed min_overlap={min_overlap}. Returning after {iteration} iterations.")
+            break
+
+        prev_schedule = lambdas
+        lambdas, info = greedy_bisection_step(lambdas, cost_fn, lambda a, b: (a + b) / 2.0)
+        if verbose:
+            narrate(prev_schedule, iteration, *info)
+        results.append(schedule_result(lambdas))
+
+    if not converged and min_overlap is not None and min(results[-1].overlaps) < min_overlap:
+        warn(
+            f"Reached n_bisections={n_bisections} iterations without achieving min_overlap={min_overlap}. "
+            f"The minimum BAR overlap was {np.min(results[-1].overlaps)}.",
+            MinOverlapWarning,
+        )
+
+    trajectories = [get_samples(lamb) for lamb in lambdas]
+    return results, trajectories
 
 
 def _state_energies(pots, params, frames, boxes) -> np.ndarray:

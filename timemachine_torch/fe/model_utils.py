@@ -1,4 +1,5 @@
-"""Hydrogen mass repartitioning (same rule as timemachine_tpu/fe/model_utils.py)."""
+"""Hydrogen mass repartitioning (same rule as timemachine_tpu/fe/model_utils.py)
+and the vacuum energy of a ligand for its minimization."""
 
 from __future__ import annotations
 
@@ -21,3 +22,16 @@ def apply_hmr(masses, bond_list, multiplier=2):
             masses[j] -= multiplier * masses[i]
             masses[i] += multiplier * masses[i]
     return masses
+
+
+def get_vacuum_val_and_grad_fn(mol, ff, device=None):
+    """coords (numpy) -> (U, dU/dx) of mol's end-state potentials in vacuum,
+    float64 (md/minimizer.py get_val_and_grad_fn over BaseTopology's end
+    state), on `device` (None: the card)."""
+    from timemachine_torch.device import resolve_device, working_dtype
+    from timemachine_torch.fe.topology import BaseTopology
+    from timemachine_torch.md.minimizer import get_val_and_grad_fn
+
+    device = resolve_device(device)
+    system = BaseTopology(mol, ff).setup_end_state().to_system(mol.num_atoms, device=device, dtype=working_dtype(device))
+    return get_val_and_grad_fn([m for m in system.get_U_fns() if m.params.numel() > 0], None)

@@ -89,6 +89,29 @@ class NonbondedInteractionGroup(_Potential):
     col_atom_idxs: Optional[np.ndarray] = None
 
 
+@dataclass(eq=False)
+class SummedPotential(_Potential):
+    """Several potentials over one flat parameter vector, the concatenation
+    of each one's raveled parameters (HostGuestTopology's nonbonded term)."""
+
+    potentials: list
+    params_init: list
+
+    def __post_init__(self):
+        if len(self.potentials) != len(self.params_init):
+            raise ValueError("number of potentials != number of parameter arrays")
+        self.params_shapes = [tuple(np.shape(p)) for p in self.params_init]
+
+    def unflatten_params(self, params) -> list:
+        """The flat vector split back into each potential's parameters."""
+        sizes = [int(np.prod(s)) for s in self.params_shapes]
+        return [p.reshape(s) for p, s in zip(torch.split(as_f64(params), sizes), self.params_shapes)]
+
+    def bound_potentials(self, params) -> list:
+        """Each potential bound to its share of the flat vector."""
+        return [pot.bind(p) for pot, p in zip(self.potentials, self.unflatten_params(params))]
+
+
 _INACTIVE_TERMS = frozenset({"chiral_bond"})
 
 

@@ -8,7 +8,7 @@ descent on the card never syncs the host.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -23,6 +23,15 @@ class FireMinimizationConfig:
     f_dec: float = 0.5
     alpha_start: float = 0.1
     f_alpha: float = 0.99
+
+
+@dataclass(frozen=True)
+class ScipyMinimizationConfig:
+    """scipy.optimize.minimize's method, options and bounds."""
+
+    method: str
+    options: Optional[dict] = None
+    bounds: Optional[Any] = None
 
 
 def fire_descent(force: Callable, config: FireMinimizationConfig):

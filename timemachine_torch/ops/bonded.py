@@ -12,6 +12,9 @@ from __future__ import annotations
 
 import torch
 
+from timemachine_torch.constants import DEFAULT_POSITIONAL_RESTRAINT_K
+from timemachine_torch.ops.pbc import periodic_delta
+
 
 def harmonic_bond(conf, params, box, idxs):
     """U = sum k/2 (|ri - rj| - r0)^2, params rows (k, r0); r0 == 0 rows use
@@ -131,3 +134,10 @@ def torsion_force_contribs(conf, params, idxs):
     gk = t[:, None] * gi - (s + 1.0)[:, None] * gl
     w = dU[:, None]
     return u, [w * gi, w * gj, w * gk, w * gl]
+
+
+def harmonic_positional_restraint(x_init, x_new, box, k: float = DEFAULT_POSITIONAL_RESTRAINT_K):
+    """k/2 sum |x_new - x_init|^2 under the minimum image: the tether of a
+    restrained minimization."""
+    d = periodic_delta(x_new, x_init, box)
+    return torch.sum(0.5 * k * torch.sum(d * d, dim=-1))

@@ -34,3 +34,14 @@ def lifted_distance_on_pairs(ri, rj, box=None, w_offsets=None):
     if w_offsets is not None:
         d2 = d2 + w_offsets * w_offsets
     return torch.sqrt(d2)
+
+
+def idxs_within_cutoff(x, x_lig, box, cutoff: float = 0.5):
+    """Indices (numpy int64, ascending) of the rows of x within `cutoff` of
+    any point of x_lig under the minimum image, as JAX's idxs_within_cutoff;
+    host-side, its output's length depends on the data."""
+    x, x_lig, box = (torch.as_tensor(a) for a in (x, x_lig, box))
+    near = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    for point in x_lig:
+        near |= distance(point, x, box) < cutoff
+    return torch.nonzero(near).squeeze(1).cpu().numpy()

@@ -31,11 +31,14 @@ The main path runs JAX's default DHFR form: triangular, preshift, no w.
 CUDA tensors and uses `rowscan_sweep_plain`, the same function in plain
 PyTorch, on CPU tensors. The tile builder, the per-step count chop and the
 MD provider are plain tensor code, as they are plain XLA in the JAX package.
+Each launching wrapper counts its launches (`launches`) and, by form,
+`launches_by_form`.
 """
 
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import NamedTuple
 
 import numpy as np
@@ -513,10 +516,12 @@ def rowscan_sweep(
     if rc != 0:
         raise RuntimeError(f"rowscan_sweep: kernel launch failed with CUDA error {rc}")
     rowscan_sweep.launches += 1
+    rowscan_sweep.launches_by_form[mode, bool(triangular), rcen_q is not None, bool(has_w)] += 1
     return out
 
 
 rowscan_sweep.launches = 0
+rowscan_sweep.launches_by_form = Counter()  # (mode, triangular, preshift, has_w) -> launches
 
 
 def rowscan_sweep_batched_plain(atoms, row_start, row_count, col_ids, list_of_system, scalars, series, mode: int,
@@ -587,10 +592,12 @@ def rowscan_sweep_batched(atoms, row_start, row_count, col_ids, list_of_system, 
     if rc != 0:
         raise RuntimeError(f"rowscan_sweep_batched: kernel launch failed with CUDA error {rc}")
     rowscan_sweep_batched.launches += 1
+    rowscan_sweep_batched.launches_by_form[mode, bool(has_w)] += 1
     return out
 
 
 rowscan_sweep_batched.launches = 0
+rowscan_sweep_batched.launches_by_form = Counter()  # (mode, has_w) -> launches
 
 
 def _md_build(cutoff: float, max_pairs: int, skin: float, cell_size: float, preshift: bool, has_w: bool, atom_mask):
@@ -697,14 +704,16 @@ def make_nonbonded_rowscan_md_batched(
 def make_nonbonded_rowscan_energy_force(
     beta: float, cutoff: float, max_pairs: int, cell_size: float = 0.65, atom_mask=None,
 ):
-    """(conf, params, box, mode=FORCE_ENERGY) -> (u, force) in one sweep over
-    Newton-triangular lists built for this call at the bare cutoff, as in
-    JAX (use the MD provider in a step loop); size max_pairs with
-    suggest_max_pairs, triangular. With mode=ENERGY the force is zero.
-    atom_mask (N,) bool restricts the term to a subset of the atoms."""
+    """(conf, params, box, mode=FORCE_ENERGY, energy_dtype=None) -> (u,
+    force) in one sweep over Newton-triangular lists built for this call at
+    the bare cutoff, as in JAX (use the MD provider in a step loop); size
+    max_pairs with suggest_max_pairs, triangular. With mode=ENERGY the force
+    is zero. energy_dtype sums the per-atom energies in that dtype (None:
+    the sweep's). atom_mask (N,) bool restricts the term to a subset of the
+    atoms."""
     series = es_energy_force_series(beta, cutoff)
 
-    def energy_force(conf, params, box, mode: int = FORCE_ENERGY):
+    def energy_force(conf, params, box, mode: int = FORCE_ENERGY, energy_dtype=None):
         tiles = build_rowscan_tiles(conf, box, cutoff, max_pairs, cell_size, triangular=True, atom_mask=atom_mask)
         n = conf.shape[0]
         prows = param_rows(params.to(conf.dtype), tiles.pad_order, n, atom_mask)
@@ -713,7 +722,8 @@ def make_nonbonded_rowscan_energy_force(
             atoms, tiles.row_start, tiles.row_count, tiles.col_ids, sweep_scalars(box, cutoff), series, mode, True
         )
         force = -out[torch.argsort(tiles.pad_order[:n]), 1:4]
-        return poison_on_overflow(tiles.overflow, torch.sum(out[:, 0])), poison_on_overflow(tiles.overflow, force)
+        u = torch.sum(out[:, 0], dtype=energy_dtype)
+        return poison_on_overflow(tiles.overflow, u), poison_on_overflow(tiles.overflow, force)
 
     return energy_force
 

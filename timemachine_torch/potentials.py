@@ -376,6 +376,19 @@ class NonbondedAllPairs(nn.Module):
         self._configured()
         return self._energy_force(x, self.params, box)
 
+    def energy_force_f64(self, x, box):
+        """(u, force) in float64, as a minimizer reads them: one F+U sweep at
+        x and box in the parameters' dtype (float32 on the card), its
+        per-atom energies summed in float64 and its force taken to float64.
+        The rowscan energy/force entry only (kernel "rowscan", "quad" or
+        "dot"); other configurations raise."""
+        self._configured()
+        if self.kernel not in ("rowscan", "quad", "dot"):
+            raise NotImplementedError(f"energy_force_f64: no float64 energy sum for kernel={self.kernel!r}")
+        dt = self.params.dtype
+        u, f = self._energy_force(x.to(dt), self.params, box.to(dt), rs.FORCE_ENERGY, torch.float64)
+        return u, f.to(torch.float64)
+
     def md_force_provider(self):
         """(init(x, box), apply(state, x, box, t) -> (force, state),
         energy(state, x, box), rigid_energy(state, x, box),
@@ -490,6 +503,17 @@ class Nonbonded(NonbondedAllPairs):
     def energy_force(self, x, box):
         u, f = super().energy_force(x, box)
         u_exc, g_exc = self.exclusion_energy_force(x, box)
+        return u - u_exc, f + g_exc
+
+    def energy_force_f64(self, x, box):
+        """As NonbondedAllPairs', minus the exclusions evaluated in float64
+        at the sweep's coordinates (x and box rounded to the parameters'
+        dtype), so that the two cancel as far as the sweep's own arithmetic
+        allows: the all-pairs term and its exclusions cancel about 16 times
+        over on an RBFE window (ROADMAP P16)."""
+        u, f = super().energy_force_f64(x, box)
+        dt, f64 = self.params.dtype, torch.float64
+        u_exc, g_exc = self._exclusion_energy_force_poly(x.to(dt).to(f64), self.params.to(f64), box.to(dt).to(f64))
         return u - u_exc, f + g_exc
 
     def md_force_provider(self):

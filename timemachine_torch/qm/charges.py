@@ -1,6 +1,6 @@
 """AM1-family base charges for Mol objects, computed natively (the port's
-copy of timemachine_tpu/qm/charges.py; where the conformer is degenerate the
-JAX package embeds one, and the port, which has no embedding yet, raises).
+copy of timemachine_tpu/qm/charges.py; where the conformer is degenerate,
+both embed one with chem/embed.py's embed_mol).
 
 Replaces the reference's OpenEye charge backend
 (`timemachine/ff/handlers/nonbonded.py:343-520`, `oe_assign_charges`) with
@@ -80,7 +80,13 @@ def am1_mol_charges(mol, symmetrize: bool = True) -> np.ndarray:
     "native backend unavailable for this molecule"."""
     conf_nm = np.asarray(mol.get_conf(), dtype=np.float64)
     if _degenerate(conf_nm):
-        raise ValueError("degenerate conformer: set a 3D conformer (conformer embedding is not ported yet)")
+        # no real 3D conformer on the molecule: embed one, mirroring the
+        # reference backend which generates conformers (omega) before AM1
+        from timemachine_torch.chem import embed
+
+        conf_nm = np.asarray(embed.embed_mol(mol.copy()).get_conf(), dtype=np.float64)
+        if _degenerate(conf_nm):
+            raise ValueError("conformer embedding produced degenerate coordinates")
     coords_ang = conf_nm * 10.0
     res = am1(list(mol.atomic_nums), coords_ang, int(mol.total_charge()))
     q = res.charges

@@ -28,9 +28,10 @@ goes to standard error), and at the end state the image-bound margin and
 the largest |dU/dx| against the kernel's fixed-point limit; bitwise determinism of
 two fresh Contexts;
 the block-tile kernel against its plain version at DHFR shapes in its
-Newton-triangular form (every path's) in modes DP, UF (exact and
-polynomial) and F, and in its symmetric form (the first design) in DP and
-F, with the slots listed, kept by the kernel's sub-tile and column culls
+Newton-triangular form (every path's) in modes DP (A&S 7.1.26, the
+training path's du/dp form, and erfc, kernel="v1"'s), UF (exact and
+polynomial) and F, and in its symmetric form (the first design) in DP
+(A&S) and F, with the slots listed, kept by the kernel's sub-tile and column culls
 and swept, the bounds, the triangular / symmetric time ratio in DP and F held under
 NB_REDESIGN_RATIO, and the largest |DP column| against the fixed-point
 limit; du/dp training: 5 Adam steps on a
@@ -117,7 +118,20 @@ against the cache's box0; per anchor window its BFGS calls, its float64
 energy before and after (it must fall) and its largest displacement (at
 most N16_MIN_CUTOFF); window 0 minimized again, bitwise; the bisection's λ
 schedule and overlaps; HREX's acceptance, ΔG and 11 finite BAR pairs; the
-rowscan launches by stage and form, with no plain sweep.
+rowscan and nb_tiles launches by stage and form, with no plain sweep: the
+host's FIRE and every minimization on nb_tiles' exact form alone (JAX's
+"tiled" and fresh dense forms at 6,404 atoms), the NPT runs, bisection and
+HREX on the rowscan kernel alone. The exact-erfc and masked forms [17]: at
+window 0 of the cached leg under the host mask, the host term configured
+kernel="v1", "gather" and "dot"; nb_tiles' exact F and F+U, gather's F and
+F+U and dot's MD F against their plain versions (TOL_KERNEL_COL, bitwise on
+a repeat launch, CUDA-event times); gather's and dot's all-pairs force
+against the masked rowscan form's (TOL_ALT_FORCE); v1's float64 minimizer
+energy and force against the CPU's float64 dense form (TOL_F64_U_ROUNDINGS,
+TOL_FORCE_REL_NORM), and a control with A&S 7.1.26 in place of erfc that
+must fail one of the two; N17_STEPS NPT steps of window N17_WINDOW under each,
+finite, bitwise on repeat, its own kernel every step; each form's time
+against its bound over the window's host pairs.
 Every path runs with all launch and plain-call counts set to
 0 just before it and read just after. Then a JSON line on the kernels
 (time; launches per NPT step of the path named in `path`, per Adam step of
@@ -146,8 +160,9 @@ N_ALT = 500
 # phase 13, the solvent RBFE leg: depth cut from the JAX package's
 # DEFAULT_MD_PARAMS (fe/rbfe.py: 10,000 equilibration steps, 1,000 frames of
 # 400 steps) to fit the script's time; the 12 windows and 6,404 atoms are not cut
-# (cut to 250 and 10 since phase 16 drives the leg end to end)
-N13_EQ, N13_FRAMES, N13_STEPS_PER_FRAME, N13_TIMED, N13_REUSE = 250, 10, 50, 200, 60
+# (cut to 250 and 10 since phase 16 drives the leg end to end, to 100 and 10 frames of 30 since
+# phase 17 runs too)
+N13_EQ, N13_FRAMES, N13_STEPS_PER_FRAME, N13_TIMED, N13_REUSE = 100, 10, 30, 200, 60
 # phase 14, HREX over the same 12 windows: DEFAULT_HREX_PARAMS (fe/rbfe.py:
 # max_delta_states 4, K^3 swap attempts an iteration) with its depth cut as
 # phase 13's (10,000 equilibration steps, 1,000 frames of 400 steps in the
@@ -172,6 +187,9 @@ N15_WINDOW, N15_STEPS = 6, 200
 # estimators' default) and the embedded conformers to TOL_EMBED of the cache's
 N16_EMBED_SEED, N16_WINDOWS, N16_MIN_CUTOFF, TOL_EMBED = 7, 12, 0.7, 1e-10
 N16_EQ, N16_FRAMES, N16_STEPS_PER_FRAME, N16_FRAMES_BISECTION = 200, 20, 50, 10
+# phase 17, the exact-erfc and masked forms: the window whose NPT run each form takes, and its steps;
+# the DHFR atoms (the protein's last) the dot form's mask leaves out, as many as the leg's hybrid ligand
+N17_WINDOW, N17_STEPS, N17_DOT_OUT = 6, 100, 11
 # the minimizer's float64 energy on the card (an f32 sweep, its per-atom
 # energies summed in f64, the exclusions in f64 at the f32-rounded
 # coordinates) against the same state built in float64 on the CPU (the plain
@@ -181,11 +199,14 @@ N16_EQ, N16_FRAMES, N16_STEPS_PER_FRAME, N16_FRAMES_BISECTION = 200, 20, 50, 10
 # between the two coordinates, what BFGS and the energy-decrease check read,
 # must stay under one such rounding. dU itself is mostly an offset: the
 # water's rigid, identical pairs round alike, so their sweep errors add
-# coherently (0.78-0.87 of a rounding on the CPU's plain f32 sweep,
-# tests/test_torch_rbfe_coords.py), and it may reach 16, room for the
-# kernel's approximate rsqrt (2 ulp) and its order of sums. The gradient on
-# TOL_FORCE_REL_NORM's scale, the all-pairs force norm
-TOL_F64_U_CHANGE_ROUNDINGS, TOL_F64_U_ROUNDINGS = 1.0, 16.0
+# coherently (0.59-0.87 of a rounding on the CPU's plain f32 sweep,
+# tests/test_torch_rbfe_coords.py; -0.12 to -0.27 on the card's exact form,
+# phases 16 and 17 on an H100), and it may reach 2: the same reading with
+# A&S 7.1.26 in place of erfc sits 4.46 roundings off (phase 17's control),
+# so the limit tells the two forms apart. The gradient on
+# TOL_FORCE_REL_NORM's scale, the all-pairs force norm, does not (6.4e-7
+# against the control's 6.9e-7)
+TOL_F64_U_CHANGE_ROUNDINGS, TOL_F64_U_ROUNDINGS = 1.0, 2.0
 TOL_BUILD_REL, TOL_BUILD_FORCE, TOL_CHARGE_E = 1e-10, 1e-6, 1e-10
 # the banded U_kl against single-system sums of each term's u at the target
 # state's parameters: both accumulate in f64 (the host term's per-atom
@@ -278,6 +299,12 @@ FLOPS_PER_PAIR = {
     # the RBFE host term's masked form (triangular, minimum image, w): the
     # symmetric form's function, each pair once with its reaction
     "rowscan_sweep_masked": 64,
+    # nb_tiles' exact form (erfcf) in the triangular sweep's F and F+U modes, as its DP
+    # count above with the special functions counted 1 each (erfcf among them, as exp is:
+    # a lower bound on its instructions): the differences 16, r2 7, the gate 4, the pair
+    # parameters 3, LJ 17, the switched erfc and its derivative 33, the sums 2, the select 1,
+    # the row and column force sums 12; F+U adds the energy's select and sum
+    "nb_tiles_exact_F": 95, "nb_tiles_exact_UF": 97,
     # the same form batched over HREX's replicas: F mode as the masked form;
     # U mode (the barostat's and the banded U_kl's) 53: the pair function in
     # U mode 45 (F mode's 48 with the energy's expression, 3 fewer than the
@@ -331,7 +358,8 @@ def phase16(dev, smi, zero_counts, read_counts, masked_row, batched_row):
     λ-chain minimization, bisection and HREX, on `dev`, with every count
     zeroed just before run_solvent and read just after; the cache is read
     only for the comparisons printed. Adds run_solvent's launches to the
-    masked and batched rowscan rows."""
+    masked and batched rowscan rows; returns its launches by kernel and the
+    nb_tiles launches of its FIRE and minimization stages."""
     import numpy as np
     import torch
 
@@ -346,6 +374,7 @@ def phase16(dev, smi, zero_counts, read_counts, masked_row, batched_row):
     from timemachine_torch.ff import Forcefield
     from timemachine_torch.md import minimizer as minimizer16
     from timemachine_torch.md.context import Context
+    from timemachine_torch.ops import nonbonded_kernel as nbk
     from timemachine_torch.ops import rowscan_kernel as rs
     from timemachine_torch.potentials import NonbondedAllPairs
     from timemachine_torch.testsystems.rbfe_solvent import load_arrays as rbfe_cache_arrays
@@ -358,9 +387,14 @@ def phase16(dev, smi, zero_counts, read_counts, masked_row, batched_row):
     calls16, chains16, host16, call_s16 = [], [], {}, []
     mode_names = {rs.FORCE: "F", rs.FORCE_ENERGY: "F+U", rs.ENERGY: "U"}
 
+    nb_modes = {nbk.UF: "F+U", nbk.FORCE: "F", nbk.DP: "DP"}
+
     def form_launches():
-        """Every rowscan launch so far by form, from the wrappers' own counts."""
+        """Every rowscan and nb_tiles launch so far by form, from the
+        wrappers' own counts."""
         made = Counter()
+        for (mode, triangular, es), n in nbk.nb_tiles.launches_by_form.items():
+            made[f"nb_tiles {nb_modes[mode]} {'triangular' if triangular else 'symmetric'} {es}"] += n
         for (mode, triangular, preshift, has_w), n in rs.rowscan_sweep.launches_by_form.items():
             made[f"{mode_names[mode]} {'triangular' if triangular else 'symmetric'} "
                  f"{'preshift' if preshift else 'minimum image'} {'w' if has_w else 'no w'}"] += n
@@ -369,7 +403,7 @@ def phase16(dev, smi, zero_counts, read_counts, masked_row, batched_row):
         return made
 
     def staged(module, attr, stage, record=None):
-        """Wrap module.attr: its host seconds under `stage`, and the rowscan
+        """Wrap module.attr: its host seconds under `stage`, and the kernel
         launches made inside it under `stage`, less those of a stage nested
         in it (each launch is tallied under its innermost stage)."""
         fn = getattr(module, attr)
@@ -507,10 +541,17 @@ def phase16(dev, smi, zero_counts, read_counts, masked_row, batched_row):
 
     (anchors16, xs16, disp16), = chains16
     n_anchor = len(anchors16)
-    for state, x_opt, disp in zip(anchors16, xs16, disp16):
+    # the anchors' terms as their minimization read them: get_context has since configured window 0's in place
+    # (rowscan, as JAX's configure_pallas does), so each window is built again, fresh, on the card
+    st16 = SingleTopology(mols16[0], mols16[1], core16, ff16)
+    cfg_h = host16["config"]
+    host_card = rbfe16.Host(cfg_h.host_system, cfg_h.masses, host16["x_host"], host16["box"], cfg_h.num_water_atoms,
+                            cfg_h.host_topology)
+    fresh16 = [rbfe16.setup_initial_state(st16, state.lamb, host_card, DEFAULT_TEMP, md16.seed, dev) for state in anchors16]
+    for state, fresh, x_opt, disp in zip(anchors16, fresh16, xs16, disp16):
         k = next(i for i, c in enumerate(calls16[:n_anchor]) if c[0][0] is state.potentials)
-        potentials, x_in, box_in = calls16[k][0][:3]
-        check_vg = minimizer16.get_val_and_grad_fn(potentials, box_in)
+        _, x_in, box_in = calls16[k][0][:3]
+        check_vg = minimizer16.get_val_and_grad_fn(fresh.potentials, box_in)
         u_in, u_out = check_vg(x_in)[0], check_vg(x_opt)[0]
         print(f"[16 minimize] anchor λ {state.lamb:.4f}: {vgs16[k].calls} BFGS energy/force calls in {call_s16[k]:.2f} s, "
               f"U {u_in:.4f} -> {u_out:.4f} kJ/mol (float64 sums), largest displacement of the interacting atoms "
@@ -520,27 +561,26 @@ def phase16(dev, smi, zero_counts, read_counts, masked_row, batched_row):
     # window 0's card energy against the same state in float64 on the CPU
     state0 = anchors16[0]
     k0 = next(i for i, c in enumerate(calls16[:n_anchor]) if c[0][0] is state0.potentials)
-    cfg_h = host16["config"]
-    host_cpu = rbfe16.Host(cfg_h.host_system, cfg_h.masses, host16["x_host"], host16["box"], cfg_h.num_water_atoms,
-                           cfg_h.host_topology)
-    state_cpu = rbfe16.setup_initial_state(SingleTopology(mols16[0], mols16[1], core16, ff16), state0.lamb, host_cpu,
-                                           DEFAULT_TEMP, md16.seed, torch.device("cpu"), torch.float64)
+    state_cpu = rbfe16.setup_initial_state(st16, state0.lamb, host_card, DEFAULT_TEMP, md16.seed, torch.device("cpu"),
+                                           torch.float64)
     check(np.array_equal(state_cpu.x0, calls16[k0][0][1]), "[16] the CPU rebuild of window 0 starts elsewhere")
-    vg_card = minimizer16.get_val_and_grad_fn(state0.potentials, state0.box0)
+    vg_card = minimizer16.get_val_and_grad_fn(fresh16[0].potentials, state0.box0)
     vg_cpu = minimizer16.get_val_and_grad_fn(state_cpu.potentials, state0.box0)
-    ap_cpu = next(p for p in state_cpu.potentials if isinstance(p, NonbondedAllPairs))
     d_us, u_hs = [], []
     for label, x_at in (("input", calls16[k0][0][1]), ("minimized", xs16[0])):
         (u_c, g_c), (u_h, g_h) = vg_card(x_at), vg_cpu(x_at)
-        with torch.no_grad():
-            x_h = torch.as_tensor(x_at, dtype=torch.float64)
-            u_ap, f_ap = NonbondedAllPairs.energy_force_f64(ap_cpu, x_h, torch.as_tensor(state0.box0))
+        ap_card = next(p for p in vg_card.modules if isinstance(p, NonbondedAllPairs))
+        with torch.no_grad():  # the scale: the card's all-pairs term alone (its f32 sweep, summed in float64)
+            x_c = torch.as_tensor(x_at, device=dev, dtype=torch.float64)
+            u_ap, f_ap = NonbondedAllPairs.energy_force_f64(ap_card, x_c, torch.as_tensor(state0.box0, device=dev))
         d_us.append(u_c - u_h)
         u_hs.append(u_h)
         rounding, d_g = 2.0**-24 * abs(float(u_ap)), float(np.linalg.norm(g_c - g_h))
         norm_ap = float(torch.linalg.vector_norm(f_ap))
-        print(f"[16 minimize] window 0 at its {label} coordinates, the card's float64 energy against the CPU's (float64 "
-              f"throughout, plain sweep): U {u_c:.6f} vs {u_h:.6f} kJ/mol, dU {d_us[-1]:.3e} = "
+        print(f"[16 minimize] window 0 at its {label} coordinates, the card's float64 energy (host term "
+              f"{ap_card.kernel}) against the CPU's (float64 throughout, host term "
+              f"{next(p for p in vg_cpu.modules if isinstance(p, NonbondedAllPairs)).kernel}): U {u_c:.6f} vs "
+              f"{u_h:.6f} kJ/mol, dU {d_us[-1]:.3e} = "
               f"{d_us[-1] / rounding:.3f} f32 roundings of U_all-pairs {float(u_ap):.1f} (limit {TOL_F64_U_ROUNDINGS:g}); "
               f"|d grad| {d_g:.3e} = {d_g / np.linalg.norm(g_h):.3e} of |grad|, {d_g / norm_ap:.3e} of the all-pairs "
               f"force norm (limit {TOL_FORCE_REL_NORM:g}) ({smi})")
@@ -553,8 +593,9 @@ def phase16(dev, smi, zero_counts, read_counts, masked_row, batched_row):
     check(abs(d_us[1] - d_us[0]) <= TOL_F64_U_CHANGE_ROUNDINGS * rounding,
           "[16] window 0's card energy change off the CPU's float64 change")
     args0, kwargs0, out0 = calls16[0]
+    check(args0[0] is state0.potentials, "[16] the first minimization was not window 0's")
     t0 = time.perf_counter()
-    again16 = rbfe16.optimize_coords_state(*args0, **kwargs0)
+    again16 = rbfe16.optimize_coords_state(fresh16[0].potentials, *args0[1:], **kwargs0)
     t_again16 = time.perf_counter() - t0
     same16 = bool(np.array_equal(again16, out0))
     print(f"[16 minimize] {n_anchor} anchors, {sum(v.calls for v in vgs16[:n_anchor])} calls; "
@@ -581,20 +622,37 @@ def phase16(dev, smi, zero_counts, read_counts, masked_row, batched_row):
     for (stage, form), n in sorted(forms16.items()):
         if n:
             by_stage.setdefault(stage, []).append(f"{form} {n}")
-    print("[16 kernels] rowscan launches in run_solvent by stage and form: "
+    print("[16 kernels] rowscan and nb_tiles launches in run_solvent by stage and form: "
           + "; ".join(f"{stage}: {', '.join(v)}" for stage, v in by_stage.items())
           + f"; totals {launches16}; plain sweeps {plain16_calls} ({smi})")
     check(plain16_calls == 0, "[16] run_solvent ran a plain sweep")
     check(launches16["rowscan_sweep"] > 0 and launches16["rowscan_sweep_batched"] > 0,
           "[16] run_solvent did not launch the rowscan kernel and its batched form")
     check(all(n == 0 for (stage, _), n in forms16.items() if stage == "setup"),
-          "[16] a rowscan launch outside the stages")
-    check(sum(n for form, n in forms_run16.items() if not form.startswith("batched")) == launches16["rowscan_sweep"]
-          and sum(n for form, n in forms_run16.items() if form.startswith("batched")) == launches16["rowscan_sweep_batched"],
+          "[16] a kernel launch outside the stages")
+
+    def stage_launches(stage, kernel):
+        return sum(n for (st, form), n in forms16.items() if st == stage and form.startswith("nb_tiles") == (kernel == "nb_tiles"))
+
+    # JAX's forms by stage (potentials.all_pairs_kernel): the host's FIRE reads "tiled" (v1), the anchors' and the
+    # new λ's minimizations a fresh state's dense term (v1 on the card at 6,404 atoms); MD, bisection's u_kln
+    # and HREX the Context's rowscan sweep
+    for stage in ("fire", "minimize"):
+        exact = sum(n for (st, form), n in forms16.items() if st == stage and form.startswith("nb_tiles") and form.endswith("exact"))
+        check(exact > 0 and stage_launches(stage, "rowscan") == 0 and stage_launches(stage, "nb_tiles") == exact,
+              f"[16] the {stage} stage did not run on nb_tiles' exact form alone")
+    for stage in ("npt", "bisection", "hrex"):
+        check(stage_launches(stage, "rowscan") > 0 and stage_launches(stage, "nb_tiles") == 0,
+              f"[16] the {stage} stage did not run on the rowscan kernel alone")
+    rs_forms = {form: n for form, n in forms_run16.items() if not form.startswith("nb_tiles")}
+    check(sum(n for form, n in rs_forms.items() if not form.startswith("batched")) == launches16["rowscan_sweep"]
+          and sum(n for form, n in rs_forms.items() if form.startswith("batched")) == launches16["rowscan_sweep_batched"]
+          and sum(n for form, n in forms_run16.items() if form.startswith("nb_tiles")) == launches16["nb_tiles"],
           "[16] the launches by form do not add up to the wrappers' counts")
     masked_row["launches_run_solvent"] = launches16["rowscan_sweep"]
     batched_row["launches_run_solvent"] = launches16["rowscan_sweep_batched"]
     print(f"[16 time] phase 16 took {time.perf_counter() - t_phase16:.1f} s, host clock ({smi})")
+    return launches16, {stage: stage_launches(stage, "nb_tiles") for stage in ("fire", "minimize")}
 
 
 def main() -> int:
@@ -950,11 +1008,14 @@ def main() -> int:
         f"{int(sym6.row_count.sum())}, pair slots {sym_slots6}; pairs within the cutoff {pairs_x0} ({smi})"
     )
     poly = nbk.es_switch_poly_coeffs(nb.beta, nb.cutoff)
-    modes6 = (("DP", nbk.DP, None), ("UF-exact", nbk.UF, None), ("UF-poly", nbk.UF, poly), ("F", nbk.FORCE, None))
+    # DP runs A&S 7.1.26, the form the training path's du/dp pass launches (run_dp's
+    # default, phase 7); DP-erfc is kernel="v1"'s du/dp pass, the exact modes its UF and F
+    modes6 = (("DP", nbk.DP, nbk.AS7126), ("DP-erfc", nbk.DP, None), ("UF-exact", nbk.UF, None),
+              ("UF-poly", nbk.UF, poly), ("F", nbk.FORCE, None))
     res6 = {}
     for form in ("triangular", "symmetric"):
         for label, mode, es in modes6:
-            if form == "symmetric" and mode == nbk.UF:
+            if form == "symmetric" and label not in ("DP", "F"):
                 continue  # the first design is kept in DP and F only
             tri = form == "triangular"
             res6[form, label] = compare_kernel("6", [(
@@ -1026,8 +1087,9 @@ def main() -> int:
         t7 = nbk.build_block_tiles(x, p, b, nb.cutoff, nb.dp_max_tiles, DP_CB, triangular=True)
         check(int(t7.overflow) == 0, "[7] block-tile list overflow at a training frame")
         args7 = (t7.atoms, t7.row_start, t7.row_count, t7.col_ids, nbk.tile_scalars(b, nb.beta, nb.cutoff), nbk.DP, DP_CB)
-        dp = nbk.nb_tiles_plain(*args7, triangular=True)
-        dp_max = torch.maximum(dp_max, nbk.nb_tiles(*args7, triangular=True).abs().amax(0))
+        # the training path's DP pass: rowscan's u takes JAX's _run_dp electrostatics, A&S 7.1.26
+        dp = nbk.nb_tiles_plain(*args7, nbk.AS7126, triangular=True)
+        dp_max = torch.maximum(dp_max, nbk.nb_tiles(*args7, nbk.AS7126, triangular=True).abs().amax(0))
         dq = dp[torch.argsort(t7.pad_order[:n]), 0]
         s_e = s0.detach().requires_grad_(True)
         (d_exc,) = torch.autograd.grad(nb.exclusion_energy(x, params_of(s_e), b), s_e)
@@ -1569,7 +1631,8 @@ def main() -> int:
     )
 
     cpu13 = load_rbfe_solvent(device="cpu", dtype=f32, windows=[0])[0]
-    configure_all_pairs(cpu13)
+    # the card's form, named: on the CPU the Context's rule would take the dense form
+    cpu13.potentials[host_i].configure(box13.cpu(), x13.cpu(), kernel="rowscan")
     f_terms = [p.energy_force(x13, box13)[1] for p in pots13]
     f_terms_cpu = [p.energy_force(x13.cpu(), box13.cpu())[1] for p in cpu13.potentials]
     f_ap13 = NonbondedAllPairs.energy_force(nb13, x13, box13)[1]
@@ -2087,9 +2150,197 @@ def main() -> int:
     print(f"[15 time] phase 15 took {time.perf_counter() - t_phase15:.1f} s, host clock ({smi})")
 
     # -- 16. the solvent leg from two SMILES ------------------------------------------------
-    phase16(dev, smi, zero_counts, read_counts, masked_row, batched_row)
+    launches16, exact16 = phase16(dev, smi, zero_counts, read_counts, masked_row, batched_row)
 
-    print(json.dumps({"kernels": [kernel_row, masked_row, batched_row, nb_row, gather_row, quad_row, dot_row, *probe_rows]}))
+    # -- 17. the exact-erfc and masked forms at the leg's window 0 ----------------------------
+    # the host term of window 0 (6,404 atoms, the 11 hybrid-ligand atoms masked out) configured
+    # as kernel="v1" (nb_tiles' exact form: JAX's "tiled" and, on the card, its minimizers'
+    # dense form) and "gather": each kernel against its plain version under the mask, gather
+    # against the masked rowscan force (the same polynomial function), v1 against the CPU's
+    # float64 dense form, and N17_STEPS NPT steps of window N17_WINDOW under each, twice,
+    # bitwise. kernel="dot" falls back to rowscan at the leg's 4.03 nm box, as JAX's does (its
+    # image bound needs row half-extents + cutoff + skin under box / 2): its masked form runs
+    # the same checks on DHFR with the protein's last N17_DOT_OUT atoms out of the term
+    import copy
+
+    t_phase17 = time.perf_counter()
+    forms17 = {}
+    for kernel in ("v1", "gather", "dot"):
+        term = copy.deepcopy(nb13)
+        term.configure(box13, x13, kernel=kernel)
+        check(term.kernel == (kernel if kernel != "dot" else "rowscan"),
+              f"[17] the host term took kernel={term.kernel!r} for {kernel!r} under the mask")
+        forms17[kernel] = term
+    margins17 = {
+        sort: float(dk.build_dotscan_tiles(x13, box13, nb13.cutoff + SKIN, 32, triangular=True, sort=sort,
+                                           atom_mask=mask13).margin)
+        for sort in ("snake", "hilbert")
+    }
+    print(f"[17 dot] window 0: the image bound's margin on the host atoms at cutoff + skin, snake {margins17['snake']:.4f} "
+          f"nm, hilbert {margins17['hilbert']:.4f} nm (must exceed 0.1): kernel=\"dot\" takes "
+          f"{forms17['dot'].kernel!r}, as JAX's configure_pallas does ({smi})")
+    check(max(margins17.values()) <= 0.1, "[17] dot's image bound holds at window 0: the dot form should run there")
+    hc17 = setup_dhfr(waters_first=True, device=dev, dtype=f32)
+    bps17 = hc17.host_system.get_U_fns()
+    nb_i17 = next(i for i, p in enumerate(bps17) if isinstance(p, Nonbonded))
+    nb_d = bps17[nb_i17]
+    keep17 = np.arange(n - N17_DOT_OUT)  # waters first: the out atoms are the protein's last
+    dot17 = Nonbonded(n, *nb_d._exclusions, nb_d.beta, nb_d.cutoff, nb_d.params.cpu().numpy(), atom_idxs=keep17,
+                      device=dev, dtype=f32)
+    rs_d17 = copy.deepcopy(dot17).configure(box, x_min, kernel="rowscan")
+    dot17.configure(box, x_min, kernel="dot")
+    check(dot17.kernel == "dot", "[17] masked DHFR did not take kernel=\"dot\"")
+    forms17["dot"] = dot17
+    mask_d17 = dot17.atom_mask
+    params17 = nb13.params
+    tiles17 = nbk.build_block_tiles(x13, params17, box13, nb13.cutoff, forms17["v1"].dp_max_tiles, DP_CB, True, mask13)
+    check(int(tiles17.overflow) == 0, "[17] masked block-tile list overflow")
+    nb_args17 = (tiles17.atoms, tiles17.row_start, tiles17.row_count, tiles17.col_ids,
+                 nbk.tile_scalars(box13, nb13.beta, nb13.cutoff))
+    lists17 = gk.build_gather_neighbors(x13, box13, nb13.cutoff, forms17["gather"].max_nbrs, atom_mask=mask13)
+    check(int(lists17.overflow) == 0, "[17] masked gather list overflow")
+    atoms_g17 = rs.assemble_atoms(x13, box13, lists17.pad_order, rs.param_rows(params17, lists17.pad_order, n13, mask13))
+    scal17 = rs.sweep_scalars(box13, nb13.cutoff)
+    g_args17 = (atoms_g17, lists17.counts, lists17.nbr, lists17.tri_start, scal17, series13)
+    dt17 = dk.build_dotscan_tiles(x_min, box, dot17.cutoff + SKIN, dot17.md_max_pairs, triangular=True, sort=dot17.dot_sort,
+                                  atom_mask=mask_d17)
+    check(int(dt17.invalid) == 0, "[17] masked dot lists invalid (overflow or the image bound)")
+    atoms_d17 = rs.assemble_atoms(x_min, box, dt17.pad_order, rs.param_rows(dot17.params, dt17.pad_order, n, mask_d17))
+    d_args17 = (atoms_d17, dt17.row_start, dt17.row_count, dt17.col_ids, dt17.rcen_q, rs.sweep_scalars(box, dot17.cutoff),
+                rs.es_energy_force_series(dot17.beta, dot17.cutoff))
+    keep_t17 = torch.as_tensor(keep17, device=dev)
+    pairs_d17 = pairs_within_cutoff(x_min[keep_t17], box, dot17.params[keep_t17, 3], dot17.cutoff)
+    print(
+        f"[17 shapes] window 0 under the host mask ({n_masked} atoms out): v1 DP tiles {forms17['v1'].dp_max_tiles}, "
+        f"listed {int(tiles17.row_count.sum())}, MD tiles {forms17['v1'].md_max_tiles}; gather max_nbrs "
+        f"{forms17['gather'].max_nbrs} (longest list {int(lists17.counts.max())}), MD {forms17['gather'].md_max_nbrs}; "
+        f"pairs within the cutoff {pairs13}; DHFR with {N17_DOT_OUT} atoms out: dot sort {dot17.dot_sort}, MD max_pairs "
+        f"{dot17.md_max_pairs}, listed {int(dt17.row_count.sum())}, image-bound margin on the kept atoms "
+        f"{float(dt17.margin):.4f} nm, pairs within the cutoff {pairs_d17} ({smi})"
+    )
+    res17 = {}
+    for label, kernel, plain in (
+        ("nb_tiles exact F", lambda: nbk.nb_tiles(*nb_args17, nbk.FORCE, DP_CB, triangular=True),
+         lambda: nbk.nb_tiles_plain(*nb_args17, nbk.FORCE, DP_CB, triangular=True)),
+        ("nb_tiles exact F+U", lambda: nbk.nb_tiles(*nb_args17, nbk.UF, DP_CB, triangular=True),
+         lambda: nbk.nb_tiles_plain(*nb_args17, nbk.UF, DP_CB, triangular=True)),
+        ("gather F", lambda: gk.gather_sweep(*g_args17, gk.FORCE),
+         lambda: gk.gather_sweep_plain(atoms_g17, lists17.counts, lists17.nbr, scal17, series13, gk.FORCE)),
+        ("gather F+U", lambda: gk.gather_sweep(*g_args17, gk.FORCE_ENERGY),
+         lambda: gk.gather_sweep_plain(atoms_g17, lists17.counts, lists17.nbr, scal17, series13, gk.FORCE_ENERGY)),
+        ("dot MD F", lambda: dk.dotscan_sweep(*d_args17, dk.FORCE, True), lambda: dk.dotscan_sweep_plain(*d_args17, dk.FORCE, True)),
+    ):
+        res17[label] = compare_kernel("17", [(f"{label} under the mask", kernel, plain)])
+
+    f_rs17 = NonbondedAllPairs.energy_force(nb13, x13, box13)[1]
+    f_g17 = NonbondedAllPairs.energy_force(forms17["gather"], x13, box13)[1]
+    rel_g17 = float(torch.linalg.vector_norm(f_g17 - f_rs17) / torch.linalg.vector_norm(f_rs17))
+    f_rsd17 = NonbondedAllPairs.energy_force(rs_d17, x_min, box)[1]
+    d_init, d_apply = NonbondedAllPairs.md_force_provider(dot17)[:2]
+    f_d17 = d_apply(d_init(x_min, box), x_min, box, 0)[0]
+    rel_d17 = float(torch.linalg.vector_norm(f_d17 - f_rsd17) / torch.linalg.vector_norm(f_rsd17))
+    print(f"[17 force] all-pairs force under the mask against the masked rowscan form's, |diff| / |all-pairs force|: "
+          f"gather (window 0) {rel_g17:.3e}, dot's MD provider (DHFR) {rel_d17:.3e} (tol {TOL_ALT_FORCE:g}) ({smi})")
+    check(rel_g17 <= TOL_ALT_FORCE and rel_d17 <= TOL_ALT_FORCE, "[17] gather or dot disagrees with the masked rowscan form")
+
+    t0 = time.perf_counter()
+    cpu17 = load_rbfe_solvent(device="cpu", dtype=torch.float64, windows=[0])[0]
+    host_cpu17 = cpu17.potentials[host_i]
+    x64 = x13.double().cpu()
+    host_cpu17.configure(box13.double().cpu(), x64, kernel="dense")
+    with torch.no_grad():
+        u_ref17, f_ref17 = host_cpu17.energy_force(x64, box13.double().cpu())
+    t_dense17 = time.perf_counter() - t0
+    v1 = forms17["v1"]
+    u_v1, f_v1 = v1.energy_force_f64(x13.double(), box13.double())
+    u_ap17 = float(NonbondedAllPairs.energy_force_f64(v1, x13.double(), box13.double())[0])
+    f_ap17 = float(torch.linalg.vector_norm(NonbondedAllPairs.energy_force(v1, x13, box13)[1]))
+    rounding17 = 2.0**-24 * abs(u_ap17)
+    du17 = float(u_v1) - float(u_ref17)
+    rel_v1 = float(torch.linalg.vector_norm(f_v1.cpu() - f_ref17)) / f_ap17
+    print(f"[17 exact] v1 on the card (f32 sweep, energies summed in f64, exclusions exact in f64) against the CPU's "
+          f"float64 dense form ({t_dense17:.1f} s): U {float(u_v1):.4f} vs {float(u_ref17):.4f} kJ/mol, dU {du17:.3e} = "
+          f"{du17 / rounding17:.3f} f32 roundings of U_all-pairs {u_ap17:.1f} (limit {TOL_F64_U_ROUNDINGS:g}); force "
+          f"|diff| / |all-pairs force| {rel_v1:.3e} (tol {TOL_FORCE_REL_NORM:g}) ({smi})")
+    check(abs(du17) <= TOL_F64_U_ROUNDINGS * rounding17, "[17] v1's energy off the CPU's float64 exact energy")
+    check(rel_v1 <= TOL_FORCE_REL_NORM, "[17] v1's force off the CPU's float64 exact force")
+    # the control: the same reading with the sweep's erfc swapped for A&S 7.1.26 (the JAX
+    # kernel's exact form, 1.5e-7 from erfc, which the kernel builds in DP only), by the
+    # difference of the plain version's two UF sweeps on the card; the two limits must tell it
+    inv17 = torch.argsort(tiles17.pad_order[:n13])
+    uf17 = {es: nbk.nb_tiles_plain(*nb_args17, nbk.UF, DP_CB, es, triangular=True).double() for es in (None, nbk.AS7126)}
+    d17 = uf17[nbk.AS7126] - uf17[None]
+    du_as17 = du17 + float(d17[:, 0].sum())
+    f_as17 = f_v1 - d17[inv17, 1:4]
+    rel_as17 = float(torch.linalg.vector_norm(f_as17.cpu() - f_ref17)) / f_ap17
+    print(f"[17 control] the same with A&S 7.1.26 in place of erfc: dU {du_as17:.3e} = {du_as17 / rounding17:.3f} f32 "
+          f"roundings (limit {TOL_F64_U_ROUNDINGS:g}); force |diff| / |all-pairs force| {rel_as17:.3e} (tol "
+          f"{TOL_FORCE_REL_NORM:g}); it must fail one ({smi})")
+    check(abs(du_as17) > TOL_F64_U_ROUNDINGS * rounding17 or rel_as17 > TOL_FORCE_REL_NORM,
+          "[17] the exact-form limits do not tell erfc from A&S 7.1.26")
+
+    s17 = states13[N17_WINDOW]
+    sweep_of = {"v1": nbk.nb_tiles, "gather": gk.gather_sweep, "dot": dk.dotscan_sweep}
+    launches17 = {}
+
+    def run17(kernel):
+        if kernel == "dot":  # masked DHFR from the main path's minimized start
+            ctx = make_context([dot17 if i == nb_i17 else p for i, p in enumerate(bps17)])
+        else:
+            pots = [copy.deepcopy(p) for p in s17.potentials]
+            pots[host_i].configure(torch.as_tensor(s17.box0, device=dev, dtype=f32),
+                                   torch.as_tensor(s17.x0, device=dev, dtype=f32), kernel=kernel)
+            ctx = Context(torch.as_tensor(s17.x0, dtype=f32), s17.v0, s17.box0, s17.integrator, pots,
+                          movers=[s17.barostat], device=dev)
+        ctx.multiple_steps(N17_STEPS)
+        torch.cuda.synchronize()
+        return [f(ctx) for f in (Context.get_x_t, Context.get_v_t, Context.get_box)]
+
+    for kernel in forms17:
+        zero_counts()
+        t0 = time.perf_counter()
+        out_a = run17(kernel)
+        t_run = time.perf_counter() - t0
+        counts17, plain17 = read_counts()
+        out_b = run17(kernel)
+        finite = all(bool(np.isfinite(a).all()) for a in out_a)
+        same = all(np.array_equal(a, b) for a, b in zip(out_a, out_b))
+        launches17[kernel] = counts17[sweep_of[kernel].__name__]
+        where = f"window {N17_WINDOW}" if kernel != "dot" else f"DHFR with {N17_DOT_OUT} atoms out"
+        print(f"[17 run] {where}, {N17_STEPS} NPT steps under kernel={kernel!r}: {t_run:.2f} s host clock, "
+              f"finite {finite}, bitwise on repeat {same}; launches {counts17}, plain calls {plain17} ({smi})")
+        check(finite and same, f"[17] the {kernel} run is not finite or not bitwise on repeat")
+        check(launches17[kernel] >= N17_STEPS and plain17 == 0 and counts17["rowscan_sweep"] == 0,
+              f"[17] the {kernel} run did not launch its own kernel every step")
+
+    host_pairs_bytes = 4 * int(tiles17.row_count.sum()) + 16 * tiles17.atoms.shape[0]
+    rows17 = []
+    for name17, source, replaces, label, pairs_label, pairs, nbytes, launches, path in (
+        ("nb_tiles_exact_masked", "nb_tiles.cu", "nonbonded_kernel.py:213", "nb_tiles exact F+U", "nb_tiles_exact_UF", pairs13,
+         tensor_bytes(tiles17.atoms, tiles17.row_start, tiles17.row_count) + host_pairs_bytes,
+         launches16["nb_tiles"], "run_solvent's host FIRE and minimizations (per run; phase 16)"),
+        ("gather_sweep_masked", "gather.cu", "gather_kernel.py:64", "gather F", "gather_sweep", pairs13,
+         tensor_bytes(atoms_g17, lists17.counts, lists17.tri_start) + 4 * int(lists17.counts.sum()) + 16 * atoms_g17.shape[0],
+         launches17["gather"] / N17_STEPS, f"window {N17_WINDOW} NPT, kernel=\"gather\" under the mask (per step)"),
+        ("dotscan_sweep_masked", "dotscan.cu", "dotscan_kernel.py:82", "dot MD F", "dotscan_sweep", pairs_d17,
+         tensor_bytes(atoms_d17, dt17.row_start, dt17.row_count, dt17.rcen_q) + 4 * int(dt17.row_count.sum()) + 16 * atoms_d17.shape[0],
+         launches17["dot"] / N17_STEPS, f"DHFR NPT with {N17_DOT_OUT} atoms out, kernel=\"dot\" (per step)"),
+    ):
+        err, ms, plain_ms = res17[label]
+        row = kernel_entry(name17, source, replaces, err, ms, plain_ms, pairs, nbytes, ops=pair_ops(pairs_label, pairs))
+        row["name"], row["launches"], row["path"] = name17, launches, path
+        row["ms_by_mode"] = {k: v[1] for k, v in res17.items() if k.split()[0] == label.split()[0]}
+        rows17.append(row)
+    rows17[0]["launches_npt_per_step"] = launches17["v1"] / N17_STEPS
+    rows17[0]["launches_by_stage_run_solvent"] = exact16
+    for row in rows17:
+        print(f"[17 bound] {row['name']}: {row['ms']:.4f} ms against its bound {row['bound_ms']:.4f} ms by "
+              f"{row['bound_by']} over the pairs of its system; plain {row['plain_ms']:.2f} ms; launches {row['launches']} "
+              f"({row['path']}) ({smi})")
+    print(f"[17 time] phase 17 took {time.perf_counter() - t_phase17:.1f} s, host clock ({smi})")
+
+    print(json.dumps({"kernels": [kernel_row, masked_row, batched_row, nb_row, gather_row, quad_row, dot_row, *probe_rows,
+                                  *rows17]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

@@ -7,8 +7,9 @@ vacuum leg (fe/rbfe.py run_vacuum) against timemachine_tpu.
 - compute_energy_decomposed_u_kln on the same frames of tests/test_torch_rbfe.py's
   small windows (λ 0 and 0.4, perturbed from x0 with numpy draws): the exact
   terms within 1e-10 relative of JAX's, the host term within HOST_REL (the
-  rowscan polynomial against JAX's exact erfc, ROADMAP P11's stated
-  tolerance; measured 1.04e-3 on these frames), a frame with a NaN
+  dense exact-erfc form in both packages; measured 1.2e-15 on these frames,
+  1.04e-3 while the port ran the rowscan polynomial, ROADMAP P11), a frame
+  with a NaN
   coordinate NaN in every component.
 - run_vacuum at tests/test_rbfe_default.py's toy settings (3 windows, so both
   packages' schedule is [0, 0.5, 1]): the same λ schedule as JAX's, finite
@@ -37,7 +38,7 @@ from timemachine_torch.fe import rbfe as trbfe  # noqa: E402
 
 torch.set_num_threads(1)  # the suite's workers share the host's cores
 
-HOST_REL = 2e-3
+HOST_REL = 1e-10
 N_FRAMES = 3
 
 

@@ -304,14 +304,15 @@ def test_batched_provider_runs_on_the_kernel(cuda):
 # -- the block-tile kernel (csrc/nb_tiles.cu) -----------------------------------
 
 NB_MODES = {
-    "DP": (nbk.DP, False),
-    "UF-exact": (nbk.UF, False),
-    "UF-poly": (nbk.UF, True),
-    "F": (nbk.FORCE, False),
+    "DP": (nbk.DP, None),
+    "UF-exact": (nbk.UF, None),
+    "UF-poly": (nbk.UF, "poly"),
+    "F": (nbk.FORCE, None),
+    "DP-as": (nbk.DP, nbk.AS7126),
 }
 # the forms the kernel is built for: every mode triangular, the first
-# design (symmetric) in DP and F
-NB_FORMS = [("triangular", m) for m in NB_MODES] + [("symmetric", "DP"), ("symmetric", "F")]
+# design (symmetric) in DP and F, DP also with A&S 7.1.26
+NB_FORMS = [("triangular", m) for m in NB_MODES] + [("symmetric", m) for m in ("DP", "F", "DP-as")]
 
 
 def _tile_args(conf, params, box, cb=2, triangular=False):
@@ -337,9 +338,9 @@ def _col_rel(out_k, out_p):
 def test_nb_tiles_kernel_matches_plain(cuda, form, mode_name, cb):
     """Every built form against the plain version per column (the fluid's
     w offsets lift dU/dw), at cb 1 and 2."""
-    mode, poly = NB_MODES[mode_name]
+    mode, es = NB_MODES[mode_name]
     tri = form == "triangular"
-    es = nbk.es_switch_poly_coeffs(BETA, CUTOFF) if poly else None
+    es = nbk.es_switch_poly_coeffs(BETA, CUTOFF) if es == "poly" else es
     args = _tile_args(*_fluid(cuda, seed=3), cb=cb, triangular=tri)
     before = nbk.nb_tiles.launches
     out_k = nbk.nb_tiles(*args, mode, cb, es, triangular=tri)
@@ -372,7 +373,12 @@ def test_nb_tiles_wrapper_rejects_what_the_kernel_cannot_take(cuda):
         nbk.nb_tiles(*args, nbk.UF, 3)
     poly = nbk.es_switch_poly_coeffs(BETA, CUTOFF)
     before = nbk.nb_tiles.launches
-    for mode, es, tri in ((nbk.UF, None, False), (nbk.UF, poly, False), (nbk.FORCE, poly, False), (nbk.FORCE, poly, True)):
+    refused = (
+        (nbk.UF, None, False), (nbk.UF, poly, False), (nbk.FORCE, poly, False), (nbk.FORCE, poly, True),
+        (nbk.UF, nbk.AS7126, True), (nbk.UF, nbk.AS7126, False), (nbk.FORCE, nbk.AS7126, True),
+        (nbk.FORCE, nbk.AS7126, False),
+    )
+    for mode, es, tri in refused:
         with pytest.raises(RuntimeError, match="CUDA error 1"):
             nbk.nb_tiles(*args, mode, 2, es, triangular=tri)
     assert nbk.nb_tiles.launches == before
@@ -403,7 +409,7 @@ def test_param_grad_runs_on_the_kernel(cuda):
     energy(conf, p, box).backward()
     assert bool(torch.isfinite(p.grad).all())
     assert nbk.nb_tiles.launches == before_k + 1 and nbk.nb_tiles_plain.calls == before_p
-    dp_plain = nbk.nb_tiles_plain(*_tile_args(conf, params, box, triangular=True), nbk.DP, 2, triangular=True)
+    dp_plain = nbk.nb_tiles_plain(*_tile_args(conf, params, box, triangular=True), nbk.DP, 2, nbk.AS7126, triangular=True)
     tiles = nbk.build_block_tiles(conf, params, box, CUTOFF, 10**6, 2, triangular=True)
     assert _col_rel(p.grad, dp_plain[torch.argsort(tiles.pad_order[: conf.shape[0]])]) < TOL
 

@@ -159,7 +159,7 @@ def test_dense_oracle_matches_jax(water):
     conf, params, box = water
     conf, params = conf[:900], params[:900]
     u_ref = float(jnb.nonbonded_all_pairs_dense(jnp.asarray(conf), jnp.asarray(params), jnp.asarray(box), 1.0, 1.0, BETA, CUTOFF))
-    u = float(tnb.nonbonded_all_pairs_dense(_t(conf), _t(params), _t(box), BETA, CUTOFF))
+    u = float(tnb.nonbonded_all_pairs_dense(_t(conf), _t(params), _t(box), None, None, BETA, CUTOFF))
     assert u == pytest.approx(u_ref, rel=1e-12)
 
 

@@ -131,7 +131,9 @@ def test_dp_pass_runs_triangular_lists():
     dp = nbk.run_dp(x, params, box, BETA, CUTOFF, nbk.suggest_max_tiles(x, box, CUTOFF, cb=2, triangular=True), cb=2)
     assert not bool(torch.isnan(dp).any())
     sym = nbk.build_block_tiles(x, params, box, CUTOFF, nbk.suggest_max_tiles(x, box, CUTOFF, cb=2), 2)
-    ref = nbk.nb_tiles_plain(sym.atoms, sym.row_start, sym.row_count, sym.col_ids, nbk.tile_scalars(box, BETA, CUTOFF), nbk.DP, 2)
+    ref = nbk.nb_tiles_plain(
+        sym.atoms, sym.row_start, sym.row_count, sym.col_ids, nbk.tile_scalars(box, BETA, CUTOFF), nbk.DP, 2, nbk.AS7126
+    )
     ref = ref[torch.argsort(sym.pad_order[: x.shape[0]])]
     for col in range(4):
         assert _rel(dp[:, col].numpy(), ref[:, col].numpy()) < 1e-5, col

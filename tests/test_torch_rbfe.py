@@ -13,11 +13,14 @@ port's FIRE, and the coordinates are given to both packages.
 
 Tolerances (stated per test): exact-function terms in f64 to 1e-10
 relative. The
-host term runs the rowscan polynomial in the port and exact erfc in JAX's
-dense CPU path: its energies agree to 1e-3 relative (measured 4.7e-4 on
-these frames), and its works are exactly zero in both
+host term runs JAX's dense exact-erfc form in both packages on the CPU: its
+energies agree to HOST_REL (measured 1.5e-15 on these frames; 4.7e-4 while
+the port ran the rowscan polynomial, ROADMAP P11), and its works are
+exactly zero in both
 (tests/test_torch_rbfe_masked.py holds the function against JAX's masked
-rowscan path).
+rowscan path). The Context tests run each window in both host forms
+(FORMS): rowscan, the card's at the leg's size, whose lists a rebuild and a
+reset must renew, and dense, the CPU's (configure_all_pairs' choice here).
 
 Run `python tests/test_torch_rbfe.py --write-cache` to rebuild
 timemachine_torch/testsystems/cache/rbfe_solvent_ethanol_propane.npz with
@@ -25,6 +28,7 @@ the JAX package (its pre-equilibration and 12 minimizations take an hour or
 more on a CPU).
 """
 
+import copy
 import sys
 import time
 import warnings
@@ -53,6 +57,8 @@ LAMBDAS_SMALL = (0.0, 0.4, 1.0)
 TERMS = ("bond", "angle", "proper", "improper", "chiral_atom", "nonbonded_pair_list", "nonbonded_all_pairs", "nonbonded_ixn_group")
 EXACT_TERMS = [i for i, t in enumerate(TERMS) if t != "nonbonded_all_pairs"]
 HOST = TERMS.index("nonbonded_all_pairs")
+HOST_REL = 1e-10
+FORMS = ("rowscan", "dense")  # the host term's Context form on the card at the leg's size, on the CPU
 
 
 def _jax():
@@ -256,7 +262,6 @@ def test_assert_ensembles_compatible_matches_jax(small, case):
     pass, with get_water_sampler_params equal to JAX's; window 2 given
     another barostat pressure, or another charge on one water atom of its
     host term, fails in both."""
-    import copy
     from dataclasses import replace
 
     import jax.numpy as jnp
@@ -326,6 +331,15 @@ def test_velocity_verlet_context_matches_jax(small):
     assert np.array_equal(c1.get_x_t(), c2.get_x_t()) and np.array_equal(c1.get_v_t(), c2.get_v_t())
 
 
+def as_form(state, kernel):
+    """A deep copy of the state with its host term configured as `kernel`
+    (one of FORMS), which get_context keeps."""
+    s = copy.deepcopy(state)
+    dt = s.potentials[HOST].params.dtype
+    s.potentials[HOST].configure(torch.as_tensor(s.box0, dtype=dt), torch.as_tensor(s.x0, dtype=dt), kernel=kernel)
+    return s
+
+
 def _ctx(state, interval=None):
     ctx = tfe.get_context(state)
     if interval is not None:
@@ -337,19 +351,24 @@ def _same_run(a: Context, b: Context):
     return all(np.array_equal(f(a), f(b)) for f in (Context.get_x_t, Context.get_v_t, Context.get_box))
 
 
-def test_compute_u_t_is_the_sum_of_the_terms(small):
+@pytest.mark.parametrize("form", FORMS)
+def test_compute_u_t_is_the_sum_of_the_terms(small, form):
     """compute_u_t is the sum of the window's terms' u(x, params, box), the
-    host term's through its rowscan F+U entry (the same bits)."""
-    s = small["port32"][1]
+    host term's through its configured form's (the same bits): rowscan's
+    F+U entry, or the dense form."""
+    s = as_form(small["port32"][1], form)
     ctx = _ctx(s)
     x, box = (torch.as_tensor(a, dtype=torch.float32) for a in (s.x0, s.box0))
     assert ctx.compute_u_t() == float(sum(p.u(x, p.params, box) for p in ctx.potentials))
     assert [np.array_equal(p, q.params.numpy()) for p, q in zip(ctx.get_params(), s.potentials)] == [True] * len(TERMS)
 
 
-def test_step_equals_multiple_steps(small):
-    """Three step() calls are one multiple_steps(3), bitwise."""
-    a, b = _ctx(small["port32"][0]), _ctx(small["port32"][0])
+@pytest.mark.parametrize("form", FORMS)
+def test_step_equals_multiple_steps(small, form):
+    """Three step() calls are one multiple_steps(3), bitwise, in each host
+    form."""
+    s = as_form(small["port32"][0], form)
+    a, b = _ctx(s), _ctx(s)
     for _ in range(3):
         a.step()
     b.multiple_steps(3)
@@ -371,13 +390,15 @@ def test_set_barostat_interval(small):
     assert bare.set_barostat_interval(15) is None and bare.get_barostat() is None
 
 
-def test_reset_for_state_equals_a_fresh_context(small):
+@pytest.mark.parametrize("form", FORMS)
+def test_reset_for_state_equals_a_fresh_context(small, form):
     """A window run in a Context reused from another window (after steps
     there) is bitwise the run of a fresh Context of that window: x, v, box
     and the barostat's state after 6 steps with the barostat every 3 (so
     its generator, reseeded from the new window's barostat seed, is drawn
-    from)."""
-    s0, s2 = small["port32"][0], small["port32"][2]
+    from). In the rowscan form the reset renews the lists built for the
+    first window."""
+    s0, s2 = (as_form(small["port32"][i], form) for i in (0, 2))
     assert s0.barostat.seed != s2.barostat.seed
     reused = _ctx(s0, 3)
     reused.multiple_steps(4)
@@ -406,15 +427,15 @@ def jax_run(small):
 def test_pair_bar_ulkns_match_jax(small, jax_run):
     """generate_pair_bar_ulkns on the frames of JAX's run against JAX's
     u_kln, per component: every exact-function term to 1e-10 of its largest
-    |u|; the host term (rowscan polynomial here, exact erfc in JAX's dense
-    CPU path) to 1e-3 (measured 4.7e-4), with its works exactly zero in both."""
+    |u|; the host term (the dense exact-erfc form in both) to HOST_REL
+    (measured 1.5e-15), with its works exactly zero in both."""
     result, trajs = jax_run
     u = tfe.generate_pair_bar_ulkns(small["port"], trajs, TEMP)
     u_j = result.u_kln_by_component_by_lambda
     assert u.shape == u_j.shape == (2, len(TERMS), 2, 2, 3)
     for j in range(len(TERMS)):
         scale = max(np.abs(u_j[:, j]).max(), 1.0)
-        assert np.abs(u[:, j] - u_j[:, j]).max() <= (1e-3 if j == HOST else 1e-10) * scale, TERMS[j]
+        assert np.abs(u[:, j] - u_j[:, j]).max() <= (HOST_REL if j == HOST else 1e-10) * scale, TERMS[j]
     for uk in (u, u_j):
         assert not (uk[:, HOST, 0, 1] - uk[:, HOST, 0, 0]).any() and not (uk[:, HOST, 1, 0] - uk[:, HOST, 1, 1]).any()
 
@@ -422,18 +443,20 @@ def test_pair_bar_ulkns_match_jax(small, jax_run):
 RSS_MD = tfe.MDParams(n_frames=2, n_eq_steps=2, steps_per_frame=2, seed=2023)
 
 
-@pytest.fixture(scope="module")
-def port_runs(small):
+@pytest.fixture(scope="module", params=FORMS)
+def port_runs(request, small):
     """Two runs of run_sims_sequential over the three small windows on the
-    CPU in f32 (2 equilibration steps, 2 frames 2 steps apart)."""
-    return [tfe.run_sims_sequential(small["port32"], RSS_MD, TEMP) for _ in range(2)]
+    CPU in f32 (2 equilibration steps, 2 frames 2 steps apart), the host
+    term in each of FORMS; the windows run, and the runs."""
+    states = [as_form(s, request.param) for s in small["port32"]]
+    return states, [tfe.run_sims_sequential(states, RSS_MD, TEMP) for _ in range(2)]
 
 
 def test_run_sims_sequential_is_finite_and_repeats_bitwise(port_runs):
     """run_sims_sequential: finite ΔG and errors, the host term's works
     exactly zero, and a second run bitwise equal to the first (frames and
     u_kln)."""
-    (res, trajs), (res2, trajs2) = port_runs
+    (res, trajs), (res2, trajs2) = port_runs[1]
     assert np.all(np.isfinite(res.dGs)) and np.all(np.isfinite(res.dG_errs))
     u = res.u_kln_by_component_by_lambda
     assert not (u[:, HOST, 0, 1] - u[:, HOST, 0, 0]).any()
@@ -442,13 +465,14 @@ def test_run_sims_sequential_is_finite_and_repeats_bitwise(port_runs):
         assert all(np.array_equal(a, b) for a, b in zip(t.frames + t.boxes, t2.frames + t2.boxes))
 
 
-def test_sample_equals_the_reused_window(small, port_runs):
+def test_sample_equals_the_reused_window(port_runs):
     """sample() of the last window, in a Context of its own and taking its
     frames one at a time, is bitwise the trajectory run_sims_sequential
     took for it in the Context reused from the first window (frames,
     boxes, final velocities and the barostat's volume scale)."""
-    t = tfe.sample(small["port32"][2], RSS_MD, max_buffer_frames=1)
-    ref = port_runs[0][1][2]
+    states, runs = port_runs
+    t = tfe.sample(states[2], RSS_MD, max_buffer_frames=1)
+    ref = runs[0][1][2]
     assert all(np.array_equal(a, b) for a, b in zip(t.frames + t.boxes, ref.frames + ref.boxes))
     assert np.array_equal(t.final_velocities, ref.final_velocities) and t.final_barostat_volume_scale_factor == ref.final_barostat_volume_scale_factor
 

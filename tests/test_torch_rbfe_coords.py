@@ -8,27 +8,31 @@ same coordinates. scipy's BFGS is capped at MAXITER iterations in both
 packages (their default runs to convergence, 100-800 energy calls a window,
 too long for the CPU sweep here). Each window passes the displacement check
 at 0.7 nm, and the first of each λ chain its energy decrease, in both
-packages (both functions assert them). The port's host term is the rowscan
-polynomial where JAX's dense CPU path is exact erfc (ROADMAP P11), so BFGS
-walks two slightly different energies: the free atoms of the two packages'
-results agree within COORD_TOL nm (measured 1.8e-4, 3.3e-4 and 7.4e-4 nm at
-λ 0, 0.4 and 1, against moves of 0.14-0.17 nm from the start; their
-energies within 1.1 kJ/mol). Two port runs are bitwise equal.
+packages (both functions assert them). Both packages' host term is the
+dense exact-erfc form here, so BFGS walks one energy: the free atoms of the
+two packages' results agree within COORD_TOL nm (measured 5.6e-14, 1.7e-13
+and 2.7e-13 nm at λ 0, 0.4 and 1, and 1.6e-13 nm for the new state at λ
+0.2, against moves of 0.14-0.17 nm from the start; 1.8e-4 to 7.4e-4 nm
+while the port ran the rowscan polynomial, ROADMAP P11). Two port runs are
+bitwise equal.
 
-The float32 windows' minimizer energy (the card's mix, here on the CPU's
-plain sweep: an f32 sweep whose per-atom energies are summed in float64, the
-exclusions in float64 at the f32-rounded coordinates, ROADMAP P22) against
-the same windows in float64 throughout, at the start and the minimized
+The float32 windows' minimizer energy (the card's mix for the minimizer at
+4,096 atoms and up, named here explicitly on the CPU's plain sweep: the host
+term configured kernel="v1", an f32 nb_tiles exact-erfc sweep whose per-atom
+energies are summed in float64, the exclusions exact in float64 at the
+f32-rounded coordinates, ROADMAP P22) against the same windows in float64
+throughout (the CPU's dense form), at the start and the minimized
 coordinates, in units of one float32 rounding of the all-pairs term
 (2^-24 |U_all-pairs|, the noise a float32 total would put on every energy
-BFGS compares): dU within U_ROUNDINGS of them (measured 0.78-0.87: the
+BFGS compares): dU within U_ROUNDINGS of them (measured 0.59-0.81: the
 water's rigid, identical pairs round alike in the f32 sweep, so their errors
 add into an offset) and its change between the two coordinates, what BFGS
-reads, within U_CHANGE_ROUNDINGS (measured 0.003-0.073); the gradient within
+reads, within U_CHANGE_ROUNDINGS (measured 0.005-0.21); the gradient within
 F32_GRAD_REL of the all-pairs force norm (the f32 sweep's force rounding, as
-chip_smoke.py's TOL_FORCE_REL_NORM; measured 4.8e-7 to 5.1e-7).
+chip_smoke.py's TOL_FORCE_REL_NORM; measured 4.7e-7 to 4.9e-7).
 """
 
+import copy
 import sys
 from pathlib import Path
 
@@ -45,7 +49,7 @@ from timemachine_torch.fe import rbfe as trbfe  # noqa: E402
 torch.set_num_threads(1)  # the suite's workers share the host's cores
 
 MAXITER = 30
-COORD_TOL = 2e-3
+COORD_TOL = 1e-8
 NEW_LAMB = 0.2
 U_ROUNDINGS, U_CHANGE_ROUNDINGS = 2.0, 1.0
 F32_GRAD_REL = 1e-5
@@ -110,9 +114,11 @@ def test_float32_window_energy_is_within_one_f32_rounding_of_float64(small, opti
     from timemachine_torch.potentials import NonbondedAllPairs
 
     s32, s64 = small["port32"][w], small["port"][w]
-    vg32 = minimizer.get_val_and_grad_fn(s32.potentials, s64.box0)
+    pots32 = copy.deepcopy(s32.potentials)
+    all_pairs = next(p for p in pots32 if isinstance(p, NonbondedAllPairs))
+    all_pairs.configure(torch.as_tensor(s64.box0, dtype=torch.float32), torch.as_tensor(s64.x0, dtype=torch.float32), kernel="v1")
+    vg32 = minimizer.get_val_and_grad_fn(pots32, s64.box0)
     vg64 = minimizer.get_val_and_grad_fn(s64.potentials, s64.box0)
-    all_pairs = next(p for p in s64.potentials if isinstance(p, NonbondedAllPairs))
     d_u = []
     for x in (s64.x0, optimized["port"][w]):
         (u32, g32), (u64, g64) = vg32(x), vg64(x)

@@ -167,7 +167,9 @@ def test_masked_chop_keeps_every_pair():
 def test_configure_under_a_subset(kernel):
     """configure under atom_idxs keeps JAX's rules: quad falls back to
     rowscan, whose MD provider takes no preshift (JAX's configure_pallas
-    does both on the same geometry); gather, dot and v1 raise ValueError.
+    does both on the same geometry); gather, dot and v1 take the subset, as
+    JAX's do (dot where its image bound holds on the subset's atoms, which
+    JAX reads on every atom: the port takes dot wherever JAX does).
     Where it configures, the MD force equals the energy/force entry's to
     1e-5 and is zero outside the subset; Nonbonded keeps only the exclusions
     inside the subset."""
@@ -175,14 +177,15 @@ def test_configure_under_a_subset(kernel):
     cutoff, n = 1.2, conf.shape[0]
     idxs = np.nonzero(mask)[0]
     nb = NonbondedAllPairs(n, BETA, cutoff, params, atom_idxs=idxs, device="cpu", dtype=F32)
-    if kernel in ("gather", "dot", "v1"):
-        with pytest.raises(ValueError, match="atom subset"):
-            nb.configure(_t(box), _t(conf), kernel=kernel)
-        return
     nb.configure(_t(box), _t(conf), kernel=kernel)
     pot = jpot.NonbondedAllPairs(n, beta=BETA, cutoff=cutoff, atom_idxs=idxs)
     pot.configure_pallas(box, conf, interpret=True, kernel=kernel)
-    assert nb.kernel == pot.pallas_kernel == "rowscan" and not nb.md_preshift
+    if kernel in ("rowscan", "quad"):
+        assert nb.kernel == pot.pallas_kernel == "rowscan" and not nb.md_preshift
+    elif kernel == "dot":
+        assert nb.kernel == "dot" or pot.pallas_kernel == "rowscan"
+    else:
+        assert nb.kernel == pot.pallas_kernel == kernel
     init, apply, _, _, _ = nb.md_force_provider()
     f, _ = apply(init(_t(conf), _t(box)), _t(conf), _t(box), 0)
     assert _rel_norm(f.numpy(), nb.energy_force(_t(conf), _t(box))[1].numpy()) < TOL

@@ -8,15 +8,17 @@ windows (λ 0, 0.4, 1: K = 3) on the CPU, where the sweeps run their plain
 PyTorch versions.
 
 Tolerances (stated per test): the exact-function terms in f64 to 1e-10
-relative; the host term to 2e-3 of its energy against JAX's dense exact
-erfc on the CPU (P11: the port runs the rowscan polynomial; measured
-1.05e-3 at the windows' unrelaxed x0, 4.7e-4 on the frames of a run); the
-batched path against K single-system runs of the port in f64
+relative; the host term to HOST_REL of its energy against JAX's dense exact
+erfc on the CPU, which the port's dense form is (measured 1e-15 to 2.3e-15;
+1.05e-3 at the windows' unrelaxed x0 while the port ran the rowscan
+polynomial, ROADMAP P11); the batched path against K single-system runs of the port in f64
 to 1e-12 relative (the same arithmetic; only the order of a few sums over
-the interaction group's grid differs).
+the interaction group's grid differs). The provider, batched-step, banded
+and run_sims_hrex tests run the host term in both of FORMS: rowscan, the
+card's HREX path (lists, vmapped polynomial exclusions, f64 banded
+energies), and dense, the CPU's (configure_all_pairs' choice here).
 """
 
-import copy
 import sys
 from pathlib import Path
 
@@ -27,7 +29,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from tests.test_torch_rbfe import EXACT_TERMS, HOST, TEMP, small  # noqa: E402, F401  (small: the fixture)
+from tests.test_torch_rbfe import EXACT_TERMS, FORMS, HOST, TEMP, as_form, small  # noqa: E402, F401  (small: the fixture)
 from timemachine_torch.fe import free_energy as tfe  # noqa: E402
 from timemachine_torch.md import hrex as th  # noqa: E402
 from timemachine_torch.md.context import BatchedContext  # noqa: E402
@@ -39,6 +41,7 @@ torch.set_num_threads(1)  # the suite's workers share the host's cores
 
 F64 = torch.float64
 BETA, CUTOFF = 2.0, 1.2
+HOST_REL = 1e-10
 
 
 def _t(a, dtype=F64):
@@ -68,13 +71,16 @@ def _runner(states, max_delta, perm=None, seed=1):
 # -- the provider's energy under other parameters --------------------------------
 
 
-def test_fifth_provider_function_matches_u(small):
+@pytest.mark.parametrize("form", FORMS)
+def test_fifth_provider_function_matches_u(small, form):
     """The host term's provider energy under another window's parameters
-    (lists built with window 0's, parameter rows re-gathered through the
-    cached order) against the term's u with those parameters, f64, to 1e-12
-    relative; the exact-erfc-free exclusion correction is included."""
-    s0, s2 = small["port"][0], small["port"][2]
-    nb = copy.deepcopy(s0.potentials[HOST])
+    against the term's u with those parameters, f64, to 1e-12 relative. In
+    the rowscan form the lists are built with window 0's parameters, the
+    rows re-gathered through the cached order, and the polynomial exclusion
+    correction is included; the dense form recomputes every pair with its
+    exclusion masks."""
+    s0, s2 = as_form(small["port"][0], form), small["port"][2]
+    nb = s0.potentials[HOST]
     x, box = _t(s0.x0), _t(s0.box0)
     init, _, energy, _, energy_with_params = nb.md_force_provider()
     state = init(x, box)
@@ -167,12 +173,14 @@ def _feed_uniforms(ctx, uniforms, k=None):
     ctx._move_fns[0] = move
 
 
-def test_batched_step_matches_single_contexts(small):
+@pytest.mark.parametrize("form", FORMS)
+def test_batched_step_matches_single_contexts(small, form):
     """30 steps of the three windows in one BatchedContext against three
     single-system Contexts, f64, fed the same (K, N, 3) noise and barostat
-    uniforms, the barostat every 15 steps and the lists rebuilt at step 20:
-    x, v and box to 1e-12 relative, the barostat's counters equal."""
-    states = small["port"]
+    uniforms, the barostat every 15 steps (and, in the rowscan form, the
+    lists rebuilt at step 20): x, v and box to 1e-12 relative, the
+    barostat's counters equal."""
+    states = [as_form(s, form) for s in small["port"]]
     k = len(states)
     singles = [tfe.get_context(s) for s in states]
     batch = BatchedContext(
@@ -215,8 +223,10 @@ class _CountOps(TorchDispatchMode):
 def test_step_operations_do_not_grow_with_k(small, monkeypatch):
     """One step that neither rebuilds nor moves the box dispatches as many
     tensor operations at K = 2 as at K = 3: every term runs once for all
-    replicas (the sweep, one kernel launch on a card, stubbed here, where
-    its plain version loops over systems)."""
+    replicas. The host term is configured as the card's, kernel="rowscan"
+    (the CPU's rule would take the dense form): its sweep, one kernel
+    launch on a card, is stubbed here, where its plain version loops over
+    systems."""
 
     def stub(atoms, *args, **kwargs):
         return atoms.new_zeros((*atoms.shape[:2], 4))
@@ -224,7 +234,7 @@ def test_step_operations_do_not_grow_with_k(small, monkeypatch):
     monkeypatch.setattr(rs, "rowscan_sweep_batched", stub)
     counts = []
     for k in (2, 3):
-        states = small["port32"][:k]
+        states = [as_form(s, "rowscan") for s in small["port32"][:k]]
         batch = BatchedContext(
             tfe.get_context(states[0]), np.stack([s.x0 for s in states]), np.stack([s.v0 for s in states]),
             np.stack([s.box0 for s in states]), _params(states), seed=0,
@@ -239,22 +249,26 @@ def test_step_operations_do_not_grow_with_k(small, monkeypatch):
 # -- the banded energies ----------------------------------------------------------------
 
 
+@pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("max_delta", [1, None])
-def test_banded_energies_match_jax_potential_matrix(small, max_delta):
-    """The runner's banded U_kl (on the replicas' coordinates with the
-    permutation [2, 0, 1]) and the port's compute_potential_matrix against
-    JAX's compute_potential_matrix: the exact-function terms' sum to 1e-10
-    relative, the host term to 2e-3 of its energy (P11: the polynomial
-    against exact erfc; 1.05e-3 measured here, at the windows' x0, whose
-    host is the builder's water box without pre-equilibration, where the
-    frames of a run give 4.7e-4), the +inf pattern identical; the runner's total against the port's compute_potential_matrix
-    of every term to 1e-10 relative (f64; other lists, other sum order)."""
+def test_banded_energies_match_jax_potential_matrix(small, max_delta, form):
+    """The port's compute_potential_matrix (on the replicas' coordinates
+    with the permutation [2, 0, 1]) against JAX's: the exact-function
+    terms' sum to 1e-10 relative, the host term (the dense form in both
+    packages) to HOST_REL of its energy (measured 2.3e-15), the +inf
+    pattern identical. The runner's banded U_kl, its host term in `form`
+    (rowscan: the batched provider's f64 banded energies through one list
+    build, the exclusions vmapped), against the port's
+    compute_potential_matrix of every term, the host term's through that
+    form's single-system u, to 1e-10 relative (f64; other lists, other sum
+    order)."""
     from timemachine_tpu.fe import free_energy as jfe
     from timemachine_tpu.md import hrex as jh
     from timemachine_tpu.md.states import CoordsVelBox as JCoordsVelBox
     from timemachine_tpu.potentials import make_summed_potential
 
     jstates, states = small["jax"], small["port"]
+    formed = [as_form(s, form) for s in states]
     perm = [2, 0, 1]
     reps = [CoordsVelBox(s.x0, s.v0, s.box0) for s in states]
     jhrex = jh.HREX([JCoordsVelBox(*r) for r in reps], perm)
@@ -265,7 +279,7 @@ def test_banded_energies_match_jax_potential_matrix(small, max_delta):
         params = np.stack([np.asarray(sp.params) for sp in sums])
         return jfe.compute_potential_matrix(sums[0].potential, jhrex, params, max_delta)
 
-    def port_matrix(terms):
+    def port_matrix(terms, states=states):
         pots = [states[0].potentials[i] for i in terms]
         by_state = [[s.potentials[i].params for i in terms] for s in states]
         return tfe.compute_potential_matrix(
@@ -278,11 +292,11 @@ def test_banded_energies_match_jax_potential_matrix(small, max_delta):
     assert (finite == np.isfinite(exact)).all() and (finite == np.isfinite(j_host)).all()
     assert finite.sum() == (7 if max_delta == 1 else 9)
     assert np.abs(exact[finite] - j_exact[finite]).max() <= 1e-10 * np.abs(j_exact[finite]).max()
-    assert np.abs(host[finite] - j_host[finite]).max() <= 2e-3 * np.abs(j_host[finite]).max()
+    assert np.abs(host[finite] - j_host[finite]).max() <= HOST_REL * np.abs(j_host[finite]).max()
 
-    banded = _runner(states, max_delta, perm).banded_energies()
+    banded = _runner(formed, max_delta, perm).banded_energies()
     assert (np.isfinite(banded) == finite).all()
-    total = exact + host
+    total = exact + port_matrix([HOST], formed)
     assert np.abs(banded[finite] - total[finite]).max() <= 1e-10 * np.abs(total[finite]).max()
     checked = tfe.verify_and_sanitize_potential_matrix(banded, perm)
     assert np.array_equal(checked, banded)
@@ -306,11 +320,13 @@ def test_verify_and_sanitize_potential_matrix():
 HREX_MD = tfe.MDParams(n_frames=3, n_eq_steps=2, steps_per_frame=2, seed=2023, hrex_params=tfe.HREXParams())
 
 
-@pytest.fixture(scope="module")
-def hrex_runs(small):
+@pytest.fixture(scope="module", params=FORMS)
+def hrex_runs(request, small):
     """Two runs of run_sims_hrex over the three small windows in f32 on the
-    CPU (2 equilibration steps, 3 frames 2 steps apart)."""
-    return [tfe.run_sims_hrex(small["port32"], HREX_MD, print_diagnostics_interval=None) for _ in range(2)]
+    CPU (2 equilibration steps, 3 frames 2 steps apart), the host term in
+    each of FORMS."""
+    states = [as_form(s, request.param) for s in small["port32"]]
+    return [tfe.run_sims_hrex(states, HREX_MD, print_diagnostics_interval=None) for _ in range(2)]
 
 
 def test_run_sims_hrex_is_finite_and_repeats_bitwise(hrex_runs):
@@ -380,8 +396,9 @@ def test_refusals(small):
 def test_api_members_match_jax(small):
     """PairBarResult's by-component accessors, Trajectory.extend and
     Trajectory.empty, InitialState.total_energy_fn and compute_u_kn against
-    JAX's: BAR fields equal; the total energy to 2e-3 of the host term's
-    (P11) and each exact term's sum to 1e-10; u_kn likewise."""
+    JAX's: BAR fields equal; the total energy to HOST_REL of the host
+    term's (measured 9.9e-16) and each exact term's sum to 1e-10; u_kn
+    likewise (measured 2.3e-15)."""
     from timemachine_tpu.fe import free_energy as jfe
     from timemachine_tpu.fe.stored_arrays import StoredArrays
 
@@ -407,11 +424,11 @@ def test_api_members_match_jax(small):
     u = float(s.total_energy_fn()(_t(s.x0), _t(s.box0)))
     u_j = float(js.total_energy_fn()(js.x0, js.box0))
     host = float(s.potentials[HOST].u(_t(s.x0), s.potentials[HOST].params, _t(s.box0)))
-    assert abs(u - u_j) <= 2e-3 * abs(host)
+    assert abs(u - u_j) <= HOST_REL * abs(host)
 
     trajs = [tfe.Trajectory([np.asarray(st.x0)], [np.asarray(st.box0)], None) for st in small["port"]]
     jtrajs = [jfe.Trajectory(StoredArrays.from_chunks([np.asarray(st.x0)[None]]), [np.asarray(st.box0)], None)
               for st in small["jax"]]
     (u_kn, n_k), (ju_kn, jn_k) = tfe.compute_u_kn(trajs, small["port"]), jfe.compute_u_kn(jtrajs, small["jax"])
     assert np.array_equal(n_k, jn_k) and u_kn.shape == ju_kn.shape == (3, 3)
-    assert np.abs(u_kn - ju_kn).max() <= 2e-3 * abs(host) / (0.0083144626 * TEMP)
+    assert np.abs(u_kn - ju_kn).max() <= HOST_REL * abs(host) / (0.0083144626 * TEMP)

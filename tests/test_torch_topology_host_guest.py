@@ -27,11 +27,11 @@ torch.set_num_threads(1)  # the suite's workers share the host's cores
 PARAM_TOL = 1e-12
 LAMBDAS = (0.0, 0.25)
 SMILES, NAMES = ("CCO", "CCC"), ("ethanol", "propane")
-# the host term runs the rowscan polynomial in the port and exact erfc in
-# JAX's dense CPU path (ROADMAP P11): relative gap of the total energy of
-# the unrelaxed water box with the guests inserted (measured 9.0e-5 at λ 0
-# and 4.9e-4 at λ 0.25, 5.02 kJ/mol both times); P11's stated tolerance
-ENERGY_REL = 2e-3
+# the host term runs JAX's dense exact-erfc form in both packages on the
+# CPU: relative gap of the total energy of the unrelaxed water box with the
+# guests inserted (measured 1.3e-16 at λ 0 and 1.8e-16 at λ 0.25; 9.0e-5
+# and 4.9e-4 while the port ran the rowscan polynomial, ROADMAP P11)
+ENERGY_REL = 1e-10
 
 
 def _jax():
@@ -171,7 +171,7 @@ def test_host_guest_modules_energy_matches_jax(edge, lamb):
     u_j = [float(p(x, q, jh.box)) for p, q in zip(jpots, jparams)]
     modules, _ = tm.host_guest_modules(edge["t_mols"], th, edge["tff"], lamb, device="cpu")
     xt, boxt = torch.as_tensor(x), torch.as_tensor(th.box)
-    tm.configure_nonbonded(modules, xt, boxt)
+    tm.configure_nonbonded(modules, xt, boxt, site="context")
     u_t = [float(m.energy(xt, boxt)) for m in modules]
     host = [i for i, m in enumerate(modules) if type(m).__name__ == "Nonbonded"]
     exact_t = sum(u for i, u in enumerate(u_t) if i not in host)

@@ -16,7 +16,11 @@
 // where r2 is the 4D minimum-image distance, of
 //   LJ  4 eps ((sig/r)^12 - (sig/r)^6),  sig = s_i + s_j, eps = e_i e_j
 //   ES  qq erfc(beta r) sw(r) / r,       sw = cos^3((pi/2)(r/1.2)^8)
-// The exact ES form uses erfc by Abramowitz & Stegun 7.1.26; the poly form
+// Three ES forms: exact, by CUDA's erfcf (a few ulp: the function of the
+// JAX package's dense and tiled paths); A&S, erfc by Abramowitz & Stegun
+// 7.1.26 (absolute error up to 1.5e-7), the TPU kernel's own exact form,
+// built in DP only: the du/dp pass of the swept configurations (JAX's
+// _run_dp) and the first design's yardstick; and poly, whose form
 // evaluates h(u) = erfc(beta 1.2 u) sw and h'(u) as two Clenshaw series in
 // u = r/1.2 whose coefficients are kernel parameters. DP always runs the
 // exact form. Atom rows are [x y z w | q sig/2 sqrt(eps) valid]; padding
@@ -33,8 +37,9 @@
 // as the yardstick the triangular form is timed against.
 //
 // What bounds it on the card: FP32 issue. The exact pair function is about
-// 100 FP32 instructions a pair in DP (one rsqrt, exp, sin, cos and two
-// reciprocals among them). Solvated DHFR at cb = 2 lists 6,606 symmetric
+// 100 FP32 instructions a pair in DP with A&S 7.1.26 (one rsqrt, exp, sin,
+// cos and two reciprocals among them), and more with erfcf (a longer
+// polynomial and an exp of its own). Solvated DHFR at cb = 2 lists 6,606 symmetric
 // tiles (216.5M pair slots) for 8.33M pairs within the cutoff: the first
 // design swept all 216.5M, paying the whole function on every slot (a
 // masked slot takes r2 := 1), three IEEE divisions for the minimum image,
@@ -64,7 +69,7 @@
 // * the pair function is division-free: minimum image d - b rint(d / b)
 //   with 1 / b computed once, approximate reciprocals for 1 / (1 + p x) and
 //   1 / sig, __expf and __sincosf (|sin| for sqrt(1 - cos^2)); it stays the
-//   exact form, A&S 7.1.26 x cos^3, and agrees with the plain version to
+//   exact form, erfcf x cos^3, and agrees with the plain version to
 //   about 1e-6 per column;
 // * work items of (row block, list segment): each row's list is cut into
 //   SPLITS segments, each a block of 4 warps (96-127 registers: 4-5 blocks
@@ -102,6 +107,7 @@ constexpr float PI = 3.14159265358979323846f;
 constexpr float TWO_OVER_SQRT_PI = 2.0f / 1.7724538509055159f;
 
 enum Mode { UF = 0, F = 1, DP = 2 };
+enum Es { ES_ERFC = 0, ES_AS = 1, ES_POLY = 2 };  // the electrostatics forms
 
 struct Series {
   float h[NCOEF];   // h(u), Chebyshev on u in [0, 1]
@@ -128,7 +134,7 @@ struct Terms {
   float e, de_r, s_r_sw, t6, t12;
 };
 
-template <bool POLY, bool FAST>
+template <int ES, bool FAST>
 __device__ __forceinline__ Terms pair_terms(float r2m, float qq, float sig, float eps, float beta, const Series& s) {
   Terms o;
   const float inv_r = rsqrtf(r2m);
@@ -141,7 +147,7 @@ __device__ __forceinline__ Terms pair_terms(float r2m, float qq, float sig, floa
   const float e_lj = eps4 * (o.t12 - o.t6);
   const float dlj_r = eps4 * inv_r2 * (6.0f * o.t6 - 12.0f * o.t12);
   float e_es, des_r;
-  if (POLY) {
+  if (ES == ES_POLY) {
     const float t2 = 2.0f * (2.0f * (rr * INV_C) - 1.0f);
     const float h = clenshaw(s.h, t2);
     const float hp = clenshaw(s.hp, t2);
@@ -165,10 +171,14 @@ __device__ __forceinline__ Terms pair_terms(float r2m, float qq, float sig, floa
     const float dsw_dr = -12.0f * PI * u8 * inv_r * cos2 * sinu;
     const float x = beta * rr;
     const float gauss = FAST ? __expf(-x * x) : expf(-x * x);
-    const float tt = FAST ? __fdividef(1.0f, 1.0f + 0.3275911f * x) : 1.0f / (1.0f + 0.3275911f * x);
-    const float erfc_bar =
-        gauss * tt *
-        (0.254829592f + tt * (-0.284496736f + tt * (1.421413741f + tt * (-1.453152027f + tt * 1.061405429f))));
+    float erfc_bar;
+    if (ES == ES_ERFC) {
+      erfc_bar = erfcf(x);
+    } else {
+      const float tt = FAST ? __fdividef(1.0f, 1.0f + 0.3275911f * x) : 1.0f / (1.0f + 0.3275911f * x);
+      erfc_bar = gauss * tt *
+                 (0.254829592f + tt * (-0.284496736f + tt * (1.421413741f + tt * (-1.453152027f + tt * 1.061405429f))));
+    }
     const float s_r = erfc_bar * inv_r;
     const float ds_dr = -beta * TWO_OVER_SQRT_PI * gauss * inv_r - erfc_bar * inv_r2;
     e_es = qq * s_r * sw;
@@ -195,7 +205,7 @@ constexpr int SYM_THREADS = BLOCK * GROUPS;
 
 __device__ __forceinline__ float min_image(float d, float box) { return d - box * floorf(d / box + 0.5f); }
 
-template <int MODE>
+template <int MODE, int ES>
 __global__ void __launch_bounds__(SYM_THREADS) sym_kernel(
     const float4* __restrict__ atoms,  // (Npad, 8) as 2 float4 per atom
     const int* __restrict__ row_start, const int* __restrict__ row_count, const int* __restrict__ col_ids,
@@ -242,7 +252,7 @@ __global__ void __launch_bounds__(SYM_THREADS) sym_kernel(
       const bool mask = valid_i && (cp.w > 0.0f) && (i != c * width + j) && (r2 < cut2);
       const float sig = rp.y + cp.y;
       const float eps = rp.z * cp.z;
-      const Terms p = pair_terms<false, false>(mask ? r2 : 1.0f, rp.x * cp.x, sig, eps, beta, s);
+      const Terms p = pair_terms<ES, false>(mask ? r2 : 1.0f, rp.x * cp.x, sig, eps, beta, s);
       const float de_r = mask ? p.de_r : 0.0f;
       if (MODE == DP) {
         a0 += mask ? cp.x * p.s_r_sw : 0.0f;
@@ -356,7 +366,7 @@ __device__ __forceinline__ bool near(const float4& ca, const float4& ha, const f
 // rest of the chunk is dead), column global index col0 + cidx[.]. Each pair
 // is gated on i < j, which only the row group's own column group can fail.
 // On return lane l carries the reaction of column slot l.
-template <int MODE, bool POLY>
+template <int MODE, int ES>
 __device__ __forceinline__ void chunk(const float4* __restrict__ pos, const float4* __restrict__ par,
                                       const int* __restrict__ cidx, int n, int col0, int lane, int i,
                                       const float4& rp, const float4& rq, const Frame& f, const Series& s,
@@ -378,7 +388,7 @@ __device__ __forceinline__ void chunk(const float4* __restrict__ pos, const floa
     const bool mask = live && valid_i && (i < col0 + a) && (r2 < f.cut2);
     const float sig = rq.y + cq.y;
     const float eps = rq.z * cq.z;
-    const Terms p = pair_terms<POLY, true>(mask ? r2 : 1.0f, rq.x * cq.x, sig, eps, f.beta, s);
+    const Terms p = pair_terms<ES, true>(mask ? r2 : 1.0f, rq.x * cq.x, sig, eps, f.beta, s);
     const float de_r = mask ? p.de_r : 0.0f;
     if (MODE == DP) {
       const float ds = d_sig<true>(mask, sig, eps, p);
@@ -408,7 +418,7 @@ __device__ __forceinline__ void chunk(const float4* __restrict__ pos, const floa
   }
 }
 
-template <int MODE, bool POLY>
+template <int MODE, int ES>
 __global__ void __launch_bounds__(THREADS, 4) tri_kernel(
     const float4* __restrict__ atoms,  // (Npad, 8) as 2 float4 per atom
     const float4* __restrict__ boxes,  // (Npad / 32, 2) group boxes
@@ -479,7 +489,7 @@ __global__ void __launch_bounds__(THREADS, 4) tri_kernel(
     __syncwarp();
     for (int base = 0; base < n_live; base += GROUP) {
       float4 col;
-      chunk<MODE, POLY>(pos, par, cidx + base, n_live - base, col0, lane, i, rp, rq, f, s, rsum, col);
+      chunk<MODE, ES>(pos, par, cidx + base, n_live - base, col0, lane, i, rp, rq, f, s, rsum, col);
       if (base + lane < n_live) {
         const int j = col0 + cidx[base + lane];
         if (MODE == DP) fixed_point::add_checked(acc + j, col.x, flag);
@@ -508,16 +518,16 @@ struct Launch {
   cudaStream_t stream;
 };
 
-template <int MODE>
+template <int MODE, int ES>
 int launch_sym(const Launch& a) {
   // above 48 KB a kernel needs an opt-in; MAX_CB keeps it at or below 40 KB
   const size_t smem = sizeof(float4) * (2 * BLOCK * a.cb + GROUPS * BLOCK);
-  sym_kernel<MODE><<<a.n_blocks, SYM_THREADS, smem, a.stream>>>(a.atoms, a.row_start, a.row_count, a.col_ids, a.scal,
+  sym_kernel<MODE, ES><<<a.n_blocks, SYM_THREADS, smem, a.stream>>>(a.atoms, a.row_start, a.row_count, a.col_ids, a.scal,
                                                                 a.out, a.cb, a.s);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int MODE, bool POLY>
+template <int MODE, int ES>
 int launch_tri(const Launch& a) {
   const int n_pad = a.n_blocks * BLOCK;
   const int n_groups = n_pad / GROUP;
@@ -526,10 +536,10 @@ int launch_tri(const Launch& a) {
   if (err != cudaSuccess) return static_cast<int>(err);
   const int bytes = static_cast<int>(sizeof(float4) * STAGES * 2 + sizeof(int) * WARPS) * BLOCK * a.cb;
   if (bytes > 48 * 1024) {
-    err = cudaFuncSetAttribute(tri_kernel<MODE, POLY>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    err = cudaFuncSetAttribute(tri_kernel<MODE, ES>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  tri_kernel<MODE, POLY><<<dim3(a.n_blocks, SPLITS), THREADS, bytes, a.stream>>>(
+  tri_kernel<MODE, ES><<<dim3(a.n_blocks, SPLITS), THREADS, bytes, a.stream>>>(
       a.atoms, a.boxes, a.row_start, a.row_count, a.col_ids, a.scal, a.acc, n_pad, a.cb, a.s);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -543,16 +553,17 @@ int launch_tri(const Launch& a) {
 // atoms (Npad, 8) f32, row_start/row_count (n_blocks,) i32, col_ids i32,
 // scal (5,) f32, out (Npad, 4) f32; triangular only: acc (4 Npad + 1,) i64
 // set to zero, boxes (Npad / 32 * 8,) f32 scratch. cb is the column
-// super-block width in 128-atom blocks (1..8). mode: 0 UF, 1 F, 2 DP. h and
-// hp are host arrays of 13 floats for the poly form, or both null for the
-// exact form. Built forms: triangular DP, UF, UF-poly and F; symmetric DP
-// and F. Any other returns cudaErrorInvalidValue and launches nothing; else
-// the first CUDA error, or 0.
+// super-block width in 128-atom blocks (1..8). mode: 0 UF, 1 F, 2 DP. es: 0
+// exact (erfcf), 1 A&S 7.1.26, 2 poly, for which h and hp are host arrays of
+// 13 floats (else null). Built forms: triangular DP exact and A&S, F exact, UF
+// exact and poly; symmetric DP exact and A&S, F exact. Any other returns
+// cudaErrorInvalidValue and launches nothing; else the first CUDA error, or 0.
 extern "C" int nb_tiles_launch(const void* atoms, const void* row_start, const void* row_count, const void* col_ids,
                                const void* scal, void* out, void* acc, void* boxes, int n_blocks, int cb, int mode,
-                               int triangular, const float* h, const float* hp, void* stream) {
-  const bool poly = h != nullptr;
-  if (cb < 1 || cb > MAX_CB || (poly && hp == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+                               int triangular, int es, const float* h, const float* hp, void* stream) {
+  const bool poly = es == ES_POLY;
+  if (cb < 1 || cb > MAX_CB || es < ES_ERFC || es > ES_POLY || (poly && (h == nullptr || hp == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
   Series s = {};
   if (poly) {
     for (int k = 0; k < NCOEF; ++k) {
@@ -572,13 +583,14 @@ extern "C" int nb_tiles_launch(const void* atoms, const void* row_start, const v
                  cb,
                  s,
                  static_cast<cudaStream_t>(stream)};
+  const bool as = es == ES_AS;
   if (triangular) {
-    if (mode == DP && !poly) return launch_tri<DP, false>(a);
-    if (mode == UF) return poly ? launch_tri<UF, true>(a) : launch_tri<UF, false>(a);
-    if (mode == F && !poly) return launch_tri<F, false>(a);
-  } else if (!poly) {
-    if (mode == DP) return launch_sym<DP>(a);
-    if (mode == F) return launch_sym<F>(a);
+    if (mode == DP && !poly) return as ? launch_tri<DP, ES_AS>(a) : launch_tri<DP, ES_ERFC>(a);
+    if (mode == UF && !as) return poly ? launch_tri<UF, ES_POLY>(a) : launch_tri<UF, ES_ERFC>(a);
+    if (mode == F && es == ES_ERFC) return launch_tri<F, ES_ERFC>(a);
+  } else {
+    if (mode == DP && !poly) return as ? launch_sym<DP, ES_AS>(a) : launch_sym<DP, ES_ERFC>(a);
+    if (mode == F && es == ES_ERFC) return launch_sym<F, ES_ERFC>(a);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

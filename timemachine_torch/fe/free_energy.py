@@ -5,8 +5,9 @@ bisection run_sims_bisection, run_sims_hrex and what they run).
 
 An InitialState holds the port's potential modules on their device. Frames
 come back from the card as numpy and stay in memory (the JAX package's
-StoredArrays, which spills them to disk, is not ported). The host term runs
-the rowscan configuration at every size, since the port has no dense MD path.
+StoredArrays, which spills them to disk, is not ported). The host term takes
+JAX's get_context form (configure_all_pairs): dense on the CPU and below
+4,096 atoms, the rowscan sweep on the card from there up.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from timemachine_torch.integrators import LangevinIntegrator
 from timemachine_torch.md.barostat import MonteCarloBarostat
 from timemachine_torch.md.context import Context
 from timemachine_torch.md.hrex import HREX, HREXDiagnostics, get_swap_attempts_per_iter_heuristic
-from timemachine_torch.potentials import Nonbonded, NonbondedAllPairs, NonbondedInteractionGroup
+from timemachine_torch.potentials import Nonbonded, NonbondedAllPairs, NonbondedInteractionGroup, all_pairs_kernel
 from timemachine_torch.utils import batches
 
 
@@ -300,14 +301,19 @@ def assert_ensembles_compatible(state_a: InitialState, state_b: InitialState):
 
 
 def configure_all_pairs(initial_state: InitialState):
-    """Give every all-pairs term of the state not yet configured the rowscan
-    configuration, sized from the state's geometry (in place: it selects a
-    kernel, not the physics)."""
+    """Give every all-pairs term of the state not yet configured the form
+    of JAX's get_context (free_energy.py:477-489): dense on the CPU and
+    below 4,096 atoms, else the rowscan sweep (potentials.all_pairs_kernel,
+    site "context"), sized from the state's geometry. In place, as JAX's
+    configure_pallas: it selects a kernel, not the physics, and the sites
+    that read the state's terms afterwards (pair BAR, bisection's u_kln,
+    MBAR) read this form, as JAX's do."""
     for pot in initial_state.potentials:
         if isinstance(pot, NonbondedAllPairs) and pot.kernel is None:
             dev, dt = pot.params.device, pot.params.dtype
             box = torch.as_tensor(initial_state.box0, device=dev, dtype=dt)
-            pot.configure(box, torch.as_tensor(initial_state.x0, device=dev, dtype=dt), kernel="rowscan")
+            kernel = all_pairs_kernel("context", pot.num_atoms, dev)
+            pot.configure(box, torch.as_tensor(initial_state.x0, device=dev, dtype=dt), kernel=kernel)
 
 
 def get_context(initial_state: InitialState, md_params: Optional[MDParams] = None) -> Context:

@@ -50,7 +50,6 @@ from timemachine_torch.fe.free_energy import (
     RESTParams,
     SimulationResult,
     Trajectory,
-    configure_all_pairs,
     run_sims_bisection,
     run_sims_hrex,
     run_sims_sequential,
@@ -554,13 +553,14 @@ def estimate_relative_free_energy_bisection_hrex(
                 state = nearest
             else:
                 state = edge.state_at(lamb)
-                # frames came from a different λ: fail fast on crazy forces
-                configure_all_pairs(state)
+                # frames came from a different λ: fail fast on crazy forces, read as JAX's
+                # jax.grad reads the fresh state's dense term (exact erfc)
                 dev, dt = state.potentials[0].params.device, state.potentials[0].params.dtype
                 x = torch.as_tensor(traj.frames[-1], device=dev, dtype=dt)
                 box = torch.as_tensor(traj.boxes[-1], device=dev, dtype=dt)
                 with torch.no_grad():
-                    minimizer.check_force_norm(minimizer.total_force(state.potentials, x, box).cpu().numpy())
+                    pots = minimizer.exact_modules(state.potentials, x, box)
+                    minimizer.check_force_norm(minimizer.total_force(pots, x, box).cpu().numpy())
             return replace(
                 state,
                 x0=traj.frames[-1],

@@ -248,8 +248,9 @@ class BatchedContext:
 
     x, v (K, N, 3), box (K, 3, 3) and every term's parameters (K, ...) are
     stacked. A step evaluates each term for all K at once: the terms with a
-    batched MD provider (the RBFE host term: one rowscan_sweep_batched
-    launch, its exclusions vmapped) through it, every other term's closed
+    batched MD provider (the RBFE host term: on the card one
+    rowscan_sweep_batched launch, its exclusions vmapped; on the CPU the
+    dense form under vmap) through it, every other term's closed
     form `u_force` under torch.func.vmap. Langevin BAOAB broadcasts over the
     batch with one (K, N, 3) noise draw a step from one torch.Generator; the
     barostat moves every replica at once, with (K,) volumes, widths and

@@ -7,13 +7,21 @@ scipy, optionally position-restrained.
 The JAX package takes jax.grad of its potentials, and switches to XLA paths
 there because its Pallas kernel has no VJP. The port never takes autograd
 through a kernel: every energy and force comes from the terms' closed forms
-and the rowscan sweep's forces, on the potentials' device. A minimizer's
-energy (get_val_and_grad_fn) is float64: the sweep's per-atom energies are
+and the sweeps' forces, on the potentials' device. The host all-pairs term
+takes the JAX package's form at each call site (potentials.all_pairs_kernel):
+the host's FIRE reads JAX's dense form below 4,096 atoms and its "tiled"
+form (the port's "v1", exact erfc) from there up, on every device; the
+pre-equilibration's NPT run and force check read the Context's form (dense
+on the CPU, the rowscan sweep on the card at 4,096 atoms and up); a
+minimizer (get_val_and_grad_fn) reads a state's potentials as they are
+configured, and an unconfigured all-pairs term as JAX's fresh dense one:
+dense on the CPU, "v1" on the card at 4,096 atoms and up, through a
+configured copy, so that the state's own term stays unconfigured for the
+Context. A minimizer's energy is float64: a sweep's per-atom energies are
 summed in float64 and every other term, the exclusions included, is
 evaluated in float64, since the host all-pairs term and its exclusions
 cancel about 16 times over on an RBFE window and a float32 total would round
-away what BFGS's late steps move (ROADMAP P16, P22). The host term runs the
-rowscan polynomial where JAX's minimizer runs exact erfc (ROADMAP P11).
+away what BFGS's late steps move (ROADMAP P16, P22).
 
 Host-side work stays on the host, as in the JAX package: scipy's BFGS loop,
 check_force_norm and the bookkeeping. The pre-equilibration's Langevin noise
@@ -24,6 +32,7 @@ JAX's seeds (ROADMAP P20). equilibrate_host_barker waits on md/barker.py
 
 from __future__ import annotations
 
+import copy
 import warnings
 from typing import Callable, Sequence
 
@@ -43,7 +52,7 @@ from timemachine_torch.md.fire import fire_minimize as fire_descend
 from timemachine_torch.md.utils import get_bond_list, get_group_indices
 from timemachine_torch.ops.bonded import harmonic_positional_restraint
 from timemachine_torch.ops.pbc import periodic_delta
-from timemachine_torch.potentials import NonbondedAllPairs
+from timemachine_torch.potentials import NonbondedAllPairs, all_pairs_kernel
 
 
 class MinimizationError(Exception):
@@ -119,13 +128,30 @@ def host_guest_modules(mols, host_config, ff, lamb: float, device=None) -> tuple
     return [m for m in modules if m.params.numel() > 0], bond.potential
 
 
-def configure_nonbonded(modules, x, box):
-    """Give every all-pairs module not yet configured the rowscan
-    configuration, sized at x and box (as free_energy.configure_all_pairs)."""
+def configure_nonbonded(modules, x, box, site: str):
+    """Give every all-pairs module not yet configured, in place, the
+    configuration of the JAX package's form at `site`
+    (potentials.all_pairs_kernel), sized at x and box."""
     for pot in modules:
         if isinstance(pot, NonbondedAllPairs) and pot.kernel is None:
             dt = pot.params.dtype
-            pot.configure(box.to(dt), x.to(dt), kernel="rowscan")
+            kernel = all_pairs_kernel(site, pot.num_atoms, pot.params.device)
+            pot.configure(box.to(dt), x.to(dt), kernel=kernel)
+
+
+def exact_modules(modules, x, box) -> list:
+    """The modules as a minimizer reads them: every all-pairs term not yet
+    configured replaced by a copy configured at the "minimize" site (JAX's
+    fresh impl="dense": exact erfc), so that the term itself stays
+    unconfigured, as JAX's stays dense, until a Context configures it; a
+    configured term as it is (JAX's get_context configures in place)."""
+    out = []
+    for pot in modules:
+        if isinstance(pot, NonbondedAllPairs) and pot.kernel is None:
+            pot = copy.deepcopy(pot)
+            configure_nonbonded([pot], x, box, site="minimize")
+        out.append(pot)
+    return out
 
 
 def total_force(modules, x, box):
@@ -171,7 +197,8 @@ def make_host_du_dx_fxn(mols, host_config, ff, mol_coords=None, lamb: float = 0.
     lig = torch.as_tensor(np.concatenate(mol_coords), device=device, dtype=dt)
     box = torch.as_tensor(host_config.box, device=device, dtype=dt)
     num_host_atoms = host_config.conf.shape[0]
-    configure_nonbonded(modules, torch.cat([torch.as_tensor(host_config.conf, device=device, dtype=dt), lig]), box)
+    x0 = torch.cat([torch.as_tensor(host_config.conf, device=device, dtype=dt), lig])
+    configure_nonbonded(modules, x0, box, site="host_du_dx")
 
     def du_dx_host_fxn(x_host):
         x = torch.cat([x_host, lig])
@@ -250,7 +277,7 @@ def pre_equilibrate_host(
 
     modules, bond_pot = host_guest_modules(mols, host_config, ff, 0.0, device)
     x0 = torch.as_tensor(combined_coords, device=device, dtype=dtype)
-    configure_nonbonded(modules, x0, torch.as_tensor(box, device=device, dtype=dtype))
+    configure_nonbonded(modules, x0, torch.as_tensor(box, device=device, dtype=dtype), site="context")
 
     group_idxs = get_group_indices(get_bond_list(bond_pot), combined_coords.shape[0])
     non_ligand_group_idxs = [g for g in group_idxs if np.all(g < num_host_atoms)]
@@ -282,21 +309,24 @@ def get_val_and_grad_fn(modules: Sequence, box) -> Callable:
     """coords (numpy) -> (U, dU/dx) of the modules at box (None: vacuum),
     float64 on the host (ref minimizer.py:473-497): one call of
     total_energy_force_f64 on the modules' device, each a deterministic
-    sweep and one host round trip. An all-pairs module not yet configured
-    takes the rowscan configuration at the first call's coordinates.
+    sweep and one host round trip. The modules are read as exact_modules
+    gives them at the first call's coordinates (`modules` holds them then).
     `calls` counts the calls."""
     device = modules[0].params.device
     box_t = None if box is None else torch.as_tensor(np.asarray(box), device=device, dtype=torch.float64)
+    held = []
 
     def val_and_grad_fn(coords):
         x = torch.as_tensor(np.asarray(coords), device=device, dtype=torch.float64)
-        configure_nonbonded(modules, x, box_t)
+        if not held:
+            held.extend(exact_modules(modules, x, box_t))
         val_and_grad_fn.calls += 1
         with torch.no_grad():
-            u, f = total_energy_force_f64(modules, x, box_t)
+            u, f = total_energy_force_f64(held, x, box_t)
         return float(u), (-f).cpu().numpy()
 
     val_and_grad_fn.calls = 0
+    val_and_grad_fn.modules = held
     return val_and_grad_fn
 
 

@@ -107,18 +107,36 @@ class DotscanTiles(NamedTuple):
 
 def build_dotscan_tiles(
     conf, box, cutoff: float, max_pairs: int, cell_size: float = 0.65, triangular: bool = False, sort: str = "snake",
+    atom_mask=None,
 ) -> DotscanTiles:
     """Rowscan lists at `cutoff` plus each row chunk's quantized periodic
     center, and the image bound at this build (JAX's build_dotscan_tiles,
     with its `invalid`). Padding slots duplicate atom 0 and only widen the
-    extents. Runs in f32 whatever conf's dtype."""
-    t = rs.build_rowscan_tiles(conf, box, cutoff, max_pairs, cell_size, triangular, sort)
+    extents. Runs in f32 whatever conf's dtype.
+
+    atom_mask (N,) bool, where given, keeps only its atoms in the lists'
+    boxes (build_rowscan_tiles) and measures each row chunk's center and
+    extent on them alone (padding slots left out too; a chunk with none of
+    them does not enter the bound), where JAX's builder lets the other atoms
+    widen the extents. The others keep q = eps = 0 rows, so their pairs
+    vanish at any image."""
+    t = rs.build_rowscan_tiles(conf, box, cutoff, max_pairs, cell_size, triangular, sort, atom_mask)
     n_rows = t.pad_order.shape[0] // ROW
     box_diag = torch.diagonal(box).to(torch.float32)
     xs = rs._wrap(conf[:, :3].to(torch.float32), box_diag)[t.pad_order].view(n_rows, ROW, 3)
+    has = None
+    if atom_mask is not None:
+        n = conf.shape[0]
+        valid = ((torch.arange(n_rows * ROW, device=xs.device) < n) & atom_mask[t.pad_order]).view(n_rows, ROW)
+        anchor = xs[torch.arange(n_rows, device=xs.device), torch.argmax(valid.to(torch.int32), dim=1)]
+        xs = torch.where(valid[..., None], xs, anchor[:, None, :])  # duplicates only: zero-width gaps
+        has = valid.any(1)
     parts = [periodic_center_halfextent(xs[:, :, a], box_diag[a]) for a in range(3)]
     rcen = torch.stack([c for c, _ in parts], dim=1)
-    reach = torch.stack([h for _, h in parts], dim=1).amax(0) + cutoff  # (3,)
+    half = torch.stack([h for _, h in parts], dim=1)
+    if has is not None:
+        half = torch.where(has[:, None], half, 0.0)
+    reach = half.amax(0) + cutoff  # (3,)
     rcen_q = torch.round(rcen / CEN_SCALE).to(torch.int32)
     bound_bad = (reach >= 0.5 * box_diag).any().to(t.overflow.dtype)
     return DotscanTiles(
@@ -127,11 +145,14 @@ def build_dotscan_tiles(
     )
 
 
-def dotscan_valid(conf, box, cutoff: float, headroom: float = 0.1, sort: str = "snake", cell_size: float = 0.65) -> bool:
+def dotscan_valid(
+    conf, box, cutoff: float, headroom: float = 0.1, sort: str = "snake", cell_size: float = 0.65, atom_mask=None,
+) -> bool:
     """The configure-time gate of JAX's dotscan_valid: the image bound holds
     with `headroom` to spare for row chunks that stretch between rebuilds.
-    Pass cutoff + skin to gate the MD provider, which builds at that radius."""
-    return float(build_dotscan_tiles(conf, box, cutoff, ROW, cell_size, True, sort).margin) > headroom
+    Pass cutoff + skin to gate the MD provider, which builds at that radius,
+    and its atom_mask: the bound is read on the subset's atoms alone."""
+    return float(build_dotscan_tiles(conf, box, cutoff, ROW, cell_size, True, sort, atom_mask).margin) > headroom
 
 
 class DotCull(NamedTuple):
@@ -327,6 +348,7 @@ dotscan_sweep.launches = 0
 
 def make_nonbonded_dotscan_md(
     beta: float, cutoff: float, max_pairs: int, skin: float = 0.1, rebuild_interval: int = 20, sort: str = "snake",
+    atom_mask=None,
 ):
     """MD force provider over Newton-triangular dotscan tiles (counterpart
     of JAX's make_nonbonded_dotscan_md with triangular=True, as its
@@ -337,13 +359,14 @@ def make_nonbonded_dotscan_md(
     cutoff + skin, triangular, with the same sort. The result is NaN on
     overflow, where the build broke the image bound, and on the card where a
     sum leaves the kernel's fixed-point range (nonbonded_kernel.FIX_LIMIT);
-    see nonbonded_kernel.make_list_md_provider."""
+    see nonbonded_kernel.make_list_md_provider. atom_mask (N,) bool, where
+    given, restricts the term to its atoms (build_dotscan_tiles, param_rows)."""
     series = rs.es_energy_force_series(beta, cutoff)
 
     def build(conf, params, box):
-        tiles = build_dotscan_tiles(conf, box, cutoff + skin, max_pairs, triangular=True, sort=sort)
+        tiles = build_dotscan_tiles(conf, box, cutoff + skin, max_pairs, triangular=True, sort=sort, atom_mask=atom_mask)
         n = conf.shape[0]
-        prows = rs.param_rows(params.to(conf.dtype), tiles.pad_order, n)
+        prows = rs.param_rows(params.to(conf.dtype), tiles.pad_order, n, atom_mask)
         return ListState(tiles, torch.argsort(tiles.pad_order[:n]), prows, tiles.invalid)
 
     def sweep(state, conf, box, mode):
@@ -353,4 +376,4 @@ def make_nonbonded_dotscan_md(
             atoms, t.row_start, t.row_count, t.col_ids, t.rcen_q, sweep_scalars(box, cutoff), series, mode, True
         )
 
-    return make_list_md_provider(build, sweep, FORCE, FORCE_ENERGY, rebuild_interval)
+    return make_list_md_provider(build, sweep, FORCE, FORCE_ENERGY, rebuild_interval, prows_fn=rs.param_rows_of(atom_mask))

@@ -72,14 +72,22 @@ class GatherLists(NamedTuple):
     tri_start: torch.Tensor  # (nR,) int32: listed slots below 32 r, where row chunk r's suffix starts
 
 
-def build_gather_neighbors(conf, box, cutoff: float, max_nbrs: int, cell_size: float = CELL_SIZE) -> GatherLists:
+def build_gather_neighbors(
+    conf, box, cutoff: float, max_nbrs: int, cell_size: float = CELL_SIZE, atom_mask=None,
+) -> GatherLists:
     """Snake sort and, per 32-atom row chunk, the full list of sorted slots
     whose minimum-image distance to the chunk's bounding box is below
     `cutoff` (exact atom-vs-box culling). Padding slots sit on atom 0 and
     stay in the lists like any slot. Runs in f32 whatever conf's dtype; the
     (rows, Npad) mask is built MASK_ELEMENTS entries at a time. tri_start[r]
     counts the listed slots below 32 r (capped at max_nbrs): the suffix
-    from there holds every pair of r's atoms with a later atom."""
+    from there holds every pair of r's atoms with a later atom.
+
+    atom_mask (N,) bool, where given, keeps only its atoms in the chunk
+    boxes, as JAX's builder does, and in the lists, where JAX's keeps the
+    others with zero parameters: a masked atom, or a padding slot, is
+    listed by no row (its own row chunk still sweeps it against its list,
+    where its zero q and eps make every pair vanish)."""
     n = conf.shape[0]
     dev = conf.device
     n_pad = padded_size(n)
@@ -92,6 +100,9 @@ def build_gather_neighbors(conf, box, cutoff: float, max_nbrs: int, cell_size: f
 
     xs = wrapped[pad_order]
     valid = (torch.arange(n_pad, device=dev) < n)[:, None]
+    if atom_mask is not None:
+        valid = valid & atom_mask[pad_order][:, None]
+    listable = None if atom_mask is None else valid[:, 0]
     rmin = torch.where(valid, xs, 1e9).view(n_rows, ROW, 3).amin(1)
     rmax = torch.where(valid, xs, -1e9).view(n_rows, ROW, 3).amax(1)
     rcen = 0.5 * (rmin + rmax)
@@ -110,6 +121,8 @@ def build_gather_neighbors(conf, box, cutoff: float, max_nbrs: int, cell_size: f
         gap = torch.clamp(torch.abs(dcl) - rhal[r0:r1, None, :], min=0.0)
         d2 = gap[..., 0] * gap[..., 0] + gap[..., 1] * gap[..., 1] + gap[..., 2] * gap[..., 2]
         inside = (d2 < cutoff * cutoff) & r_has[r0:r1, None]
+        if listable is not None:
+            inside &= listable[None, :]
         rank = torch.cumsum(inside, dim=1) - 1
         counts[r0:r1] = rank[:, -1] + 1
         rows = torch.arange(r0, r1, device=dev)
@@ -126,11 +139,12 @@ def build_gather_neighbors(conf, box, cutoff: float, max_nbrs: int, cell_size: f
     )
 
 
-def suggest_max_nbrs(conf, box, cutoff: float, margin: float = 1.25) -> int:
-    """Host-side capacity: the longest row list at this geometry, times
-    margin for diffusion between rebuilds, rounded up to SLAB."""
+def suggest_max_nbrs(conf, box, cutoff: float, margin: float = 1.25, atom_mask=None) -> int:
+    """Host-side capacity: the longest row list at this geometry (under
+    atom_mask where given), times margin for diffusion between rebuilds,
+    rounded up to SLAB."""
     n_pad = padded_size(conf.shape[0])
-    lists = build_gather_neighbors(conf, box, cutoff, -(-n_pad // SLAB) * SLAB)
+    lists = build_gather_neighbors(conf, box, cutoff, -(-n_pad // SLAB) * SLAB, atom_mask=atom_mask)
     peak = int(lists.counts.max())
     return max(int(np.ceil(peak * margin / SLAB) * SLAB), SLAB)
 
@@ -299,18 +313,21 @@ def gather_sweep(atoms, counts, nbr, tri_start, scalars, series, mode: int, firs
 gather_sweep.launches = 0
 
 
-def make_nonbonded_gather_md(beta: float, cutoff: float, max_nbrs: int, skin: float = 0.1, rebuild_interval: int = 20):
+def make_nonbonded_gather_md(
+    beta: float, cutoff: float, max_nbrs: int, skin: float = 0.1, rebuild_interval: int = 20, atom_mask=None,
+):
     """MD force provider over full neighbour lists: an F sweep per step, an
     F+U sweep for the energy; see nonbonded_kernel.make_list_md_provider.
     The JAX provider has no energy; its barostat evaluates the energy with
     lists built for the call at the bare cutoff: the same pairs pass the
-    same gate (ROADMAP P3)."""
+    same gate (ROADMAP P3). atom_mask (N,) bool, where given, restricts the
+    term to its atoms (build_gather_neighbors, param_rows)."""
     series = rs.es_energy_force_series(beta, cutoff)
 
     def build(conf, params, box):
-        lists = build_gather_neighbors(conf, box, cutoff + skin, max_nbrs)
+        lists = build_gather_neighbors(conf, box, cutoff + skin, max_nbrs, atom_mask=atom_mask)
         n = conf.shape[0]
-        prows = rs.param_rows(params.to(conf.dtype), lists.pad_order, n)
+        prows = rs.param_rows(params.to(conf.dtype), lists.pad_order, n, atom_mask)
         return ListState(lists, torch.argsort(lists.pad_order[:n]), prows, lists.overflow)
 
     def sweep(state, conf, box, mode):
@@ -319,18 +336,20 @@ def make_nonbonded_gather_md(beta: float, cutoff: float, max_nbrs: int, skin: fl
         scalars = rs.sweep_scalars(box, cutoff)
         return gather_sweep(atoms, lists.counts, lists.nbr, lists.tri_start, scalars, series, mode)
 
-    return make_list_md_provider(build, sweep, FORCE, FORCE_ENERGY, rebuild_interval)
+    return make_list_md_provider(build, sweep, FORCE, FORCE_ENERGY, rebuild_interval, prows_fn=rs.param_rows_of(atom_mask))
 
 
-def make_nonbonded_gather_energy_force(beta: float, cutoff: float, max_nbrs: int):
+def make_nonbonded_gather_energy_force(beta: float, cutoff: float, max_nbrs: int, atom_mask=None):
     """(conf, params, box) -> (u, force) in one F+U sweep over lists built
-    for this call at the bare cutoff (use the MD provider in a step loop)."""
+    for this call at the bare cutoff (use the MD provider in a step loop),
+    only the pairs of atom_mask (N,) bool where given."""
     series = rs.es_energy_force_series(beta, cutoff)
 
     def energy_force(conf, params, box):
-        lists = build_gather_neighbors(conf, box, cutoff, max_nbrs)
+        lists = build_gather_neighbors(conf, box, cutoff, max_nbrs, atom_mask=atom_mask)
         n = conf.shape[0]
-        atoms = rs.assemble_atoms(conf, box, lists.pad_order, rs.param_rows(params.to(conf.dtype), lists.pad_order, n))
+        prows = rs.param_rows(params.to(conf.dtype), lists.pad_order, n, atom_mask)
+        atoms = rs.assemble_atoms(conf, box, lists.pad_order, prows)
         out = gather_sweep(
             atoms, lists.counts, lists.nbr, lists.tri_start, rs.sweep_scalars(box, cutoff), series, FORCE_ENERGY
         )
@@ -340,18 +359,21 @@ def make_nonbonded_gather_energy_force(beta: float, cutoff: float, max_nbrs: int
     return energy_force
 
 
-def make_nonbonded_gather(beta: float, cutoff: float, max_nbrs: int, dp_max_tiles: int, dp_cb: int = 2):
+def make_nonbonded_gather(
+    beta: float, cutoff: float, max_nbrs: int, dp_max_tiles: int, dp_cb: int = 2, atom_mask=None,
+):
     """Differentiable energy(conf, params, box): the forward runs one F+U
     gather sweep and stashes dU/dx; dU/dp comes from the block-tile kernel's
-    DP pass (exact electrostatics), as the JAX custom VJP uses _run_dp."""
-    ef = make_nonbonded_gather_energy_force(beta, cutoff, max_nbrs)
+    DP pass (exact electrostatics), as the JAX custom VJP uses _run_dp;
+    both over the atoms of atom_mask (N,) bool where given."""
+    ef = make_nonbonded_gather_energy_force(beta, cutoff, max_nbrs, atom_mask=atom_mask)
 
     def energy_grad(conf, params, box):
         u, force = ef(conf, params, box)
         return u, -force
 
     def dp(conf, params, box):
-        return run_dp(conf, params, box, beta, cutoff, dp_max_tiles, cb=dp_cb)
+        return run_dp(conf, params, box, beta, cutoff, dp_max_tiles, cb=dp_cb, atom_mask=atom_mask)
 
     def energy(conf, params, box):
         return StashedGradEnergy.apply(conf, params, box, energy_grad, dp)

@@ -4,11 +4,13 @@
 Per-atom parameter rows are [q sqrt(138.935456), sigma/2, sqrt(eps), w]:
 sigma_ij = s_i + s_j, eps_ij = e_i e_j, and the pair distance is
 sqrt(|dr|^2 + (w_i - w_j)^2). The all-pairs term runs in the rowscan sweep
-(ops/rowscan_kernel.py) or the block-tile sweep (ops/nonbonded_kernel.py);
-this module holds the dense oracle and the exclusion corrections, which
-evaluate the sweep's own electrostatics so that they cancel it: the rowscan
-polynomial in closed form, or exact erfc (for the block-tile sweep's exact
-form), differentiated by autograd.
+(ops/rowscan_kernel.py), the block-tile sweep (ops/nonbonded_kernel.py) or
+the dense form here (`DenseAllPairs`, JAX's impl="dense": exact erfc, the
+exclusions as (1 - scale) rescale masks, over Newton-triangular row blocks
+so that no (N, N) array is held). This module also holds the exclusion
+corrections of the swept forms, which evaluate the sweep's own
+electrostatics so that they cancel it: the rowscan polynomial or exact
+erfc, each in closed form.
 """
 
 from __future__ import annotations
@@ -54,23 +56,6 @@ def lennard_jones(dij, sig_ij, eps_ij):
 
 def switched_direct_space_pme(dij, qij, beta):
     return qij * torch.special.erfc(beta * dij) / dij * switch_fn(dij)
-
-
-def nonbonded_all_pairs_dense(conf, params, box, beta, cutoff):
-    """Dense O(N^2) all-pairs energy, exact erfc, no exclusions. The oracle
-    for small systems only: it holds (N, N) intermediates."""
-    n = conf.shape[0]
-    q, sig, eps, w = params.unbind(1)
-    dr = periodic_delta(conf[:, None, :], conf[None, :, :], box)
-    dw = w[:, None] - w[None, :]
-    d2 = torch.sum(dr * dr, dim=-1) + dw * dw
-    eye = torch.eye(n, dtype=torch.bool, device=conf.device)
-    dij = torch.sqrt(torch.where(eye, 1.0, d2))
-    keep = ~eye & (dij < cutoff)
-    eps_ij = torch.where(keep, combine_epsilon(eps[:, None], eps[None, :]), 0.0)
-    lj = torch.where(eps_ij != 0, lennard_jones(dij, combine_sigma(sig[:, None], sig[None, :]), eps_ij), 0.0)
-    es = torch.where(keep, switched_direct_space_pme(dij, q[:, None] * q[None, :], beta), 0.0)
-    return 0.5 * torch.sum(lj + es)
 
 
 def _poly_pair_grad(d, dw, qij, sig_ij, eps_ij, cutoff, h_coeffs):
@@ -241,6 +226,26 @@ def _pair_grad(d, dw, de_dr):
     return (de_dr * inv_r)[..., None] * d
 
 
+def water_exclusion_exact_energy_force(conf, params, box, nw: int, beta, cutoff):
+    """(u, dU/dx) of water_exclusion_energy in closed form (exact erfc),
+    assembled by a reshape as water_exclusion_energy_force."""
+    x = conf[: 3 * nw].reshape(nw, 3, 3)
+    p = params[: 3 * nw].reshape(nw, 3, 4)
+    u = conf.new_zeros(())
+    g = {}
+    for a, b in ((0, 1), (0, 2), (1, 2)):
+        pa, pb = p[:, a], p[:, b]
+        d, dw = periodic_delta(x[:, a], x[:, b], box), pa[:, 3] - pb[:, 3]
+        vdw, es, dvdw, des = _exact_pair_terms(
+            d, dw, pa[:, 0] * pb[:, 0], combine_sigma(pa[:, 1], pb[:, 1]), combine_epsilon(pa[:, 2], pb[:, 2]),
+            beta, cutoff,
+        )
+        u = u + torch.sum(vdw) + torch.sum(es)
+        g[a, b] = _pair_grad(d, dw, dvdw + des)
+    grad = torch.stack([g[0, 1] + g[0, 2], -g[0, 1] + g[1, 2], -g[0, 2] - g[1, 2]], dim=1)
+    return u, torch.cat([grad.reshape(3 * nw, 3), conf.new_zeros((conf.shape[0] - 3 * nw, 3))])
+
+
 def specific_pairs_exact_energy_force(conf, params, box, pairs, beta, cutoff, rescale_mask, assemble):
     """(u, force) of nonbonded_on_specific_pairs summed: u the sum of the
     scaled pair energies, force = -dU/dx in closed form, summed onto atoms
@@ -311,3 +316,174 @@ def interaction_group_energy_force(conf, params, box, a_idxs, b_idxs, beta, cuto
     force[a_idxs] = -torch.sum(g, dim=1)
     force[b_idxs] = torch.sum(g, dim=0)
     return torch.sum(vdw) + torch.sum(es), force
+
+
+# (rows x columns) slots of one dense row block: 2^16 keeps a block's float64
+# temporaries cache-sized on the CPU, also under a vmap over a dozen replicas
+DENSE_BLOCK_ELEMENTS = {"cpu": 1 << 16, "cuda": 1 << 22}
+
+
+def dense_row_blocks(n: int, elements: int) -> list:
+    """[(r0, r1)] Newton-triangular row blocks of n atoms: rows [r0, r1)
+    against columns [r0, n), at most `elements` slots a block (one row at
+    least)."""
+    blocks, r0 = [], 0
+    while r0 < n:
+        r1 = min(n, r0 + max(1, elements // (n - r0)))
+        blocks.append((r0, r1))
+        r0 = r1
+    return blocks
+
+
+def dense_block(x, p, box, r0: int, r1: int, beta, cutoff, q_mask=None, lj_mask=None, forces: bool = False):
+    """One row block of the dense form over atoms x (n, 3), params p (n, 4):
+    rows [r0, r1) against columns [r0, n), each pair once (column after
+    row) where 0 < r^2 < cutoff^2, its LJ and exact-erfc terms scaled by
+    q_mask / lj_mask (r1 - r0, n - r0) where given. Returns u, or (u, dU/dx
+    of the rows (r1 - r0, 3), dU/dx of the columns (n - r0, 3)) in closed
+    form. Every slot outside the gate takes r^2 := 1, so each term is
+    finite and differentiable."""
+    xi, pi, xj, pj = x[r0:r1], p[r0:r1], x[r0:], p[r0:]
+    d = [periodic_delta(xi[:, None, a], xj[None, :, a], None if box is None else box[a : a + 1, a : a + 1]) for a in range(3)]
+    dw = pi[:, None, 3] - pj[None, :, 3]
+    d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2] + dw * dw
+    upper = torch.arange(r1 - r0, device=x.device)[:, None] < torch.arange(x.shape[0] - r0, device=x.device)[None, :]
+    live = upper & (d2 < cutoff * cutoff) & (d2 > 0)
+    c_q = live.to(p.dtype) if q_mask is None else torch.where(live, q_mask, 0.0)
+    c_lj = live.to(p.dtype) if lj_mask is None else torch.where(live, lj_mask, 0.0)
+    r2 = torch.where(live, d2, 1.0)
+    inv_r = torch.rsqrt(r2)
+    r, inv_r2 = r2 * inv_r, inv_r * inv_r
+    sig = combine_sigma(pi[:, None, 1], pj[None, :, 1])
+    s2 = sig * sig * inv_r2
+    t6 = s2 * s2 * s2
+    eps_ij = combine_epsilon(pi[:, None, 2], pj[None, :, 2])
+    eps4 = 4.0 * torch.where(eps_ij != 0, eps_ij * c_lj, 0.0)  # as JAX's select: no dU/d eps_i on eps_ij = 0 pairs
+    qij = pi[:, None, 0] * pj[None, :, 0] * c_q
+    erfc_r = torch.special.erfc(beta * r)
+    a = (0.5 * math.pi / SWITCH_CUTOFF**8) * (r2 * r2) * (r2 * r2)  # the switch's argument
+    cos_a = torch.cos(a)
+    sw = torch.where(r < SWITCH_CUTOFF, cos_a * cos_a * cos_a, 0.0)
+    s_r = erfc_r * inv_r
+    u = torch.sum(eps4 * (t6 * t6 - t6)) + torch.sum(qij * s_r * sw)
+    if not forces:
+        return u
+    dsw = torch.where(r < SWITCH_CUTOFF, -24.0 * a * cos_a * cos_a * torch.sin(a) * inv_r, 0.0)
+    ds_r = (-2.0 * beta / math.sqrt(math.pi)) * torch.exp(-((beta * r) ** 2)) * inv_r - s_r * inv_r
+    g = (eps4 * inv_r2 * (6.0 * t6 - 12.0 * t6 * t6) + qij * (ds_r * sw + s_r * dsw) * inv_r)  # dE/dr / r
+    rows = torch.stack([torch.sum(g * da, 1) for da in d], 1)
+    cols = torch.stack([-torch.sum(g * da, 0) for da in d], 1)
+    return u, rows, cols
+
+
+def _dense_sum(x, p, box, blocks, beta, cutoff, masks_of, forces: bool):
+    """The blocks summed: u, or (u, dU/dx (n, 3)), out of place (vmaps)."""
+    n = x.shape[0]
+    u = x.new_zeros(())
+    rows, cols = [], x.new_zeros((n, 3))
+    # autograd would keep every block's temporaries: recompute them in the backward pass instead
+    recompute = not forces and torch.is_grad_enabled() and (x.requires_grad or p.requires_grad)
+    for k, (r0, r1) in enumerate(blocks):
+        q_mask, lj_mask = masks_of(k, r0, r1)
+        if forces:
+            u_b, g_rows, g_cols = dense_block(x, p, box, r0, r1, beta, cutoff, q_mask, lj_mask, True)
+            rows.append(g_rows)
+            cols = cols + torch.nn.functional.pad(g_cols, (0, 0, r0, 0))
+        elif not recompute:
+            u_b = dense_block(x, p, box, r0, r1, beta, cutoff, q_mask, lj_mask)
+        else:
+            u_b = torch.utils.checkpoint.checkpoint(
+                dense_block, x, p, box, r0, r1, beta, cutoff, q_mask, lj_mask, use_reentrant=False
+            )
+        u = u + u_b
+    return (u, torch.cat(rows) + cols) if forces else u
+
+
+def nonbonded_all_pairs_dense(conf, params, box, charge_rescale_mask, lj_rescale_mask, beta, cutoff, atom_mask=None):
+    """Dense all-pairs energy with exclusion masks, JAX's function of this
+    name: each pair within the cutoff scaled by the (N, N) masks (None: all
+    ones; 1 - scale on excluded pairs, as JAX's exclusions_to_rescale_masks),
+    only pairs of atoms where atom_mask (N,) is nonzero. Differentiable in
+    conf and params; evaluated over Newton-triangular row blocks."""
+    act = None if atom_mask is None else torch.nonzero(torch.as_tensor(atom_mask) > 0).squeeze(1).to(conf.device)
+    x, p = (conf, params) if act is None else (conf[act], params[act])
+    qm, ljm = charge_rescale_mask, lj_rescale_mask
+    if act is not None:
+        qm, ljm = (None if m is None else m[act][:, act] for m in (qm, ljm))
+    blocks = dense_row_blocks(x.shape[0], DENSE_BLOCK_ELEMENTS["cpu"])
+
+    def masks_of(k, r0, r1):
+        return tuple(None if m is None else torch.as_tensor(m[r0:r1, r0:], device=p.device, dtype=p.dtype) for m in (qm, ljm))
+
+    return _dense_sum(x, p, box, blocks, beta, cutoff, masks_of, forces=False)
+
+
+class DenseAllPairs:
+    """The dense form of the all-pairs term (JAX's impl="dense"): every pair
+    of the atom subset `atom_idxs` (None: all atoms) within the cutoff, LJ
+    plus exact-erfc electrostatics, excluded pairs scaled by 1 - scale
+    (charge, LJ) as JAX's _dense_masks. Rows are taken in Newton-triangular
+    blocks of at most DENSE_BLOCK_ELEMENTS slots (by device), so memory is
+    O(N x block) and not O(N^2); the exclusions are kept as each block's
+    flat slots and values.
+
+      energy(conf, params, box) -> u      differentiable in conf and params
+      energy_force(conf, params, box) -> (u, force)   closed form
+
+    Both vmap over a leading axis of conf, params and box (no shape depends
+    on the data)."""
+
+    def __init__(self, num_atoms: int, beta: float, cutoff: float, exclusion_idxs=None, scale_factors=None,
+                 atom_idxs=None, device=None):
+        device = torch.device("cpu") if device is None else torch.device(device)
+        self.num_atoms, self.beta, self.cutoff = num_atoms, float(beta), float(cutoff)
+        act = np.arange(num_atoms) if atom_idxs is None else np.unique(np.asarray(atom_idxs, dtype=np.int64))
+        self.act = None if atom_idxs is None else torch.as_tensor(act, device=device)
+        n = act.shape[0]
+        self.blocks = dense_row_blocks(n, DENSE_BLOCK_ELEMENTS.get(device.type, 1 << 22))
+        pos = np.full(num_atoms, -1, dtype=np.int64)
+        pos[act] = np.arange(n)
+        exc = np.asarray(exclusion_idxs if exclusion_idxs is not None else np.zeros((0, 2)), dtype=np.int64).reshape(-1, 2)
+        scales = np.asarray(scale_factors if scale_factors is not None else np.zeros((0, 2)), np.float64).reshape(-1, 2)
+        a, c = pos[exc[:, 0]], pos[exc[:, 1]]
+        inside = (a >= 0) & (c >= 0) & (a != c)
+        a, c, scales = np.minimum(a, c)[inside], np.maximum(a, c)[inside], scales[inside]
+        self._block_masks = []
+        for r0, r1 in self.blocks:
+            sel = (a >= r0) & (a < r1)
+            flat = (a[sel] - r0) * (n - r0) + (c[sel] - r0)
+            self._block_masks.append(
+                None if not sel.any() else (
+                    torch.as_tensor(flat, device=device), torch.as_tensor(1.0 - scales[sel], device=device)
+                )
+            )
+
+    def _masks_of(self, dtype):
+        n = self.num_atoms if self.act is None else len(self.act)
+
+        def masks_of(k, r0, r1):
+            entry = self._block_masks[k]
+            if entry is None:
+                return None, None
+            flat, vals = entry
+            shape = (r1 - r0, n - r0)
+            ones = torch.ones(shape[0] * shape[1], dtype=dtype, device=flat.device)
+            return tuple(ones.index_put((flat,), vals[:, col].to(dtype)).view(shape) for col in (0, 1))
+
+        return masks_of
+
+    def _subset(self, conf, params):
+        if self.act is None:
+            return conf, params
+        return conf[..., self.act, :], params[..., self.act, :]
+
+    def energy(self, conf, params, box):
+        x, p = self._subset(conf, params)
+        return _dense_sum(x, p, box, self.blocks, self.beta, self.cutoff, self._masks_of(p.dtype), forces=False)
+
+    def energy_force(self, conf, params, box):
+        x, p = self._subset(conf, params)
+        u, grad = _dense_sum(x, p, box, self.blocks, self.beta, self.cutoff, self._masks_of(p.dtype), forces=True)
+        if self.act is not None:
+            grad = conf.new_zeros(conf.shape).index_copy(0, self.act, grad)
+        return u, -grad

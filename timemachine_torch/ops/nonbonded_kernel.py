@@ -25,9 +25,21 @@ In triangular form each pair's terms reach the column atom too (its
 reaction). Every path of the port runs the triangular form; the symmetric
 form is the kernel's first design, kept in DP and F as its yardstick.
 
-The electrostatics are exact (erfc by Abramowitz & Stegun 7.1.26 times the
-cos^3 switch) or two Clenshaw series (`es_switch_poly_coeffs`); DP is always
-exact, as in the JAX backward pass.
+The electrostatics (`es_coeffs`) are exact, erfc times the cos^3 switch
+(None: torch's erfc in the plain version, CUDA's erfcf in the kernel, the
+function of JAX's impl="dense" and impl="tiled"), the JAX kernel's own
+exact form (AS7126: erfc by Abramowitz & Stegun 7.1.26, absolute error up
+to 1.5e-7), or two Clenshaw series (`es_switch_poly_coeffs`); DP is never
+the series, as in the JAX backward pass. The kernel="v1" configuration
+runs the exact form (it serves JAX's "tiled" and the minimizers' host term
+on the card, ROADMAP P11); the du/dp pass of the swept configurations
+(run_dp's default) runs AS7126, as JAX's _run_dp does, and the kernel
+builds AS7126 in DP only. It stays because the training path's dL/ds
+must match JAX's: with erfc in its place,
+tests/test_torch_param_grad.py::test_charge_scale_training_matches_jax
+reads 1095.0033 against JAX's 1095.1317 (1.2e-4 relative, over its 1e-4).
+The plain version takes AS7126 in every mode, as the JAX kernel's function
+(tests/test_torch_nb_tiles.py holds it against the Pallas kernel).
 
 `nb_tiles` launches the hand-written CUDA kernel (`csrc/nb_tiles.cu`) on
 CUDA tensors and uses `nb_tiles_plain`, the same function in plain PyTorch,
@@ -43,6 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from collections import Counter
 from typing import NamedTuple
 
 import numpy as np
@@ -64,6 +77,7 @@ CELL_SIZE = 0.65  # nm, the sort cells of the snake path, as in the JAX builder
 HILBERT_BITS = 7  # Hilbert grid of 2^7 cells per axis
 _SQRT_PI = 1.7724538509055159
 
+AS7126 = "as7126"  # es_coeffs of the JAX kernel's exact form: erfc by A&S 7.1.26
 _es_poly_cache: dict = {}
 
 
@@ -346,7 +360,7 @@ def _pair_terms(r2, qq, sig, eps, beta, mask, es_coeffs):
     eps4 = 4.0 * eps
     e_lj = eps4 * (t12 - t6)
     dlj_r = eps4 * inv_r2 * (6.0 * t6 - 12.0 * t12)
-    if es_coeffs is not None:
+    if _is_series(es_coeffs):
         h_coeffs, hp_coeffs = es_coeffs
         inv_c = 1.0 / SWITCH_CUTOFF
         t2 = 2.0 * (2.0 * (r * inv_c) - 1.0)
@@ -355,7 +369,7 @@ def _pair_terms(r2, qq, sig, eps, beta, mask, es_coeffs):
         s_r_sw = h * inv_r
         e_es = qq * s_r_sw
         des_r = qq * inv_r2 * (hp * inv_c - h * inv_r)
-    else:
+    else:  # exact: erfc itself (es_coeffs None) or A&S 7.1.26 (AS7126)
         v = r2 * (1.0 / (SWITCH_CUTOFF * SWITCH_CUTOFF))
         v2 = v * v
         u8 = v2 * v2
@@ -366,10 +380,13 @@ def _pair_terms(r2, qq, sig, eps, beta, mask, es_coeffs):
         dsw_dr = -12.0 * math.pi * u8 * inv_r * cos2 * sinu
         x = beta * r
         gauss = torch.exp(-x * x)
-        tt = 1.0 / (1.0 + 0.3275911 * x)
-        erfc_bar = gauss * tt * (
-            0.254829592 + tt * (-0.284496736 + tt * (1.421413741 + tt * (-1.453152027 + tt * 1.061405429)))
-        )
+        if es_coeffs == AS7126:
+            tt = 1.0 / (1.0 + 0.3275911 * x)
+            erfc_bar = gauss * tt * (
+                0.254829592 + tt * (-0.284496736 + tt * (1.421413741 + tt * (-1.453152027 + tt * 1.061405429)))
+            )
+        else:
+            erfc_bar = torch.special.erfc(x)
         s_r = erfc_bar * inv_r
         ds_dr = (-2.0 / _SQRT_PI) * beta * gauss * inv_r - erfc_bar * inv_r2
         e_es = qq * s_r * sw
@@ -380,10 +397,16 @@ def _pair_terms(r2, qq, sig, eps, beta, mask, es_coeffs):
     return e, de_r, s_r_sw, t6, t12, eps4
 
 
+def _is_series(es_coeffs) -> bool:
+    return es_coeffs is not None and not isinstance(es_coeffs, str)
+
+
 def _check_args(atoms, row_start, row_count, col_ids, scalars, mode: int, cb: int, es_coeffs):
     if mode not in (UF, FORCE, DP):
         raise ValueError(f"nb_tiles: unknown mode {mode}")
-    if mode == DP and es_coeffs is not None:
+    if isinstance(es_coeffs, str) and es_coeffs != AS7126:
+        raise ValueError(f"nb_tiles: es_coeffs must be None, AS7126 or a series, got {es_coeffs!r}")
+    if mode == DP and _is_series(es_coeffs):
         raise ValueError("nb_tiles: the DP mode runs the exact electrostatics only")
     if not 1 <= cb <= MAX_CB:
         raise ValueError(f"nb_tiles: cb must lie in [1, {MAX_CB}], got {cb}")
@@ -484,7 +507,7 @@ def _launcher():
     fn = _build.load_library("nb_tiles").nb_tiles_launch
     if fn.argtypes is None:
         fn.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_float)] * 2 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_float)] * 2 + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
     return fn
@@ -498,21 +521,23 @@ def nb_tiles(
     atoms (Npad, 8) f32 sorted rows [x y z w q sig/2 sqrt(eps) valid],
     row_start/row_count (nB,) and col_ids (max_tiles,) int32 in CSR form,
     scalars (5,) f32 [bx by bz beta cutoff], es_coeffs None (exact
-    electrostatics) or the (h, h') series of es_switch_poly_coeffs,
-    triangular as the lists were built. A CUDA tensor launches the kernel of
-    csrc/nb_tiles.cu on the current stream (with int64 fixed-point and
-    sub-tile box scratch in triangular form; NaN where a sum leaves the
-    fixed-point range); the kernel is built for the triangular form in DP,
-    UF (exact and poly) and F (exact), and for the symmetric form in DP and
-    F (exact), and refuses any other. A CPU tensor runs nb_tiles_plain (in
-    atoms' dtype)."""
+    electrostatics, erfc), AS7126 (the JAX kernel's A&S 7.1.26) or the (h,
+    h') series of es_switch_poly_coeffs, triangular as the lists were built.
+    A CUDA tensor launches the kernel of csrc/nb_tiles.cu on the current
+    stream (with int64 fixed-point and sub-tile box scratch in triangular
+    form; NaN where a sum leaves the fixed-point range); the kernel is built
+    for the triangular form in DP (exact and A&S), F (exact) and UF (exact
+    and poly), and for the symmetric form in DP (exact and A&S) and F
+    (exact), and refuses any other. A CPU tensor runs nb_tiles_plain (in atoms'
+    dtype)."""
     if atoms.device.type == "cpu":
         return nb_tiles_plain(atoms, row_start, row_count, col_ids, scalars, mode, cb, es_coeffs, triangular)
     if atoms.device.type != "cuda":
         raise ValueError(f"nb_tiles: no kernel for device {atoms.device}")
     _check_args(atoms, row_start, row_count, col_ids, scalars, mode, cb, es_coeffs)
     h_arg = hp_arg = None
-    if es_coeffs is not None:
+    es_form = 2 if _is_series(es_coeffs) else int(es_coeffs == AS7126)
+    if es_form == 2:
         if es_coeffs not in _series_args:
             _series_args[es_coeffs] = tuple((ctypes.c_float * len(c))(*c) for c in es_coeffs)
         h_arg, hp_arg = _series_args[es_coeffs]
@@ -524,16 +549,18 @@ def nb_tiles(
     boxes = torch.empty(n_pad // GROUP * 8 if triangular else 0, dtype=torch.float32, device=dev)
     rc = _launcher()(
         atoms.data_ptr(), row_start.data_ptr(), row_count.data_ptr(), col_ids.data_ptr(), scalars.data_ptr(),
-        out.data_ptr(), acc.data_ptr(), boxes.data_ptr(), n_pad // BLOCK, cb, mode, int(triangular), h_arg, hp_arg,
+        out.data_ptr(), acc.data_ptr(), boxes.data_ptr(), n_pad // BLOCK, cb, mode, int(triangular), es_form, h_arg, hp_arg,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"nb_tiles: kernel launch failed with CUDA error {rc}")
     nb_tiles.launches += 1
+    nb_tiles.launches_by_form[mode, bool(triangular), ("exact", "as7126", "poly")[es_form]] += 1
     return out
 
 
 nb_tiles.launches = 0
+nb_tiles.launches_by_form = Counter()  # (mode, triangular, electrostatics) -> launches, never zeroed
 
 
 def poison_on_overflow(overflow, val):
@@ -553,20 +580,24 @@ def _sweep(conf, params, box, beta, cutoff, max_tiles, mode, cb, es_coeffs=None,
     return out, torch.argsort(tiles.pad_order[: conf.shape[0]]), tiles.overflow
 
 
-def run_uf(conf, params, box, beta, cutoff, max_tiles, es_coeffs=None, cb: int = 1):
+def run_uf(conf, params, box, beta, cutoff, max_tiles, es_coeffs=None, cb: int = 1, atom_mask=None, energy_dtype=None):
     """One UF pass over triangular lists of max_tiles (size it with
     suggest_max_tiles(..., triangular=True)): (total energy, dU/dx), NaN on
-    list overflow."""
-    out, inv, overflow = _sweep(conf, params, box, beta, cutoff, max_tiles, UF, cb, es_coeffs)
-    return poison_on_overflow(overflow, torch.sum(out[:, 0])), poison_on_overflow(overflow, out[inv, 1:4])
+    list overflow; the per-atom energies summed in energy_dtype (None:
+    theirs). atom_mask (N,) bool, where given, restricts the pairs to its
+    atoms (JAX's _run_uf(atom_mask=))."""
+    out, inv, overflow = _sweep(conf, params, box, beta, cutoff, max_tiles, UF, cb, es_coeffs, atom_mask)
+    u = torch.sum(out[:, 0], dtype=energy_dtype)
+    return poison_on_overflow(overflow, u), poison_on_overflow(overflow, out[inv, 1:4])
 
 
-def run_dp(conf, params, box, beta, cutoff, max_tiles, cb: int = 1, atom_mask=None):
+def run_dp(conf, params, box, beta, cutoff, max_tiles, cb: int = 1, atom_mask=None, es_coeffs=AS7126):
     """One DP pass over triangular lists of max_tiles: (N, 4) dU/dp in
     params' column order [q, sig/2, sqrt(eps), w], NaN on list overflow;
     zero for atoms outside atom_mask (N,) bool, where given (JAX's
-    _run_dp(atom_mask=))."""
-    out, inv, overflow = _sweep(conf, params, box, beta, cutoff, max_tiles, DP, cb, atom_mask=atom_mask)
+    _run_dp(atom_mask=)). es_coeffs AS7126 (the default) is JAX's _run_dp
+    electrostatics, None exact erfc."""
+    out, inv, overflow = _sweep(conf, params, box, beta, cutoff, max_tiles, DP, cb, es_coeffs, atom_mask)
     return poison_on_overflow(overflow, out[inv])
 
 
@@ -595,16 +626,18 @@ class StashedGradEnergy(torch.autograd.Function):
         return g_conf, g_params, None, None, None
 
 
-def make_nonbonded_tiles(beta: float, cutoff: float, max_tiles: int, cb: int = 1):
+def make_nonbonded_tiles(beta: float, cutoff: float, max_tiles: int, cb: int = 1, atom_mask=None):
     """Differentiable energy(conf, params, box): the forward runs one UF
-    pass (exact electrostatics) and stashes dU/dx; dU/dp comes from a DP
-    pass (counterpart of make_nonbonded_pallas)."""
+    pass (exact electrostatics, erfc) and stashes dU/dx; dU/dp comes from a
+    DP pass in the same electrostatics (counterpart of
+    make_nonbonded_pallas, whose passes take A&S 7.1.26); both see only the
+    atoms of atom_mask (N,) bool, where given."""
 
     def energy_grad(conf, params, box):
-        return run_uf(conf, params, box, beta, cutoff, max_tiles, cb=cb)
+        return run_uf(conf, params, box, beta, cutoff, max_tiles, cb=cb, atom_mask=atom_mask)
 
     def dp(conf, params, box):
-        return run_dp(conf, params, box, beta, cutoff, max_tiles, cb=cb)
+        return run_dp(conf, params, box, beta, cutoff, max_tiles, cb=cb, atom_mask=atom_mask, es_coeffs=None)
 
     def energy(conf, params, box):
         return StashedGradEnergy.apply(conf, params, box, energy_grad, dp)
@@ -612,10 +645,14 @@ def make_nonbonded_tiles(beta: float, cutoff: float, max_tiles: int, cb: int = 1
     return energy
 
 
-def make_nonbonded_tiles_energy_force(beta: float, cutoff: float, max_tiles: int, es: str = "exact", cb: int = 1):
-    """(conf, params, box) -> (u, force) in one UF pass over lists built for
-    the call (counterpart of make_nonbonded_pallas_energy_force). es="poly"
-    evaluates the electrostatics as the Clenshaw series of
+def make_nonbonded_tiles_energy_force(
+    beta: float, cutoff: float, max_tiles: int, es: str = "exact", cb: int = 1, atom_mask=None,
+):
+    """(conf, params, box, energy_dtype=None) -> (u, force) in one UF pass
+    over lists built for the call (counterpart of
+    make_nonbonded_pallas_energy_force), the per-atom energies summed in
+    energy_dtype (None: theirs), only the pairs of atom_mask (N,) bool where
+    given. es="poly" evaluates the electrostatics as the Clenshaw series of
     es_switch_poly_coeffs, which pins cutoff to the switch's 1.2 nm."""
     if es not in ("exact", "poly"):
         raise ValueError(f"es must be 'exact' or 'poly', got {es!r}")
@@ -625,8 +662,11 @@ def make_nonbonded_tiles_energy_force(beta: float, cutoff: float, max_tiles: int
             raise ValueError("poly electrostatics pins cutoff == SWITCH_CUTOFF")
         es_coeffs = es_switch_poly_coeffs(beta, cutoff)
 
-    def energy_force(conf, params, box):
-        u, du_dx = run_uf(conf, params, box, beta, cutoff, max_tiles, es_coeffs=es_coeffs, cb=cb)
+    def energy_force(conf, params, box, energy_dtype=None):
+        u, du_dx = run_uf(
+            conf, params, box, beta, cutoff, max_tiles, es_coeffs=es_coeffs, cb=cb, atom_mask=atom_mask,
+            energy_dtype=energy_dtype,
+        )
         return u, -du_dx
 
     return energy_force
@@ -757,14 +797,17 @@ def make_batched_list_md_provider(
 
 def make_nonbonded_tiles_md(
     beta: float, cutoff: float, max_tiles: int, skin: float = 0.1, rebuild_interval: int = 20, cb: int = 1,
+    atom_mask=None,
 ):
     """MD force provider over triangular block tiles (counterpart of
     make_nonbonded_pallas_md): an F pass per step, a UF pass for the
     energy; see make_list_md_provider. Size max_tiles with
-    suggest_max_tiles(..., triangular=True)."""
+    suggest_max_tiles(..., triangular=True). atom_mask (N,) bool, where
+    given, leaves the other atoms out of the lists' boxes and pairs, as in
+    JAX (its energy under other parameters keeps them out too)."""
 
     def build(conf, params, box):
-        tiles = build_block_tiles(conf, params, box, cutoff + skin, max_tiles, cb, triangular=True)
+        tiles = build_block_tiles(conf, params, box, cutoff + skin, max_tiles, cb, triangular=True, atom_mask=atom_mask)
         return ListState(tiles, torch.argsort(tiles.pad_order[: conf.shape[0]]), tiles.atoms[:, 3:], tiles.overflow)
 
     def sweep(state, conf, box, mode):
@@ -774,4 +817,7 @@ def make_nonbonded_tiles_md(
             atoms, t.row_start, t.row_count, t.col_ids, tile_scalars(box, beta, cutoff), mode, cb, triangular=True
         )
 
-    return make_list_md_provider(build, sweep, FORCE, UF, rebuild_interval)
+    def prows_fn(params, pad_order):
+        return param_rows(params, pad_order, params.shape[-2], atom_mask)
+
+    return make_list_md_provider(build, sweep, FORCE, UF, rebuild_interval, prows_fn=prows_fn)

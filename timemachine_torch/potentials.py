@@ -34,6 +34,41 @@ from timemachine_torch.ops.segment import SegmentSum
 # and their rebuild period (steps), as the JAX package's rowscan path
 MARGIN, SKIN, REBUILD_INTERVAL = 1.4, 0.1, 20
 DP_CB = 2  # column super-block width of the block-tile lists, as the JAX package's configure_pallas
+KERNELS = ("rowscan", "gather", "quad", "dot", "v1", "dense")
+# the JAX package leaves the all-pairs term dense below this many atoms at every call site
+DENSE_LIMIT = 4096
+SITES = ("context", "host_du_dx", "minimize")
+
+
+def all_pairs_kernel(site: str, num_atoms: int, device) -> str:
+    """The configuration that gives the all-pairs term the JAX package's
+    form at a call site, for a system of num_atoms on `device` (its type
+    "cpu" standing for jax.default_backend() == "cpu"):
+
+      "context"     get_context, and pre_equilibrate_host's NPT run and force
+                    check (JAX free_energy.py:477-489, minimizer.py:219-234):
+                    "dense" on the CPU or below DENSE_LIMIT atoms, else the
+                    rowscan sweep (JAX's configure_pallas default)
+      "host_du_dx"  make_host_du_dx_fxn (minimizer.py:123-130): "dense"
+                    below DENSE_LIMIT atoms, else JAX's "tiled" form on every
+                    device, which "v1" serves (the same function: exact erfc
+                    within the cutoff, over block tiles)
+      "minimize"    a potential no call site has configured yet, as
+                    get_val_and_grad_fn reads it (minimizer.py:287: JAX's
+                    fresh impl="dense"): "dense" on the CPU or below
+                    DENSE_LIMIT atoms, else "v1", the same function in O(N)
+
+    A rule by device and size, not a fallback: on the card every exact
+    evaluation at DENSE_LIMIT atoms and up launches nb_tiles, and every MD
+    step the rowscan sweep."""
+    if site not in SITES:
+        raise ValueError(f"site must be one of {SITES}, got {site!r}")
+    small = num_atoms < DENSE_LIMIT
+    if site == "host_du_dx":
+        return "dense" if small else "v1"
+    if small or torch.device(device).type == "cpu":
+        return "dense"
+    return "rowscan" if site == "context" else "v1"
 
 
 class _BondedTerm(nn.Module):
@@ -228,16 +263,23 @@ class NonbondedAllPairs(nn.Module):
     sort, else the Hilbert sort, whichever passes the image bound at cutoff
     + SKIN first (`dot_sort`); where neither does, rowscan wholesale.
     kernel="v1": the block-tile sweep with exact electrostatics, lists at
-    cutoff + SKIN for MD. `kernel` then names the configuration taken. Either way `u(x, params, box)` is
-    differentiable in params through the block-tile kernel's DP pass (exact
-    electrostatics, as in the JAX package).
+    cutoff + SKIN for MD; it also serves JAX's impl="tiled" (the same
+    function, exact erfc within the cutoff; JAX's cell lists are an XLA
+    layout the card does not need). kernel="dense": JAX's impl="dense",
+    plain PyTorch over Newton-triangular row blocks (ops/nonbonded.py
+    DenseAllPairs), exact erfc, no lists: its MD providers (single and
+    batched) evaluate it whole at every step. `kernel` then names the
+    configuration taken. Either way `u(x, params, box)` is differentiable in
+    params: through the block-tile kernel's DP pass (exact electrostatics,
+    as in the JAX package), or by autograd through the dense form.
+    `all_pairs_kernel` gives the JAX package's choice at each call site.
 
     atom_idxs restricts the term to a subset of the atoms (the RBFE host
     term's host atoms), as JAX's `_atom_mask`: the others get q = eps = 0
-    in the sweeps, leave the chunk boxes, and get zero force and dU/dp.
-    Under a subset configure keeps JAX's rules (quad falls back to rowscan,
-    rowscan's MD provider takes no preshift); gather, dot and v1 raise,
-    since the port's builders for them take no subset yet."""
+    in the sweeps, leave the chunk boxes (and gather's lists), and get zero
+    force and dU/dp. Under a subset configure keeps JAX's rules (quad falls
+    back to rowscan, rowscan's MD provider takes no preshift); dot reads
+    its image bound on the subset's atoms alone."""
 
     rigid_group_invariant = False
 
@@ -255,10 +297,51 @@ class NonbondedAllPairs(nn.Module):
             mask = torch.zeros(num_atoms, dtype=torch.bool, device=device)
             mask[torch.as_tensor(np.asarray(atom_idxs, dtype=np.int64), device=device)] = True
         self.register_buffer("atom_mask", mask)
+        self.atom_idxs = None if atom_idxs is None else np.unique(np.asarray(atom_idxs, dtype=np.int64))
         # the exclusion corrections' electrostatics: the rowscan polynomial, or None for exact erfc
         self.h_coeffs = rs.es_energy_force_series(self.beta, self.cutoff)[0]
-        self._energy = self._energy_force = self._u = self._md = self._md_batched = None
+        self._energy = self._energy_force = self._ef64 = self._u = self._md = self._md_batched = None
         self.kernel = None
+
+    def _dense_exclusions(self):
+        """(exclusion_idxs, scale_factors) the dense form scales by 1 - scale: none here."""
+        return None, None
+
+    def _configure_dense(self):
+        dense = nonbonded.DenseAllPairs(
+            self.num_atoms, self.beta, self.cutoff, *self._dense_exclusions(), atom_idxs=self.atom_idxs,
+            device=self.params.device,
+        )
+        self._energy = self._u = dense.energy
+        self._energy_force = dense.energy_force
+
+        def ef64(x, box):
+            f64 = torch.float64
+            return dense.energy_force(x.to(f64), self.params.to(f64), box.to(f64))
+
+        self._ef64 = ef64
+
+        def apply(state, x, params, box, t):
+            return dense.energy_force(x, params, box)[1], state
+
+        def energy(state, x, params, box):
+            return dense.energy(x, params, box)
+
+        self._md = (lambda x, params, box: None, apply, energy, energy)
+        uf_k, u_k = torch.func.vmap(dense.energy_force), torch.func.vmap(dense.energy)
+
+        def apply_k(params, xs, _, boxes, t):
+            return uf_k(xs, params, boxes)[1], params
+
+        def energy_with_params_k(params, xs, params_sets, boxes):
+            f64 = torch.float64
+            x64, b64 = xs.to(f64), boxes.to(f64)
+            # one parameter set at a time: K systems' block temporaries at once, not K * S
+            return torch.stack([u_k(x64, params_sets[:, j].to(f64), b64) for j in range(params_sets.shape[1])], 1)
+
+        # the batched state is the replicas' parameters, which the energies read
+        self._md_batched = (lambda xs, params, boxes: params, apply_k, lambda params, xs, boxes: u_k(xs, params, boxes),
+                            energy_with_params_k)
 
     def configure(self, box, conf, kernel: str = "rowscan", rowscan_has_w: bool = True, quad_has_w: bool = True):
         """Size the lists from this geometry, at MARGIN over the present
@@ -270,21 +353,25 @@ class NonbondedAllPairs(nn.Module):
         promises that every w offset is zero (as bench.py passes for DHFR),
         and so does quad_has_w=False for the quad MD provider (JAX's
         configure_pallas takes the same two)."""
-        if kernel not in ("rowscan", "gather", "quad", "dot", "v1"):
-            raise ValueError(f"kernel must be 'rowscan', 'gather', 'quad', 'dot' or 'v1', got {kernel!r}")
-        self._md_batched = None
+        if kernel not in KERNELS:
+            raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
+        self._md_batched = self._ef64 = None
         mask = self.atom_mask
-        if mask is not None and kernel in ("gather", "dot", "v1"):
-            raise ValueError(
-                f"kernel={kernel!r} takes no atom subset in the port yet (ROADMAP queue 1 item 5); use 'rowscan'"
-            )
+        if kernel == "dense":
+            self.kernel, self.h_coeffs, self.dot_sort = "dense", None, None
+            self._configure_dense()
+            return self
         box = torch.as_tensor(box, device=self.params.device)
         conf = torch.as_tensor(conf, device=self.params.device)
+        dt = self.params.dtype
         if kernel == "quad" and (mask is not None or not qk.constant_shift_valid(conf, box, self.cutoff + SKIN)):
             kernel = "rowscan"
         self.dot_sort = None
         if kernel == "dot":
-            valid = (s for s in ("snake", "hilbert") if dk.dotscan_valid(conf, box, self.cutoff + SKIN, sort=s))
+            valid = (
+                s for s in ("snake", "hilbert")
+                if dk.dotscan_valid(conf, box, self.cutoff + SKIN, sort=s, atom_mask=mask)
+            )
             self.dot_sort = next(valid, None)
             if self.dot_sort is None:
                 kernel = "rowscan"
@@ -294,20 +381,23 @@ class NonbondedAllPairs(nn.Module):
         )
         self.h_coeffs = rs.es_energy_force_series(self.beta, self.cutoff)[0]
         if kernel == "gather":
-            self.max_nbrs = gk.suggest_max_nbrs(conf, box, self.cutoff, margin=MARGIN)
-            ef = gk.make_nonbonded_gather_energy_force(self.beta, self.cutoff, self.max_nbrs)
+            self.max_nbrs = gk.suggest_max_nbrs(conf, box, self.cutoff, margin=MARGIN, atom_mask=mask)
+            ef = gk.make_nonbonded_gather_energy_force(self.beta, self.cutoff, self.max_nbrs, atom_mask=mask)
             self._energy = lambda x, params, box: ef(x, params, box)[0]
             self._energy_force = ef
-            self._u = gk.make_nonbonded_gather(self.beta, self.cutoff, self.max_nbrs, self.dp_max_tiles, dp_cb=DP_CB)
-            self.md_max_nbrs = gk.suggest_max_nbrs(conf, box, self.cutoff + SKIN, margin=MARGIN)
+            self._u = gk.make_nonbonded_gather(
+                self.beta, self.cutoff, self.max_nbrs, self.dp_max_tiles, dp_cb=DP_CB, atom_mask=mask
+            )
+            self.md_max_nbrs = gk.suggest_max_nbrs(conf, box, self.cutoff + SKIN, margin=MARGIN, atom_mask=mask)
             self._md = gk.make_nonbonded_gather_md(
-                self.beta, self.cutoff, self.md_max_nbrs, skin=SKIN, rebuild_interval=REBUILD_INTERVAL
+                self.beta, self.cutoff, self.md_max_nbrs, skin=SKIN, rebuild_interval=REBUILD_INTERVAL, atom_mask=mask
             )
         elif kernel in ("rowscan", "quad", "dot"):
             pairs = rs.suggest_max_pairs(conf, box, self.cutoff, margin=MARGIN, triangular=True, atom_mask=mask)
             ef = rs.make_nonbonded_rowscan_energy_force(self.beta, self.cutoff, pairs, atom_mask=mask)
             self._energy = lambda x, params, box: ef(x, params, box, rs.ENERGY)[0]
             self._energy_force = ef
+            self._ef64 = lambda x, box: ef(x.to(dt), self.params, box.to(dt), rs.FORCE_ENERGY, torch.float64)
             self._u = rs.make_nonbonded_rowscan(
                 self.beta, self.cutoff, pairs, self.dp_max_tiles, dp_cb=DP_CB, atom_mask=mask
             )
@@ -320,11 +410,11 @@ class NonbondedAllPairs(nn.Module):
                 )
             elif kernel == "dot":
                 self.md_max_pairs = dk.suggest_max_pairs(
-                    conf, box, self.cutoff + SKIN, margin=MARGIN, triangular=True, sort=self.dot_sort
+                    conf, box, self.cutoff + SKIN, margin=MARGIN, triangular=True, sort=self.dot_sort, atom_mask=mask
                 )
                 self._md = dk.make_nonbonded_dotscan_md(
                     self.beta, self.cutoff, self.md_max_pairs, skin=SKIN, rebuild_interval=REBUILD_INTERVAL,
-                    sort=self.dot_sort,
+                    sort=self.dot_sort, atom_mask=mask,
                 )
             else:
                 cell = 0.65
@@ -345,15 +435,19 @@ class NonbondedAllPairs(nn.Module):
                     )
                 self.md_max_pairs, self.md_cell_size, self.md_preshift = md_pairs, cell, preshift
         else:
-            ef = nbk.make_nonbonded_tiles_energy_force(self.beta, self.cutoff, self.dp_max_tiles, cb=DP_CB)
+            ef = nbk.make_nonbonded_tiles_energy_force(
+                self.beta, self.cutoff, self.dp_max_tiles, cb=DP_CB, atom_mask=mask
+            )
             self._energy = lambda x, params, box: ef(x, params, box)[0]
             self._energy_force = ef
-            self._u = nbk.make_nonbonded_tiles(self.beta, self.cutoff, self.dp_max_tiles, cb=DP_CB)
+            self._ef64 = lambda x, box: ef(x.to(dt), self.params, box.to(dt), torch.float64)
+            self._u = nbk.make_nonbonded_tiles(self.beta, self.cutoff, self.dp_max_tiles, cb=DP_CB, atom_mask=mask)
             self.md_max_tiles = nbk.suggest_max_tiles(
-                conf, box, self.cutoff + SKIN, margin=MARGIN, cb=DP_CB, triangular=True
+                conf, box, self.cutoff + SKIN, margin=MARGIN, cb=DP_CB, triangular=True, atom_mask=mask
             )
             self._md = nbk.make_nonbonded_tiles_md(
-                self.beta, self.cutoff, self.md_max_tiles, skin=SKIN, rebuild_interval=REBUILD_INTERVAL, cb=DP_CB
+                self.beta, self.cutoff, self.md_max_tiles, skin=SKIN, rebuild_interval=REBUILD_INTERVAL, cb=DP_CB,
+                atom_mask=mask,
             )
             self.h_coeffs = None
         return self
@@ -379,14 +473,15 @@ class NonbondedAllPairs(nn.Module):
     def energy_force_f64(self, x, box):
         """(u, force) in float64, as a minimizer reads them: one F+U sweep at
         x and box in the parameters' dtype (float32 on the card), its
-        per-atom energies summed in float64 and its force taken to float64.
-        The rowscan energy/force entry only (kernel "rowscan", "quad" or
-        "dot"); other configurations raise."""
+        per-atom energies summed in float64 and its force taken to float64:
+        the rowscan energy/force entry (kernel "rowscan", "quad" or "dot"),
+        or nb_tiles' exact UF pass (kernel "v1"; only the sum of its per-atom
+        energies is the energy, ROADMAP P8). kernel="dense" evaluates in
+        float64 outright. "gather" raises."""
         self._configured()
-        if self.kernel not in ("rowscan", "quad", "dot"):
+        if self._ef64 is None:
             raise NotImplementedError(f"energy_force_f64: no float64 energy sum for kernel={self.kernel!r}")
-        dt = self.params.dtype
-        u, f = self._energy_force(x.to(dt), self.params, box.to(dt), rs.FORCE_ENERGY, torch.float64)
+        u, f = self._ef64(x, box)
         return u, f.to(torch.float64)
 
     def md_force_provider(self):
@@ -417,8 +512,10 @@ class NonbondedAllPairs(nn.Module):
         xs, params_sets (K, S, N, 4), boxes) -> (K, S)), over one
         rowscan_sweep_batched launch a step. The energies run through the
         lists of the state's last rebuild, whose parameter rows the first
-        two use. Only the rowscan configuration without preshift has one
-        (the RBFE host term's); others raise."""
+        two use. The rowscan configuration without preshift has one (the
+        RBFE host term's on the card), and so has "dense" (the CPU's: the
+        dense form under torch.func.vmap, its state the parameters of the
+        last step); others raise."""
         self._configured()
         if self._md_batched is None:
             raise NotImplementedError(
@@ -434,11 +531,13 @@ class NonbondedAllPairs(nn.Module):
 
 
 class Nonbonded(NonbondedAllPairs):
-    """All pairs minus the intramolecular exclusions, which are subtracted
-    with the sweep's own electrostatics so they cancel it: the rowscan
-    polynomial in closed form, or exact erfc through autograd (kernel="v1").
-    Leading TIP3P waters go through a strided path, the rest through an
-    explicit pair list."""
+    """All pairs minus the intramolecular exclusions. The swept forms
+    subtract them with the sweep's own electrostatics so that they cancel
+    it: the rowscan polynomial, or exact erfc (kernel="v1"), both in closed
+    form; leading TIP3P waters go through a strided path, the rest through
+    an explicit pair list. kernel="dense" scales the excluded pairs by
+    1 - scale inside the dense form instead, as JAX's dense Nonbonded does,
+    so nothing is subtracted."""
 
     def __init__(
         self, num_atoms: int, exclusion_idxs, scale_factors, beta: float, cutoff: float, params, atom_idxs=None,
@@ -451,11 +550,20 @@ class Nonbonded(NonbondedAllPairs):
         if atom_idxs is not None:  # keep the exclusions inside the subset, in order (JAX's filter_exclusions)
             inside = np.isin(exc, np.asarray(atom_idxs)).all(axis=1)
             exc, scales = exc[inside], scales[inside]
+        self._exclusions = (exc, scales)
         self.num_waters = nonbonded.leading_water_exclusions(exc, scales)
         tail = exc[3 * self.num_waters :]
         self.register_buffer("tail_idxs", torch.tensor(tail, device=device))
         self.register_buffer("tail_scales", torch.tensor(scales[3 * self.num_waters :], device=device, dtype=dtype))
         self.assemble = SegmentSum(tail.T.ravel(), num_atoms, device=device)
+
+    def _dense_exclusions(self):
+        return self._exclusions
+
+    @property
+    def _subtracts(self) -> bool:
+        """Whether the exclusions are a separate correction (every swept form) or inside the dense form."""
+        return self.kernel != "dense"
 
     def exclusion_energy(self, x, params, box):
         """u_exc as a function of (x, params, box), differentiable in both."""
@@ -483,25 +591,45 @@ class Nonbonded(NonbondedAllPairs):
             u, grad = u + u_t, grad - f_t
         return u, grad
 
-    def exclusion_energy_force(self, x, box):
-        """(u_exc, dU_exc/dx) of the excluded pairs: closed form with the
-        rowscan polynomial, autograd with exact erfc."""
+    def _exclusion_energy_force_exact(self, x, params, box):
+        u, grad = x.new_zeros(()), torch.zeros_like(x)
+        if self.num_waters:
+            u, grad = nonbonded.water_exclusion_exact_energy_force(
+                x, params, box, self.num_waters, self.beta, self.cutoff
+            )
+        if self.tail_idxs.shape[0]:
+            u_t, f_t = nonbonded.specific_pairs_exact_energy_force(
+                x, params, box, self.tail_idxs, self.beta, self.cutoff, self.tail_scales.to(params.dtype),
+                self.assemble,
+            )
+            u, grad = u + u_t, grad - f_t
+        return u, grad
+
+    def _exclusion_energy_force_at(self, x, params, box):
+        """(u_exc, dU_exc/dx) in closed form, in the sweep's electrostatics."""
         if self.h_coeffs is not None:
-            return self._exclusion_energy_force_poly(x, self.params, box)
-        with torch.enable_grad():
-            xg = x.detach().requires_grad_(True)
-            u = self.exclusion_energy(xg, self.params, box)
-            (grad,) = torch.autograd.grad(u, xg)
-        return u.detach(), grad
+            return self._exclusion_energy_force_poly(x, params, box)
+        return self._exclusion_energy_force_exact(x, params, box)
+
+    def exclusion_energy_force(self, x, box):
+        """(u_exc, dU_exc/dx) of the excluded pairs in closed form: the
+        rowscan polynomial, or exact erfc."""
+        return self._exclusion_energy_force_at(x, self.params, box)
 
     def u(self, x, params, box):
+        if not self._subtracts:
+            return super().u(x, params, box)
         return super().u(x, params, box) - self.exclusion_energy(x, params, box)
 
     def energy(self, x, box):
+        if not self._subtracts:
+            return super().energy(x, box)
         return super().energy(x, box) - self.exclusion_energy_force(x, box)[0]
 
     def energy_force(self, x, box):
         u, f = super().energy_force(x, box)
+        if not self._subtracts:
+            return u, f
         u_exc, g_exc = self.exclusion_energy_force(x, box)
         return u - u_exc, f + g_exc
 
@@ -510,10 +638,13 @@ class Nonbonded(NonbondedAllPairs):
         at the sweep's coordinates (x and box rounded to the parameters'
         dtype), so that the two cancel as far as the sweep's own arithmetic
         allows: the all-pairs term and its exclusions cancel about 16 times
-        over on an RBFE window (ROADMAP P16)."""
+        over on an RBFE window (ROADMAP P16). The dense form holds its
+        exclusions already."""
         u, f = super().energy_force_f64(x, box)
+        if not self._subtracts:
+            return u, f
         dt, f64 = self.params.dtype, torch.float64
-        u_exc, g_exc = self._exclusion_energy_force_poly(x.to(dt).to(f64), self.params.to(f64), box.to(dt).to(f64))
+        u_exc, g_exc = self._exclusion_energy_force_at(x.to(dt).to(f64), self.params.to(f64), box.to(dt).to(f64))
         return u - u_exc, f + g_exc
 
     def md_force_provider(self):
@@ -521,7 +652,9 @@ class Nonbonded(NonbondedAllPairs):
         and in the energy. The rigid energy (4th) is all-pairs only: in a
         rigid move the bond-graph-local exclusions cancel exactly, and
         leaving them out avoids f32 cancellation of their large sums."""
-        init_fn, apply_ap, energy_ap, _, energy_params_ap = super().md_force_provider()
+        init_fn, apply_ap, energy_ap, rigid_ap, energy_params_ap = super().md_force_provider()
+        if not self._subtracts:
+            return init_fn, apply_ap, energy_ap, rigid_ap, energy_params_ap
 
         def apply_fn(state, x, box, t):
             f, state = apply_ap(state, x, box, t)
@@ -541,8 +674,12 @@ class Nonbonded(NonbondedAllPairs):
         rowscan polynomial's closed form; the rigid energy is all-pairs
         only, as md_force_provider's. The energy under parameter sets is
         float64: the exclusions are evaluated in it, from which the
-        all-pairs sum (its per-atom energies summed in float64) cancels."""
-        init, apply_ap, energy_ap, _, energy_params_ap = super().md_force_provider_batched()
+        all-pairs sum (its per-atom energies summed in float64) cancels.
+        The dense form's provider holds its exclusions already."""
+        provider = super().md_force_provider_batched()
+        if not self._subtracts:
+            return provider
+        init, apply_ap, energy_ap, _, energy_params_ap = provider
         exc_uf = torch.func.vmap(self._exclusion_energy_force_poly)
         exc_u_sets = torch.func.vmap(torch.func.vmap(self.exclusion_energy, in_dims=(None, 0, None)))
 

@@ -9,7 +9,8 @@ kernel="v1" configuration run through the hand-written block-tile kernel
 (timemachine_torch/csrc/nb_tiles.cu); the kernel="gather", kernel="quad" and
 kernel="dot" configurations run through the hand-written gather, quadscan
 and dotscan kernels (csrc/gather.cu, csrc/quadscan.cu, csrc/dotscan.cu);
-HREX's replicas run through the rowscan kernel's replica-batched form; two
+HREX's replicas run through the rowscan kernel's replica-batched form (REST's
+too), local MD's steps through its masked form; two
 probes measure the card (csrc/probe_fma.cu, csrc/probe_bf16.cu). All seven
 are built here with nvcc for sm_90a, in parallel.
 
@@ -131,12 +132,25 @@ energy and force against the CPU's float64 dense form (TOL_F64_U_ROUNDINGS,
 TOL_FORCE_REL_NORM), and a control with A&S 7.1.26 in place of erfc that
 must fail one of the two; N17_STEPS NPT steps of window N17_WINDOW under each,
 finite, bitwise on repeat, its own kernel every step; each form's time
-against its bound over the window's host pairs.
+against its bound over the window's host pairs. REST and local MD [18]: the
+12 windows built with SingleTopologyREST (fe/rest/) at DEFAULT_REST_PARAMS'
+scale against phase 15's plain windows (the region, its seeds and the target
+propers printed; windows 0 and 11 bitwise, the scaled entries the plain ones
+times the scale within TOL_REST_REL, every other entry bitwise);
+run_sims_hrex over the 12 REST windows, one batched F launch a step; local
+MD on window N18_WINDOW in both freeze_reference modes (frozen atoms' x and
+v bitwise unmoved, the reference frozen, no barostat move, finite in
+float32 with the reference free, bitwise on repeat, one masked F launch a
+local step) and with an explicit selection; run_solvent from the two SMILES
+with REST and local MD (its HREX time-multiplexed in one Context), each
+stage's seconds and launches by form, ΔG and the BAR pairs.
 Every path runs with all launch and plain-call counts set to
 0 just before it and read just after. Then a JSON line on the kernels
 (time; launches per NPT step of the path named in `path`, per Adam step of
 the training path where the kernel has one, per replica-step of HREX for
-the batched form, per run of phase 12 for the probes; bound; plain time), the card's name and power limit from
+the batched form (launches_rest_hrex: of REST's HREX), per local step for the
+masked form (launches_local_md), per run of phase 12 for the probes; bound;
+plain time), the card's name and power limit from
 nvidia-smi, and as the last line {"ok": true, "device": {...}}.
 
 Usage, from the repository root:  python3 chip_smoke.py
@@ -167,7 +181,8 @@ N13_EQ, N13_FRAMES, N13_STEPS_PER_FRAME, N13_TIMED, N13_REUSE = 100, 10, 30, 200
 # max_delta_states 4, K^3 swap attempts an iteration) with its depth cut as
 # phase 13's (10,000 equilibration steps, 1,000 frames of 400 steps in the
 # JAX package); the windows, atoms and replicas are not cut
-N14_EQ, N14_FRAMES, N14_STEPS_PER_FRAME, N14_MAX_DELTA, N14_TIMED = 500, 20, 50, 4, 40
+# (cut to 200 and 10 iterations of 50 from 500 and 20 when phase 18 came)
+N14_EQ, N14_FRAMES, N14_STEPS_PER_FRAME, N14_MAX_DELTA, N14_TIMED = 200, 10, 50, 4, 40
 # phase 15, the state builder: the window whose force and run are held, the
 # run's steps; the built parameters against the cache's relative to each
 # column's largest |value|, and the force on phase 13's all-pairs norm. The
@@ -182,11 +197,26 @@ N15_WINDOW, N15_STEPS = 6, 200
 # phase 16, run_solvent from two SMILES: ethanol -> propane embedded with
 # seed 7 (the cache's embedding), 12 windows against DEFAULT_NUM_WINDOWS'
 # 48, and DEFAULT_HREX_PARAMS' depth (10,000 equilibration steps, 1,000
-# frames of 400 steps, 100 frames a bisection state) cut to 200, 20 of 50
-# and 10; the anchors' displacements held at min_cutoff 0.7 nm (JAX's
+# frames of 400 steps, 100 frames a bisection state) cut to 100, 10 of 50
+# and 6 (200, 20 of 50 and 10 until phase 18 came); the anchors'
+# displacements held at min_cutoff 0.7 nm (JAX's
 # estimators' default) and the embedded conformers to TOL_EMBED of the cache's
 N16_EMBED_SEED, N16_WINDOWS, N16_MIN_CUTOFF, TOL_EMBED = 7, 12, 0.7, 1e-10
-N16_EQ, N16_FRAMES, N16_STEPS_PER_FRAME, N16_FRAMES_BISECTION = 200, 20, 50, 10
+N16_EQ, N16_FRAMES, N16_STEPS_PER_FRAME, N16_FRAMES_BISECTION = 100, 10, 50, 6
+# phase 18, REST and local MD: REST at DEFAULT_REST_PARAMS' scale (fe/rbfe.py:
+# max_temperature_scale 3, exponential), its HREX over the 12 windows cut as
+# phase 14's (100 equilibration steps, 10 iterations of 50); local MD on
+# window N18_WINDOW, N18_LOCAL steps a segment at LocalMDParams' default k
+# and a 1.0 nm radius, an explicit selection of the N18_SELECTION atoms
+# nearest a ligand atom; run_solvent with REST and LocalMDParams(local_steps=25)
+# at 4 windows, 100 equilibration steps, 5 bisection frames and 10 HREX
+# iterations of 50 steps. REST's scaled entries against the plain windows
+# times the scale to TOL_REST_REL (one float64 product each: measured 0 on
+# the CPU)
+N18_MAX_TEMPERATURE_SCALE, N18_EQ, N18_FRAMES, N18_STEPS_PER_FRAME = 3.0, 100, 10, 50
+N18_WINDOW, N18_LOCAL, N18_LOCAL_K, N18_LOCAL_RADIUS, N18_LOCAL_SEED, N18_SELECTION = 6, 50, 1_000.0, 1.0, 2023, 30
+N18_RS_WINDOWS, N18_RS_EQ, N18_RS_FRAMES_BISECTION, N18_RS_FRAMES, N18_RS_STEPS_PER_FRAME, N18_RS_LOCAL_STEPS = 4, 100, 5, 10, 50, 25
+TOL_REST_REL = 1e-12
 # phase 17, the exact-erfc and masked forms: the window whose NPT run each form takes, and its steps;
 # the DHFR atoms (the protein's last) the dot form's mask leaves out, as many as the leg's hybrid ligand
 N17_WINDOW, N17_STEPS, N17_DOT_OUT = 6, 100, 11
@@ -352,6 +382,297 @@ def pairs_within_cutoff(x, box, w, cutoff: float) -> int:
     return total
 
 
+def form_launches():
+    """Every rowscan and nb_tiles launch so far by form, from the wrappers'
+    own counts (launches_by_form)."""
+    from timemachine_torch.ops import nonbonded_kernel as nbk
+    from timemachine_torch.ops import rowscan_kernel as rs
+
+    mode_names = {rs.FORCE: "F", rs.FORCE_ENERGY: "F+U", rs.ENERGY: "U"}
+    nb_modes = {nbk.UF: "F+U", nbk.FORCE: "F", nbk.DP: "DP"}
+    made = Counter()
+    for (mode, triangular, es), n in nbk.nb_tiles.launches_by_form.items():
+        made[f"nb_tiles {nb_modes[mode]} {'triangular' if triangular else 'symmetric'} {es}"] += n
+    for (mode, triangular, preshift, has_w), n in rs.rowscan_sweep.launches_by_form.items():
+        made[f"{mode_names[mode]} {'triangular' if triangular else 'symmetric'} "
+             f"{'preshift' if preshift else 'minimum image'} {'w' if has_w else 'no w'}"] += n
+    for (mode, has_w), n in rs.rowscan_sweep_batched.launches_by_form.items():
+        made[f"batched {mode_names[mode]} {'w' if has_w else 'no w'}"] += n
+    return made
+
+
+MASKED_F = "F triangular minimum image w"  # the RBFE host term's MD force form (form_launches' name)
+
+
+def phase18(dev, smi, zero_counts, read_counts, masked_row, batched_row, plain_states, states13, dG14, inputs16):
+    """REST and local MD, the two sampling options of the leg's HREX:
+    [18 rest build] the 12 windows built with SingleTopologyREST against the
+    plain builder's (`plain_states`, phase 15's, float64 on the card);
+    [18 rest hrex] run_sims_hrex over the 12 REST windows on the batched
+    kernel; [18 local] local MD on window N18_WINDOW of the cached leg
+    (`states13`, phase 13's); [18 run_solvent] run_solvent from the two
+    SMILES (`inputs16`: phase 16's embedded molecules, core and force field)
+    with REST and local MD. Adds launches_rest_hrex to the batched row and
+    launches_local_md to the masked row."""
+    import numpy as np
+    import torch
+
+    from timemachine_torch.fe import free_energy as fe18
+    from timemachine_torch.fe import rbfe as rbfe18
+    from timemachine_torch.fe.free_energy import HREXParams, LocalMDParams, MDParams, RESTParams, get_context
+    from timemachine_torch.md import minimizer as minimizer18
+    from timemachine_torch.testsystems.rbfe_solvent import build_rbfe_solvent, rest_differences
+
+    t_phase18 = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    rest18 = RESTParams(N18_MAX_TEMPERATURE_SCALE, "exponential")
+    sync = torch.cuda.synchronize
+
+    # -- the REST windows ----------------------------------------------------------
+    strict_before = os.environ.get("TM_STRICT_CHARGES")
+    os.environ["TM_STRICT_CHARGES"] = "1"  # AM1 or fail, as phase 15's plain windows
+    try:
+        rec18 = {}
+        t0 = time.perf_counter()
+        rest64 = build_rbfe_solvent(device=dev, dtype=f64, record=rec18, rest_params=rest18)
+        sync()
+        t_build18 = time.perf_counter() - t0
+        rest32 = build_rbfe_solvent(device=dev, dtype=f32, rest_params=rest18)
+    finally:
+        if strict_before is None:
+            os.environ.pop("TM_STRICT_CHARGES")
+        else:
+            os.environ["TM_STRICT_CHARGES"] = strict_before
+    st18 = rec18["single_topology"]
+    d18 = rest_differences(rest64, plain_states, st18)
+    scales18 = [st18.get_energy_scale_factor(s.lamb) for s in rest64]
+    print(
+        f"[18 rest build] build_rbfe_solvent(rest_params=RESTParams({N18_MAX_TEMPERATURE_SCALE}, 'exponential')), 12 "
+        f"windows on the card in {t_build18:.2f} s host clock; seeds (atoms whose bonded parameters change, and the "
+        f"dummies) {sorted(st18.base_rest_region_atom_idxs)}, region {sorted(st18.rest_region_atom_idxs)}, "
+        f"{len(st18.target_proper_idxs)} target propers {st18.target_proper_idxs}; energy scale by window "
+        + " ".join(f"{s:.6f}" for s in scales18)
+        + f"; scaled entries a window {d18['n_scaled']}; against the plain builder's windows (phase 15's): windows "
+        f"bitwise {d18['bitwise']}, the scaled entries' largest relative difference from plain x scale "
+        f"{d18['scaled_rel']:.3e} (tol {TOL_REST_REL:g}), every other entry, index array and buffer bitwise "
+        f"{d18['others_bitwise']} ({smi})"
+    )
+    check(d18["bitwise"][:1] == [0] and d18["bitwise"][-1:] == [11], "[18] REST's end-state windows differ from the plain ones")
+    check(d18["scaled_rel"] <= TOL_REST_REL and d18["others_bitwise"], "[18] REST's windows are not the plain ones scaled")
+    check(all(v > 0 for k, v in d18["n_scaled"].items() if k in ("proper", "nonbonded_pair_list", "nonbonded_ixn_group")),
+          "[18] REST scaled no proper, pair-list or interaction-group entry")
+
+    # -- HREX over the REST windows -------------------------------------------------
+    md18 = MDParams(
+        n_frames=N18_FRAMES, n_eq_steps=N18_EQ, steps_per_frame=N18_STEPS_PER_FRAME, seed=2023,
+        hrex_params=HREXParams(n_frames_bisection=100, max_delta_states=N14_MAX_DELTA, rest_params=rest18),
+    )
+    steps18 = N18_EQ + N18_FRAMES * N18_STEPS_PER_FRAME
+    zero_counts()
+    before = form_launches()
+    t0 = time.perf_counter()
+    res18, trajs18, diag18, _ = fe18.run_sims_hrex(rest32, md18, print_diagnostics_interval=None)
+    sync()
+    t_hrex18 = time.perf_counter() - t0
+    launches_h, plain_h = read_counts()
+    forms_h = form_launches() - before
+    rates18 = diag18.cumulative_swap_acceptance_rates[-1]
+    finite18 = bool(np.isfinite(res18.dGs).all() and np.isfinite(res18.dG_errs).all())
+    dG18 = float(np.sum(res18.dGs))
+    print(
+        f"[18 rest hrex] run_sims_hrex over the 12 REST windows ({N18_EQ} equilibration steps, {N18_FRAMES} iterations "
+        f"of {N18_STEPS_PER_FRAME}; DEFAULT_REST_PARAMS' depth 10,000 and 1,000 of 400 cut): {t_hrex18:.1f} s host clock; "
+        f"launches by form {dict(forms_h)}; totals {launches_h}, plain calls {plain_h}; swap acceptance "
+        + " ".join(f"{k}-{k + 1} {r:.3f}" for k, r in enumerate(rates18))
+        + f"; dG {dG18:.4f} +- {float(np.linalg.norm(res18.dG_errs)):.4f} kJ/mol ({len(res18.bar_results)} BAR pairs, "
+        f"finite {finite18}; not converged) beside phase 14's plain HREX {dG14:.4f} ({smi})"
+    )
+    check(plain_h == 0, "[18] REST HREX ran a plain sweep")
+    check(forms_h["batched F w"] == steps18, "[18] REST HREX did not take one batched F launch a step")
+    check(len(res18.bar_results) == 11 and finite18, "[18] REST HREX did not give 11 finite BAR pairs")
+    batched_row["launches_rest_hrex"] = forms_h["batched F w"] / (len(rest32) * steps18)
+
+    # -- local MD on one window -------------------------------------------------------
+    s18 = states13[N18_WINDOW]
+    lig18 = s18.ligand_idxs
+    n18 = s18.x0.shape[0]
+    md_l = MDParams(n_frames=1, n_eq_steps=0, steps_per_frame=1, seed=2023)
+    ctx_g = get_context(s18, md_l)
+    ctx_g.multiple_steps(N18_LOCAL)
+    sync()
+    t0 = time.perf_counter()
+    ctx_g.multiple_steps(N18_LOCAL)
+    sync()
+    global_ms = (time.perf_counter() - t0) * 1e3 / N18_LOCAL
+
+    def local_run(freeze_reference, seed=N18_LOCAL_SEED):
+        ctx = get_context(s18, md_l)
+        ref, free = ctx.local_selection(lig18, N18_LOCAL_K, N18_LOCAL_RADIUS, seed, None, freeze_reference)
+        x0, v0, box0 = ctx.get_x_t(), ctx.get_v_t(), ctx.get_box()
+        moves0 = [int(st.total_attempted) for st in ctx.get_mover_states()]
+        zero_counts()
+        before = form_launches()
+        sync()
+        t_start = time.perf_counter()
+        frames, boxes = ctx.multiple_steps_local(N18_LOCAL, lig18, k=N18_LOCAL_K, radius=N18_LOCAL_RADIUS, seed=seed,
+                                                 freeze_reference=freeze_reference)
+        sync()
+        ms = (time.perf_counter() - t_start) * 1e3 / N18_LOCAL
+        counts, plain = read_counts()
+        forms = form_launches() - before
+        out = dict(ctx=ctx, ref=ref, free=free, x0=x0, v0=v0, box0=box0, x=ctx.get_x_t(), v=ctx.get_v_t(), box=ctx.get_box(),
+                   frames=frames, ms=ms, counts=counts, plain=plain, forms=forms,
+                   moves=[int(st.total_attempted) for st in ctx.get_mover_states()] == moves0)
+        return out
+
+    frozen_run = local_run(True)
+    frozen = ~frozen_run["free"]
+    still = bool(np.array_equal(frozen_run["x"][frozen], frozen_run["x0"][frozen])
+                 and np.array_equal(frozen_run["v"][frozen], frozen_run["v0"][frozen]))
+    moved = int(np.any(frozen_run["x"] != frozen_run["x0"], axis=1).sum())
+    ref_still = bool(frozen[frozen_run["ref"]] and np.array_equal(frozen_run["x"][frozen_run["ref"]], frozen_run["x0"][frozen_run["ref"]]))
+    free_run = local_run(False)
+    finite_free = bool(np.isfinite(free_run["x"]).all() and np.isfinite(free_run["v"]).all())
+    ref_moved = bool(np.any(free_run["x"][free_run["ref"]] != free_run["x0"][free_run["ref"]]))
+    again = local_run(True)
+    same = all(np.array_equal(again[k], frozen_run[k]) for k in ("x", "v", "box"))
+    with torch.no_grad():
+        u_r, f_r = free_run["ctx"].local_restraint(
+            torch.as_tensor(free_run["x"], device=dev), torch.as_tensor(free_run["box"], device=dev), free_run["ref"],
+            torch.as_tensor(free_run["free"], device=dev), N18_LOCAL_K, N18_LOCAL_RADIUS, False,
+        )
+    restraint_finite = bool(np.isfinite(float(u_r)) and torch.isfinite(f_r).all())
+    print(
+        f"[18 local] window {N18_WINDOW}, multiple_steps_local({N18_LOCAL} steps, the ligand's {len(lig18)} atoms, k "
+        f"{N18_LOCAL_K:g}, radius {N18_LOCAL_RADIUS}, seed {N18_LOCAL_SEED}): freeze_reference=True: {int(frozen_run['free'].sum())} "
+        f"of {n18} atoms free around reference {frozen_run['ref']}, {moved} moved; frozen atoms' x and v bitwise unmoved "
+        f"{still}, the reference frozen {ref_still}, box bitwise {np.array_equal(frozen_run['box'], frozen_run['box0'])}, no "
+        f"barostat move {frozen_run['moves']}; freeze_reference=False: {int(free_run['free'].sum())} free, the reference moved "
+        f"{ref_moved}, x and v finite in float32 {finite_free}, the float64 restraint (log-complement shell) finite "
+        f"{restraint_finite}; the same seed again bitwise {same}; {frozen_run['ms']:.4f} ms a local step against "
+        f"{global_ms:.4f} a global step (host clock, {N18_LOCAL} steps each); launches by form "
+        f"{dict(frozen_run['forms'])}, plain calls {frozen_run['plain']} ({smi})"
+    )
+    check(still and ref_still and moved > 0, "[18] a frozen atom moved in local MD, or none moved")
+    check(np.array_equal(frozen_run["box"], frozen_run["box0"]) and frozen_run["moves"], "[18] a mover fired in local MD")
+    check(finite_free and ref_moved and restraint_finite, "[18] the free-reference local run is not finite or left the reference")
+    check(same, "[18] local MD with the same seed is not bitwise on repeat")
+    for run in (frozen_run, free_run, again):
+        check(run["plain"] == 0 and run["forms"][MASKED_F] == N18_LOCAL
+              and sum(run["forms"].values()) == N18_LOCAL,
+              "[18] a local step did not take exactly one masked rowscan F launch")
+    masked_row["launches_local_md"] = frozen_run["forms"][MASKED_F] / N18_LOCAL
+
+    # an explicit selection: the N18_SELECTION atoms nearest the ligand's first atom
+    ctx_s = get_context(s18, md_l)
+    x_s = ctx_s.get_x_t().astype(np.float64)
+    diff = x_s - x_s[lig18[0]]
+    diag = np.diagonal(s18.box0)
+    diff -= diag * np.floor(diff / diag + 0.5)
+    order = np.argsort(np.linalg.norm(diff, axis=1))
+    sel = np.array([i for i in order if i != lig18[0]][:N18_SELECTION])
+    zero_counts()
+    ctx_s.multiple_steps_local_selection(N18_LOCAL, int(lig18[0]), sel, radius=N18_LOCAL_RADIUS, k=N18_LOCAL_K)
+    sync()
+    counts_s, plain_s = read_counts()
+    moved_s = np.any(ctx_s.get_x_t() != x_s.astype(np.float32), axis=1)
+    only_sel = bool(moved_s[sel].any() and not np.delete(moved_s, sel).any())
+    print(f"[18 local] multiple_steps_local_selection({N18_LOCAL} steps, reference atom {int(lig18[0])}, the {N18_SELECTION} "
+          f"atoms nearest it): {int(moved_s.sum())} moved, only selected atoms moved {only_sel}; launches {counts_s}, plain "
+          f"calls {plain_s} ({smi})")
+    check(only_sel and plain_s == 0 and counts_s["rowscan_sweep"] == N18_LOCAL, "[18] the explicit selection moved others")
+
+    # -- run_solvent with REST and local MD -------------------------------------------
+    mols16, core16, ff16 = inputs16
+    sec, forms, stage = {}, Counter(), []
+    wrapped = []
+
+    def staged(module, attr, name):
+        fn = getattr(module, attr)
+
+        def wrapper(*args, **kwargs):
+            sync()
+            stage.append(name)
+            before = form_launches()
+            t_start = time.perf_counter()
+            try:
+                out = fn(*args, **kwargs)
+                sync()
+            finally:
+                stage.pop()
+            sec[name] = sec.get(name, 0.0) + time.perf_counter() - t_start
+            for form, n in (form_launches() - before).items():
+                forms[name, form] += n
+            return out
+
+        setattr(module, attr, wrapper)
+        wrapped.append((module, attr, fn))
+
+    md_rs = MDParams(
+        n_frames=N18_RS_FRAMES, n_eq_steps=N18_RS_EQ, steps_per_frame=N18_RS_STEPS_PER_FRAME, seed=2023,
+        hrex_params=HREXParams(n_frames_bisection=N18_RS_FRAMES_BISECTION, rest_params=rest18),
+        local_md_params=LocalMDParams(local_steps=N18_RS_LOCAL_STEPS),
+    )
+    multiplexed, topologies = [], []
+    staged(minimizer18, "pre_equilibrate_host", "host")
+    staged(rbfe18, "optimize_coordinates", "minimize anchors")
+    staged(rbfe18, "run_sims_bisection", "bisection")
+    staged(rbfe18, "run_sims_hrex", "hrex")
+    tm_fn, st_fn = fe18._run_sims_hrex_time_multiplexed, rbfe18.make_single_topology
+    fe18._run_sims_hrex_time_multiplexed = lambda *a, **k: multiplexed.append(1) or tm_fn(*a, **k)
+    rbfe18.make_single_topology = lambda *a, **k: topologies.append(st_fn(*a, **k)) or topologies[-1]
+    try:
+        zero_counts()
+        before = form_launches()
+        t0 = time.perf_counter()
+        res_rs, _ = rbfe18.run_solvent(mols16[0], mols16[1], core16, ff16, None, md_params=md_rs, n_windows=N18_RS_WINDOWS,
+                                       device=dev)
+        sync()
+        t_rs = time.perf_counter() - t0
+        counts_rs, plain_rs = read_counts()
+        forms_rs = form_launches() - before
+    finally:
+        fe18._run_sims_hrex_time_multiplexed, rbfe18.make_single_topology = tm_fn, st_fn
+        for module, attr, fn in wrapped:
+            setattr(module, attr, fn)
+    fin = res_rs.final_result
+    finite_rs = bool(np.isfinite(fin.dGs).all() and np.isfinite(fin.dG_errs).all())
+    st_rs = fin.initial_states
+    rest_rs = [type(t).__name__ for t in topologies] == ["SingleTopologyREST"]
+    by_stage = {}
+    for (name, form), n in sorted(forms.items()):
+        if n:
+            by_stage.setdefault(name, []).append(f"{form} {n}")
+    outside = forms_rs - sum((Counter({f: n for (s, f), n in forms.items() if s == name}) for name in sec), Counter())
+    print(
+        f"[18 run_solvent] run_solvent from the two SMILES with RESTParams({N18_MAX_TEMPERATURE_SCALE}) and "
+        f"LocalMDParams(local_steps={N18_RS_LOCAL_STEPS}), {N18_RS_WINDOWS} windows, {N18_RS_EQ} equilibration steps, "
+        f"{N18_RS_FRAMES_BISECTION} bisection frames and {N18_RS_FRAMES} HREX iterations of {N18_RS_STEPS_PER_FRAME} steps: "
+        f"{t_rs:.1f} s host clock: " + ", ".join(f"{k} {v:.1f} s" for k, v in sec.items())
+        + f", the rest {t_rs - sum(sec.values()):.1f} s; λ schedule " + " ".join(f"{s.lamb:.4f}" for s in st_rs)
+        + f"; the edge's topology {[type(t).__name__ for t in topologies]}; HREX time-multiplexed {bool(multiplexed)}, "
+        + "swap acceptance "
+        + " ".join(f"{r:.3f}" for r in res_rs.hrex_diagnostics.cumulative_swap_acceptance_rates[-1])
+        + f"; dG {float(np.sum(fin.dGs)):.4f} +- {float(np.linalg.norm(fin.dG_errs)):.4f} kJ/mol ({len(fin.bar_results)} "
+        f"BAR pairs, finite {finite_rs}; not converged) ({smi})"
+    )
+    print("[18 run_solvent] rowscan and nb_tiles launches by stage and form: "
+          + "; ".join(f"{name}: {', '.join(v)}" for name, v in by_stage.items())
+          + f"; outside the stages {dict(+outside)}; totals {counts_rs}; plain calls {plain_rs} ({smi})")
+    check(rest_rs and finite_rs and len(fin.bar_results) == N18_RS_WINDOWS - 1, "[18] run_solvent with REST and local MD failed")
+    check(bool(multiplexed) and plain_rs == 0, "[18] run_solvent's HREX was not time-multiplexed, or a plain sweep ran")
+    rs_only = lambda name: sum(n for (s, f), n in forms.items() if s == name and not f.startswith("nb_tiles"))  # noqa: E731
+    check(rs_only("bisection") > 0 and rs_only("hrex") > 0
+          and all(n == 0 for (s, f), n in forms.items() if s == "hrex" and f.startswith(("batched", "nb_tiles"))),
+          "[18] run_solvent's bisection and HREX did not run on the single masked rowscan form")
+    check(sum(n for f, n in forms_rs.items() if not f.startswith(("nb_tiles", "batched"))) == counts_rs["rowscan_sweep"]
+          and sum(n for f, n in forms_rs.items() if f.startswith("batched")) == counts_rs["rowscan_sweep_batched"]
+          and sum(n for f, n in forms_rs.items() if f.startswith("nb_tiles")) == counts_rs["nb_tiles"],
+          "[18] the launches by form do not add up to the wrappers' counts")
+    masked_row["launches_run_solvent_rest_local"] = counts_rs["rowscan_sweep"]
+    print(f"[18 time] phase 18 took {time.perf_counter() - t_phase18:.1f} s, host clock ({smi})")
+
+
 def phase16(dev, smi, zero_counts, read_counts, masked_row, batched_row):
     """run_solvent as a user calls it: the ligands embedded from SMILES, AM1,
     the mapping, the water box, the host's pre-equilibration, the anchors'
@@ -359,7 +680,8 @@ def phase16(dev, smi, zero_counts, read_counts, masked_row, batched_row):
     zeroed just before run_solvent and read just after; the cache is read
     only for the comparisons printed. Adds run_solvent's launches to the
     masked and batched rowscan rows; returns its launches by kernel and the
-    nb_tiles launches of its FIRE and minimization stages."""
+    nb_tiles launches of its FIRE and minimization stages, and its inputs
+    (the embedded molecules, the core, the force field)."""
     import numpy as np
     import torch
 
@@ -374,8 +696,6 @@ def phase16(dev, smi, zero_counts, read_counts, masked_row, batched_row):
     from timemachine_torch.ff import Forcefield
     from timemachine_torch.md import minimizer as minimizer16
     from timemachine_torch.md.context import Context
-    from timemachine_torch.ops import nonbonded_kernel as nbk
-    from timemachine_torch.ops import rowscan_kernel as rs
     from timemachine_torch.potentials import NonbondedAllPairs
     from timemachine_torch.testsystems.rbfe_solvent import load_arrays as rbfe_cache_arrays
     from timemachine_torch.testsystems.rbfe_solvent import metadata as rbfe_cache_metadata
@@ -385,23 +705,6 @@ def phase16(dev, smi, zero_counts, read_counts, masked_row, batched_row):
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     sec16, stage16, forms16 = {}, ["setup"], Counter()
     calls16, chains16, host16, call_s16 = [], [], {}, []
-    mode_names = {rs.FORCE: "F", rs.FORCE_ENERGY: "F+U", rs.ENERGY: "U"}
-
-    nb_modes = {nbk.UF: "F+U", nbk.FORCE: "F", nbk.DP: "DP"}
-
-    def form_launches():
-        """Every rowscan and nb_tiles launch so far by form, from the
-        wrappers' own counts."""
-        made = Counter()
-        for (mode, triangular, es), n in nbk.nb_tiles.launches_by_form.items():
-            made[f"nb_tiles {nb_modes[mode]} {'triangular' if triangular else 'symmetric'} {es}"] += n
-        for (mode, triangular, preshift, has_w), n in rs.rowscan_sweep.launches_by_form.items():
-            made[f"{mode_names[mode]} {'triangular' if triangular else 'symmetric'} "
-                 f"{'preshift' if preshift else 'minimum image'} {'w' if has_w else 'no w'}"] += n
-        for (mode, has_w), n in rs.rowscan_sweep_batched.launches_by_form.items():
-            made[f"batched {mode_names[mode]} {'w' if has_w else 'no w'}"] += n
-        return made
-
     def staged(module, attr, stage, record=None):
         """Wrap module.attr: its host seconds under `stage`, and the kernel
         launches made inside it under `stage`, less those of a stage nested
@@ -652,7 +955,8 @@ def phase16(dev, smi, zero_counts, read_counts, masked_row, batched_row):
     masked_row["launches_run_solvent"] = launches16["rowscan_sweep"]
     batched_row["launches_run_solvent"] = launches16["rowscan_sweep_batched"]
     print(f"[16 time] phase 16 took {time.perf_counter() - t_phase16:.1f} s, host clock ({smi})")
-    return launches16, {stage: stage_launches(stage, "nb_tiles") for stage in ("fire", "minimize")}
+    exact16 = {stage: stage_launches(stage, "nb_tiles") for stage in ("fire", "minimize")}
+    return launches16, exact16, (mols16, core16, ff16)
 
 
 def main() -> int:
@@ -2150,7 +2454,7 @@ def main() -> int:
     print(f"[15 time] phase 15 took {time.perf_counter() - t_phase15:.1f} s, host clock ({smi})")
 
     # -- 16. the solvent leg from two SMILES ------------------------------------------------
-    launches16, exact16 = phase16(dev, smi, zero_counts, read_counts, masked_row, batched_row)
+    launches16, exact16, inputs16 = phase16(dev, smi, zero_counts, read_counts, masked_row, batched_row)
 
     # -- 17. the exact-erfc and masked forms at the leg's window 0 ----------------------------
     # the host term of window 0 (6,404 atoms, the 11 hybrid-ligand atoms masked out) configured
@@ -2338,6 +2642,10 @@ def main() -> int:
               f"{row['bound_by']} over the pairs of its system; plain {row['plain_ms']:.2f} ms; launches {row['launches']} "
               f"({row['path']}) ({smi})")
     print(f"[17 time] phase 17 took {time.perf_counter() - t_phase17:.1f} s, host clock ({smi})")
+
+    # -- 18. REST and local MD ----------------------------------------------------------------
+    phase18(dev, smi, zero_counts, read_counts, masked_row, batched_row, states15, states13, float(np.sum(result14.dGs)),
+            inputs16)
 
     print(json.dumps({"kernels": [kernel_row, masked_row, batched_row, nb_row, gather_row, quad_row, dot_row, *probe_rows,
                                   *rows17]}))

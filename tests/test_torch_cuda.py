@@ -859,3 +859,41 @@ def test_tile_census_on_the_card_equals_its_cpu_run(cuda):
 
     hc = setup_dhfr(waters_first=True, device="cpu")
     assert tc.tile_census(hc.conf, hc.box, cuda) == tc.tile_census(hc.conf, hc.box, "cpu")
+
+
+def test_local_segment_on_the_card_matches_the_cpu(cuda):
+    """Window 6 of the cached RBFE leg in float32 with its integrator at 0 K
+    (no noise): 10 steps of multiple_steps_local (radius 1.0 nm around the
+    ligand, seed 3, the reference frozen) on the card, each one launch of
+    the masked rowscan sweep and no plain sweep, against the same on the CPU
+    (the plain sweep): frozen atoms bitwise unmoved on both, x within 1e-4
+    nm and v within 1e-2 nm/ps of the CPU's."""
+    from dataclasses import replace
+
+    from timemachine_torch.fe.free_energy import get_context
+    from timemachine_torch.potentials import NonbondedAllPairs
+    from timemachine_torch.testsystems.rbfe_solvent import load_rbfe_solvent
+
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        state = load_rbfe_solvent(device=dev, dtype=torch.float32, windows=[6])[0]
+        state = replace(state, integrator=replace(state.integrator, temperature=0.0))
+        host = next(p for p in state.potentials if isinstance(p, NonbondedAllPairs))
+        host.configure(torch.as_tensor(state.box0, device=dev, dtype=torch.float32),
+                       torch.as_tensor(state.x0, device=dev, dtype=torch.float32), kernel="rowscan")
+        ctxt = get_context(state)
+        x0 = ctxt.get_x_t()
+        free = ctxt.local_selection(state.ligand_idxs, 10_000.0, 1.0, 3, 300.0)[1]
+        launches, plain = rs.rowscan_sweep.launches, rs.rowscan_sweep_plain.calls
+        ctxt.multiple_steps_local(10, state.ligand_idxs, k=10_000.0, radius=1.0, seed=3, temperature=300.0)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert rs.rowscan_sweep.launches - launches == 10 and rs.rowscan_sweep_plain.calls == plain
+        x, v = ctxt.get_x_t(), ctxt.get_v_t()
+        out[dev.type] = (x0, x, v, free)
+    (x0_c, x_c, v_c, free_c), (x0_h, x_h, v_h, free_h) = out["cuda"], out["cpu"]
+    assert np.array_equal(x0_c, x0_h) and np.array_equal(free_c, free_h)
+    for x0, x in ((x0_c, x_c), (x0_h, x_h)):
+        moved = np.any(x != x0, axis=1)
+        assert moved.any() and not moved[~free_h].any()
+    assert np.abs(x_c - x_h).max() <= 1e-4 and np.abs(v_c - v_h).max() <= 1e-2

@@ -381,13 +381,95 @@ def test_run_sims_hrex_two_states_identity_pair(small):
 
 
 def test_refusals(small):
-    """REST, local MD inside HREX and water sampling raise."""
-    with pytest.raises(NotImplementedError):
-        tfe.HREXParams(rest_params=tfe.RESTParams(2.0))
+    """Water sampling raises in run_sims_hrex; REST and local MD, which
+    raised before they were ported, are accepted: HREXParams takes
+    RESTParams, MDParams takes LocalMDParams."""
+    assert tfe.HREXParams(rest_params=tfe.RESTParams(2.0)).rest_params.max_temperature_scale == 2.0
     md = tfe.MDParams(n_frames=1, n_eq_steps=0, steps_per_frame=1, seed=1, hrex_params=tfe.HREXParams())
-    for kw in (dict(local_md_params=object()), dict(water_sampling_params=object())):
-        with pytest.raises(NotImplementedError):
-            tfe.run_sims_hrex(small["port32"], tfe.MDParams(**{**md.__dict__, **kw}))
+    assert tfe.MDParams(**{**md.__dict__, "local_md_params": tfe.LocalMDParams(1)}).local_md_params.local_steps == 1
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tfe.run_sims_hrex(small["port32"], tfe.MDParams(**{**md.__dict__, "water_sampling_params": object()}))
+
+
+# -- REST windows in the batched step ------------------------------------------------------
+
+REST_LAMBDAS = (0.25, 0.5, 0.75)
+
+
+@pytest.fixture(scope="module")
+def rest_states(small):
+    """Three REST windows of the small edge (SingleTopologyREST, max
+    temperature scale 3, λ 0.25, 0.5, 0.75) built by the port in the
+    fixture's 2.6 nm box, at the coordinates, velocities and box of the
+    fixture's three windows, f64 on the CPU."""
+    from timemachine_torch.chem import mol_from_smiles
+    from timemachine_torch.fe import rbfe as trbfe
+    from timemachine_torch.ff import Forcefield
+    from timemachine_torch.md.builders import build_water_system
+
+    st = small["st"]
+    mols = []
+    for m in (st.mol_a, st.mol_b):
+        tm = mol_from_smiles({"ethanol": "CCO", "propane": "CCC"}[m.name], add_hs=True, name=m.name)
+        tm.set_conf(np.asarray(m.get_conf()))
+        mols.append(tm)
+    ff = Forcefield.load_default()
+    rest = trbfe.make_single_topology(*mols, np.asarray(st.core), ff, tfe.RESTParams(3.0))
+    cfg = build_water_system(2.6, ff.water_ff, mols=mols)
+    host = trbfe.Host(cfg.host_system, cfg.masses, cfg.conf, cfg.box, cfg.num_water_atoms, cfg.host_topology)
+    out = []
+    for lamb, ref in zip(REST_LAMBDAS, small["port"]):
+        s = trbfe.setup_initial_state(rest, lamb, host, TEMP, 2023, device="cpu", dtype=F64)
+        s.x0, s.v0, s.box0 = ref.x0, ref.v0, ref.box0
+        out.append(s)
+    return rest, out
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_rest_windows_batched_step_and_banded_energies(rest_states, form):
+    """K = 3 REST windows, whose propers, ligand pair list and interaction
+    group differ by state (the REST-scaled entries): 4 steps in one
+    BatchedContext against three single Contexts fed the same noise, f64,
+    x and v to 1e-12 relative; the runner's banded U_kl (max_delta_states 1
+    and None, the permutation [2, 0, 1]) against compute_potential_matrix
+    of every term at each state's own parameters, to 1e-10 relative, the
+    +inf pattern identical."""
+    st, states = rest_states
+    scale = [st.get_energy_scale_factor(lamb) for lamb in REST_LAMBDAS]
+    assert scale[1] < scale[0] < 1.0 and len(st.target_proper_idxs) > 0
+    for i in (2, 5, 7):  # proper, nonbonded_pair_list, nonbonded_ixn_group
+        assert not torch.equal(states[0].potentials[i].params, states[2].potentials[i].params)
+    formed = [as_form(s, form) for s in states]
+    singles = [tfe.get_context(s) for s in formed]
+    batch = BatchedContext(
+        singles[0], np.stack([s.x0 for s in formed]), np.stack([s.v0 for s in formed]),
+        np.stack([s.box0 for s in formed]), _params(formed), seed=0,
+    )
+    for c in [batch, *singles]:
+        c.multiple_steps(0)
+    rng = np.random.default_rng(5)
+    with torch.no_grad():
+        for _ in range(4):
+            noise = _t(rng.normal(size=batch._x.shape))
+            batch._one_step(noise)
+            for r, c in enumerate(singles):
+                c._one_step(noise[r])
+    for r, c in enumerate(singles):
+        for a, b in ((batch.get_x_t()[r], c.get_x_t()), (batch.get_v_t()[r], c.get_v_t())):
+            assert np.abs(a - b).max() <= 1e-12 * np.abs(b).max()
+
+    perm = [2, 0, 1]
+    hrex = th.HREX([CoordsVelBox(s.x0, s.v0, s.box0) for s in states], perm)
+    pots = formed[0].potentials
+    for max_delta in (1, None):
+        banded = _runner(formed, max_delta, perm).banded_energies()
+        ref = tfe.compute_potential_matrix(
+            lambda x, ps, b: sum(pot.u(_t(x), p, _t(b)) for pot, p in zip(pots, ps)), hrex,
+            [[p.params for p in s.potentials] for s in formed], max_delta,
+        )
+        finite = np.isfinite(ref)
+        assert (np.isfinite(banded) == finite).all() and finite.sum() == (7 if max_delta == 1 else 9)
+        assert np.abs(banded[finite] - ref[finite]).max() <= 1e-10 * np.abs(ref[finite]).max()
 
 
 # -- the API members that HREX brought -------------------------------------------------

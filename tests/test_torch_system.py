@@ -156,7 +156,22 @@ def _default_device_constructions():
         ctxt.step()
         return [ctxt._x, ctxt._v, ctxt._box, *(b for p in ctxt.potentials for b in p.buffers())]
 
+    def local_md():
+        # a local segment on the card's Context, around the ligand of the window loaded with no device argument
+        state = rbfe_solvent.load_rbfe_solvent(windows=[0])[0]
+        ctxt = get_context(state)
+        ctxt.multiple_steps_local(2, state.ligand_idxs, radius=1.0, seed=1)
+        return [ctxt._x, ctxt._v, ctxt._box]
+
+    def build_rest():
+        from timemachine_torch.fe.free_energy import RESTParams
+
+        states = rbfe_solvent.build_rbfe_solvent(windows=[5], rest_params=RESTParams(3.0))
+        return [b for p in states[0].potentials for b in p.buffers()]
+
     return {
+        "multiple_steps_local": local_md,
+        "build_rbfe_solvent(rest_params=)": build_rest,
         "setup_dhfr": lambda: [b for p in setup_dhfr().host_system.get_U_fns() for b in p.buffers()],
         "Context": lambda: [Context(x, x, 3.0 * np.eye(3), LangevinIntegrator(300.0, 1e-3, 1.0, np.ones(3), 0), [])._x],
         "SegmentSum": lambda: list(SegmentSum([0, 1, 1], 2).buffers()),
@@ -179,7 +194,7 @@ def _default_device_constructions():
     "entry",
     [
         "setup_dhfr", "Context", "SegmentSum", "MonteCarloBarostat", "HostGuestSystem.from_arrays", "load_rbfe_solvent",
-        "get_context", "build_rbfe_solvent",
+        "get_context", "build_rbfe_solvent", "multiple_steps_local", "build_rbfe_solvent(rest_params=)",
     ],
 )
 def test_default_device_is_the_card(entry):

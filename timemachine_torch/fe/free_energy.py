@@ -3,6 +3,12 @@ by HREX with every replica in one batched step, and pair BAR (counterpart
 of timemachine_tpu/fe/free_energy.py: run_sims_sequential, the greedy
 bisection run_sims_bisection, run_sims_hrex and what they run).
 
+With MDParams.local_md_params every frame ends in a segment of local MD
+(Context.multiple_steps_local around the ligand), and run_sims_hrex runs
+the replicas one after another in one Context, as the JAX package's
+time-multiplexed driver does; REST reaches the drivers through the states'
+parameters (fe/rest/). Water sampling is not ported (ROADMAP queue 1).
+
 An InitialState holds the port's potential modules on their device. Frames
 come back from the card as numpy and stay in memory (the JAX package's
 StoredArrays, which spills them to disk, is not ported). The host term takes
@@ -14,7 +20,7 @@ from __future__ import annotations
 
 import copy
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from functools import cache
 from typing import Callable, Iterator, Optional, Sequence
 from warnings import warn
@@ -33,14 +39,16 @@ from timemachine_torch.integrators import LangevinIntegrator
 from timemachine_torch.md.barostat import MonteCarloBarostat
 from timemachine_torch.md.context import Context
 from timemachine_torch.md.hrex import HREX, HREXDiagnostics, get_swap_attempts_per_iter_heuristic
+from timemachine_torch.md.states import CoordsVelBox
 from timemachine_torch.potentials import Nonbonded, NonbondedAllPairs, NonbondedInteractionGroup, all_pairs_kernel
 from timemachine_torch.utils import batches
 
 
 @dataclass(frozen=True)
 class RESTParams:
-    """REST(2)-style effective-temperature scaling of a region. Not ported
-    yet: HREXParams refuses one."""
+    """REST(2)-style effective-temperature scaling of a region: the
+    intermediate states' hot region runs at up to max_temperature_scale
+    (fe/rest/single_topology.py)."""
 
     max_temperature_scale: float
     temperature_scale_interpolation: str = "exponential"
@@ -51,7 +59,7 @@ class HREXParams:
     """HREX's protocol: n_frames_bisection frames a bisection step, one
     frame an iteration, swaps between states at most max_delta_states apart
     scored by the banded U_kl (None: every state), an overlap target for
-    the bisection, and REST, which raises NotImplementedError when set."""
+    the bisection, and REST's parameters (the edge's SingleTopologyREST)."""
 
     n_frames_bisection: int = 100
     n_frames_per_iter: int = 1
@@ -64,22 +72,39 @@ class HREXParams:
         assert self.n_frames_per_iter == 1, "n_frames_per_iter must be 1"
         assert self.max_delta_states is None or self.max_delta_states > 0
         assert self.optimize_target_overlap is None or 0.0 < self.optimize_target_overlap < 1.0
-        if self.rest_params is not None:
-            raise NotImplementedError("REST is not ported yet (ROADMAP queue 1)")
+
+
+@dataclass(frozen=True)
+class LocalMDParams:
+    """Local MD at the end of every frame: local_steps steps moving a region
+    around a ligand atom, selected with stiffness k (kJ/mol/nm^4) and a
+    radius drawn uniformly from [min_radius, max_radius] nm."""
+
+    local_steps: int
+    k: float = 1_000.0
+    min_radius: float = 1.0
+    max_radius: float = 3.0
+    freeze_reference: bool = True
+
+    def __post_init__(self):
+        assert 0.1 <= self.min_radius <= self.max_radius
+        assert self.local_steps > 0
+        assert 1.0 <= self.k <= 1.0e6
 
 
 @dataclass(frozen=True)
 class MDParams:
     """Sampling protocol: n_eq_steps of equilibration, then n_frames frames
-    steps_per_frame steps apart, from seed; with hrex_params, run_sims_hrex's
-    protocol. Local MD and water sampling are not ported yet: the drivers
-    raise where either is asked for."""
+    steps_per_frame steps apart, from seed; with local_md_params each frame's
+    last local_steps steps are local MD; with hrex_params, run_sims_hrex's
+    protocol. Water sampling is not ported: the drivers raise where it is
+    asked for."""
 
     n_frames: int
     n_eq_steps: int
     steps_per_frame: int
     seed: int
-    local_md_params: Optional[object] = None
+    local_md_params: Optional[LocalMDParams] = None
     hrex_params: Optional[HREXParams] = None
     water_sampling_params: Optional[object] = None
 
@@ -87,6 +112,8 @@ class MDParams:
         assert self.steps_per_frame > 0
         assert self.n_frames > 0
         assert self.n_eq_steps >= 0
+        if self.local_md_params is not None:
+            assert self.local_md_params.local_steps <= self.steps_per_frame
 
 
 @dataclass
@@ -343,17 +370,40 @@ def sample_with_context_iter(
 ) -> Iterator[tuple]:
     """Equilibrate (the barostat every 15 steps, then its own interval
     again), then yield (frames, boxes, final velocities) up to batch_size
-    frames at a time. Global MD only: local MD is not ported yet."""
-    if md_params.local_md_params is not None:
-        raise NotImplementedError("local MD (multiple_steps_local) is not ported yet (ROADMAP queue 1 item 8)")
+    frames at a time. With local_md_params a frame is steps_per_frame -
+    local_steps global steps, then local_steps of local MD around a ligand
+    atom, each segment's radius and seed drawn from
+    default_rng(md_params.seed) in the JAX package's order."""
     if md_params.n_eq_steps:
         original = ctxt.set_barostat_interval(15)
         ctxt.multiple_steps(n_steps=md_params.n_eq_steps, store_x_interval=0)
         if original is not None:
             ctxt.set_barostat_interval(original)
     assert np.all(np.isfinite(ctxt.get_x_t())), "Equilibration resulted in a nan"
+
+    local = md_params.local_md_params
+    rng = np.random.default_rng(md_params.seed)
+
+    def local_frame():
+        if md_params.steps_per_frame > local.local_steps:
+            ctxt.multiple_steps(n_steps=md_params.steps_per_frame - local.local_steps)
+        return ctxt.multiple_steps_local(
+            local.local_steps,
+            np.asarray(ligand_idxs, dtype=np.int32),
+            k=local.k,
+            radius=float(rng.uniform(local.min_radius, local.max_radius)),
+            seed=int(rng.integers(np.iinfo(np.int32).max)),
+            temperature=temperature,
+            freeze_reference=local.freeze_reference,
+        )
+
     for n_frames in batches(md_params.n_frames, batch_size):
-        coords, boxes = ctxt.multiple_steps(n_steps=n_frames * md_params.steps_per_frame, store_x_interval=md_params.steps_per_frame)
+        if local is None:
+            coords, boxes = ctxt.multiple_steps(
+                n_steps=n_frames * md_params.steps_per_frame, store_x_interval=md_params.steps_per_frame
+            )
+        else:
+            coords, boxes = (np.concatenate(a) for a in zip(*[local_frame() for _ in range(n_frames)]))
         yield coords, boxes, ctxt.get_v_t()
 
 
@@ -665,18 +715,19 @@ def run_sims_hrex(
     """Nearest-neighbor HREX over a ladder of states on one card: every
     iteration advances all K replicas' segments in one batched step
     (parallel/replica_exchange.py), computes the banded U_kl on the card
-    and runs the swap batch on the host. Returns (PairBarResult,
-    trajectories by state, HREXDiagnostics, None: water sampling is not
-    ported). Raises for local MD and water sampling."""
+    and runs the swap batch on the host. With local MD the replicas run one
+    after another in one Context (_run_sims_hrex_time_multiplexed). Returns
+    (PairBarResult, trajectories by state, HREXDiagnostics, None: water
+    sampling is not ported, and raises)."""
     from timemachine_torch.md.barostat import MonteCarloBarostat
     from timemachine_torch.parallel.replica_exchange import ReplicaExchangeRunner
 
     assert md_params.hrex_params is not None
-    if md_params.local_md_params is not None:
-        raise NotImplementedError("local MD inside HREX is not ported yet (ROADMAP queue 1)")
     for s in initial_states[1:]:
         assert_ensembles_compatible(initial_states[0], s)
         assert_potentials_compatible(initial_states[0].potentials, s.potentials)
+    if md_params.local_md_params is not None:
+        return _run_sims_hrex_time_multiplexed(initial_states, md_params, n_swap_attempts_per_iter, print_diagnostics_interval)
 
     n_states = len(initial_states)
     if n_swap_attempts_per_iter is None:
@@ -735,6 +786,104 @@ def run_sims_hrex(
     for s, samples in enumerate(samples_by_state):
         samples.final_velocities = final_v[s]
         samples.final_barostat_volume_scale_factor = float(final_scales[s]) if final_scales is not None else None
+
+    neighbor_ulkns_by_component = generate_pair_bar_ulkns(initial_states, samples_by_state, temperature)
+    pair_bar_results = [estimate_free_energy_bar(u, temperature) for u in neighbor_ulkns_by_component]
+    diagnostics = HREXDiagnostics(replica_idx_by_state_by_iter, fraction_accepted_by_pair_by_iter)
+    return PairBarResult(list(initial_states), pair_bar_results), samples_by_state, diagnostics, None
+
+
+def _run_sims_hrex_time_multiplexed(
+    initial_states: Sequence[InitialState],
+    md_params: MDParams,
+    n_swap_attempts_per_iter: Optional[int] = None,
+    print_diagnostics_interval: Optional[int] = 10,
+) -> tuple:
+    """HREX one replica at a time, for segments that end in local MD (the
+    JAX package's _run_sims_hrex_time_multiplexed): one Context takes each
+    replica's x, v, box and its state's parameters in turn and samples one
+    frame with sample_with_context_iter, seeded seed + state * n_frames +
+    frame (n_eq_steps at frame 0 only); then the banded U_kl of the summed
+    potential (compute_potential_matrix) and the swap batch seeded seed +
+    frame + 1, the identity pair added at K = 2. The Langevin noise is the
+    Context's generator, carried from segment to segment."""
+    from timemachine_torch.fe.terms import make_summed_potential  # terms imports this module through convert
+
+    assert md_params.hrex_params is not None
+    if n_swap_attempts_per_iter is None:
+        n_swap_attempts_per_iter = get_swap_attempts_per_iter_heuristic(len(initial_states))
+
+    context = get_context(initial_states[0], md_params=md_params)
+    temperature = initial_states[0].integrator.temperature
+    ligand_idxs = initial_states[0].ligand_idxs
+    summed = make_summed_potential(initial_states[0].potentials)
+    params_by_state = [make_summed_potential(s.potentials).params for s in initial_states]
+    params_list_by_state = [[pot.params for pot in s.potentials] for s in initial_states]
+
+    n_states = len(initial_states)
+    state_idxs = list(range(n_states))
+    neighbor_pairs = list(zip(state_idxs, state_idxs[1:]))
+    if n_states == 2:
+        # an identity move keeps the two-state chain aperiodic
+        neighbor_pairs = [(0, 0), *neighbor_pairs]
+
+    hrex = HREX.from_replicas([CoordsVelBox(s.x0, s.v0, s.box0) for s in initial_states])
+    samples_by_state = [Trajectory.empty() for _ in initial_states]
+    replica_idx_by_state_by_iter: list = []
+    fraction_accepted_by_pair_by_iter: list = []
+    begin_loop_time = last_update_time = time.perf_counter()
+
+    for current_frame in range(md_params.n_frames):
+
+        def sample_replica(xvb: CoordsVelBox, state_idx: int):
+            context.set_x_t(xvb.coords)
+            context.set_v_t(xvb.velocities)
+            context.set_box(xvb.box)
+            context.set_params(params_list_by_state[state_idx])
+            md_params_replica = replace(
+                md_params,
+                n_frames=1,
+                n_eq_steps=md_params.n_eq_steps if current_frame == 0 else 0,
+                seed=md_params.seed + state_idx * md_params.n_frames + current_frame,
+            )
+            frame, box, final_velos = next(
+                sample_with_context_iter(context, md_params_replica, temperature, ligand_idxs, batch_size=1)
+            )
+            assert frame.shape[0] == 1
+            barostat = context.get_barostat()
+            scale = float(barostat[1].volume_scale) if barostat is not None else None
+            return frame[-1], box[-1], final_velos, scale
+
+        def replica_from_samples(last_sample) -> CoordsVelBox:
+            frame, box, velos, _ = last_sample
+            return CoordsVelBox(frame, velos, box)
+
+        hrex, samples_by_state_iter = hrex.sample_replicas(sample_replica, replica_from_samples)
+        U_kl_raw = compute_potential_matrix(
+            summed.potential, hrex, params_by_state, md_params.hrex_params.max_delta_states
+        )
+        U_kl = verify_and_sanitize_potential_matrix(U_kl_raw, hrex.replica_idx_by_state)
+        log_q_kl = -U_kl / (BOLTZ * temperature)
+        replica_idx_by_state_by_iter.append(list(hrex.replica_idx_by_state))
+        hrex, fraction_accepted_by_pair = hrex.attempt_neighbor_swaps_fast(
+            neighbor_pairs, log_q_kl, n_swap_attempts_per_iter, md_params.seed + current_frame + 1
+        )
+        if n_states == 2:
+            fraction_accepted_by_pair = fraction_accepted_by_pair[1:]
+
+        for samples, (xs, boxes, velos, scale) in zip(samples_by_state, samples_by_state_iter):
+            samples.frames.append(xs)
+            samples.boxes.append(boxes)
+            samples.final_velocities = velos
+            samples.final_barostat_volume_scale_factor = scale
+        fraction_accepted_by_pair_by_iter.append(fraction_accepted_by_pair)
+
+        if print_diagnostics_interval and (current_frame + 1) % print_diagnostics_interval == 0:
+            _print_hrex_progress(
+                current_frame, md_params.n_frames, begin_loop_time, last_update_time, print_diagnostics_interval,
+                fraction_accepted_by_pair, fraction_accepted_by_pair_by_iter, np.asarray(hrex.replica_idx_by_state),
+            )
+            last_update_time = time.perf_counter()
 
     neighbor_ulkns_by_component = generate_pair_bar_ulkns(initial_states, samples_by_state, temperature)
     pair_bar_results = [estimate_free_energy_bar(u, temperature) for u in neighbor_ulkns_by_component]

@@ -14,10 +14,12 @@ energies are float64 (md/minimizer.py).
 Seeds are derived as the JAX package derives them, from this package's own
 bytes: the velocities' and the barostat's from the ligand conformer, the
 integrator's from every potential's f64 parameters (ROADMAP P18, P20).
-Differences: the estimators return no plots (plots=None, hrex_plots=None:
-fe/plots.py waits on ROADMAP queue 1 item 6); rebalance_lambda_schedule
-raises (ROADMAP R8), as REST does (queue 1), and run_complex waits on the
-protein builders.
+With REST parameters the edge's topology is fe/rest/'s SingleTopologyREST,
+whose intermediate states run the hot region at a raised effective
+temperature (DEFAULT_REST_PARAMS). Differences: the estimators return no
+plots (plots=None, hrex_plots=None: fe/plots.py waits on ROADMAP queue 1
+item 6); rebalance_lambda_schedule raises (ROADMAP R8), and run_complex
+waits on the protein builders.
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ from timemachine_torch.fe.free_energy import (
     run_sims_sequential,
 )
 from timemachine_torch.fe.lambda_schedule import bisection_lambda_schedule
+from timemachine_torch.fe.rest.single_topology import SingleTopologyREST
 from timemachine_torch.fe.single_topology import AtomMapFlags, SingleTopology
 from timemachine_torch.fe.terms import HostTerms
 from timemachine_torch.fe.utils import bytes_to_id, get_mol_name, get_romol_conf
@@ -70,6 +73,28 @@ DEFAULT_NUM_WINDOWS = 48
 DEFAULT_MD_PARAMS = MDParams(n_frames=1000, n_eq_steps=10_000, steps_per_frame=400, seed=2023, hrex_params=None)
 
 DEFAULT_HREX_PARAMS = replace(DEFAULT_MD_PARAMS, hrex_params=HREXParams(n_frames_bisection=100))
+
+DEFAULT_REST_PARAMS = replace(
+    DEFAULT_HREX_PARAMS,
+    hrex_params=replace(
+        DEFAULT_HREX_PARAMS.hrex_params,
+        rest_params=RESTParams(max_temperature_scale=3.0, temperature_scale_interpolation="exponential"),
+    ),
+)
+
+
+def make_single_topology(mol_a, mol_b, core, ff, rest_params: Optional[RESTParams] = None) -> SingleTopology:
+    """The edge's SingleTopology, or with rest_params its SingleTopologyREST."""
+    if rest_params is None:
+        return SingleTopology(mol_a, mol_b, core, ff)
+    return SingleTopologyREST(
+        mol_a,
+        mol_b,
+        core,
+        ff,
+        max_temperature_scale=rest_params.max_temperature_scale,
+        temperature_scale_interpolation=rest_params.temperature_scale_interpolation,
+    )
 
 
 @dataclass
@@ -399,12 +424,11 @@ class AlchemicalEdge:
         rest_params: Optional[RESTParams] = None,
         device=None,
     ) -> "AlchemicalEdge":
-        """The edge's SingleTopology and, with host_config, its host
-        pre-equilibrated on `device` (None: the card)."""
-        if rest_params is not None:
-            raise NotImplementedError("REST (fe/rest/) is not ported yet (ROADMAP queue 1)")
+        """The edge's SingleTopology (SingleTopologyREST with rest_params)
+        and, with host_config, its host pre-equilibrated on `device` (None:
+        the card)."""
         device = resolve_device(device)
-        st = SingleTopology(mol_a, mol_b, core, ff)
+        st = make_single_topology(mol_a, mol_b, core, ff, rest_params)
         host = setup_optimized_host(st, host_config, device) if host_config else None
         tag = f"{get_mol_name(mol_a)}_{get_mol_name(mol_b)}_{prefix}"
         return cls(st, host, DEFAULT_TEMP, seed, tag, lambda_interval or (0.0, 1.0), device)

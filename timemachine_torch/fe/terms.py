@@ -111,6 +111,26 @@ class SummedPotential(_Potential):
         """Each potential bound to its share of the flat vector."""
         return [pot.bind(p) for pot, p in zip(self.potentials, self.unflatten_params(params))]
 
+    def __call__(self, x, params, box):
+        """The float64 sum of each potential's u(x, p, box) at its share p of
+        the flat vector, where the potentials are the port's modules (as
+        make_summed_potential makes them): each evaluated in its own dtype
+        on its device."""
+        us = []
+        for pot, p in zip(self.potentials, self.unflatten_params(params)):
+            dev, dt = pot.params.device, pot.params.dtype
+            xt, boxt = (torch.as_tensor(a, device=dev, dtype=dt) for a in (x, box))
+            us.append(pot.u(xt, p.to(device=dev, dtype=dt), boxt).to(torch.float64))
+        return torch.stack(us).sum()
+
+
+def make_summed_potential(potentials) -> BoundPotential:
+    """The potentials (the port's modules) as one SummedPotential bound to the
+    concatenation of their raveled parameters (JAX's make_summed_potential)."""
+    params = [pot.params.detach() for pot in potentials]
+    flat = torch.cat([as_f64(p).reshape(-1) for p in params])
+    return SummedPotential(list(potentials), params).bind(flat)
+
 
 _INACTIVE_TERMS = frozenset({"chiral_bond"})
 

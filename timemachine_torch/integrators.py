@@ -4,6 +4,7 @@ velocity Verlet integrator (counterpart of timemachine_tpu/integrators.py)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 
@@ -43,10 +44,15 @@ class LangevinIntegrator:
     masses: np.ndarray
     seed: int
 
-    def coefficients(self):
-        """(ca, cb (N, 1), cc (N, 1)) in numpy f64."""
+    def coefficients(self, free_mask: Optional[np.ndarray] = None):
+        """(ca, cb (N, 1), cc (N, 1)) in numpy f64; with free_mask (N,),
+        cb and cc are zero on the atoms it leaves out (frozen)."""
         ca, cb, cc = langevin_coefficients(self.temperature, self.dt, self.friction, self.masses)
-        return ca, cb[:, None], cc[:, None]
+        cb, cc = cb[:, None], cc[:, None]
+        if free_mask is not None:
+            m = np.asarray(free_mask, dtype=np.float64)[:, None]
+            cb, cc = cb * m, cc * m
+        return ca, cb, cc
 
 
 @dataclass(frozen=True)

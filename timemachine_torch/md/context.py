@@ -16,6 +16,16 @@ Langevin noise and every mover draw from their own torch.Generator, seeded
 from the integrator's and the movers' seeds; reset_for_state reseeds them
 from the new state's, so a window run in a reused Context is the same
 trajectory as in a fresh one.
+
+Local MD (`multiple_steps_local`, `multiple_steps_local_selection`) moves
+only a selection of atoms around a reference atom: each step takes the full
+force through the same providers (on the card the host term's masked rowscan
+launch), adds a flat-bottom restraint of the free atoms to the reference
+(and, when the reference moves too, a log-complement restraint that tethers
+the frozen shell to it), and masks the Langevin update so that frozen atoms
+keep x and v bitwise. The restraint is O(N) and evaluated in float64, its
+force added in the working dtype. Movers do not fire, the step count
+advances, and the providers' lists are dropped afterwards.
 """
 
 from __future__ import annotations
@@ -26,9 +36,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from timemachine_torch.constants import BOLTZ
 from timemachine_torch.device import resolve_device
 from timemachine_torch.integrators import LangevinIntegrator, VelocityVerletIntegrator, langevin_step
 from timemachine_torch.md.barostat import MonteCarloBarostat
+from timemachine_torch.ops.pbc import periodic_delta
 
 
 class Context:
@@ -68,6 +80,7 @@ class Context:
                 self._providers[i] = md()
         self._prov_states = None
         self._move_fns = [self._make_move_fn(m) for m in self.movers]
+        self._local_md_temperature = None
 
     def _make_move_fn(self, mover):
         rigid = getattr(mover, "rigid_group_move", False)
@@ -168,10 +181,8 @@ class Context:
                 total = total + pot.energy(x, box)
         return total
 
-    def _one_step(self, noise=None):
-        """One step; the Langevin noise from the Context's generator unless given."""
-        t = self._step
-        x, box = self._x, self._box
+    def _force(self, x, box, t: int):
+        """The total force at x, the providers at step t."""
         force = torch.zeros_like(x)
         for i, pot in enumerate(self.potentials):
             if i in self._providers:
@@ -179,6 +190,13 @@ class Context:
             else:
                 f = pot.energy_force(x, box)[1]
             force = force + f
+        return force
+
+    def _one_step(self, noise=None):
+        """One step; the Langevin noise from the Context's generator unless given."""
+        t = self._step
+        x, box = self._x, self._box
+        force = self._force(x, box, t)
         if self._verlet:
             self._v = self._v + self._cb * force
             self._x = x + self.integrator.dt * self._v
@@ -226,6 +244,146 @@ class Context:
     def step(self):
         """One step, stored nowhere."""
         self.multiple_steps(1)
+
+    # -- local MD ---------------------------------------------------------------
+
+    def setup_local_md(self, temperature: Optional[float] = None, freeze_reference: bool = True):
+        """Local MD's settings: `temperature` sets the restraints' kT (None:
+        the integrator's). Nothing is built ahead: the selection is an input
+        of each local segment, and so is freeze_reference, which this takes
+        for the JAX package's signature only."""
+        self._local_md_temperature = temperature
+
+    def multiple_steps_local(
+        self,
+        n_steps: int,
+        local_idxs,
+        k: float = 10_000.0,
+        radius: float = 1.0,
+        seed: int = 0,
+        store_x_interval: int = 0,
+        temperature: Optional[float] = None,
+        freeze_reference: bool = True,
+    ):
+        """Advance n_steps moving only a region selected at random around a
+        reference atom drawn from local_idxs: atom i is free with probability
+        exp(-U_fb(d_i) / kT), U_fb = k/4 max(d_i - radius, 0)^4, d_i its
+        minimum-image distance from the reference at the segment's start.
+        The draws come from numpy's default_rng(seed), the reference first
+        (`integers`), then one uniform an atom (`random`), and the distances
+        from a float64 copy of x, so the selection is the JAX package's for
+        the same x and seed. The reference is frozen with freeze_reference,
+        else free. Returns (frames, boxes) as multiple_steps."""
+        reference_idx, free = self.local_selection(local_idxs, k, radius, seed, temperature, freeze_reference)
+        return self._run_local(n_steps, reference_idx, free, k, radius, store_x_interval, freeze_reference)
+
+    def local_selection(self, local_idxs, k: float, radius: float, seed: int, temperature=None, freeze_reference=True):
+        """(reference index, free mask (N,) bool) of multiple_steps_local."""
+        assert len(local_idxs) > 0
+        n_atoms = self._x.shape[0]
+        temperature = temperature if temperature is not None else getattr(self.integrator, "temperature", 300.0)
+        kBT = BOLTZ * temperature
+        rng = np.random.default_rng(seed)
+        reference_idx = int(np.asarray(local_idxs)[rng.integers(len(local_idxs))])
+        x = self._x.cpu().numpy().astype(np.float64)
+        diff = x - x[reference_idx]
+        box_diag = np.diagonal(self._box.cpu().numpy().astype(np.float64))
+        diff -= box_diag * np.floor(diff / box_diag + 0.5)
+        d = np.linalg.norm(diff, axis=1)
+        over = np.maximum(d - radius, 0.0)
+        p_sel = np.exp(-(k / 4.0) * over**4 / kBT)
+        free = rng.random(n_atoms) < p_sel
+        free[reference_idx] = not freeze_reference
+        return reference_idx, free
+
+    def multiple_steps_local_selection(
+        self,
+        n_steps: int,
+        reference_idx: int,
+        selection_idxs,
+        store_x_interval: int = 0,
+        radius: float = 1.2,
+        k: float = 10_000.0,
+        freeze_reference: bool = True,
+    ):
+        """Advance n_steps moving only the atoms of selection_idxs, each
+        flat-bottom restrained (radius, k) to reference_idx, which must not be
+        among them; the reference is frozen unless freeze_reference is False.
+        Returns (frames, boxes) as multiple_steps."""
+        selection_idxs = np.asarray(selection_idxs, dtype=np.int64)
+        assert selection_idxs.ndim == 1 and len(selection_idxs) > 0
+        n_atoms = self._x.shape[0]
+        if np.any((selection_idxs < 0) | (selection_idxs >= n_atoms)):
+            raise ValueError("selection_idxs out of range")
+        if reference_idx in selection_idxs:
+            raise ValueError("reference_idx must not be part of selection_idxs")
+        free = np.zeros(n_atoms, dtype=bool)
+        free[selection_idxs] = True
+        free[reference_idx] = not freeze_reference
+        return self._run_local(n_steps, int(reference_idx), free, k, radius, store_x_interval, freeze_reference)
+
+    def local_restraint(self, x, box, reference_idx: int, free, k: float, radius: float, freeze_reference: bool):
+        """(u, force) of local MD's restraints in float64: k/4 max(d_i -
+        radius, 0)^4 on each free atom i, d_i its distance from the reference;
+        with freeze_reference False also -kT log(1 - (1 - 1e-12) exp(-U_fb /
+        kT)) on each frozen atom other than the reference (kT of
+        setup_local_md's temperature, else the integrator's)."""
+        f64 = torch.float64
+        x64, box64 = x.to(f64), box.to(f64)
+        free = torch.as_tensor(free, device=x.device)
+        diff = periodic_delta(x64, x64[reference_idx], box64)
+        d = torch.linalg.vector_norm(diff, dim=-1)
+        over = torch.clamp(d - radius, min=0.0)
+        u_fb = (k / 4.0) * over**4
+        du_fb = k * over**3  # dU_fb/dd
+        w_free = free.to(f64)
+        u = torch.sum(w_free * u_fb)
+        g = w_free * du_fb
+        if not freeze_reference:
+            temperature = self._local_md_temperature or getattr(self.integrator, "temperature", 300.0)
+            inv_kT = 1.0 / (BOLTZ * temperature)
+            shell = (~free).to(f64)
+            shell[reference_idx] = 0.0
+            e = torch.exp(-inv_kT * u_fb) * (1.0 - 1e-12)
+            u = u + torch.sum(shell * -torch.log1p(-e)) / inv_kT
+            g = g + shell * (-e / (1.0 - e)) * du_fb
+        unit = diff / torch.where(d > 0, d, 1.0)[:, None]
+        grad = g[:, None] * unit  # dU/dx_i
+        force = -grad
+        force[reference_idx] = force[reference_idx] + grad.sum(0)
+        return u, force
+
+    def _run_local(self, n_steps, reference_idx, free, k, radius, store_x_interval, freeze_reference):
+        if self._verlet:
+            raise NotImplementedError("local MD steps Langevin BAOAB only")
+        if not np.any(free):
+            raise RuntimeError("local MD selection has no free particles")
+        interval = store_x_interval if store_x_interval > 0 else max(n_steps, 1)
+        n_frames = n_steps // interval
+        free_t = torch.as_tensor(free, device=self.device)
+        free3 = free_t[:, None]
+        frames, boxes = [], []
+        with torch.no_grad():
+            if self._prov_states is None:
+                self._prov_states = {i: prov[0](self._x, self._box) for i, prov in self._providers.items()}
+            for s in range(1, n_steps + 1):
+                t, x, box = self._step, self._x, self._box
+                restraint = self.local_restraint(x, box, reference_idx, free_t, k, radius, freeze_reference)[1]
+                force = self._force(x, box, t) + restraint.to(x.dtype)
+                noise = torch.randn(x.shape, generator=self._noise, device=self.device, dtype=x.dtype)
+                x_new, v_new = langevin_step(x, self._v, force, noise, self._ca, self._cb, self._cc, self.integrator.dt)
+                self._x = torch.where(free3, x_new, x)  # frozen atoms keep x and v bitwise
+                self._v = torch.where(free3, v_new, self._v)
+                self._step = t + 1
+                if s % interval == 0 and len(frames) < n_frames:
+                    frames.append(self._x)
+                    boxes.append(self._box)
+        # the local steps moved atoms outside the lists' schedule: the next call rebuilds
+        self._prov_states = None
+        self._validate_state()
+        if not frames:
+            return np.zeros((0, *self._x.shape)), np.zeros((0, 3, 3))
+        return torch.stack(frames).cpu().numpy(), torch.stack(boxes).cpu().numpy()
 
     def _validate_state(self):
         """Coordinate and box checks, one host sync."""

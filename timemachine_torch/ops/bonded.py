@@ -141,3 +141,46 @@ def harmonic_positional_restraint(x_init, x_new, box, k: float = DEFAULT_POSITIO
     restrained minimization."""
     d = periodic_delta(x_new, x_init, box)
     return torch.sum(0.5 * k * torch.sum(d * d, dim=-1))
+
+
+def _flat_bottom_terms(conf, params, box, idxs):
+    """(per-pair U, dU/dr, minimum-image ri - rj, r) of the quartic flat
+    bottom: U = k/4 (r - r_max)^4 beyond r_max, k/4 (r - r_min)^4 below
+    r_min, 0 between; params rows (k, r_min, r_max)."""
+    d = periodic_delta(conf[idxs[:, 0]], conf[idxs[:, 1]], box)
+    r = torch.sqrt(torch.sum(d * d, dim=-1))
+    k, r_min, r_max = params[:, 0], params[:, 1], params[:, 2]
+    over = torch.where(r > r_max, r - r_max, 0.0)
+    under = torch.where(r < r_min, r - r_min, 0.0)
+    return 0.25 * k * (over**4 + under**4), k * (over**3 + under**3), d, r
+
+
+def _pair_contribs(du_dr, d, r):
+    """[f_i, f_j] of pair energies with dU/dr along the minimum-image d = ri - rj."""
+    g = (du_dr / torch.where(r > 0, r, 1.0))[:, None] * d
+    return [-g, g]
+
+
+def flat_bottom_bond(conf, params, box, idxs):
+    """U = sum of the quartic flat bottoms (periodic)."""
+    return flat_bottom_force_contribs(conf, params, box, idxs)[0]
+
+
+def flat_bottom_force_contribs(conf, params, box, idxs):
+    """(u, [f_i, f_j]) of flat-bottom bonds."""
+    u, du_dr, d, r = _flat_bottom_terms(conf, params, box, idxs)
+    return torch.sum(u), _pair_contribs(du_dr, d, r)
+
+
+def log_flat_bottom_bond(conf, params, box, idxs, beta: float):
+    """U = -1/beta sum log(1 - exp(-beta U_fb)): the log-complement flat
+    bottom of local MD's selection; +inf where a U_fb is 0."""
+    return log_flat_bottom_force_contribs(conf, params, box, idxs, beta)[0]
+
+
+def log_flat_bottom_force_contribs(conf, params, box, idxs, beta: float):
+    """(u, [f_i, f_j]) of log-complement flat-bottom bonds."""
+    u_fb, du_dr, d, r = _flat_bottom_terms(conf, params, box, idxs)
+    e = torch.exp(-beta * u_fb)
+    u = torch.sum(-torch.log(1.0 - e)) / beta
+    return u, _pair_contribs(-e / (1.0 - e) * du_dr, d, r)

@@ -145,6 +145,37 @@ class ChiralBondRestraint(_BondedTerm):
         return u, self.assemble(torch.cat(contribs))
 
 
+class FlatBottomBond(_BondedTerm):
+    """Quartic flat-bottom restraints between atom pairs, minimum image;
+    idxs (B, 2), params (B, 3) rows (k, r_min, r_max). Not flagged
+    rigid-invariant: a pair may span two molecules, as in the JAX package."""
+
+    rigid_group_invariant = False
+
+    def u(self, x, params, box):
+        return bonded.flat_bottom_bond(x, params, box, self.idxs)
+
+    def u_force(self, x, params, box):
+        u, contribs = bonded.flat_bottom_force_contribs(x, params, box, self.idxs)
+        return u, self.assemble(torch.cat(contribs))
+
+
+class LogFlatBottomBond(FlatBottomBond):
+    """-1/beta log(1 - exp(-beta U_fb)) over flat-bottom pairs: the
+    restraint with which local MD's frozen shell follows a moving reference."""
+
+    def __init__(self, idxs, params, beta: float, num_atoms: int, device=None, dtype=torch.float64):
+        super().__init__(idxs, params, num_atoms, device=device, dtype=dtype)
+        self.beta = float(beta)
+
+    def u(self, x, params, box):
+        return bonded.log_flat_bottom_bond(x, params, box, self.idxs, self.beta)
+
+    def u_force(self, x, params, box):
+        u, contribs = bonded.log_flat_bottom_force_contribs(x, params, box, self.idxs, self.beta)
+        return u, self.assemble(torch.cat(contribs))
+
+
 class _PairListTerm(_BondedTerm):
     """Shared shape of the explicit pair-list terms: idxs (P, 2), exact erfc
     electrostatics, forces in closed form summed by the SegmentSum."""

@@ -16,7 +16,9 @@ grid): molecules, AM1 charges, the force field, the atom mapping, the single
 topology, the water box and every window's potentials, masses and seeds.
 Only each window's minimized coordinates and box (x0, box0: the JAX
 package's host pre-equilibration and minimization) are still taken from the
-cache.
+cache. With REST parameters the windows come from fe/rest/'s
+SingleTopologyREST instead (`rest_differences` holds them against the plain
+ones).
 """
 
 from __future__ import annotations
@@ -28,12 +30,11 @@ import numpy as np
 import torch
 
 from timemachine_torch.chem import mol_from_smiles
-from timemachine_torch.constants import DEFAULT_ATOM_MAPPING_KWARGS, ONE_4PI_EPS0
+from timemachine_torch.constants import DEFAULT_ATOM_MAPPING_KWARGS, ONE_4PI_EPS0, NBParamIdx
 from timemachine_torch.device import resolve_device
 from timemachine_torch.fe import rbfe
 from timemachine_torch.fe.atom_mapping import get_cores
 from timemachine_torch.fe.free_energy import InitialState
-from timemachine_torch.fe.single_topology import SingleTopology
 from timemachine_torch.fe.system import HostGuestSystem
 from timemachine_torch.ff import Forcefield
 from timemachine_torch.ff.handlers import compute_or_load_base_charges
@@ -106,11 +107,12 @@ def load_rbfe_solvent(path=CACHE, device=None, dtype=torch.float64, windows=None
     return [initial_state(a, w, device, dtype) for w in (range(n_windows(a)) if windows is None else windows)]
 
 
-def build_rbfe_solvent(path=CACHE, device=None, dtype=torch.float64, windows=None, record=None) -> list:
+def build_rbfe_solvent(path=CACHE, device=None, dtype=torch.float64, windows=None, record=None, rest_params=None) -> list:
     """The InitialStates of the windows (all by default), built by the port
     from the cache's recorded inputs, potentials on `device` (None: the
     card). Each window's x0 and box0 are the cache's: its minimized
-    coordinates, which the port does not build yet.
+    coordinates, which the port does not build yet. With rest_params (a
+    RESTParams) the single topology is SingleTopologyREST.
 
     `record`, a dict, receives the core, the SingleTopology, the Host and each stage's
     host seconds under "seconds": parse, am1_<name> for each ligand, mapping,
@@ -133,7 +135,7 @@ def build_rbfe_solvent(path=CACHE, device=None, dtype=torch.float64, windows=Non
     core = get_cores(*mols, **DEFAULT_ATOM_MAPPING_KWARGS)[0]
     seconds["mapping"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    st = SingleTopology(mols[0], mols[1], core, ff)
+    st = rbfe.make_single_topology(mols[0], mols[1], core, ff, rest_params)
     seconds["single_topology"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     cfg = build_water_system(float(meta["box_width"]), ff.water_ff, mols=mols)
@@ -182,6 +184,62 @@ def term_differences(built: InitialState, ref: InitialState) -> dict:
             indices_equal=idx and others and same_shape, max_abs_by_column=abs_cols, max_rel_by_column=rel_cols,
             max_rel=max(rel_cols, default=0.0), bitwise=torch.equal(x, y),
         )
+    return out
+
+
+def rest_scaled_masks(st, state: InitialState) -> dict:
+    """Per term (TERMS order) of a window built by SingleTopologyREST `st`,
+    the (T, columns) bool mask of the parameters REST multiplies: column 0
+    (k) of the targeted propers, charge and sqrt(epsilon) of the ligand
+    pair-list rows with an atom in the hot region and of the hot region's
+    interaction-group rows; none elsewhere."""
+    n_host = int(np.min(state.ligand_idxs))
+    region = torch.as_tensor(sorted(st.rest_region_atom_idxs), dtype=torch.int64)
+    targets = {tuple(i + n_host for i in st.propers[row]) for row in st.target_proper_idxs}
+    qe = [NBParamIdx.Q_IDX, NBParamIdx.LJ_EPS_IDX]
+    out = {}
+    for name, pot in zip(TERMS, state.potentials, strict=True):
+        mask = torch.zeros(pot.params.shape, dtype=torch.bool)
+        if name == "proper":
+            rows = [tuple(r) in targets for r in pot.idxs.cpu().tolist()]
+            mask[torch.as_tensor(rows, dtype=torch.bool), 0] = True
+        elif name == "nonbonded_pair_list":
+            idxs = pot.idxs.cpu() - n_host
+            hot = torch.isin(idxs, region).any(1)
+            mask[hot.nonzero()[:, 0][:, None], torch.as_tensor(qe)] = True
+        elif name == "nonbonded_ixn_group":
+            mask[(region + n_host)[:, None], torch.as_tensor(qe)] = True
+        out[name] = mask
+    return out
+
+
+def rest_differences(rest_states: list, plain_states: list, st) -> dict:
+    """REST windows against the plain builder's (same λ, same device and
+    dtype): "scaled_rel", the largest |rest - plain s(λ)| / |plain s(λ)| over
+    the entries REST scales (s = st.get_energy_scale_factor(λ)); "others_bitwise",
+    whether every other entry, index array and buffer is bitwise the plain
+    window's; "bitwise", the windows equal to the plain ones in every term;
+    "n_scaled", the scaled entries per term at the first window."""
+    out = dict(scaled_rel=0.0, others_bitwise=True, bitwise=[], n_scaled=None)
+    for w, (r, p) in enumerate(zip(rest_states, plain_states, strict=True)):
+        assert r.lamb == p.lamb
+        scale = st.get_energy_scale_factor(r.lamb)
+        masks = rest_scaled_masks(st, r)
+        if out["n_scaled"] is None:
+            out["n_scaled"] = {k: int(m.sum()) for k, m in masks.items()}
+        same = True
+        for name, pr, pp in zip(TERMS, r.potentials, p.potentials, strict=True):
+            br, bp = dict(pr.named_buffers()), dict(pp.named_buffers())
+            out["others_bitwise"] &= all(torch.equal(br[k], bp[k]) for k in br if k != "params")
+            x, y, m = br["params"].cpu(), bp["params"].cpu(), masks[name]
+            out["others_bitwise"] &= bool(torch.equal(x[~m], y[~m]))
+            same &= bool(torch.equal(x, y))
+            if m.any():
+                want = y[m] * scale
+                rel = ((x[m] - want).abs() / want.abs().clamp_min(torch.finfo(want.dtype).tiny)).max()
+                out["scaled_rel"] = max(out["scaled_rel"], float(rel))
+        if same:
+            out["bitwise"].append(w)
     return out
 
 

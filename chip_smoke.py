@@ -143,13 +143,28 @@ v bitwise unmoved, the reference frozen, no barostat move, finite in
 float32 with the reference free, bitwise on repeat, one masked F launch a
 local step) and with an explicit selection; run_solvent from the two SMILES
 with REST and local MD (its HREX time-multiplexed in one Context), each
-stage's seconds and launches by form, ΔG and the BAR pairs.
+stage's seconds and launches by form, ΔG and the BAR pairs. The absolute
+hydration leg [19] of ethanol from SMILES (fe/absolute_hydration.py):
+run_solvent at N19_WINDOWS windows (each stage's seconds, the rowscan and
+nb_tiles launches by stage and form: the host's FIRE on nb_tiles' exact
+form alone, the windows' MD on the masked rowscan form alone; ΔG beside
+FreeSolv's experimental value, 7 finite BAR pairs; the interaction group
+exactly 0 at λ = 1; window 0's card force against the host CPU's; a reused
+window bitwise a fresh one); the SMC path at a cut depth: the solvent-phase
+system and its NPT samples on nb_tiles' exact form (a fresh Context's form
+at over 4,096 atoms), the vacuum walkers, the endstate samples and
+sequential_monte_carlo over a fixed 6-λ schedule, decoupled to coupled (the
+ESS at each λ, the estimate, every log weight finite, a rerun bitwise); one
+OptimizedMTMMove of K aligned vacuum proposals (its acceptance probability,
+the ligand's geometry kept through the alignment).
 Every path runs with all launch and plain-call counts set to
 0 just before it and read just after. Then a JSON line on the kernels
 (time; launches per NPT step of the path named in `path`, per Adam step of
 the training path where the kernel has one, per replica-step of HREX for
 the batched form (launches_rest_hrex: of REST's HREX), per local step for the
-masked form (launches_local_md), per run of phase 12 for the probes; bound;
+masked form (launches_local_md; launches_ahfe: per step of the AHFE
+windows), per run of phase 12 for the probes; nb_tiles' exact masked row
+also launches_ahfe_fire, launches_smc, launches_mtm; bound;
 plain time), the card's name and power limit from
 nvidia-smi, and as the last line {"ok": true, "device": {...}}.
 
@@ -166,6 +181,7 @@ import sys
 import time
 from collections import Counter
 from dataclasses import replace
+from functools import partial
 
 TEMP, DT, FRICTION, PRESSURE, BAROSTAT_INTERVAL = 300.0, 2.5e-3, 1.0, 1.013, 25
 N_FIRE, N_STEPS, N_PROFILE, N_DET = 400, 1000, 50, 100
@@ -197,12 +213,13 @@ N15_WINDOW, N15_STEPS = 6, 200
 # phase 16, run_solvent from two SMILES: ethanol -> propane embedded with
 # seed 7 (the cache's embedding), 12 windows against DEFAULT_NUM_WINDOWS'
 # 48, and DEFAULT_HREX_PARAMS' depth (10,000 equilibration steps, 1,000
-# frames of 400 steps, 100 frames a bisection state) cut to 100, 10 of 50
-# and 6 (200, 20 of 50 and 10 until phase 18 came); the anchors'
+# frames of 400 steps, 100 frames a bisection state) cut to 100, 10 of 25
+# and 6 (200, 20 of 50 and 10 until phase 18 came, 100, 10 of 50 and 6 until
+# phase 19 came); the anchors'
 # displacements held at min_cutoff 0.7 nm (JAX's
 # estimators' default) and the embedded conformers to TOL_EMBED of the cache's
 N16_EMBED_SEED, N16_WINDOWS, N16_MIN_CUTOFF, TOL_EMBED = 7, 12, 0.7, 1e-10
-N16_EQ, N16_FRAMES, N16_STEPS_PER_FRAME, N16_FRAMES_BISECTION = 100, 10, 50, 6
+N16_EQ, N16_FRAMES, N16_STEPS_PER_FRAME, N16_FRAMES_BISECTION = 100, 10, 25, 6
 # phase 18, REST and local MD: REST at DEFAULT_REST_PARAMS' scale (fe/rbfe.py:
 # max_temperature_scale 3, exponential), its HREX over the 12 windows cut as
 # phase 14's (100 equilibration steps, 10 iterations of 50); local MD on
@@ -217,6 +234,25 @@ N18_MAX_TEMPERATURE_SCALE, N18_EQ, N18_FRAMES, N18_STEPS_PER_FRAME = 3.0, 100, 1
 N18_WINDOW, N18_LOCAL, N18_LOCAL_K, N18_LOCAL_RADIUS, N18_LOCAL_SEED, N18_SELECTION = 6, 50, 1_000.0, 1.0, 2023, 30
 N18_RS_WINDOWS, N18_RS_EQ, N18_RS_FRAMES_BISECTION, N18_RS_FRAMES, N18_RS_STEPS_PER_FRAME, N18_RS_LOCAL_STEPS = 4, 100, 5, 10, 50, 25
 TOL_REST_REL = 1e-12
+# phase 19, the absolute hydration leg of ethanol from SMILES (embedded with seed 7, AM1 in strict
+# mode). Windowed: run_solvent's 4.0 + 0.1 nm box at N19_WINDOWS windows (n_windows cut from 16),
+# DEFAULT_AHFE_MD_PARAMS' depth (10,000 equilibration steps, 1,000 frames of 400) cut to phase 13's
+# (100, 10 of 30); a reused window N19_REUSE steps. SMC: the solvent-phase system at λ = 1 (a 3.0 +
+# 0.5 nm box); pregenerate_samples' depth (50,000 equilibration steps, 1,000 solvent samples of
+# 1,000 steps, 30,000 ligand batches of 250 steps after 2,000 of burn-in) cut to 500, 8 of 100, and
+# 8 walkers x 64 batches of 25 steps after 8 of burn-in; N_ENDSTATE_SAMPLES (5,000) cut to
+# N19_ENDSTATE; N19_SMC_WALKERS walkers over N19_SMC_WINDOWS λ, N19_SMC_STEPS NPT steps a λ, resampled
+# below N19_RESAMPLE of the walkers' ESS; the MTM move's K; FreeSolv's experimental hydration free
+# energy of ethanol, -5.00 kcal/mol (a published number, printed for information)
+N19_EMBED_SEED, N19_SEED, N19_SMC_SEED = 7, 2023, 2022
+N19_WINDOWS, N19_EQ, N19_FRAMES, N19_STEPS_PER_FRAME, N19_REUSE = 8, 100, 10, 30, 60
+N19_SMC_EQ, N19_SOLVENT_SAMPLES, N19_STEPS_PER_SAMPLE = 500, 8, 100
+N19_VAC_WALKERS, N19_VAC_STEPS_PER_BATCH, N19_VAC_BATCHES, N19_VAC_BURN_IN = 8, 25, 64, 8
+N19_ENDSTATE, N19_SMC_WALKERS, N19_SMC_WINDOWS, N19_SMC_STEPS, N19_RESAMPLE, N19_MTM_K = 64, 8, 6, 25, 0.5, 8
+FREESOLV_ETHANOL_KJ = -5.00 * 4.184
+# the ligand's internal distances after alignment against the vacuum conformer's (nm), and the
+# normalized SMC weights' sum against 1
+TOL_ALIGNED_GEOMETRY, TOL_WEIGHT_SUM = 1e-5, 1e-12
 # phase 17, the exact-erfc and masked forms: the window whose NPT run each form takes, and its steps;
 # the DHFR atoms (the protein's last) the dot form's mask leaves out, as many as the leg's hybrid ligand
 N17_WINDOW, N17_STEPS, N17_DOT_OUT = 6, 100, 11
@@ -404,6 +440,67 @@ def form_launches():
 MASKED_F = "F triangular minimum image w"  # the RBFE host term's MD force form (form_launches' name)
 
 
+class StageClock:
+    """Host seconds and kernel launches by stage: wrap(module, attr, stage)
+    replaces module.attr by a wrapper that adds its host seconds to `sec`
+    under `stage` and the rowscan and nb_tiles launches made inside it to
+    `forms` under (stage, form), less those of a stage nested in it (each
+    launch is tallied under its innermost stage; "setup" holds what no stage
+    made once the caller adds the run's total there); run(stage, thunk)
+    does the same for one call. restore() puts every wrapped attribute
+    back."""
+
+    def __init__(self, sync):
+        self.sync, self.sec, self.stack, self.forms, self.wrapped = sync, {}, ["setup"], Counter(), []
+
+    def run(self, stage, thunk):
+        self.sync()
+        self.stack.append(stage)
+        before = form_launches()
+        t_start = time.perf_counter()
+        try:
+            out = thunk()
+            self.sync()
+        finally:
+            self.stack.pop()
+        self.sec[stage] = self.sec.get(stage, 0.0) + time.perf_counter() - t_start
+        for form, n in (form_launches() - before).items():
+            self.forms[stage, form] += n
+            self.forms[self.stack[-1], form] -= n
+        return out
+
+    def wrap(self, module, attr, stage, record=None):
+        fn = getattr(module, attr)
+
+        def wrapper(*args, **kwargs):
+            out = self.run(stage, lambda: fn(*args, **kwargs))
+            if record is not None:
+                record(args, kwargs, out)
+            return out
+
+        setattr(module, attr, wrapper)
+        self.wrapped.append((module, attr, fn))
+        return fn
+
+    def restore(self):
+        for module, attr, fn in reversed(self.wrapped):
+            setattr(module, attr, fn)
+        self.wrapped.clear()
+
+    def by_stage(self) -> str:
+        """The nonzero launches as 'stage: form n, ...; ...'."""
+        stages = {}
+        for (stage, form), n in sorted(self.forms.items()):
+            if n:
+                stages.setdefault(stage, []).append(f"{form} {n}")
+        return "; ".join(f"{stage}: {', '.join(v)}" for stage, v in stages.items())
+
+    def launches(self, stage, kernel) -> int:
+        """The launches of `kernel` ("nb_tiles" or "rowscan", batched form included) under `stage`."""
+        return sum(n for (st, form), n in self.forms.items()
+                   if st == stage and form.startswith("nb_tiles") == (kernel == "nb_tiles"))
+
+
 def phase18(dev, smi, zero_counts, read_counts, masked_row, batched_row, plain_states, states13, dG14, inputs16):
     """REST and local MD, the two sampling options of the leg's HREX:
     [18 rest build] the 12 windows built with SingleTopologyREST against the
@@ -584,29 +681,8 @@ def phase18(dev, smi, zero_counts, read_counts, masked_row, batched_row, plain_s
 
     # -- run_solvent with REST and local MD -------------------------------------------
     mols16, core16, ff16 = inputs16
-    sec, forms, stage = {}, Counter(), []
-    wrapped = []
-
-    def staged(module, attr, name):
-        fn = getattr(module, attr)
-
-        def wrapper(*args, **kwargs):
-            sync()
-            stage.append(name)
-            before = form_launches()
-            t_start = time.perf_counter()
-            try:
-                out = fn(*args, **kwargs)
-                sync()
-            finally:
-                stage.pop()
-            sec[name] = sec.get(name, 0.0) + time.perf_counter() - t_start
-            for form, n in (form_launches() - before).items():
-                forms[name, form] += n
-            return out
-
-        setattr(module, attr, wrapper)
-        wrapped.append((module, attr, fn))
+    clock = StageClock(sync)
+    sec, forms, staged = clock.sec, clock.forms, clock.wrap
 
     md_rs = MDParams(
         n_frames=N18_RS_FRAMES, n_eq_steps=N18_RS_EQ, steps_per_frame=N18_RS_STEPS_PER_FRAME, seed=2023,
@@ -631,18 +707,15 @@ def phase18(dev, smi, zero_counts, read_counts, masked_row, batched_row, plain_s
         t_rs = time.perf_counter() - t0
         counts_rs, plain_rs = read_counts()
         forms_rs = form_launches() - before
+        for form, n in forms_rs.items():
+            forms["setup", form] += n  # what no stage launched
     finally:
         fe18._run_sims_hrex_time_multiplexed, rbfe18.make_single_topology = tm_fn, st_fn
-        for module, attr, fn in wrapped:
-            setattr(module, attr, fn)
+        clock.restore()
     fin = res_rs.final_result
     finite_rs = bool(np.isfinite(fin.dGs).all() and np.isfinite(fin.dG_errs).all())
     st_rs = fin.initial_states
     rest_rs = [type(t).__name__ for t in topologies] == ["SingleTopologyREST"]
-    by_stage = {}
-    for (name, form), n in sorted(forms.items()):
-        if n:
-            by_stage.setdefault(name, []).append(f"{form} {n}")
     outside = forms_rs - sum((Counter({f: n for (s, f), n in forms.items() if s == name}) for name in sec), Counter())
     print(
         f"[18 run_solvent] run_solvent from the two SMILES with RESTParams({N18_MAX_TEMPERATURE_SCALE}) and "
@@ -656,9 +729,8 @@ def phase18(dev, smi, zero_counts, read_counts, masked_row, batched_row, plain_s
         + f"; dG {float(np.sum(fin.dGs)):.4f} +- {float(np.linalg.norm(fin.dG_errs)):.4f} kJ/mol ({len(fin.bar_results)} "
         f"BAR pairs, finite {finite_rs}; not converged) ({smi})"
     )
-    print("[18 run_solvent] rowscan and nb_tiles launches by stage and form: "
-          + "; ".join(f"{name}: {', '.join(v)}" for name, v in by_stage.items())
-          + f"; outside the stages {dict(+outside)}; totals {counts_rs}; plain calls {plain_rs} ({smi})")
+    print(f"[18 run_solvent] rowscan and nb_tiles launches by stage and form: {clock.by_stage()}; outside the "
+          f"stages {dict(+outside)}; totals {counts_rs}; plain calls {plain_rs} ({smi})")
     check(rest_rs and finite_rs and len(fin.bar_results) == N18_RS_WINDOWS - 1, "[18] run_solvent with REST and local MD failed")
     check(bool(multiplexed) and plain_rs == 0, "[18] run_solvent's HREX was not time-multiplexed, or a plain sweep ran")
     rs_only = lambda name: sum(n for (s, f), n in forms.items() if s == name and not f.startswith("nb_tiles"))  # noqa: E731
@@ -703,34 +775,9 @@ def phase16(dev, smi, zero_counts, read_counts, masked_row, batched_row):
 
     t_phase16 = time.perf_counter()
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    sec16, stage16, forms16 = {}, ["setup"], Counter()
+    clock16 = StageClock(sync)
+    sec16, forms16, staged = clock16.sec, clock16.forms, clock16.wrap
     calls16, chains16, host16, call_s16 = [], [], {}, []
-    def staged(module, attr, stage, record=None):
-        """Wrap module.attr: its host seconds under `stage`, and the kernel
-        launches made inside it under `stage`, less those of a stage nested
-        in it (each launch is tallied under its innermost stage)."""
-        fn = getattr(module, attr)
-
-        def wrapper(*args, **kwargs):
-            sync()
-            stage16.append(stage)
-            before = form_launches()
-            t_start = time.perf_counter()
-            try:
-                out = fn(*args, **kwargs)
-                sync()
-            finally:
-                stage16.pop()
-            sec16[stage] = sec16.get(stage, 0.0) + time.perf_counter() - t_start
-            for form, n in (form_launches() - before).items():
-                forms16[stage, form] += n
-                forms16[stage16[-1], form] -= n
-            if record is not None:
-                record(args, kwargs, out)
-            return out
-
-        setattr(module, attr, wrapper)
-        return fn
 
     def record_host(args, kwargs, out):
         host16.update(mols=args[0], config=args[1], x_host=out[0], box=out[1])
@@ -921,21 +968,15 @@ def phase16(dev, smi, zero_counts, read_counts, masked_row, batched_row):
           f"not converged); plots {res16.plots}, {res16.hrex_plots} ({smi})")
     check(len(fin16.bar_results) == N16_WINDOWS - 1 and finite16, "[16] HREX did not give 11 finite BAR pairs")
 
-    by_stage = {}
-    for (stage, form), n in sorted(forms16.items()):
-        if n:
-            by_stage.setdefault(stage, []).append(f"{form} {n}")
-    print("[16 kernels] rowscan and nb_tiles launches in run_solvent by stage and form: "
-          + "; ".join(f"{stage}: {', '.join(v)}" for stage, v in by_stage.items())
-          + f"; totals {launches16}; plain sweeps {plain16_calls} ({smi})")
+    print(f"[16 kernels] rowscan and nb_tiles launches in run_solvent by stage and form: {clock16.by_stage()}; "
+          f"totals {launches16}; plain sweeps {plain16_calls} ({smi})")
     check(plain16_calls == 0, "[16] run_solvent ran a plain sweep")
     check(launches16["rowscan_sweep"] > 0 and launches16["rowscan_sweep_batched"] > 0,
           "[16] run_solvent did not launch the rowscan kernel and its batched form")
     check(all(n == 0 for (stage, _), n in forms16.items() if stage == "setup"),
           "[16] a kernel launch outside the stages")
 
-    def stage_launches(stage, kernel):
-        return sum(n for (st, form), n in forms16.items() if st == stage and form.startswith("nb_tiles") == (kernel == "nb_tiles"))
+    stage_launches = clock16.launches
 
     # JAX's forms by stage (potentials.all_pairs_kernel): the host's FIRE reads "tiled" (v1), the anchors' and the
     # new λ's minimizations a fresh state's dense term (v1 on the card at 6,404 atoms); MD, bisection's u_kln
@@ -957,6 +998,269 @@ def phase16(dev, smi, zero_counts, read_counts, masked_row, batched_row):
     print(f"[16 time] phase 16 took {time.perf_counter() - t_phase16:.1f} s, host clock ({smi})")
     exact16 = {stage: stage_launches(stage, "nb_tiles") for stage in ("fire", "minimize")}
     return launches16, exact16, (mols16, core16, ff16)
+
+
+def phase19(dev, smi, zero_counts, read_counts, masked_row, exact_row):
+    """The absolute hydration (AHFE) leg of ethanol from SMILES, windowed and
+    by SMC: [19 windowed] fe/absolute_hydration.py run_solvent (each
+    stage's host seconds and rowscan and nb_tiles launches by form; ΔG; the
+    interaction group exactly 0 at λ = 1; window 0's card force against the
+    host CPU's; a reused window bitwise a fresh one); [19 smc] the
+    solvent-phase system, its NPT samples and the weighted vacuum
+    conformers, the endstate samples and sequential_monte_carlo over a
+    fixed schedule (ESS per λ, the estimate, a rerun bitwise); [19 mtm] one
+    OptimizedMTMMove of aligned vacuum proposals. Adds the windowed leg's
+    launches to the masked rowscan row and the FIRE's, the SMC's and the
+    MTM's to nb_tiles' exact masked row."""
+    import numpy as np
+    import torch
+    from scipy.special import logsumexp
+
+    from timemachine_torch.chem import mol_from_smiles
+    from timemachine_torch.chem.embed import embed_mol
+    from timemachine_torch.constants import BOLTZ, DEFAULT_TEMP
+    from timemachine_torch.fe import absolute_hydration as ah19
+    from timemachine_torch.fe import free_energy as fe19
+    from timemachine_torch.fe.topology import BaseTopology
+    from timemachine_torch.ff import Forcefield
+    from timemachine_torch.ff.handlers import compute_or_load_base_charges
+    from timemachine_torch.md import builders as builders19
+    from timemachine_torch.md import enhanced as en19
+    from timemachine_torch.md import minimizer as minimizer19
+    from timemachine_torch.md import smc as smc19
+    from timemachine_torch.md.context import Context
+    from timemachine_torch.md.moves import OptimizedMTMMove
+    from timemachine_torch.md.states import CoordsVelBox
+    from timemachine_torch.potentials import NonbondedAllPairs, NonbondedInteractionGroup, all_pairs_kernel
+
+    t_phase19 = time.perf_counter()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    kT = BOLTZ * DEFAULT_TEMP
+
+    # -- [19 windowed] ---------------------------------------------------------------------------
+    clock = StageClock(sync)
+    strict_before = os.environ.get("TM_STRICT_CHARGES")
+    os.environ["TM_STRICT_CHARGES"] = "1"  # AM1 or fail, as phase 15
+    try:
+        mol = clock.run("embed", lambda: mol_from_smiles("CCO", add_hs=True, name="ethanol"))
+        clock.run("embed", lambda: embed_mol(mol, seed=N19_EMBED_SEED))
+        ff = Forcefield.load_default()
+        clock.run("am1", lambda: compute_or_load_base_charges(mol, mode=ff.q_handle.base_mode))
+        clock.wrap(builders19, "build_water_system", "water box")
+        clock.wrap(minimizer19, "fire_minimize_host", "fire")
+        clock.wrap(ah19, "_initial_state_at", "initial states")
+        clock.wrap(fe19, "sample_with_context", "sampling")
+        clock.wrap(fe19, "generate_pair_bar_ulkns", "u_kln")
+        clock.wrap(fe19, "estimate_free_energy_bar", "bar")
+        md19 = fe19.MDParams(n_frames=N19_FRAMES, n_eq_steps=N19_EQ, steps_per_frame=N19_STEPS_PER_FRAME, seed=N19_SEED)
+        zero_counts()
+        before = form_launches()
+        t0 = time.perf_counter()
+        res19, cfg19 = ah19.run_solvent(mol, ff, None, md19, n_windows=N19_WINDOWS, device=dev)
+        sync()
+        t_run19 = time.perf_counter() - t0
+        counts19, plain19 = read_counts()
+        for form, n in (form_launches() - before).items():
+            clock.forms["setup", form] += n
+    finally:
+        clock.restore()
+        if strict_before is None:
+            os.environ.pop("TM_STRICT_CHARGES")
+        else:
+            os.environ["TM_STRICT_CHARGES"] = strict_before
+    fin19 = res19.final_result
+    states19 = fin19.initial_states
+    n_atoms19, n_host19 = len(states19[0].x0), cfg19.conf.shape[0]
+    sec = clock.sec
+    print(f"[19 time] run_solvent (AHFE, {N19_WINDOWS} windows, {n_atoms19} atoms: {n_host19} water atoms and ethanol's "
+          f"{n_atoms19 - n_host19}) {t_run19:.1f} s: " + ", ".join(f"{k} {sec[k]:.2f} s" for k in (
+              "water box", "fire", "initial states", "sampling", "u_kln", "bar"))
+          + f" ({N19_WINDOWS} _initial_state_at calls); before it embedding {sec['embed']:.2f} s, AM1 {sec['am1']:.2f} s "
+          f"(strict); host clock ({smi})")
+    pair_finite = [bool(np.isfinite(r.dG) and np.isfinite(r.dG_err)) for r in fin19.bar_results]
+    dG19, dG19_err = float(np.sum(fin19.dGs)), float(np.linalg.norm(fin19.dG_errs))
+    print(f"[19 windowed] λ schedule " + " ".join(f"{st.lamb:.4f}" for st in states19) + "; pair dG "
+          + " ".join(f"{r.dG:.3f}" for r in fin19.bar_results) + "; overlaps " + " ".join(f"{r.overlap:.3f}" for r in fin19.bar_results)
+          + f"; ΔG (decoupled -> coupled) {dG19:.4f} +- {dG19_err:.4f} kJ/mol over {len(fin19.bar_results)} pairs "
+          f"(finite {sum(pair_finite)}), {N19_EQ} equilibration steps and {N19_FRAMES} frames of {N19_STEPS_PER_FRAME} a "
+          f"window: not converged; FreeSolv's experimental hydration free energy of ethanol {FREESOLV_ETHANOL_KJ:.2f} kJ/mol "
+          f"(-5.00 kcal/mol; for information); plots {res19.plots} ({smi})")
+    check(len(fin19.bar_results) == N19_WINDOWS - 1 and all(pair_finite), "[19] the windowed leg did not give 7 finite BAR pairs")
+    stages19 = ("water box", "fire", "initial states", "sampling", "u_kln", "bar")
+    print(f"[19 kernels] rowscan and nb_tiles launches by stage and form: {clock.by_stage()}; totals {counts19}; plain "
+          f"sweeps {plain19} ({smi})")
+    check(plain19 == 0, "[19] the windowed leg ran a plain sweep")
+    check(all(n == 0 for (stage, _), n in clock.forms.items() if stage not in stages19), "[19] a kernel launch outside the stages")
+    fire_exact = sum(n for (st, form), n in clock.forms.items() if st == "fire" and form.startswith("nb_tiles") and form.endswith("exact"))
+    check(fire_exact > 0 and clock.launches("fire", "rowscan") == 0 and clock.launches("fire", "nb_tiles") == fire_exact,
+          "[19] the host's FIRE did not run on nb_tiles' exact form alone")
+    sampling = {form: n for (st, form), n in clock.forms.items() if st == "sampling" and n}
+    check(sampling.get(MASKED_F, 0) >= N19_WINDOWS * (N19_EQ + N19_FRAMES * N19_STEPS_PER_FRAME)
+          and all(form.endswith("triangular minimum image w") for form in sampling),
+          "[19] the windows' MD did not run on the masked rowscan form alone")
+    check(clock.launches("u_kln", "rowscan") > 0 and clock.launches("u_kln", "nb_tiles") == 0,
+          "[19] the u_kln did not run on the rowscan kernel alone")
+    masked_row["launches_ahfe"] = sampling.get(MASKED_F, 0) / (N19_WINDOWS * (N19_EQ + N19_FRAMES * N19_STEPS_PER_FRAME))
+    exact_row["launches_ahfe_fire"] = fire_exact
+
+    # the interaction group at λ = 1: exactly 0 in the u_kln and on the card
+    ixn_i = next(i for i, p in enumerate(states19[0].potentials) if isinstance(p, NonbondedInteractionGroup))
+    u_ixn = fin19.bar_results[0].u_kln_by_component[ixn_i]
+    dt19 = states19[0].potentials[0].params.dtype  # float32 on the card
+    x0c = torch.as_tensor(states19[0].x0, device=dev, dtype=dt19)
+    box0c = torch.as_tensor(states19[0].box0, device=dev, dtype=dt19)
+    with torch.no_grad():
+        u_ixn0, f_ixn0 = states19[0].potentials[ixn_i].energy_force(x0c, box0c)
+        u_ixn1 = states19[-1].potentials[ixn_i].energy(x0c, box0c)
+    zero19 = bool(np.all(u_ixn[:, 0] == 0.0) and float(u_ixn0) == 0.0 and not bool(f_ixn0.any()))
+    print(f"[19 ixn] window 0 (λ {states19[0].lamb:.1f}): the interaction group's energy exactly 0 over the pair's "
+          f"{u_ixn[:, 0].size} u_kln entries and on the card at x0 (force 0): {zero19}; at λ {states19[-1].lamb:.1f} "
+          f"{float(u_ixn1):.2f} kJ/mol ({smi})")
+    check(zero19, "[19] the interaction group is not exactly 0 at λ = 1")
+
+    # window 0's force on the card (its host term as get_context configured it, rowscan) against the
+    # same window built on the host CPU in float64, host term rowscan too
+    cpu = torch.device("cpu")
+    afe_cpu = fe19.AbsoluteFreeEnergy(mol, BaseTopology(mol, ff))
+    st_cpu = ah19._initial_state_at(afe_cpu, ff, cfg19, states19[0].x0[:n_host19], DEFAULT_TEMP, states19[0].lamb, md19.seed, cpu)
+    ap_i = next(i for i, p in enumerate(st_cpu.potentials) if isinstance(p, NonbondedAllPairs))
+    x64 = torch.as_tensor(states19[0].x0, dtype=torch.float64)
+    box64 = torch.as_tensor(states19[0].box0, dtype=torch.float64)
+    st_cpu.potentials[ap_i].configure(box64, x64, kernel="rowscan")
+    card_pots = states19[0].potentials
+    check(card_pots[ap_i].kernel == "rowscan", "[19] window 0's host term is not on the rowscan sweep")
+    with torch.no_grad():
+        f_card = [p.energy_force(x0c, box0c)[1].double().cpu() for p in card_pots]
+        f_cpu = [p.energy_force(x64, box64)[1] for p in st_cpu.potentials]
+        ap_norm = float(torch.linalg.vector_norm(NonbondedAllPairs.energy_force(card_pots[ap_i], x0c, box0c)[1]))
+    per_term = " ".join(
+        f"{type(p).__name__} {float(torch.linalg.vector_norm(a - b)) / max(float(torch.linalg.vector_norm(b)), 1e-30):.2e}"
+        for p, a, b in zip(card_pots, f_card, f_cpu))
+    rel19 = float(torch.linalg.vector_norm(sum(f_card) - sum(f_cpu))) / ap_norm
+    print(f"[19 force] window 0, card ({dt19}) vs host CPU (float64, the same build), per term |diff| / |term force|: "
+          f"{per_term}; total |diff| / |all-pairs force| {rel19:.3e} (tol {TOL_FORCE_REL_NORM:g}) ({smi})")
+    check(rel19 <= TOL_FORCE_REL_NORM, "[19] window 0's force on the card disagrees with the host CPU")
+
+    mid19 = len(states19) // 2
+    fresh19 = fe19.get_context(states19[mid19], md19)
+    reused19 = fe19.get_context(states19[0], md19)
+    reused19.multiple_steps(N19_REUSE)
+    reused19.reset_for_state(states19[mid19])
+    for c in (fresh19, reused19):
+        c.multiple_steps(N19_REUSE)
+    same19 = all(np.array_equal(f(fresh19), f(reused19)) for f in (Context.get_x_t, Context.get_v_t, Context.get_box))
+    print(f"[19 reuse] window {mid19}: a fresh Context and one reset from window 0 after {N19_REUSE} steps there, "
+          f"{N19_REUSE} steps each: x, v, box bitwise equal: {same19} ({smi})")
+    check(same19, "[19] a reused Context differs from a fresh one")
+
+    # -- [19 smc] --------------------------------------------------------------------------------
+    smc_clock = StageClock(sync)
+    zero_counts()
+    before = form_launches()
+    system = smc_clock.run("solvent system", lambda: en19.get_solvent_phase_system(mol, ff, 1.0, device=dev))
+    pots, params, masses, coords, box = system
+    solvent_xvbs = smc_clock.run("solvent samples", lambda: en19.generate_solvent_samples(
+        coords, box, masses, pots, params, DEFAULT_TEMP, 1.0, N19_SMC_SEED, N19_SOLVENT_SAMPLES, num_equil_steps=N19_SMC_EQ,
+        md_steps_per_move=N19_STEPS_PER_SAMPLE, device=dev))
+    vacuum = smc_clock.run("ligand samples", lambda: en19.VacuumState(mol, ff, device=dev))
+    ligand_xvs, ligand_lw = smc_clock.run("ligand samples", lambda: en19.generate_log_weighted_samples(
+        mol, DEFAULT_TEMP, vacuum.U_easy, vacuum.U_full, N19_SMC_SEED, steps_per_batch=N19_VAC_STEPS_PER_BATCH,
+        num_batches=N19_VAC_WALKERS * N19_VAC_BATCHES, num_workers=N19_VAC_WALKERS, burn_in_batches=N19_VAC_BURN_IN,
+        device=dev))
+
+    def anneal(tag):
+        """The endpoint machinery from the samples above, then SMC with a RandomState(seed) from decoupled
+        (λ = 1, where the walkers are drawn) to coupled: the driver's s = 1 - λ runs 0 -> 1 (ROADMAP R10)."""
+        rp, mover, endstate = smc_clock.run(f"endstate {tag}", lambda: ah19._endpoint_machinery(
+            mol, ff, system, solvent_xvbs, ligand_xvs, ligand_lw, N19_ENDSTATE, DEFAULT_TEMP, 1.0, N19_SMC_STEPS,
+            N19_SMC_SEED, np.random.RandomState(N19_SMC_SEED), dev))
+        walkers, lambdas, propagate, log_prob, resample = ah19._smc_ingredients(
+            rp, mover, endstate, N19_SMC_WALKERS, N19_SMC_WINDOWS, N19_RESAMPLE, N19_SMC_SEED)
+        find_next = partial(smc19.fixed_find_next_lambda, log_prob=lambda xs, s, *_: log_prob(xs, 1.0 - s),
+                            lambdas=1.0 - np.asarray(lambdas)[::-1])
+        result = smc_clock.run(f"smc {tag}", lambda: smc19.sequential_monte_carlo(
+            walkers, lambda xs, s: propagate(xs, 1.0 - s), lambda xs, s: log_prob(xs, 1.0 - s), resample, find_next))
+        return result, rp, mover
+
+    smc_a, rp19, mover19 = anneal("a")
+    smc_b, _, _ = anneal("b")
+    counts_smc, plain_smc = read_counts()
+    for form, n in (form_launches() - before).items():
+        smc_clock.forms["setup", form] += n
+    lw_traj, inc_traj = smc_a["log_weights_traj"], smc_a["incremental_log_weights_traj"]
+    # the ESS each λ's reweighting leaves, before the resampler flattens the weights it stores
+    ess = [smc19.effective_sample_size(lw + inc) for lw, inc in zip(lw_traj, inc_traj)]
+    final = lw_traj[-1]
+    weights = np.exp(final - logsumexp(final))
+    f_smc = -(logsumexp(final) - np.log(len(final)))
+    finite_smc = bool(np.isfinite(lw_traj).all() and np.isfinite(smc_a["incremental_log_weights_traj"]).all())
+    rerun = all(np.array_equal(smc_a[k], smc_b[k]) for k in
+                ("log_weights_traj", "ancestry_traj", "incremental_log_weights_traj", "lambdas_traj")) and all(
+        np.array_equal(a.coords, b.coords) and np.array_equal(a.box, b.box) for a, b in zip(smc_a["traj"][-1], smc_b["traj"][-1]))
+    n_smc_atoms = len(coords)
+    sec = smc_clock.sec
+    print(f"[19 smc] the solvent-phase system at λ 1: {n_smc_atoms} atoms ({n_smc_atoms - mol.num_atoms} water atoms), box "
+          f"{box[0, 0]:.2f} nm; stages " + ", ".join(f"{k} {v:.2f} s" for k, v in sec.items()) + f"; {len(solvent_xvbs)} "
+          f"solvent states ({N19_SMC_EQ} equilibration steps at 1e-4 ps, {N19_SOLVENT_SAMPLES} samples of "
+          f"{N19_STEPS_PER_SAMPLE}), {len(ligand_xvs)} weighted vacuum conformers (ESS "
+          f"{smc19.effective_sample_size(ligand_lw):.1f}), {N19_ENDSTATE} endstate samples; host clock ({smi})")
+    print(f"[19 smc] {N19_SMC_WALKERS} walkers, λ " + " ".join(f"{1.0 - x:.4f}" for x in smc_a["lambdas_traj"])
+          + f" ({N19_SMC_STEPS} NPT steps a λ): ESS after each reweighting, before resampling (below "
+          f"{N19_RESAMPLE * N19_SMC_WALKERS:g}: resampled) " + " ".join(f"{e:.2f}" for e in ess)
+          + f"; ΔG (decoupled -> coupled) {f_smc * kT:.4f} kJ/mol ({f_smc:.4f} kT) from the final log weights; "
+          f"every log weight finite {finite_smc}; normalized weights sum to 1 - {1.0 - weights.sum():.3e}; a rerun from "
+          f"seed {N19_SMC_SEED} bitwise equal {rerun} ({smi})")
+    check(finite_smc and abs(weights.sum() - 1.0) <= TOL_WEIGHT_SUM, "[19] an SMC log weight is not finite")
+    check(rerun, "[19] an SMC rerun from the same seed differs")
+    print(f"[19 smc kernels] rowscan and nb_tiles launches by stage and form: {smc_clock.by_stage()}; totals {counts_smc}; "
+          f"plain sweeps {plain_smc}; the mover's host term {mover19.bps[ap_i].kernel!r}, all_pairs_kernel('fresh', "
+          f"{n_smc_atoms}) {all_pairs_kernel('fresh', n_smc_atoms, dev)!r} ({smi})")
+    check(plain_smc == 0 and counts_smc["rowscan_sweep"] == 0 and counts_smc["rowscan_sweep_batched"] == 0,
+          "[19] the SMC path launched a plain sweep or the rowscan kernel")
+    # the all-pairs form at each site (potentials.all_pairs_kernel): the FIRE's "host_du_dx", the moves', the
+    # equilibration's and the energies' "fresh": nb_tiles' exact form at 4,096 atoms and up on the card, else dense
+    fresh19 = all_pairs_kernel("fresh", n_smc_atoms, dev)
+    check(mover19.bps[ap_i].kernel == fresh19, "[19] the move's host term is not a fresh Context's form")
+    for stage in ("solvent system", "solvent samples", "smc a", "smc b"):
+        n_nb = smc_clock.launches(stage, "nb_tiles")
+        check(n_nb > 0 if fresh19 == "v1" else n_nb == 0, f"[19] the {stage} stage did not take the {fresh19} form")
+    check(all(n == 0 for (st, _), n in smc_clock.forms.items() if st.startswith(("ligand", "endstate"))),
+          "[19] the vacuum sampler or the endpoint machinery launched a sweep")
+    exact_row["launches_smc"] = smc_clock.launches("smc a", "nb_tiles")
+
+    # -- [19 mtm] --------------------------------------------------------------------------------
+    vac_x = ligand_xvs[:, 0]
+    xvb = solvent_xvbs[-1]
+    n_lig = mol.num_atoms
+    proposals = en19.aligned_batch_propose(xvb, N19_MTM_K, np.random.default_rng(N19_SMC_SEED), vac_x, ligand_lw)
+    chosen = en19.jax_sample_from_log_weights(vac_x, ligand_lw, N19_MTM_K, np.random.default_rng(N19_SMC_SEED))
+
+    def internal(x):
+        x = np.asarray(x, dtype=np.float64)
+        return np.linalg.norm(x[:, None] - x[None, :], axis=-1)
+
+    geometry = max(float(np.abs(internal(p.coords[-n_lig:]) - internal(c)).max()) for p, c in zip(proposals, chosen))
+    solvent_kept = all(np.array_equal(p.coords[:-n_lig], xvb.coords[:-n_lig]) for p in proposals)
+    move = OptimizedMTMMove(
+        N19_MTM_K, lambda x, k, rng: en19.jax_aligned_batch_propose_coords(x, k, rng, vac_x, ligand_lw),
+        lambda states, b: -np.array([rp19(CoordsVelBox(s, None, b), 1.0) for s in states]), seed=N19_SMC_SEED)
+    zero_counts()
+    t0 = time.perf_counter()
+    _, p_accept = move.acceptance_probability(xvb.coords, xvb.box, move.rng)
+    sync()
+    t_mtm = time.perf_counter() - t0
+    counts_mtm, plain_mtm = read_counts()
+    print(f"[19 mtm] OptimizedMTMMove, K {N19_MTM_K} aligned vacuum proposals on the last solvent sample, log weights "
+          f"-u(x, λ 1) / kT: acceptance probability {p_accept:.6g} ({t_mtm:.2f} s host clock); launches {counts_mtm}, plain "
+          f"calls {plain_mtm}; the ligand's internal distances after alignment vs the vacuum conformer's: largest |diff| "
+          f"{geometry:.3e} nm (tol {TOL_ALIGNED_GEOMETRY:g}), the solvent bitwise kept {solvent_kept} ({smi})")
+    check(np.isfinite(p_accept) and 0.0 <= p_accept <= 1.0, "[19] the MTM acceptance probability is not a probability")
+    check(geometry <= TOL_ALIGNED_GEOMETRY and solvent_kept, "[19] an aligned proposal changed the ligand's geometry")
+    check(plain_mtm == 0 and counts_mtm["nb_tiles"] == (2 * N19_MTM_K if fresh19 == "v1" else 0),
+          "[19] the MTM's log weights did not take one nb_tiles launch each")
+    exact_row["launches_mtm"] = counts_mtm["nb_tiles"]
+    print(f"[19 time] phase 19 took {time.perf_counter() - t_phase19:.1f} s, host clock ({smi})")
+    return dG19, f_smc * kT
 
 
 def main() -> int:
@@ -2646,6 +2950,9 @@ def main() -> int:
     # -- 18. REST and local MD ----------------------------------------------------------------
     phase18(dev, smi, zero_counts, read_counts, masked_row, batched_row, states15, states13, float(np.sum(result14.dGs)),
             inputs16)
+
+    # -- 19. the absolute hydration leg, windowed and by SMC ---------------------------------------
+    phase19(dev, smi, zero_counts, read_counts, masked_row, rows17[0])
 
     print(json.dumps({"kernels": [kernel_row, masked_row, batched_row, nb_row, gather_row, quad_row, dot_row, *probe_rows,
                                   *rows17]}))

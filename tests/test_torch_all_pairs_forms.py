@@ -181,7 +181,10 @@ SIZES = (1_700, 6_404)
 # from 4,096 atoms; "host_du_dx": minimizer.py:123-130, set_impl("tiled")
 # from 4,096 atoms on every backend; "minimize": minimizer.py:287, the fresh
 # term's impl="dense" everywhere, which the port serves on the card from
-# 4,096 atoms by "v1" (the same function in O(N)).
+# 4,096 atoms by "v1" (the same function in O(N)); "fresh": moves.py:148-161,
+# enhanced.py:271-276 and absolute_hydration.py:104-108, a Context or an
+# energy over potentials no configure_pallas touched, impl="dense" everywhere,
+# served as "minimize" is.
 RULE = {
     ("context", "cpu", 1_700): ("dense", "dense"),
     ("context", "cpu", 6_404): ("dense", "dense"),
@@ -195,6 +198,10 @@ RULE = {
     ("minimize", "cpu", 6_404): ("dense", "dense"),
     ("minimize", "cuda", 1_700): ("dense", "dense"),
     ("minimize", "cuda", 6_404): ("dense", "v1"),
+    ("fresh", "cpu", 1_700): ("dense", "dense"),
+    ("fresh", "cpu", 6_404): ("dense", "dense"),
+    ("fresh", "cuda", 1_700): ("dense", "dense"),
+    ("fresh", "cuda", 6_404): ("dense", "v1"),
 }
 
 

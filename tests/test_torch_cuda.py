@@ -897,3 +897,36 @@ def test_local_segment_on_the_card_matches_the_cpu(cuda):
         moved = np.any(x != x0, axis=1)
         assert moved.any() and not moved[~free_h].any()
     assert np.abs(x_c - x_h).max() <= 1e-4 and np.abs(v_c - v_h).max() <= 1e-2
+
+
+def test_ahfe_windowed_leg_runs_on_the_card(cuda, monkeypatch):
+    """fe/absolute_hydration.py run_solvent on the card, as chip_smoke's
+    phase 19 at a few steps: ethanol at the RBFE cache's conformer, 2
+    windows (λ 1 and 0), the host's FIRE cut to 30 steps a window, 20
+    equilibration steps and 2 frames of 10 a window. FIRE on nb_tiles'
+    exact form and the windows' MD on the masked rowscan sweep, no plain
+    sweep; a finite BAR pair; the interaction group exactly 0 at λ = 1."""
+    from timemachine_torch.chem import mol_from_smiles
+    from timemachine_torch.fe import absolute_hydration as ah
+    from timemachine_torch.fe.free_energy import MDParams
+    from timemachine_torch.ff import Forcefield
+    from timemachine_torch.md import minimizer
+    from timemachine_torch.potentials import NonbondedInteractionGroup
+    from timemachine_torch.testsystems import rbfe_solvent
+
+    mol = mol_from_smiles("CCO", add_hs=True, name="ethanol")
+    mol.set_conf(np.asarray(rbfe_solvent.metadata(rbfe_solvent.load_arrays())["conf_a"]))
+    fire = minimizer.fire_minimize_host
+    monkeypatch.setattr(minimizer, "fire_minimize_host", lambda *a, **k: fire(*a, **{**k, "n_steps_per_window": 30}))
+    before = (nbk.nb_tiles.launches, rs.rowscan_sweep.launches, nbk.nb_tiles_plain.calls, rs.rowscan_sweep_plain.calls)
+    res, cfg = ah.run_solvent(mol, Forcefield.load_default(), None, MDParams(n_frames=2, n_eq_steps=20, steps_per_frame=10,
+                                                                             seed=2023), n_windows=2)
+    torch.cuda.synchronize()
+    nb, row, nb_plain, row_plain = (a - b for a, b in zip(
+        (nbk.nb_tiles.launches, rs.rowscan_sweep.launches, nbk.nb_tiles_plain.calls, rs.rowscan_sweep_plain.calls), before))
+    fin = res.final_result
+    assert [s.lamb for s in fin.initial_states] == [1.0, 0.0]
+    assert nb >= 60 and row >= 2 * 40 and nb_plain == 0 and row_plain == 0
+    assert len(fin.bar_results) == 1 and np.isfinite(fin.dGs).all() and np.isfinite(fin.dG_errs).all()
+    ixn = next(i for i, p in enumerate(fin.initial_states[0].potentials) if isinstance(p, NonbondedInteractionGroup))
+    assert np.all(fin.bar_results[0].u_kln_by_component[ixn][:, 0] == 0.0)

@@ -387,7 +387,7 @@ def test_refusals(small):
     assert tfe.HREXParams(rest_params=tfe.RESTParams(2.0)).rest_params.max_temperature_scale == 2.0
     md = tfe.MDParams(n_frames=1, n_eq_steps=0, steps_per_frame=1, seed=1, hrex_params=tfe.HREXParams())
     assert tfe.MDParams(**{**md.__dict__, "local_md_params": tfe.LocalMDParams(1)}).local_md_params.local_steps == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="md/exchange/"):
         tfe.run_sims_hrex(small["port32"], tfe.MDParams(**{**md.__dict__, "water_sampling_params": object()}))
 
 

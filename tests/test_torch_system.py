@@ -169,7 +169,18 @@ def _default_device_constructions():
         states = rbfe_solvent.build_rbfe_solvent(windows=[5], rest_params=RESTParams(3.0))
         return [b for p in states[0].potentials for b in p.buffers()]
 
+    def vacuum_state():
+        from timemachine_torch.chem import mol_from_smiles
+        from timemachine_torch.ff import Forcefield
+        from timemachine_torch.md.enhanced import VacuumState
+
+        mol = mol_from_smiles("CCO", add_hs=True)
+        mol.set_conf(rbfe_solvent.metadata(rbfe_solvent.load_arrays())["conf_a"])
+        state = VacuumState(mol, Forcefield.load_default())
+        return [state.U_full(mol.get_conf()), *(b for m in state._modules for b in m.buffers())]
+
     return {
+        "VacuumState": vacuum_state,
         "multiple_steps_local": local_md,
         "build_rbfe_solvent(rest_params=)": build_rest,
         "setup_dhfr": lambda: [b for p in setup_dhfr().host_system.get_U_fns() for b in p.buffers()],
@@ -194,7 +205,7 @@ def _default_device_constructions():
     "entry",
     [
         "setup_dhfr", "Context", "SegmentSum", "MonteCarloBarostat", "HostGuestSystem.from_arrays", "load_rbfe_solvent",
-        "get_context", "build_rbfe_solvent", "multiple_steps_local", "build_rbfe_solvent(rest_params=)",
+        "get_context", "build_rbfe_solvent", "multiple_steps_local", "build_rbfe_solvent(rest_params=)", "VacuumState",
     ],
 )
 def test_default_device_is_the_card(entry):

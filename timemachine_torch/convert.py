@@ -20,6 +20,7 @@ from timemachine_torch.fe.free_energy import InitialState
 from timemachine_torch.fe.system import HostConfig, HostGuestSystem, HostSystem
 from timemachine_torch.integrators import LangevinIntegrator
 from timemachine_torch.md.barostat import MonteCarloBarostat
+from timemachine_torch import potentials as modules
 
 
 def host_system_arrays(hs) -> dict:
@@ -97,6 +98,33 @@ def host_guest_arrays(obj) -> dict:
         else:
             raise ValueError(f"host_guest_arrays: no port of {name}")
     return a
+
+
+def modules_from_bound_potentials(bps, num_atoms: int, device=None, dtype=torch.float64) -> list:
+    """Bound potentials (the port's builders' terms, or the JAX package's),
+    each as the port's module over num_atoms atoms on `device` (None: the
+    card), in the order given: the AHFE windows' flat list (bond, angle,
+    proper, improper, the host term, the interaction group, the pair list),
+    which no system class orders."""
+    out = []
+    for bp in bps:
+        pot, params, name = bp.potential, np.asarray(bp.params), type(bp.potential).__name__
+        kw = dict(device=device, dtype=dtype)
+        if name in ("HarmonicBond", "HarmonicAngle", "PeriodicTorsion", "ChiralAtomRestraint"):
+            out.append(getattr(modules, name)(np.asarray(pot.idxs), params, num_atoms, **kw))
+        elif name == "NonbondedPairListPrecomputed":
+            out.append(modules.NonbondedPairListPrecomputed(np.asarray(pot.idxs), params, pot.beta, pot.cutoff, num_atoms, **kw))
+        elif name == "Nonbonded":
+            atom_idxs = None if pot.atom_idxs is None else np.asarray(pot.atom_idxs)
+            out.append(modules.Nonbonded(int(pot.num_atoms), np.asarray(pot.exclusion_idxs), np.asarray(pot.scale_factors),
+                                         pot.beta, pot.cutoff, params, atom_idxs=atom_idxs, **kw))
+        elif name == "NonbondedInteractionGroup":
+            cols = None if pot.col_atom_idxs is None else np.asarray(pot.col_atom_idxs)
+            out.append(modules.NonbondedInteractionGroup(int(pot.num_atoms), np.asarray(pot.row_atom_idxs), pot.beta,
+                                                         pot.cutoff, params, col_atom_idxs=cols, **kw))
+        else:
+            raise ValueError(f"modules_from_bound_potentials: no port of {name}")
+    return out
 
 
 def initial_state_from_jax(state, device=None, dtype=torch.float64) -> InitialState:

@@ -7,7 +7,9 @@ With MDParams.local_md_params every frame ends in a segment of local MD
 (Context.multiple_steps_local around the ligand), and run_sims_hrex runs
 the replicas one after another in one Context, as the JAX package's
 time-multiplexed driver does; REST reaches the drivers through the states'
-parameters (fe/rest/). Water sampling is not ported (ROADMAP queue 1).
+parameters (fe/rest/). Water sampling waits on md/exchange/. BaseFreeEnergy
+and AbsoluteFreeEnergy build the absolute hydration leg's edges
+(fe/absolute_hydration.py).
 
 An InitialState holds the port's potential modules on their device. Frames
 come back from the card as numpy and stay in memory (the JAX package's
@@ -267,6 +269,78 @@ def trajectories_by_replica_to_by_state(trajectory_by_iter_by_replica: np.ndarra
     return np.take_along_axis(trajectory_by_iter_by_replica, replica_idx_by_iter_by_state[:, :, None, None], axis=0)
 
 
+class BaseFreeEnergy:
+    """(JAX free_energy.py:418-437)"""
+
+    @staticmethod
+    def _get_system_params_and_potentials(ff_params, topology, lamb: float):
+        params_potential_pairs = [
+            topology.parameterize_harmonic_bond(ff_params.hb_params),
+            topology.parameterize_harmonic_angle(ff_params.ha_params),
+            topology.parameterize_proper_torsion(ff_params.pt_params),
+            topology.parameterize_improper_torsion(ff_params.it_params),
+            topology.parameterize_nonbonded(
+                ff_params.q_params, ff_params.q_params_intra, ff_params.lj_params, ff_params.lj_params_intra, lamb
+            ),
+        ]
+        params, potentials = zip(*params_potential_pairs)
+        return params, potentials
+
+
+class AbsoluteFreeEnergy(BaseFreeEnergy):
+    """Absolute free energy of a molecule by 4D decoupling (JAX
+    free_energy.py:440-559). The edges are the builders' terms
+    (fe/terms.py), which convert.modules_from_bound_potentials places on a
+    device."""
+
+    def __init__(self, mol, top):
+        self.mol = mol
+        self.top = top
+
+    def prepare_host_edge(self, ff, host_config, lamb: float):
+        """(potentials, params, combined masses) of the host with the
+        molecule appended at λ: bond, angle, proper, improper, then
+        HostGuestTopology's nonbonded SummedPotential flattened into the
+        host's all-pairs term under the atom subset, the molecule's
+        interaction group (w = λ cutoff) and its intramolecular pair list."""
+        from timemachine_torch.fe.terms import SummedPotential
+        from timemachine_torch.fe.topology import HostGuestTopology
+        from timemachine_torch.fe.utils import get_mol_masses
+
+        hgt = HostGuestTopology(
+            host_config.host_system.get_U_fns(), self.top, host_config.num_water_atoms, ff, host_config.host_topology
+        )
+        final_params, final_potentials = [], []
+        for params, pot in zip(*self._get_system_params_and_potentials(ff.get_params(), hgt, lamb)):
+            if isinstance(pot, SummedPotential):
+                for partial_params, sub_pot in zip(pot.params_init, pot.potentials):
+                    assert not isinstance(sub_pot, SummedPotential), "nested SummedPotential"
+                    final_params.append(partial_params)
+                    final_potentials.append(sub_pot)
+            else:
+                final_params.append(params)
+                final_potentials.append(pot)
+        combined_masses = self._combine(get_mol_masses(self.mol), np.array(host_config.masses))
+        return tuple(final_potentials), tuple(final_params), combined_masses
+
+    def prepare_vacuum_edge(self, ff):
+        """(potentials, params, masses) of the molecule alone at λ = 0."""
+        from timemachine_torch.fe.utils import get_mol_masses
+
+        final_params, final_potentials = self._get_system_params_and_potentials(ff.get_params(), self.top, 0.0)
+        return final_potentials, final_params, get_mol_masses(self.mol)
+
+    def prepare_combined_coords(self, host_coords=None):
+        from timemachine_torch.fe.utils import get_romol_conf
+
+        return self._combine(get_romol_conf(self.mol), host_coords)
+
+    def _combine(self, ligand_values, host_values=None):
+        if host_values is None:
+            return ligand_values
+        return np.concatenate([host_values, ligand_values])
+
+
 def get_potential_by_type(potentials: Sequence, pot_type):
     for pot in potentials:
         if type(pot) is pot_type:
@@ -350,7 +424,7 @@ def get_context(initial_state: InitialState, md_params: Optional[MDParams] = Non
     potentials': a state loaded on the card (the loaders' default) runs
     there."""
     if md_params is not None and md_params.water_sampling_params is not None:
-        raise NotImplementedError("water sampling is not ported yet (ROADMAP queue 1 item 8)")
+        raise NotImplementedError("water sampling waits on md/exchange/ (the BD and TIBD water movers)")
     configure_all_pairs(initial_state)
     params = initial_state.potentials[0].params
     movers = [initial_state.barostat] if initial_state.barostat is not None else []

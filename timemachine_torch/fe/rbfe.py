@@ -17,8 +17,8 @@ integrator's from every potential's f64 parameters (ROADMAP P18, P20).
 With REST parameters the edge's topology is fe/rest/'s SingleTopologyREST,
 whose intermediate states run the hot region at a raised effective
 temperature (DEFAULT_REST_PARAMS). Differences: the estimators return no
-plots (plots=None, hrex_plots=None: fe/plots.py waits on ROADMAP queue 1
-item 6); rebalance_lambda_schedule raises (ROADMAP R8), and run_complex
+plots (plots=None, hrex_plots=None: fe/plots.py is not ported, ROADMAP
+P21); rebalance_lambda_schedule raises (ROADMAP R8), and run_complex
 waits on the protein builders.
 """
 
@@ -204,14 +204,15 @@ def _default_minimization_config():
 
 
 @contextmanager
-def _postmortem_on_failure(tag: str, payload):
-    """Pickle enough context to replay a failed estimate, then re-raise the
-    failure (whatever becomes of the pickle)."""
+def _postmortem_on_failure(tag: str, payload, kind: str = "rbfe"):
+    """Pickle enough context to replay a failed estimate to
+    failed_<kind>_result_<tag>.pkl, then re-raise the failure (whatever
+    becomes of the pickle)."""
     try:
         yield
     except Exception as err:
         try:
-            with open(f"failed_rbfe_result_{tag}.pkl", "wb") as fh:
+            with open(f"failed_{kind}_result_{tag}.pkl", "wb") as fh:
                 pickle.dump((*payload, err), fh)
         except Exception as dump_err:  # the failure, not the pickle, is what the caller needs
             warnings.warn(f"could not pickle the failed estimate's context: {dump_err}")
@@ -706,5 +707,5 @@ def run_solvent(
 
 
 def run_complex(*args, **kwargs):
-    """The complex leg: waits on the protein builders (ROADMAP queue 1 item 2b)."""
-    raise NotImplementedError("run_complex waits on the protein and PDB builders (ROADMAP queue 1 item 2b)")
+    """The complex leg: waits on md/builders.py's protein builders."""
+    raise NotImplementedError("run_complex waits on md/builders.py's build_protein_system (chem/pdb.py, ff/amber_xml.py)")

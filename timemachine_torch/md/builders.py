@@ -241,6 +241,6 @@ def build_water_system(
 
 
 def build_protein_system(*args, **kwargs):
-    """Not ported yet: the protein builders come with the coordinate builders
-    (ROADMAP queue 1 item 2b)."""
-    raise NotImplementedError("build_protein_system is not ported yet (ROADMAP queue 1 item 2b)")
+    """Not ported yet: waits on chem/pdb.py and the force field's protein
+    templates (ff/amber_xml.py)."""
+    raise NotImplementedError("build_protein_system waits on chem/pdb.py and ff/amber_xml.py")

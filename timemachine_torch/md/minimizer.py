@@ -26,8 +26,7 @@ away what BFGS's late steps move (ROADMAP P16, P22).
 Host-side work stays on the host, as in the JAX package: scipy's BFGS loop,
 check_force_norm and the bookkeeping. The pre-equilibration's Langevin noise
 and barostat draw from the Context's torch.Generator streams, seeded with
-JAX's seeds (ROADMAP P20). equilibrate_host_barker waits on md/barker.py
-(ROADMAP queue 1 item 6).
+JAX's seeds (ROADMAP P20). equilibrate_host_barker waits on md/barker.py.
 """
 
 from __future__ import annotations
@@ -302,7 +301,7 @@ def pre_equilibrate_host(
 
 def equilibrate_host_barker(*args, **kwargs):
     """Barker-proposal equilibration: waits on md/barker.py."""
-    raise NotImplementedError("equilibrate_host_barker waits on md/barker.py (ROADMAP queue 1 item 6)")
+    raise NotImplementedError("equilibrate_host_barker waits on md/barker.py (the Barker proposal mover)")
 
 
 def get_val_and_grad_fn(modules: Sequence, box) -> Callable:

@@ -37,7 +37,7 @@ DP_CB = 2  # column super-block width of the block-tile lists, as the JAX packag
 KERNELS = ("rowscan", "gather", "quad", "dot", "v1", "dense")
 # the JAX package leaves the all-pairs term dense below this many atoms at every call site
 DENSE_LIMIT = 4096
-SITES = ("context", "host_du_dx", "minimize")
+SITES = ("context", "host_du_dx", "minimize", "fresh")
 
 
 def all_pairs_kernel(site: str, num_atoms: int, device) -> str:
@@ -57,10 +57,18 @@ def all_pairs_kernel(site: str, num_atoms: int, device) -> str:
                     get_val_and_grad_fn reads it (minimizer.py:287: JAX's
                     fresh impl="dense"): "dense" on the CPU or below
                     DENSE_LIMIT atoms, else "v1", the same function in O(N)
+      "fresh"       a Context or an energy over potentials that no
+                    configure_pallas touched: NVTMove's and NPTMove's Context
+                    (moves.py:148-161), equilibrate_solvent_phase's
+                    (enhanced.py:271-276), SMC's reduced_potential_fxn
+                    (absolute_hydration.py:104-108) and the MTM's batched log
+                    weights built on it: JAX's impl="dense" on every backend,
+                    so the rule of "minimize"
 
     A rule by device and size, not a fallback: on the card every exact
-    evaluation at DENSE_LIMIT atoms and up launches nb_tiles, and every MD
-    step the rowscan sweep."""
+    evaluation at DENSE_LIMIT atoms and up launches nb_tiles, every MD step
+    of get_context's Context the rowscan sweep, and every MD step of a
+    "fresh" Context (a move's) nb_tiles' exact form."""
     if site not in SITES:
         raise ValueError(f"site must be one of {SITES}, got {site!r}")
     small = num_atoms < DENSE_LIMIT

@@ -156,14 +156,33 @@ at over 4,096 atoms), the vacuum walkers, the endstate samples and
 sequential_monte_carlo over a fixed 6-λ schedule, decoupled to coupled (the
 ESS at each λ, the estimate, every log weight finite, a rerun bitwise); one
 OptimizedMTMMove of K aligned vacuum proposals (its acceptance probability,
-the ligand's geometry kept through the alignment).
+the ligand's geometry kept through the alignment). Water sampling [20]: the
+probe-in-water ladder of the JAX package's examples/water_sampling_hrex.py
+at a 4.0 nm box (timemachine_torch/testsystems/water_sampling.py: the
+adamantane cage embedded and solvated, 6,419 atoms, decoupled over 6 AHFE
+windows) with the TIBD water sampler (md/exchange/) in HREX: one segment of a
+ReplicaExchangeRunner's segment with its firing traced (the carried
+weights against a float64 rebuild; the firing replayed through its records
+of draws and accepts; the waters rigid, the probe and box
+untouched), a firing after a water is planted on another in every replica
+(each replica's force through the lists rebuilt after it against the host
+CPU's float64 force, the lists from before it as the control that must
+miss), a firing captured in a CUDA graph at K = 2 and 6 (equal launches), a
+bitwise rerun, an HREX step with and without the sampler; run_sims_hrex at
+a cut depth (one batched F launch a step, a list rebuild after every firing,
+every firing's carried weights against a float64 rebuild, the
+WaterSamplingDiagnostics' counts, acceptance and occupancy by window, ΔG);
+one window by get_context + sample_with_context (its Context's lists after
+a firing a fresh build's, bitwise); the time-multiplexed HREX with local MD
+and the sampler (each segment's state's sampler parameters, the counts).
 Every path runs with all launch and plain-call counts set to
 0 just before it and read just after. Then a JSON line on the kernels
 (time; launches per NPT step of the path named in `path`, per Adam step of
 the training path where the kernel has one, per replica-step of HREX for
 the batched form (launches_rest_hrex: of REST's HREX), per local step for the
 masked form (launches_local_md; launches_ahfe: per step of the AHFE
-windows), per run of phase 12 for the probes; nb_tiles' exact masked row
+windows), per replica-step of the water-sampling HREX for the batched form
+(launches_water_hrex), per run of phase 12 for the probes; nb_tiles' exact masked row
 also launches_ahfe_fire, launches_smc, launches_mtm; bound;
 plain time), the card's name and power limit from
 nvidia-smi, and as the last line {"ok": true, "device": {...}}.
@@ -186,19 +205,20 @@ from functools import partial
 TEMP, DT, FRICTION, PRESSURE, BAROSTAT_INTERVAL = 300.0, 2.5e-3, 1.0, 1.013, 25
 N_FIRE, N_STEPS, N_PROFILE, N_DET = 400, 1000, 50, 100
 N_FRAMES, FRAME_INTERVAL, N_ADAM, ADAM_LR, S_START = 8, 100, 5, 2e-3, 1.01
-N_ALT = 500
+N_ALT = 200  # 500 until phase 20 came
 # phase 13, the solvent RBFE leg: depth cut from the JAX package's
 # DEFAULT_MD_PARAMS (fe/rbfe.py: 10,000 equilibration steps, 1,000 frames of
 # 400 steps) to fit the script's time; the 12 windows and 6,404 atoms are not cut
 # (cut to 250 and 10 since phase 16 drives the leg end to end, to 100 and 10 frames of 30 since
-# phase 17 runs too)
-N13_EQ, N13_FRAMES, N13_STEPS_PER_FRAME, N13_TIMED, N13_REUSE = 100, 10, 30, 200, 60
+# phase 17 runs too, to 3 frames since phase 20 runs too)
+N13_EQ, N13_FRAMES, N13_STEPS_PER_FRAME, N13_TIMED, N13_REUSE = 100, 3, 30, 200, 60
 # phase 14, HREX over the same 12 windows: DEFAULT_HREX_PARAMS (fe/rbfe.py:
 # max_delta_states 4, K^3 swap attempts an iteration) with its depth cut as
 # phase 13's (10,000 equilibration steps, 1,000 frames of 400 steps in the
 # JAX package); the windows, atoms and replicas are not cut
-# (cut to 200 and 10 iterations of 50 from 500 and 20 when phase 18 came)
-N14_EQ, N14_FRAMES, N14_STEPS_PER_FRAME, N14_MAX_DELTA, N14_TIMED = 200, 10, 50, 4, 40
+# (cut to 200 and 10 iterations of 50 from 500 and 20 when phase 18 came, to 100 and 4 iterations
+# when phase 20 came)
+N14_EQ, N14_FRAMES, N14_STEPS_PER_FRAME, N14_MAX_DELTA, N14_TIMED = 100, 4, 50, 4, 40
 # phase 15, the state builder: the window whose force and run are held, the
 # run's steps; the built parameters against the cache's relative to each
 # column's largest |value|, and the force on phase 13's all-pairs norm. The
@@ -215,44 +235,68 @@ N15_WINDOW, N15_STEPS = 6, 200
 # 48, and DEFAULT_HREX_PARAMS' depth (10,000 equilibration steps, 1,000
 # frames of 400 steps, 100 frames a bisection state) cut to 100, 10 of 25
 # and 6 (200, 20 of 50 and 10 until phase 18 came, 100, 10 of 50 and 6 until
-# phase 19 came); the anchors'
+# phase 19 came), then to 6 frames and 2 bisection frames when phase 20 came; the anchors'
 # displacements held at min_cutoff 0.7 nm (JAX's
 # estimators' default) and the embedded conformers to TOL_EMBED of the cache's
 N16_EMBED_SEED, N16_WINDOWS, N16_MIN_CUTOFF, TOL_EMBED = 7, 12, 0.7, 1e-10
-N16_EQ, N16_FRAMES, N16_STEPS_PER_FRAME, N16_FRAMES_BISECTION = 100, 10, 25, 6
+N16_EQ, N16_FRAMES, N16_STEPS_PER_FRAME, N16_FRAMES_BISECTION = 100, 6, 25, 2
 # phase 18, REST and local MD: REST at DEFAULT_REST_PARAMS' scale (fe/rbfe.py:
 # max_temperature_scale 3, exponential), its HREX over the 12 windows cut as
-# phase 14's (100 equilibration steps, 10 iterations of 50); local MD on
+# phase 14's (100 equilibration steps, 10 iterations of 50; 4 since phase 20); local MD on
 # window N18_WINDOW, N18_LOCAL steps a segment at LocalMDParams' default k
 # and a 1.0 nm radius, an explicit selection of the N18_SELECTION atoms
 # nearest a ligand atom; run_solvent with REST and LocalMDParams(local_steps=25)
 # at 4 windows, 100 equilibration steps, 5 bisection frames and 10 HREX
-# iterations of 50 steps. REST's scaled entries against the plain windows
+# iterations of 50 steps (3 and 3 since phase 20). REST's scaled entries against the plain windows
 # times the scale to TOL_REST_REL (one float64 product each: measured 0 on
 # the CPU)
-N18_MAX_TEMPERATURE_SCALE, N18_EQ, N18_FRAMES, N18_STEPS_PER_FRAME = 3.0, 100, 10, 50
+N18_MAX_TEMPERATURE_SCALE, N18_EQ, N18_FRAMES, N18_STEPS_PER_FRAME = 3.0, 100, 4, 50
 N18_WINDOW, N18_LOCAL, N18_LOCAL_K, N18_LOCAL_RADIUS, N18_LOCAL_SEED, N18_SELECTION = 6, 50, 1_000.0, 1.0, 2023, 30
-N18_RS_WINDOWS, N18_RS_EQ, N18_RS_FRAMES_BISECTION, N18_RS_FRAMES, N18_RS_STEPS_PER_FRAME, N18_RS_LOCAL_STEPS = 4, 100, 5, 10, 50, 25
+N18_RS_WINDOWS, N18_RS_EQ, N18_RS_FRAMES_BISECTION, N18_RS_FRAMES, N18_RS_STEPS_PER_FRAME, N18_RS_LOCAL_STEPS = 4, 100, 3, 3, 50, 25
 TOL_REST_REL = 1e-12
 # phase 19, the absolute hydration leg of ethanol from SMILES (embedded with seed 7, AM1 in strict
 # mode). Windowed: run_solvent's 4.0 + 0.1 nm box at N19_WINDOWS windows (n_windows cut from 16),
-# DEFAULT_AHFE_MD_PARAMS' depth (10,000 equilibration steps, 1,000 frames of 400) cut to phase 13's
-# (100, 10 of 30); a reused window N19_REUSE steps. SMC: the solvent-phase system at λ = 1 (a 3.0 +
+# DEFAULT_AHFE_MD_PARAMS' depth (10,000 equilibration steps, 1,000 frames of 400) cut to 100 and 10
+# of 30 (3 of 30 since phase 20); a reused window N19_REUSE steps. SMC: the solvent-phase system at λ = 1 (a 3.0 +
 # 0.5 nm box); pregenerate_samples' depth (50,000 equilibration steps, 1,000 solvent samples of
-# 1,000 steps, 30,000 ligand batches of 250 steps after 2,000 of burn-in) cut to 500, 8 of 100, and
-# 8 walkers x 64 batches of 25 steps after 8 of burn-in; N_ENDSTATE_SAMPLES (5,000) cut to
-# N19_ENDSTATE; N19_SMC_WALKERS walkers over N19_SMC_WINDOWS λ, N19_SMC_STEPS NPT steps a λ, resampled
+# 1,000 steps, 30,000 ligand batches of 250 steps after 2,000 of burn-in) cut to 200 (500 until phase
+# 20 came), 4 of 100 (8 until then), and
+# 8 walkers x 32 batches of 25 steps after 8 of burn-in (64 until phase 20 came); N_ENDSTATE_SAMPLES (5,000) cut to
+# N19_ENDSTATE; N19_SMC_WALKERS walkers over N19_SMC_WINDOWS λ, N19_SMC_STEPS NPT steps a λ (25 until
+# phase 20 came, 10 since), resampled
 # below N19_RESAMPLE of the walkers' ESS; the MTM move's K; FreeSolv's experimental hydration free
 # energy of ethanol, -5.00 kcal/mol (a published number, printed for information)
 N19_EMBED_SEED, N19_SEED, N19_SMC_SEED = 7, 2023, 2022
-N19_WINDOWS, N19_EQ, N19_FRAMES, N19_STEPS_PER_FRAME, N19_REUSE = 8, 100, 10, 30, 60
-N19_SMC_EQ, N19_SOLVENT_SAMPLES, N19_STEPS_PER_SAMPLE = 500, 8, 100
-N19_VAC_WALKERS, N19_VAC_STEPS_PER_BATCH, N19_VAC_BATCHES, N19_VAC_BURN_IN = 8, 25, 64, 8
-N19_ENDSTATE, N19_SMC_WALKERS, N19_SMC_WINDOWS, N19_SMC_STEPS, N19_RESAMPLE, N19_MTM_K = 64, 8, 6, 25, 0.5, 8
+N19_WINDOWS, N19_EQ, N19_FRAMES, N19_STEPS_PER_FRAME, N19_REUSE = 8, 100, 3, 30, 60
+N19_SMC_EQ, N19_SOLVENT_SAMPLES, N19_STEPS_PER_SAMPLE = 200, 4, 100
+N19_VAC_WALKERS, N19_VAC_STEPS_PER_BATCH, N19_VAC_BATCHES, N19_VAC_BURN_IN = 8, 25, 32, 8
+N19_ENDSTATE, N19_SMC_WALKERS, N19_SMC_WINDOWS, N19_SMC_STEPS, N19_RESAMPLE, N19_MTM_K = 64, 8, 6, 10, 0.5, 8
 FREESOLV_ETHANOL_KJ = -5.00 * 4.184
 # the ligand's internal distances after alignment against the vacuum conformer's (nm), and the
 # normalized SMC weights' sum against 1
 TOL_ALIGNED_GEOMETRY, TOL_WEIGHT_SUM = 1e-5, 1e-12
+# phase 20, water sampling: the probe-in-water ladder of the JAX package's examples/water_sampling_hrex.py
+# (the adamantane cage embedded and solvated with seed 2024, decoupled over linspace(1, 0, 6) by AHFE
+# states, HREXParams(), the TIBD sampler every 100 steps with 500 proposals, batch 250, radius 2 x 0.46
+# nm) at its --box_width 4.0: 6,419 atoms, over the 4,096 at which the host term takes the rowscan sweep.
+# Depth cut from the example's 1,000 + 50 x 100 steps to N20_EQ + N20_FRAMES x N20_STEPS_PER_FRAME: one
+# firing a frame per replica, 12 in all. A firing's carried weights against a float64 rebuild (kT; the
+# firing computes in float64, ROADMAP P29), the replay's raw log acceptance against the firing's, and
+# the window of |min(raw, 0) - log u| inside which a decision may flip; the waters' O-H and H-H
+# distances (nm).
+# [20 control] places a copy of a water N20_PLANT_NM from it (nm) in every replica before a firing.
+# [20 single]: one window by get_context + sample_with_context, N20_SINGLE_FRAMES frames; [20 local]: the
+# time-multiplexed HREX with local MD over the last 2 windows, N20_TM_FRAMES frames, the sampler every
+# N20_TM_INTERVAL steps with N20_TM_PROPOSALS proposals (firings in each segment's global steps)
+N20_BOX, N20_WINDOWS, N20_SEED, N20_EQ, N20_FRAMES, N20_STEPS_PER_FRAME = 4.0, 6, 2024, 200, 10, 100
+N20_INTERVAL, N20_PROPOSALS, N20_BATCH, N20_RADIUS = 100, 500, 250, 2 * 0.46
+N20_SINGLE_FRAMES, N20_TM_FRAMES, N20_TM_INTERVAL, N20_TM_PROPOSALS, N20_TM_LOCAL = 1, 1, 25, 100, 25
+N20_PLANT_NM = 0.2
+TOL_WEIGHT_DRIFT_KT, TOL_RAW_LOG_P, TOL_RIGID_NM = 1e-2, 1e-2, 1e-5
+# the raw log p is held to TOL_RAW_LOG_P where it could decide (at or above RAW_DECISION_FLOOR: a uniform's
+# log falls below it with probability e^-50); below, where a clash sends it to -1e20, the firing's must
+# stay below half the floor, where no uniform can accept it either
+RAW_DECISION_FLOOR = -50.0
 # phase 17, the exact-erfc and masked forms: the window whose NPT run each form takes, and its steps;
 # the DHFR atoms (the protein's last) the dot form's mask leaves out, as many as the leg's hybrid ligand
 N17_WINDOW, N17_STEPS, N17_DOT_OUT = 6, 100, 11
@@ -416,6 +460,46 @@ def pairs_within_cutoff(x, box, w, cutoff: float) -> int:
         later = torch.arange(i0, min(i0 + 1024, n), device=x.device)[:, None] < torch.arange(n, device=x.device)
         total += int(((r2 < cutoff * cutoff) & (r2 > 1e-7) & later).sum())
     return total
+
+
+def count_ops():
+    """A dispatch mode that counts the aten operations run inside it (its .n)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CountOps(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    return CountOps()
+
+
+def graph_nodes(fn, generator):
+    """Counter {CUgraphNodeType: nodes} of the CUDA graph that captures fn()
+    (0 a kernel, 1 a memory copy, 2 a memory set), `generator` registered
+    with it; the graph is never replayed."""
+    import torch
+
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    graph.register_generator_state(generator)
+    with torch.cuda.graph(graph):
+        fn()
+    torch.cuda.synchronize()
+    handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    check(libcuda.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(libcuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    kinds = Counter()
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(libcuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0, "cuGraphNodeGetType failed")
+        kinds[kind.value] += 1
+    return kinds
 
 
 def form_launches():
@@ -1263,6 +1347,441 @@ def phase19(dev, smi, zero_counts, read_counts, masked_row, exact_row):
     return dG19, f_smc * kT
 
 
+def phase20(dev, smi, zero_counts, read_counts, batched_row):
+    """Water sampling over the probe-in-water ladder of the JAX package's
+    examples/water_sampling_hrex.py at a 4.0 nm box (6,419 atoms): [20
+    build] the probe embedded and solvated, the AHFE states; [20 firing]
+    a segment of a ReplicaExchangeRunner, its firing traced: the carried
+    weights against a float64 rebuild, the firing replayed through its
+    records, the waters rigid and the probe and box untouched; [20 control]
+    a firing after a water is planted on another in every replica: each
+    replica's force through the lists rebuilt after it against the host
+    CPU's float64 force (the same rowscan function), the lists from before
+    it as the control; [20 launches] a firing captured in a CUDA graph at K
+    = 2 and 6 (equal); [20 rerun] a fresh runner's segment bitwise the
+    first's; [20 time] an HREX step with and without the sampler; [20
+    hrex] run_sims_hrex at the cut depth (one batched F launch a
+    step, a list rebuild after every firing, every firing's carried weights
+    against a float64 rebuild, the diagnostics' counts, occupancy and
+    acceptance per window, ΔG); [20 single] one window by
+    get_context + sample_with_context; [20 local] the time-multiplexed HREX
+    with local MD. Adds launches_water_hrex to the batched row."""
+    import numpy as np
+    import torch
+
+    from timemachine_torch.constants import DEFAULT_TEMP
+    from timemachine_torch.fe import absolute_hydration as ah20
+    from timemachine_torch.fe import free_energy as fe20
+    from timemachine_torch.fe.topology import BaseTopology
+    from timemachine_torch.ff import Forcefield
+    from timemachine_torch.md import context as context20
+    from timemachine_torch.md.exchange.targeted_insertion import TIBDExchangeMove
+    from timemachine_torch.md.hrex import get_swap_attempts_per_iter_heuristic
+    from timemachine_torch.parallel.replica_exchange import ReplicaExchangeRunner
+    from timemachine_torch.potentials import NonbondedAllPairs, all_pairs_kernel
+    from timemachine_torch.testsystems.water_sampling import build_probe_in_water, compute_occupancy
+
+    t_phase20 = time.perf_counter()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    f64 = torch.float64
+    cpu = torch.device("cpu")
+    wsp = fe20.WaterSamplingParams(interval=N20_INTERVAL, n_proposals=N20_PROPOSALS, batch_size=N20_BATCH, radius=N20_RADIUS)
+    md20 = fe20.MDParams(n_frames=N20_FRAMES, n_eq_steps=N20_EQ, steps_per_frame=N20_STEPS_PER_FRAME, seed=N20_SEED,
+                         hrex_params=fe20.HREXParams(), water_sampling_params=wsp)
+
+    # -- [20 build] ------------------------------------------------------------------------------
+    clock = StageClock(sync)
+    strict_before = os.environ.get("TM_STRICT_CHARGES")
+    os.environ["TM_STRICT_CHARGES"] = "1"  # AM1 or fail, as phases 15 and 19
+    try:
+        mol, host = clock.run("probe in water", lambda: build_probe_in_water(box_width=N20_BOX, seed=N20_SEED))
+        ff = Forcefield.load_default()
+        afe = fe20.AbsoluteFreeEnergy(mol, BaseTopology(mol, ff))
+        schedule = np.linspace(1.0, 0.0, N20_WINDOWS)
+        states = clock.run("initial states", lambda: ah20.setup_initial_states(
+            afe, ff, host, DEFAULT_TEMP, schedule, N20_SEED, device=dev))
+    finally:
+        if strict_before is None:
+            os.environ.pop("TM_STRICT_CHARGES")
+        else:
+            os.environ["TM_STRICT_CHARGES"] = strict_before
+    K = len(states)
+    n_atoms, n_host = states[0].x0.shape[0], host.conf.shape[0]
+    lig = torch.as_tensor(states[0].ligand_idxs, device=dev)
+    temperature = states[0].integrator.temperature
+    water_params = [fe20.get_water_sampler_params(s) for s in states]
+    print(f"[20 build] the probe (adamantane, {mol.num_atoms} atoms) in a {N20_BOX} nm box: {n_atoms} atoms, "
+          f"{n_host // 3} waters; λ {' '.join(f'{s.lamb:.2f}' for s in states)}; host term form at {n_atoms} atoms "
+          f"{all_pairs_kernel('context', n_atoms, dev)!r}; stages " + ", ".join(f"{k} {v:.2f} s" for k, v in clock.sec.items())
+          + f" (the embedding and FIRE inside them), host clock ({smi})")
+    check(n_atoms >= 4096 and all_pairs_kernel("context", n_atoms, dev) == ("rowscan" if dev.type == "cuda" else "dense"),
+          "[20] the system is not over the 4,096-atom rule")
+
+    def make_runner(water: bool):
+        md = md20 if water else replace(md20, water_sampling_params=None)
+        runner = ReplicaExchangeRunner(
+            fe20.get_context(states[0], md), [[p.params for p in s.potentials] for s in states], temperature=temperature,
+            neighbor_pairs=list(zip(range(K), range(1, K))), n_swap_attempts_per_iter=get_swap_attempts_per_iter_heuristic(K),
+            max_delta_states=md20.hrex_params.max_delta_states, seed=N20_SEED,
+            water_params_by_state=water_params if water else None,
+        )
+        runner.initialize([s.x0 for s in states], [s.v0 for s in states], [s.box0 for s in states])
+        return runner
+
+    # -- [20 firing] a segment's firing, traced -----------------------------------------------------
+    runner = make_runner(True)
+    batch = runner.batch
+    k_w = next(i for i, m in enumerate(batch.movers) if isinstance(m, TIBDExchangeMove))
+    mover = batch.movers[k_w]
+    host_i = next(i for i, p in enumerate(batch.potentials) if isinstance(p, NonbondedAllPairs))
+    move = batch._move_fns[k_w]
+    firing = move.firing
+    seen = {}
+
+    def traced(state, x, v, box):
+        sync()
+        t_start = time.perf_counter()
+        seen.update(stale=batch._prov_states, x=x, box=box, state=state)
+        new_state, x_new, v_new, box_new, trace = move(state, x, v, box, with_trace=True)
+        sync()
+        seen.update(sec=time.perf_counter() - t_start, trace=trace, after=new_state)
+        return new_state, x_new, v_new, box_new
+
+    batch._move_fns[k_w] = traced
+    runner.equilibrate(N20_INTERVAL, barostat_interval=None)  # one segment, the sampler firing after its last step
+    sync()
+    batch._move_fns[k_w] = move
+    trace = seen["trace"]
+    acc = trace["accept"]  # (P, K)
+    first = [t.clone() for t in (batch._x, batch._v, batch._box)] + [seen["after"].n_accepted.clone()]
+    x1, box1 = batch._x, batch._box
+    params64 = seen["state"].params.to(f64)
+    w64 = firing.weights.full(params64, x1.to(f64), box1.to(f64))
+    drift = float((trace["weights"].to(f64) - w64).abs().max())
+    records = {k: trace[k] for k in ("chosen", "i2o", "site", "rot", "log_u", "accept")}
+    records["site"], records["rot"], records["log_u"] = (records[k].to(f64) for k in ("site", "rot", "log_u"))
+    x_rep, raw64, acc64, n1_64, _ = firing.replay(params64, seen["x"].to(f64), seen["box"].to(f64), records, follow_accepts=True)
+    raw32 = trace["raw_log_p"].to(f64)
+    both = torch.isfinite(raw64) & torch.isfinite(raw32)
+    same_pattern = bool(torch.equal(torch.isfinite(raw64), torch.isfinite(raw32)))
+    near = both & (raw64 >= RAW_DECISION_FLOOR)
+    far = both & (raw64 < RAW_DECISION_FLOOR)
+    gap = (raw64 - raw32).abs()
+    raw_gap = float(gap[near].max()) if bool(near.any()) else 0.0
+    raw_rel = float((gap[far] / raw64[far].abs()).max()) if bool(far.any()) else 0.0
+    far_kept = bool((raw32[far] < RAW_DECISION_FLOOR / 2).all())
+    margin = (torch.clamp(raw64, max=0.0) - records["log_u"]).abs()
+    flips = acc64 != acc
+    flips_outside = int((flips & (margin >= TOL_RAW_LOG_P)).sum())
+    print(f"[20 firing] a segment of {N20_INTERVAL} steps of the {K} replicas, the sampler firing after its last step: "
+          f"{N20_PROPOSALS} proposals each, {seen['sec']:.3f} s traced, accepted by replica {acc.sum(0).tolist()}, the "
+          f"largest raw log p by replica " + " ".join(f"{v:.2f}" for v in raw32.amax(0).tolist()) + "; the carried weights "
+          f"({trace['weights'].dtype}) against a float64 rebuild at the final coordinates: largest |diff| {drift:.3e} kT (tol "
+          f"{TOL_WEIGHT_DRIFT_KT:g}); the firing replayed through its records (draws and accepts): largest |raw log p| gap "
+          f"{raw_gap:.3e} over the {int(near.sum())} at or above {RAW_DECISION_FLOOR:g} (tol {TOL_RAW_LOG_P:g}), relative "
+          f"{raw_rel:.3e} over the {int(far.sum())} below, the firing's below {RAW_DECISION_FLOOR / 2:g} there {far_kept}, "
+          f"non-finite pattern equal {same_pattern}; "
+          f"decisions that differ "
+          f"{int(flips.sum())} of {flips.numel()}, {flips_outside} of them with |min(raw, 0) - log u| >= {TOL_RAW_LOG_P:g}, "
+          f"the smallest margin {float(margin.min()):.3e}; region counts that differ {int((n1_64 != trace['n1']).sum())}; "
+          f"replayed coordinates vs the card's {float((x_rep - x1.to(f64)).abs().max()):.3e} nm ({smi})")
+    check(drift <= TOL_WEIGHT_DRIFT_KT, "[20] the carried weights drifted from a float64 rebuild")
+    check(same_pattern and raw_gap <= TOL_RAW_LOG_P and far_kept and flips_outside == 0,
+          "[20] the float64 replay disagrees with the card")
+
+    def water_geometry(x):
+        w = x[:, firing.water_idxs]  # (K, W, 3, 3)
+        return torch.stack([torch.linalg.vector_norm(w[:, :, a] - w[:, :, b], dim=-1) for a, b in ((0, 1), (0, 2), (1, 2))], -1)
+
+    def mover_invariants():
+        """(largest change of a water's O-H and H-H distances, probe unmoved, box unmoved) through the last firing."""
+        rigid = float((water_geometry(batch._x) - water_geometry(seen["x"])).abs().max())
+        return rigid, bool(torch.equal(batch._x[:, lig], seen["x"][:, lig])), bool(torch.equal(batch._box, seen["box"]))
+
+    rigid, probe_kept, box_kept = mover_invariants()
+    counted = (seen["after"].n_proposed - seen["state"].n_proposed).tolist()
+    print(f"[20 mover] the waters' O-H and H-H distances through the firing: largest change {rigid:.3e} nm (tol "
+          f"{TOL_RIGID_NM:g}); the probe bitwise unmoved {probe_kept}, the box bitwise unmoved {box_kept}; proposals "
+          f"counted by replica {counted} ({smi})")
+    check(rigid <= TOL_RIGID_NM and probe_kept and box_kept, "[20] the mover broke a water, moved the probe or the box")
+    check(counted == [N20_PROPOSALS] * K, "[20] the mover did not count its proposals")
+
+    # -- [20 control] a firing with teleports: the lists rebuilt after it, and the stale ones ------------------
+    # in equilibrated water a proposal is accepted rarely ([20 water]'s acceptance), so every replica's last
+    # water is placed N20_PLANT_NM from its neighbour in the list (a copy of that water, shifted): the two
+    # carry the largest weights, and the sampler's next firing, through the step's own mover call, teleports
+    # one of them
+    plant = firing.water_idxs[-2:]
+    x_plant = batch._x.clone()
+    x_plant[:, plant[1]] = x_plant[:, plant[0]] + torch.tensor([N20_PLANT_NM, 0.0, 0.0], device=dev, dtype=x_plant.dtype)
+    batch._x = x_plant
+    batch._prov_states = None
+    batch._ensure_lists()  # the lists the firing finds: the planted coordinates
+    batch._move_fns[k_w] = traced
+    batch._fire_movers(N20_INTERVAL - 1)  # the end of a step whose count fires the sampler
+    sync()
+    batch._move_fns[k_w] = move
+    n_acc = seen["trace"]["accept"].sum(0).cpu().numpy()
+    x1, box1 = batch._x, batch._box
+    rigid_p, probe_p, box_p = mover_invariants()
+    w_full = firing.weights.full(seen["state"].params.to(f64), x1.to(f64), box1.to(f64))
+    drift_p = float((seen["trace"]["weights"].to(f64) - w_full).abs().max())  # after accepted moves' updates
+
+    def card_forces(prov_states):
+        """(K, N, 3) each replica's total force, the providers through prov_states' lists."""
+        with torch.no_grad():
+            total = torch.zeros_like(batch._x)
+            for i in range(len(batch.potentials)):
+                if i in batch._providers:
+                    f = batch._providers[i][1](prov_states[i], batch._x, batch._params[i], batch._box, 1)[0]
+                else:
+                    f = batch._u_force[i](batch._x, batch._params[i], batch._box)[1]
+                total = total + f
+        return total.double().cpu()
+
+    f_now, f_stale = card_forces(batch._prov_states), card_forces(seen["stale"])
+    # the reference: each replica's state built on the host CPU in float64, its host term the same
+    # rowscan function (the plain sweep over lists built there at the same x), as phases 13 and 19;
+    # the dense form's exact erfc sits farther than the limit from the rowscan polynomial, so it is
+    # printed for replica 0 only
+    afe_cpu = fe20.AbsoluteFreeEnergy(mol, BaseTopology(mol, ff))
+    state_of = runner._state_of_replica()
+    rel_now, rel_stale = [], []
+    t0 = time.perf_counter()
+    for r in range(K):
+        st_cpu = ah20._initial_state_at(afe_cpu, ff, host, states[0].x0[:n_host], DEFAULT_TEMP, float(schedule[state_of[r]]),
+                                        N20_SEED, cpu)
+        x64, b64 = x1[r].double().cpu(), box1[r].double().cpu()
+        st_cpu.potentials[host_i].configure(b64, x64, kernel="rowscan")
+        with torch.no_grad():
+            f_ref = sum(p.energy_force(x64, b64)[1] for p in st_cpu.potentials)
+            ap = float(torch.linalg.vector_norm(NonbondedAllPairs.energy_force(batch.potentials[host_i], x1[r], box1[r])[1]))
+            if r == 0:
+                st_cpu.potentials[host_i].configure(b64, x64, kernel="dense")
+                f_dense = sum(p.energy_force(x64, b64)[1] for p in st_cpu.potentials)
+                rel_dense = float(torch.linalg.vector_norm(f_now[r] - f_dense)) / ap
+        rel_now.append(float(torch.linalg.vector_norm(f_now[r] - f_ref)) / ap)
+        rel_stale.append(float(torch.linalg.vector_norm(f_stale[r] - f_ref)) / ap)
+    t_ref = time.perf_counter() - t0
+    moved = [r for r in range(K) if n_acc[r] > 0]
+    print(f"[20 control] the planted firing: accepted by replica {n_acc.tolist()}, the waters rigid to {rigid_p:.3e} nm, the "
+          f"probe and box bitwise unmoved {probe_p and box_p}, the carried weights {drift_p:.3e} kT from a float64 rebuild "
+          f"(tol {TOL_WEIGHT_DRIFT_KT:g}); each replica's force through the lists rebuilt after it "
+          f"against the host CPU's float64 force (the rowscan function, {t_ref:.1f} s), |diff| / |all-pairs force|: "
+          + " ".join(f"{v:.2e}" for v in rel_now) + f" (tol {TOL_FORCE_REL_NORM:g}); the control, through the lists from "
+          "before it: " + " ".join(f"{v:.2e}" for v in rel_stale) + f" (replicas with a teleport {moved}: the largest must "
+          f"miss); replica 0 against the CPU's float64 dense form (exact erfc) {rel_dense:.2e}, for information ({smi})")
+    check(rigid_p <= TOL_RIGID_NM and probe_p and box_p, "[20] the planted firing broke a water, moved the probe or the box")
+    check(drift_p <= TOL_WEIGHT_DRIFT_KT, "[20] the planted firing's carried weights drifted from a float64 rebuild")
+    check(max(rel_now) <= TOL_FORCE_REL_NORM, "[20] a force through the rebuilt lists disagrees with the host CPU")
+    check(bool(moved) and max(rel_stale[r] for r in moved) > TOL_FORCE_REL_NORM,
+          "[20] the stale lists' control did not miss the limit: the force check cannot fail")
+
+    # -- [20 launches] a firing at K = 2 and K = 6 in a CUDA graph -------------------------------------
+    def firing_launches(k):
+        st = mover.init_state(dev, batch._x.dtype, shape=(k,))
+        st.params = seen["state"].params[:k].clone()
+        xk, vk, bk = (t[:k].clone() for t in (batch._x, batch._v, batch._box))
+        move_k = mover.make_move_fn(None, dev)
+        with torch.no_grad():
+            return graph_nodes(lambda: move_k(st, xk, vk, bk), st.generator)
+
+    nodes2, nodesK = firing_launches(2), firing_launches(K)
+    print(f"[20 launches] a firing of {N20_PROPOSALS} proposals captured in a CUDA graph: {nodes2[0]} kernels at K = 2, "
+          f"{nodesK[0]} at K = {K} ({nodesK[0] / N20_PROPOSALS:.1f} a proposal; memory sets {nodes2[2]}, {nodesK[2]}; "
+          f"copies {nodes2[1]}, {nodesK[1]}) ({smi})")
+    check(nodes2[0] > 0 and nodes2 == nodesK, "[20] a firing's launches grow with K")
+
+    # -- [20 rerun] and [20 time] --------------------------------------------------------------------------
+    def segment_ms(r):
+        sync()
+        t_start = time.perf_counter()
+        r.equilibrate(N20_INTERVAL, barostat_interval=None)
+        sync()
+        return (time.perf_counter() - t_start) * 1e3 / N20_INTERVAL
+
+    ms = {}
+    for water in (True, False):
+        timed = make_runner(water)
+        segment_ms(timed)  # its first segment
+        if water:
+            k_t = k_w
+            again = [timed.batch._x, timed.batch._v, timed.batch._box, timed.batch.get_mover_states()[k_t].n_accepted]
+            bitwise = all(torch.equal(a, b) for a, b in zip(first, again))
+            print(f"[20 rerun] a fresh runner's first segment against the first runner's: x, v, box and the accepted "
+                  f"counts bitwise equal {bitwise} ({smi})")
+            check(bitwise, "[20] a rerun from the same seeds differs")
+        ms[water] = segment_ms(timed)
+    print(f"[20 time] an HREX step of {K} replicas over {N20_INTERVAL} steps, the second segment of a fresh runner: "
+          f"{ms[True]:.3f} ms with the sampler (one firing in them), {ms[False]:.3f} ms without: a firing about "
+          f"{(ms[True] - ms[False]) * N20_INTERVAL / 1e3:.3f} s ({(ms[True] - ms[False]) * N20_INTERVAL / N20_PROPOSALS:.3f} "
+          f"ms a proposal for all {K} replicas), host clock ({smi})")
+
+    # -- [20 hrex] run_sims_hrex at the cut depth -------------------------------------------------------
+    tally = Counter()
+    drifts = []
+    ensure_lists, make_move_fn = context20.BatchedContext._ensure_lists, TIBDExchangeMove.make_move_fn
+
+    def counting_ensure(self):
+        tally["rebuilds"] += self._prov_states is None
+        ensure_lists(self)
+
+    def counting_make(self, energy_fn=None, device=None):
+        inner = make_move_fn(self, energy_fn, device)
+
+        def counted(state, x, v, box):
+            """The firing, traced: its accepted moves and its carried weights against a float64 rebuild."""
+            tally["firings"] += 1
+            out = inner(state, x, v, box, with_trace=True)
+            w_full = inner.firing.weights.full(state.params.to(f64), out[1].to(f64), box.to(f64))
+            drifts.append((int(out[4]["accept"].sum()), float((out[4]["weights"].to(f64) - w_full).abs().max())))
+            return out[:4]
+
+        return counted
+
+    context20.BatchedContext._ensure_lists, TIBDExchangeMove.make_move_fn = counting_ensure, counting_make
+    try:
+        zero_counts()
+        before = form_launches()
+        t0 = time.perf_counter()
+        res20, trajs20, diag20, water20 = fe20.run_sims_hrex(states, md20, print_diagnostics_interval=None)
+        sync()
+        t_hrex = time.perf_counter() - t0
+        counts_h, plain_h = read_counts()
+        forms_h = form_launches() - before
+    finally:
+        context20.BatchedContext._ensure_lists, TIBDExchangeMove.make_move_fn = ensure_lists, make_move_fn
+    steps = N20_EQ + N20_FRAMES * N20_STEPS_PER_FRAME
+    firings = steps // N20_INTERVAL
+    check(isinstance(water20, fe20.WaterSamplingDiagnostics), "[20] run_sims_hrex returned no water diagnostics")
+    counts = np.asarray(water20.proposals_by_state_by_iter)
+    cum = water20.cumulative_proposals_by_state()
+    acc_rate = cum[:, 0] / cum[:, 1]
+    ligand_idxs = states[0].ligand_idxs
+    inside = [np.mean([_waters_inside(f, b, ligand_idxs, firing.water_idxs.cpu().numpy(), N20_RADIUS)
+                       for f, b in zip(t.frames, t.boxes)]) for t in trajs20]
+    occupancy = [np.mean([compute_occupancy(f, b, ligand_idxs, N20_RADIUS) // 3 for f, b in zip(t.frames, t.boxes)])
+                 for t in trajs20]
+    finite20 = bool(np.isfinite(res20.dGs).all() and np.isfinite(res20.dG_errs).all())
+    print(f"[20 hrex] run_sims_hrex over the {K} windows ({N20_EQ} equilibration steps, {N20_FRAMES} iterations of "
+          f"{N20_STEPS_PER_FRAME}; the example's 1,000 and 50 of 100 cut): {t_hrex:.1f} s host clock; launches by form "
+          f"{dict(forms_h)}; totals {counts_h}, plain calls {plain_h}; firings {tally['firings']} (expected {firings}), list "
+          f"rebuilds {tally['rebuilds']} (a segment's start {1 + N20_FRAMES}, plus one after every firing) ({smi})")
+    check(plain_h == 0, "[20] the water-sampling HREX ran a plain sweep")
+    check(forms_h["batched F w"] == steps, "[20] the water-sampling HREX did not take one batched F launch a step")
+    check(tally["firings"] == firings and tally["rebuilds"] == 1 + N20_FRAMES + firings,
+          "[20] the lists were not rebuilt after every firing")
+    print(f"[20 drift] each firing's accepted moves and its carried weights against a float64 rebuild at its "
+          f"final coordinates (kT): " + ", ".join(f"{a} {d:.2e}" for a, d in drifts) + f" (tol {TOL_WEIGHT_DRIFT_KT:g}) ({smi})")
+    check(len(drifts) == firings and max(d for _, d in drifts) <= TOL_WEIGHT_DRIFT_KT,
+          "[20] a firing's carried weights drifted from a float64 rebuild")
+    print(f"[20 water] WaterSamplingDiagnostics {counts.shape}: proposals by state each iteration "
+          f"{sorted(set(counts[..., 1].ravel().tolist()))}, accepted by window " + " ".join(str(int(c)) for c in cum[:, 0])
+          + " of " + " ".join(str(int(c)) for c in cum[:, 1]) + "; acceptance by window "
+          + " ".join(f"{a:.4f}" for a in acc_rate) + f"; waters whose centroid lies within {N20_RADIUS:.2f} nm of the "
+          "probe's, mean over frames by window " + " ".join(f"{v:.2f}" for v in inside)
+          + "; the example's occupancy (atoms within the radius // 3) " + " ".join(f"{v:.2f}" for v in occupancy) + f" ({smi})")
+    check(counts.shape == (N20_FRAMES, K, 2), "[20] the water diagnostics' shape is not (frames, states, 2)")
+    check(bool((counts[..., 1] == N20_PROPOSALS).all()) and bool((counts[..., 0] <= counts[..., 1]).all()),
+          "[20] the water diagnostics' counts are not one firing an iteration")
+    dG20 = float(np.sum(res20.dGs))
+    print(f"[20 bar] pair dG " + " ".join(f"{r.dG:.3f}" for r in res20.bar_results) + "; overlaps "
+          + " ".join(f"{r.overlap:.3f}" for r in res20.bar_results) + f"; ΔG (decoupled -> coupled) {dG20:.4f} +- "
+          f"{float(np.linalg.norm(res20.dG_errs)):.4f} kJ/mol over {len(res20.bar_results)} pairs (finite {finite20}; for "
+          f"information: this depth does not converge it); swap acceptance "
+          + " ".join(f"{a:.3f}" for a in diag20.cumulative_swap_acceptance_rates[-1]) + f" ({smi})")
+    check(len(res20.bar_results) == K - 1 and finite20, "[20] the water-sampling HREX did not give 5 finite BAR pairs")
+    batched_row["launches_water_hrex"] = forms_h["batched F w"] / (K * steps)
+
+    # -- [20 single] one window by get_context + sample_with_context --------------------------------------
+    md_s = fe20.MDParams(n_frames=N20_SINGLE_FRAMES, n_eq_steps=0, steps_per_frame=N20_INTERVAL, seed=N20_SEED,
+                         water_sampling_params=wsp)
+    ctx = fe20.get_context(states[-1], md_s)
+    k_s = next(i for i, m in enumerate(ctx.movers) if isinstance(m, TIBDExchangeMove))
+    move_s = ctx._move_fns[k_s]
+    last = {}
+
+    def spy(state, x, v, box):
+        out = move_s(state, x, v, box)
+        last.update(stale=ctx._prov_states, accepted=int(out[0].n_accepted) - int(state.n_accepted))
+        return out
+
+    ctx._move_fns[k_s] = spy
+    zero_counts()
+    t0 = time.perf_counter()
+    traj = fe20.sample_with_context(ctx, md_s, temperature, states[-1].ligand_idxs, max_buffer_frames=100)
+    sync()
+    t_single = time.perf_counter() - t0
+    counts_s, plain_s = read_counts()
+    prov = ctx._providers[host_i]
+    with torch.no_grad():
+        f_ctx = prov[1](ctx._prov_states[host_i], ctx._x, ctx._box, 1)[0]
+        f_fresh = prov[1](prov[0](ctx._x, ctx._box), ctx._x, ctx._box, 1)[0]
+        f_old = prov[1](last["stale"][host_i], ctx._x, ctx._box, 1)[0]
+        ap_s = float(torch.linalg.vector_norm(NonbondedAllPairs.energy_force(ctx.potentials[host_i], ctx._x, ctx._box)[1]))
+    fresh_equal = bool(torch.equal(f_ctx, f_fresh))
+    stale_s = float(torch.linalg.vector_norm(f_old - f_fresh)) / ap_s
+    st_s = ctx.get_mover_states()[k_s]
+    print(f"[20 single] window {K - 1} (λ {states[-1].lamb:.1f}) through get_context + sample_with_context, "
+          f"{N20_SINGLE_FRAMES} frames of {N20_INTERVAL} steps: {t_single:.2f} s host clock, frames finite "
+          f"{bool(np.isfinite(traj.frames).all())}; launches {counts_s}, plain calls {plain_s}; the sampler {int(st_s.n_accepted)} "
+          f"of {int(st_s.n_proposed)} accepted, {last['accepted']} in its last firing; the host term's force through the "
+          f"Context's lists after it bitwise a fresh build's {fresh_equal}; through the lists from before it "
+          f"{stale_s:.2e} of the all-pairs norm ({smi})")
+    check(fresh_equal and bool(np.isfinite(traj.frames).all()), "[20] the single Context did not rebuild its lists")
+    check(int(st_s.n_proposed) == N20_SINGLE_FRAMES * N20_PROPOSALS and plain_s == 0 and counts_s["rowscan_sweep"] > 0,
+          "[20] the single Context's sampler or host term did not run as asked")
+
+    # -- [20 local] the time-multiplexed HREX with local MD and the sampler ---------------------------------
+    wsp_tm = fe20.WaterSamplingParams(interval=N20_TM_INTERVAL, n_proposals=N20_TM_PROPOSALS, batch_size=N20_TM_PROPOSALS,
+                                      radius=N20_RADIUS)
+    md_tm = fe20.MDParams(n_frames=N20_TM_FRAMES, n_eq_steps=0, steps_per_frame=N20_STEPS_PER_FRAME, seed=N20_SEED,
+                          hrex_params=fe20.HREXParams(), local_md_params=fe20.LocalMDParams(local_steps=N20_TM_LOCAL),
+                          water_sampling_params=wsp_tm)
+    set_calls = []
+    set_params = context20.Context.set_water_sampler_params
+
+    def recording_set(self, params):
+        set_calls.append(np.asarray(params))
+        set_params(self, params)
+
+    context20.Context.set_water_sampler_params = recording_set
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        res_tm, trajs_tm, _, water_tm = fe20.run_sims_hrex(states[-2:], md_tm, print_diagnostics_interval=None)
+        sync()
+        t_tm = time.perf_counter() - t0
+        counts_tm, plain_tm = read_counts()
+    finally:
+        context20.Context.set_water_sampler_params = set_params
+    per_segment = N20_TM_PROPOSALS * sum((u + 1) % N20_TM_INTERVAL == 0 for u in range(N20_STEPS_PER_FRAME - N20_TM_LOCAL))
+    tm_counts = np.asarray(water_tm.proposals_by_state_by_iter)
+    expected_sets = [water_params[s] for _ in range(N20_TM_FRAMES) for s in (K - 2, K - 1)]
+    sets_ok = len(set_calls) == len(expected_sets) and all(np.array_equal(a, b) for a, b in zip(set_calls, expected_sets))
+    print(f"[20 local] run_sims_hrex over windows {K - 2}-{K - 1} with LocalMDParams({N20_TM_LOCAL}) (time-multiplexed), "
+          f"{N20_TM_FRAMES} frames of {N20_STEPS_PER_FRAME}, the sampler every {N20_TM_INTERVAL} steps with "
+          f"{N20_TM_PROPOSALS} proposals: {t_tm:.2f} s host clock; proposals by iteration and state {tm_counts[..., 1].tolist()} "
+          f"(expected {per_segment} a segment), accepted {tm_counts[..., 0].tolist()}; set_water_sampler_params called with "
+          f"each segment's state's parameters {sets_ok} ({len(set_calls)} calls); launches {counts_tm}, plain calls "
+          f"{plain_tm}; ΔG {float(np.sum(res_tm.dGs)):.4f} kJ/mol ({smi})")
+    check(tm_counts.shape == (N20_TM_FRAMES, 2, 2) and bool((tm_counts[..., 1] == per_segment).all()) and sets_ok,
+          "[20] the time-multiplexed HREX did not give each state its sampler parameters and counts")
+    check(plain_tm == 0 and bool(np.isfinite(res_tm.dGs).all()), "[20] the time-multiplexed HREX ran a plain sweep or failed")
+    print(f"[20 time] phase 20 took {time.perf_counter() - t_phase20:.1f} s, host clock ({smi})")
+    return dG20
+
+
+def _waters_inside(x, box, ligand_idxs, water_idxs, radius) -> int:
+    """Waters whose centroid lies within radius of the ligand's centroid (the sampler's inner region)."""
+    import numpy as np
+
+    center = np.mean(x[ligand_idxs], axis=0)
+    d = np.mean(x[water_idxs], axis=1) - center
+    d -= np.diag(box) * np.floor(d / np.diag(box) + 0.5)
+    return int(np.sum(np.linalg.norm(d, axis=-1) < radius))
+
+
 def main() -> int:
     import torch
 
@@ -1272,7 +1791,6 @@ def main() -> int:
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from torch.utils._python_dispatch import TorchDispatchMode
 
     from timemachine_torch.constants import BOLTZ
     from timemachine_torch.fe import free_energy as fe13
@@ -2500,40 +3018,10 @@ def main() -> int:
     # and the state check's 11), so a trace's count at K = 2 and at 12 can
     # differ where the step's do not. Beside it, the aten operations step 3
     # dispatches.
-    class CountOps(TorchDispatchMode):
-        def __init__(self):
-            super().__init__()
-            self.n = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            self.n += 1
-            return func(*args, **(kwargs or {}))
-
-    libcuda = ctypes.CDLL("libcuda.so.1")
-
-    def graph_nodes(fn, generator):
-        """Counter {CUgraphNodeType: nodes} of the CUDA graph that captures fn()
-        (0 a kernel, 1 a memory copy, 2 a memory set)."""
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        graph.register_generator_state(generator)
-        with torch.cuda.graph(graph):
-            fn()
-        torch.cuda.synchronize()
-        handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
-        check(libcuda.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0, "[14] cuGraphGetNodes failed")
-        nodes = (ctypes.c_void_p * n.value)()
-        check(libcuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0, "[14] cuGraphGetNodes failed")
-        kinds = Counter()
-        for node in nodes:
-            kind = ctypes.c_int(-1)
-            check(libcuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0, "[14] cuGraphNodeGetType failed")
-            kinds[kind.value] += 1
-        return kinds
-
     def step_launches(k):
         r = make_runner(k)
         r.batch.multiple_steps(2)  # the rebuild at step 1, then step 2
-        with torch.no_grad(), CountOps() as ops:
+        with torch.no_grad(), count_ops() as ops:
             r.batch._one_step()  # step 3
         torch.cuda.synchronize()
         with torch.no_grad():
@@ -2953,6 +3441,9 @@ def main() -> int:
 
     # -- 19. the absolute hydration leg, windowed and by SMC ---------------------------------------
     phase19(dev, smi, zero_counts, read_counts, masked_row, rows17[0])
+
+    # -- 20. water sampling: the probe-in-water ladder's HREX with the TIBD sampler ---------------------
+    phase20(dev, smi, zero_counts, read_counts, batched_row)
 
     print(json.dumps({"kernels": [kernel_row, masked_row, batched_row, nb_row, gather_row, quad_row, dot_row, *probe_rows,
                                   *rows17]}))

@@ -381,14 +381,17 @@ def test_run_sims_hrex_two_states_identity_pair(small):
 
 
 def test_refusals(small):
-    """Water sampling raises in run_sims_hrex; REST and local MD, which
-    raised before they were ported, are accepted: HREXParams takes
-    RESTParams, MDParams takes LocalMDParams."""
+    """REST, local MD and water sampling, which raised before they were
+    ported, are accepted: HREXParams takes RESTParams, MDParams takes
+    LocalMDParams and WaterSamplingParams, and run_sims_hrex then returns
+    the water sampler's diagnostics."""
     assert tfe.HREXParams(rest_params=tfe.RESTParams(2.0)).rest_params.max_temperature_scale == 2.0
     md = tfe.MDParams(n_frames=1, n_eq_steps=0, steps_per_frame=1, seed=1, hrex_params=tfe.HREXParams())
     assert tfe.MDParams(**{**md.__dict__, "local_md_params": tfe.LocalMDParams(1)}).local_md_params.local_steps == 1
-    with pytest.raises(NotImplementedError, match="md/exchange/"):
-        tfe.run_sims_hrex(small["port32"], tfe.MDParams(**{**md.__dict__, "water_sampling_params": object()}))
+    wsp = tfe.WaterSamplingParams(interval=1, n_proposals=2, batch_size=2, radius=0.5)
+    water = tfe.run_sims_hrex(small["port32"], tfe.MDParams(**{**md.__dict__, "water_sampling_params": wsp}))[3]
+    assert isinstance(water, tfe.WaterSamplingDiagnostics)
+    assert water.proposals_by_state_by_iter.shape == (1, 3, 2) and (water.proposals_by_state_by_iter[..., 1] == 2).all()
 
 
 # -- REST windows in the batched step ------------------------------------------------------

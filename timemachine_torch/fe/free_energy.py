@@ -7,7 +7,9 @@ With MDParams.local_md_params every frame ends in a segment of local MD
 (Context.multiple_steps_local around the ligand), and run_sims_hrex runs
 the replicas one after another in one Context, as the JAX package's
 time-multiplexed driver does; REST reaches the drivers through the states'
-parameters (fe/rest/). Water sampling waits on md/exchange/. BaseFreeEnergy
+parameters (fe/rest/). With MDParams.water_sampling_params every Context
+carries the TIBD water sampler (md/exchange/targeted_insertion.py) after the
+barostat, and run_sims_hrex returns WaterSamplingDiagnostics. BaseFreeEnergy
 and AbsoluteFreeEnergy build the absolute hydration leg's edges
 (fe/absolute_hydration.py).
 
@@ -77,6 +79,24 @@ class HREXParams:
 
 
 @dataclass(frozen=True)
+class WaterSamplingParams:
+    """The TIBD water sampler: n_proposals exchanges every `interval`
+    steps into and out of a sphere of `radius` nm about the ligand's
+    centroid (batch_size is JAX's, kept for its signature)."""
+
+    interval: int = 400
+    n_proposals: int = 1000
+    batch_size: int = 250
+    radius: float = 1.0
+
+    def __post_init__(self):
+        assert self.interval > 0
+        assert self.n_proposals > 0
+        assert self.radius > 0.0
+        assert 0 < self.batch_size <= self.n_proposals
+
+
+@dataclass(frozen=True)
 class LocalMDParams:
     """Local MD at the end of every frame: local_steps steps moving a region
     around a ligand atom, selected with stiffness k (kJ/mol/nm^4) and a
@@ -99,8 +119,8 @@ class MDParams:
     """Sampling protocol: n_eq_steps of equilibration, then n_frames frames
     steps_per_frame steps apart, from seed; with local_md_params each frame's
     last local_steps steps are local MD; with hrex_params, run_sims_hrex's
-    protocol. Water sampling is not ported: the drivers raise where it is
-    asked for."""
+    protocol; with water_sampling_params, the water sampler in every
+    Context."""
 
     n_frames: int
     n_eq_steps: int
@@ -108,7 +128,7 @@ class MDParams:
     seed: int
     local_md_params: Optional[LocalMDParams] = None
     hrex_params: Optional[HREXParams] = None
-    water_sampling_params: Optional[object] = None
+    water_sampling_params: Optional[WaterSamplingParams] = None
 
     def __post_init__(self):
         assert self.steps_per_frame > 0
@@ -243,10 +263,21 @@ class SimulationResult:
 
 
 @dataclass
+class WaterSamplingDiagnostics:
+    """(n_iters, n_states, 2) counts of the water sampler's (accepted,
+    proposed) moves of each state in each HREX iteration."""
+
+    proposals_by_state_by_iter: np.ndarray
+
+    def cumulative_proposals_by_state(self) -> np.ndarray:
+        return np.sum(self.proposals_by_state_by_iter, axis=0)
+
+
+@dataclass
 class HREXSimulationResult(SimulationResult):
     hrex_diagnostics: HREXDiagnostics = None  # type: ignore[assignment]
     hrex_plots: Optional[object] = None
-    water_sampling_diagnostics: Optional[object] = None
+    water_sampling_diagnostics: Optional[WaterSamplingDiagnostics] = None
 
     def extract_trajectories_by_replica(self, atom_idxs) -> np.ndarray:
         """(n_replicas, n_frames, len(atom_idxs), 3) trajectories per replica."""
@@ -417,17 +448,55 @@ def configure_all_pairs(initial_state: InitialState):
             pot.configure(box, torch.as_tensor(initial_state.x0, device=dev, dtype=dt), kernel=kernel)
 
 
+def get_water_idxs(group_idxs: Sequence[np.ndarray], ligand_idxs: Optional[np.ndarray] = None) -> list:
+    """The groups of exactly three atoms that share no atom with the
+    ligand: the waters. (md/exchange/exchange_mover.py get_water_idxs drops
+    only a group equal to the ligand's atoms; both are JAX's.)"""
+    ligand_set = set(np.asarray(ligand_idxs).tolist()) if ligand_idxs is not None else set()
+    return [g for g in group_idxs if len(g) == 3 and not (set(g.tolist()) & ligand_set)]
+
+
+def make_water_sampler(initial_state: InitialState, water_sampling_params: WaterSamplingParams):
+    """The state's TIBD water sampler, as JAX's get_context builds it: the
+    waters are the bond graph's three-atom groups off the ligand, the
+    parameters get_water_sampler_params', beta and cutoff the interaction
+    group's, the seed the first int32 of default_rng(the integrator's seed)."""
+    from timemachine_torch.md.exchange.targeted_insertion import TIBDExchangeMove, water_sampler_seed
+    from timemachine_torch.md.utils import get_group_indices
+    from timemachine_torch.potentials import HarmonicBond
+
+    bonds = get_potential_by_type(initial_state.potentials, HarmonicBond).idxs.cpu().numpy()
+    groups = get_group_indices(bonds.tolist(), len(initial_state.integrator.masses))
+    ixn = get_potential_by_type(initial_state.potentials, NonbondedInteractionGroup)
+    wsp = water_sampling_params
+    return TIBDExchangeMove(
+        n_atoms=initial_state.x0.shape[0],
+        ligand_idxs=np.asarray(initial_state.ligand_idxs),
+        water_idxs=get_water_idxs(groups, ligand_idxs=initial_state.ligand_idxs),
+        params=get_water_sampler_params(initial_state),
+        temperature=initial_state.integrator.temperature,
+        beta=ixn.beta,
+        cutoff=ixn.cutoff,
+        radius=wsp.radius,
+        seed=water_sampler_seed(initial_state.integrator.seed),
+        n_proposals=wsp.n_proposals,
+        interval=wsp.interval,
+        batch_size=wsp.batch_size,
+    )
+
+
 def get_context(initial_state: InitialState, md_params: Optional[MDParams] = None) -> Context:
     """A Context over copies of the state's potentials, so that set_params
     and reset_for_state leave the state as it is, after
-    configure_all_pairs. The Context's device and dtype are the
-    potentials': a state loaded on the card (the loaders' default) runs
-    there."""
-    if md_params is not None and md_params.water_sampling_params is not None:
-        raise NotImplementedError("water sampling waits on md/exchange/ (the BD and TIBD water movers)")
+    configure_all_pairs; its movers the state's barostat, then, with
+    md_params.water_sampling_params, the water sampler. The Context's
+    device and dtype are the potentials': a state loaded on the card (the
+    loaders' default) runs there."""
     configure_all_pairs(initial_state)
     params = initial_state.potentials[0].params
     movers = [initial_state.barostat] if initial_state.barostat is not None else []
+    if md_params is not None and md_params.water_sampling_params is not None:
+        movers.append(make_water_sampler(initial_state, md_params.water_sampling_params))
     return Context(
         torch.as_tensor(initial_state.x0, dtype=params.dtype),
         initial_state.v0,
@@ -790,9 +859,12 @@ def run_sims_hrex(
     iteration advances all K replicas' segments in one batched step
     (parallel/replica_exchange.py), computes the banded U_kl on the card
     and runs the swap batch on the host. With local MD the replicas run one
-    after another in one Context (_run_sims_hrex_time_multiplexed). Returns
-    (PairBarResult, trajectories by state, HREXDiagnostics, None: water
-    sampling is not ported, and raises)."""
+    after another in one Context (_run_sims_hrex_time_multiplexed). With
+    water sampling each replica's sampler takes its state's parameters
+    every iteration. Returns (PairBarResult, trajectories by state,
+    HREXDiagnostics, WaterSamplingDiagnostics or None without water
+    sampling): the sampler's counts of each iteration's segment by state,
+    equilibration left out."""
     from timemachine_torch.md.barostat import MonteCarloBarostat
     from timemachine_torch.parallel.replica_exchange import ReplicaExchangeRunner
 
@@ -825,6 +897,7 @@ def run_sims_hrex(
         n_swap_attempts_per_iter=n_swap_attempts_per_iter,
         max_delta_states=md_params.hrex_params.max_delta_states,
         seed=md_params.seed,
+        water_params_by_state=_water_params_by_state(initial_states, md_params),
     )
     runner.initialize([s.x0 for s in initial_states], [s.v0 for s in initial_states], [s.box0 for s in initial_states])
     runner.equilibrate(md_params.n_eq_steps)
@@ -833,11 +906,16 @@ def run_sims_hrex(
     samples_by_state = [Trajectory.empty() for _ in initial_states]
     replica_idx_by_state_by_iter: list = []
     fraction_accepted_by_pair_by_iter: list = []
+    water_counts_by_state_by_iter: list = []
     begin_loop_time = last_update_time = time.perf_counter()
 
     for current_frame in range(md_params.n_frames):
+        counters_before = runner.water_counters_by_replica()
         res = runner.advance_frame(md_params.steps_per_frame)
         perm = res.replica_idx_by_state
+        if counters_before is not None:
+            counts = np.stack(runner.water_counters_by_replica(), -1) - np.stack(counters_before, -1)
+            water_counts_by_state_by_iter.append([tuple(int(c) for c in counts[perm[s]]) for s in range(n_states)])
         for s, samples in enumerate(samples_by_state):
             samples.frames.append(res.frames_by_state[s])
             samples.boxes.append(res.boxes_by_state[s])
@@ -864,7 +942,21 @@ def run_sims_hrex(
     neighbor_ulkns_by_component = generate_pair_bar_ulkns(initial_states, samples_by_state, temperature)
     pair_bar_results = [estimate_free_energy_bar(u, temperature) for u in neighbor_ulkns_by_component]
     diagnostics = HREXDiagnostics(replica_idx_by_state_by_iter, fraction_accepted_by_pair_by_iter)
-    return PairBarResult(list(initial_states), pair_bar_results), samples_by_state, diagnostics, None
+    return (PairBarResult(list(initial_states), pair_bar_results), samples_by_state, diagnostics,
+            _water_diagnostics(md_params, water_counts_by_state_by_iter))
+
+
+def _water_params_by_state(initial_states: Sequence[InitialState], md_params: MDParams) -> Optional[list]:
+    """Each state's water sampler parameters, or None without water sampling."""
+    if md_params.water_sampling_params is None:
+        return None
+    return [get_water_sampler_params(s) for s in initial_states]
+
+
+def _water_diagnostics(md_params: MDParams, counts_by_state_by_iter: list) -> Optional[WaterSamplingDiagnostics]:
+    if md_params.water_sampling_params is None:
+        return None
+    return WaterSamplingDiagnostics(np.array(counts_by_state_by_iter))
 
 
 def _run_sims_hrex_time_multiplexed(
@@ -877,10 +969,12 @@ def _run_sims_hrex_time_multiplexed(
     JAX package's _run_sims_hrex_time_multiplexed): one Context takes each
     replica's x, v, box and its state's parameters in turn and samples one
     frame with sample_with_context_iter, seeded seed + state * n_frames +
-    frame (n_eq_steps at frame 0 only); then the banded U_kl of the summed
-    potential (compute_potential_matrix) and the swap batch seeded seed +
-    frame + 1, the identity pair added at K = 2. The Langevin noise is the
-    Context's generator, carried from segment to segment."""
+    frame (n_eq_steps at frame 0 only), the water sampler (if any) given
+    its state's parameters, its counts taken around the segment; then the
+    banded U_kl of the summed potential (compute_potential_matrix) and the
+    swap batch seeded seed + frame + 1, the identity pair added at K = 2.
+    The Langevin noise and the sampler's draws are the Context's
+    generators, carried from segment to segment."""
     from timemachine_torch.fe.terms import make_summed_potential  # terms imports this module through convert
 
     assert md_params.hrex_params is not None
@@ -893,6 +987,11 @@ def _run_sims_hrex_time_multiplexed(
     summed = make_summed_potential(initial_states[0].potentials)
     params_by_state = [make_summed_potential(s.potentials).params for s in initial_states]
     params_list_by_state = [[pot.params for pot in s.potentials] for s in initial_states]
+    water_params_by_state = _water_params_by_state(initial_states, md_params)
+
+    def water_counts() -> tuple:
+        return tuple(sum(getattr(m, field)(st) for m, st in zip(context.movers, context.get_mover_states())
+                         if getattr(m, "moves_atoms_nonlocally", False)) for field in ("n_accepted", "n_proposed"))
 
     n_states = len(initial_states)
     state_idxs = list(range(n_states))
@@ -905,15 +1004,20 @@ def _run_sims_hrex_time_multiplexed(
     samples_by_state = [Trajectory.empty() for _ in initial_states]
     replica_idx_by_state_by_iter: list = []
     fraction_accepted_by_pair_by_iter: list = []
+    water_counts_by_state_by_iter: list = []
     begin_loop_time = last_update_time = time.perf_counter()
 
     for current_frame in range(md_params.n_frames):
+        water_counts_iter = [(0, 0)] * n_states
 
         def sample_replica(xvb: CoordsVelBox, state_idx: int):
             context.set_x_t(xvb.coords)
             context.set_v_t(xvb.velocities)
             context.set_box(xvb.box)
             context.set_params(params_list_by_state[state_idx])
+            if water_params_by_state is not None:
+                context.set_water_sampler_params(water_params_by_state[state_idx])
+            acc0, prop0 = water_counts()
             md_params_replica = replace(
                 md_params,
                 n_frames=1,
@@ -926,6 +1030,8 @@ def _run_sims_hrex_time_multiplexed(
             assert frame.shape[0] == 1
             barostat = context.get_barostat()
             scale = float(barostat[1].volume_scale) if barostat is not None else None
+            acc1, prop1 = water_counts()
+            water_counts_iter[state_idx] = (acc1 - acc0, prop1 - prop0)
             return frame[-1], box[-1], final_velos, scale
 
         def replica_from_samples(last_sample) -> CoordsVelBox:
@@ -951,6 +1057,7 @@ def _run_sims_hrex_time_multiplexed(
             samples.final_velocities = velos
             samples.final_barostat_volume_scale_factor = scale
         fraction_accepted_by_pair_by_iter.append(fraction_accepted_by_pair)
+        water_counts_by_state_by_iter.append(water_counts_iter)
 
         if print_diagnostics_interval and (current_frame + 1) % print_diagnostics_interval == 0:
             _print_hrex_progress(
@@ -962,7 +1069,8 @@ def _run_sims_hrex_time_multiplexed(
     neighbor_ulkns_by_component = generate_pair_bar_ulkns(initial_states, samples_by_state, temperature)
     pair_bar_results = [estimate_free_energy_bar(u, temperature) for u in neighbor_ulkns_by_component]
     diagnostics = HREXDiagnostics(replica_idx_by_state_by_iter, fraction_accepted_by_pair_by_iter)
-    return PairBarResult(list(initial_states), pair_bar_results), samples_by_state, diagnostics, None
+    return (PairBarResult(list(initial_states), pair_bar_results), samples_by_state, diagnostics,
+            _water_diagnostics(md_params, water_counts_by_state_by_iter))
 
 
 def _print_hrex_progress(

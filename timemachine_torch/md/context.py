@@ -15,7 +15,9 @@ not change the trajectory; set_x_t, set_box and set_params drop it. The
 Langevin noise and every mover draw from their own torch.Generator, seeded
 from the integrator's and the movers' seeds; reset_for_state reseeds them
 from the new state's, so a window run in a reused Context is the same
-trajectory as in a fresh one.
+trajectory as in a fresh one. A mover that moves atoms nonlocally (the
+water sampler, md/exchange/) is followed by a rebuild of every provider's
+lists, as in JAX's step.
 
 Local MD (`multiple_steps_local`, `multiple_steps_local_selection`) moves
 only a selection of atoms around a reference atom: each step takes the full
@@ -40,6 +42,7 @@ from timemachine_torch.constants import BOLTZ
 from timemachine_torch.device import resolve_device
 from timemachine_torch.integrators import LangevinIntegrator, VelocityVerletIntegrator, langevin_step
 from timemachine_torch.md.barostat import MonteCarloBarostat
+from timemachine_torch.md.exchange.targeted_insertion import TIBDExchangeMove
 from timemachine_torch.ops.pbc import periodic_delta
 
 
@@ -133,8 +136,11 @@ class Context:
         """Point this Context at another compatible InitialState: swap x, v,
         box and every parameter, restart the step count, reseed the noise
         from the state's integrator seed, and rebuild every mover's state,
-        the barostat's generator from the state's own barostat seed. The run
-        that follows is the one a fresh Context of the state would take."""
+        the barostat's generator from the state's own barostat seed, the
+        water sampler's from the seed get_context derives from the state's
+        integrator seed. The run that follows is the one a fresh Context of
+        the state would take, but for the water sampler's parameters, which
+        restart from the mover's own, as JAX's do (ROADMAP R11)."""
         self.set_x_t(initial_state.x0)
         self.set_v_t(initial_state.v0)
         self.set_box(initial_state.box0)
@@ -144,8 +150,19 @@ class Context:
         for i, m in enumerate(self.movers):
             if isinstance(m, MonteCarloBarostat) and initial_state.barostat is not None:
                 self.movers[i] = replace(m, seed=initial_state.barostat.seed)
+            elif isinstance(m, TIBDExchangeMove):
+                self.movers[i] = m.reseeded(getattr(initial_state.integrator, "seed", 0))
         self._mover_states = [m.init_state(self.device, self._x.dtype) for m in self.movers]
         return self
+
+    def set_water_sampler_params(self, params):
+        """The water sampler's nonbonded parameters from now on, in its
+        state ((N, 4), or (K, N, 4) in a BatchedContext); its counters and
+        generator go on."""
+        for i, m in enumerate(self.movers):
+            if isinstance(m, TIBDExchangeMove):
+                st = self._mover_states[i]
+                self._mover_states[i] = replace(st, params=torch.as_tensor(params, device=self.device, dtype=st.params.dtype))
 
     def set_barostat_interval(self, interval: int) -> Optional[int]:
         """Fire the barostat every `interval` steps from now on, keeping its
@@ -206,12 +223,26 @@ class Context:
             self._x, self._v = langevin_step(
                 x, self._v, force, noise, self._ca, self._cb, self._cc, self.integrator.dt
             )
+        self._fire_movers(t)
+        self._step = t + 1
+
+    def _fire_movers(self, t: int):
+        """Each mover due after step t, in order (the barostat, then the
+        water sampler); after one that moves atoms nonlocally every
+        provider's lists are rebuilt from the moved coordinates, as JAX's
+        step does, since a teleported water's new pairs are in no list."""
         for k, (mover, move) in enumerate(zip(self.movers, self._move_fns)):
             if (t + 1) % mover.interval == 0:
                 self._mover_states[k], self._x, self._v, self._box = move(
                     self._mover_states[k], self._x, self._v, self._box
                 )
-        self._step = t + 1
+                if getattr(mover, "moves_atoms_nonlocally", False) and self._providers:
+                    self._prov_states = None
+                    self._ensure_lists()
+
+    def _ensure_lists(self):
+        if self._prov_states is None:
+            self._prov_states = {i: prov[0](self._x, self._box) for i, prov in self._providers.items()}
 
     def multiple_steps(self, n_steps: int, store_x_interval: int = 0):
         """Advance n_steps; return (frames, boxes) as numpy, one frame every
@@ -220,8 +251,7 @@ class Context:
         n_frames = n_steps // interval
         frames, boxes = [], []
         with torch.no_grad():
-            if self._prov_states is None:
-                self._prov_states = {i: prov[0](self._x, self._box) for i, prov in self._providers.items()}
+            self._ensure_lists()
             if self._verlet:
                 self._half_kick(-0.5)
             for s in range(1, n_steps + 1):
@@ -364,8 +394,7 @@ class Context:
         free3 = free_t[:, None]
         frames, boxes = [], []
         with torch.no_grad():
-            if self._prov_states is None:
-                self._prov_states = {i: prov[0](self._x, self._box) for i, prov in self._providers.items()}
+            self._ensure_lists()
             for s in range(1, n_steps + 1):
                 t, x, box = self._step, self._x, self._box
                 restraint = self.local_restraint(x, box, reference_idx, free_t, k, radius, freeze_reference)[1]
@@ -453,7 +482,9 @@ class BatchedContext:
 
     # the same code over (K, ...) tensors: a barostat's energy is _mover_energy's (K,) energies
     _make_move_fn = Context._make_move_fn
+    _fire_movers = Context._fire_movers
     set_barostat_interval = Context.set_barostat_interval
+    set_water_sampler_params = Context.set_water_sampler_params
     get_x_t, get_v_t, get_box, get_mover_states = Context.get_x_t, Context.get_v_t, Context.get_box, Context.get_mover_states
 
     def set_params(self, params):
@@ -516,11 +547,7 @@ class BatchedContext:
         if noise is None:
             noise = torch.randn(x.shape, generator=self._noise, device=self.device, dtype=x.dtype)
         self._x, self._v = langevin_step(x, self._v, force, noise, self._ca, self._cb, self._cc, self.integrator.dt)
-        for k, (mover, move) in enumerate(zip(self.movers, self._move_fns)):
-            if (t + 1) % mover.interval == 0:
-                self._mover_states[k], self._x, self._v, self._box = move(
-                    self._mover_states[k], self._x, self._v, self._box
-                )
+        self._fire_movers(t)
         self._step = t + 1
 
     def multiple_steps(self, n_steps: int):

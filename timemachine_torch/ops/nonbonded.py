@@ -318,6 +318,32 @@ def interaction_group_energy_force(conf, params, box, a_idxs, b_idxs, beta, cuto
     return torch.sum(vdw) + torch.sum(es), force
 
 
+def nonbonded_block_unsummed(xi, xj, box, params_i, params_j, beta, cutoff):
+    """(..., R, M) energies of every atom of xi (..., R, 3) with every atom
+    of xj (..., M, 3), no exclusions, over any leading batch dimensions
+    shared by the coordinates, parameters and box (..., 3, 3) (None:
+    vacuum): the 4D distance, switched-erfc electrostatics plus LJ, 0 at
+    and beyond the cutoff. Coincident points give NaN, as JAX's function
+    does; its callers mask them."""
+    diff = xi[..., :, None, :] - xj[..., None, :, :]
+    if box is not None:
+        box_diag = torch.diagonal(box, dim1=-2, dim2=-1)[..., None, None, :]
+        diff = diff - box_diag * torch.floor(diff / box_diag + 0.5)
+    dw = params_i[..., :, None, 3] - params_j[..., None, :, 3]
+    dij = torch.sqrt(torch.sum(diff * diff, dim=-1) + dw * dw)
+    sig_ij = combine_sigma(params_i[..., :, None, 1], params_j[..., None, :, 1])
+    eps_ij = combine_epsilon(params_i[..., :, None, 2], params_j[..., None, :, 2])
+    qij = params_i[..., :, None, 0] * params_j[..., None, :, 0]
+    es = switched_direct_space_pme(dij, qij, beta)
+    lj = lennard_jones(dij, sig_ij, eps_ij)
+    return torch.where(dij < cutoff, es + lj, 0.0)
+
+
+def nonbonded_block(xi, xj, box, params_i, params_j, beta, cutoff):
+    """The sum of nonbonded_block_unsummed over its last two axes."""
+    return torch.sum(nonbonded_block_unsummed(xi, xj, box, params_i, params_j, beta, cutoff), dim=(-2, -1))
+
+
 # (rows x columns) slots of one dense row block: 2^16 keeps a block's float64
 # temporaries cache-sized on the CPU, also under a vmap over a dozen replicas
 DENSE_BLOCK_ELEMENTS = {"cpu": 1 << 16, "cuda": 1 << 22}

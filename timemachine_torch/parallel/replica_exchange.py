@@ -9,12 +9,15 @@ replica's 2 max_delta_states + 1 parameter sets in one batched energy
 sweep; then the (K, K) matrix comes to the host, where the neighbor-swap
 scan (md/hrex.neighbor_swap_scan) runs. Replicas never move: only the
 permutation state -> replica, and with it the parameter rows each replica
-reads, changes.
+reads, changes; with water sampling, so do the water sampler's parameters
+(water_params_by_state), which each replica's mover state takes at every
+segment, as JAX's runner does.
 
 Randomness: one torch.Generator, seeded from `seed`, draws every step's
 (K, N, 3) Langevin noise; the barostat draws (K, 2) uniforms a move from
-its own, seeded from the template Context's barostat seed; a swap batch
-draws from numpy default_rng((seed, iteration)). The JAX runner folds a key
+its own, seeded from the template Context's barostat seed, and the water
+sampler its proposals from its own, seeded from its mover's seed (ROADMAP
+P28); a swap batch draws from numpy default_rng((seed, iteration)). The JAX runner folds a key
 per replica and per step, and draws its swaps from a key folded with the
 iteration. Both are reproducible from the seed.
 """
@@ -61,6 +64,7 @@ class ReplicaExchangeRunner:
         n_swap_attempts_per_iter: int,
         max_delta_states: Optional[int],
         seed: int,
+        water_params_by_state=None,
     ):
         self._context = context
         self.n_states = len(params_list_by_state)
@@ -74,6 +78,10 @@ class ReplicaExchangeRunner:
             torch.stack([torch.as_tensor(pls[i], device=dev, dtype=pot.params.dtype) for pls in params_list_by_state])
             for i, pot in enumerate(context.potentials)
         ]
+        self._water_params = None
+        if water_params_by_state is not None:
+            self._water_params = torch.stack([torch.as_tensor(np.asarray(w), device=dev) for w in water_params_by_state])
+        self._water_mover_idx = [i for i, m in enumerate(context.movers) if getattr(m, "moves_atoms_nonlocally", False)]
         self._batch: Optional[BatchedContext] = None
         self.perm = np.arange(self.n_states)
         self.t = 0
@@ -88,6 +96,8 @@ class ReplicaExchangeRunner:
         self._batch = BatchedContext(
             self._context, np.stack(xs0), np.stack(vs0), np.stack(boxes0), self._params_of_replicas(), self.seed
         )
+        if self._water_params is not None:
+            self._batch.set_water_sampler_params(self._water_params)
         self.t = 0
         self.iteration = 0
 
@@ -107,6 +117,9 @@ class ReplicaExchangeRunner:
         rebuilt at the start from the replicas' current parameters (swaps
         re-point replicas at other parameter rows), as in JAX's segment."""
         self._batch.set_params(self._params_of_replicas())
+        if self._water_params is not None:
+            idx = torch.as_tensor(self._state_of_replica(), device=self._context.device)
+            self._batch.set_water_sampler_params(self._water_params[idx])
         self._batch.multiple_steps(n_steps)
         self.t += n_steps
 
@@ -159,6 +172,13 @@ class ReplicaExchangeRunner:
     def final_state_arrays(self):
         """(coords, velocities, boxes) ordered by state."""
         return self._batch.get_x_t()[self.perm], self._batch.get_v_t()[self.perm], self._batch.get_box()[self.perm]
+
+    def water_counters_by_replica(self) -> Optional[tuple]:
+        """(accepted (K,), proposed (K,)) of the water sampler by replica, or None without one."""
+        if not self._water_mover_idx:
+            return None
+        st = self._batch.get_mover_states()[self._water_mover_idx[0]]
+        return st.n_accepted.cpu().numpy().astype(np.int64), st.n_proposed.cpu().numpy().astype(np.int64)
 
     def mover_state_field_by_state(self, mover_idx: int, field: str) -> np.ndarray:
         """A per-replica mover-state field, ordered by state."""

@@ -175,6 +175,21 @@ WaterSamplingDiagnostics' counts, acceptance and occupancy by window, ΔG);
 one window by get_context + sample_with_context (its Context's lists after
 a firing a fresh build's, bitwise); the time-multiplexed HREX with local MD
 and the sampler (each segment's state's sampler parameters, the counts).
+The standalone samplers, the training path and the last utilities [21]:
+equilibrate_host_barker over phase 16's raw solvent-leg host at JAX's
+defaults (the host du/dx's nb_tiles exact form once a step and once for the
+final force check, nothing else; the host's largest |F|; the entry point
+rerun from its seed for its first steps, bitwise; its first steps replayed
+on the host CPU in float64 from the card's own states and draws, and its
+du/dx there held against the CPU's), integrator.simulate of ethanol's walkers in vacuum (shape, finite,
+bitwise rerun, ms a batched step), the forcefield-training demonstration
+(optimize/training_demo.py) on ethanol at a cut depth (the label, each
+round's loss, scale and free energies; a round's card gradient against a
+float64 central difference on the CPU), lib.py's HilbertSort,
+Neighborlist, NonbondedMolEnergy and SegmentedSumExp on DHFR, and the
+CentroidRestraint and FanoutSummedPotential modules on DHFR against the
+CPU's float64. Each phase prints its host seconds ("[N time]"), and the
+script its total up to the kernels line ("[time]").
 Every path runs with all launch and plain-call counts set to
 0 just before it and read just after. Then a JSON line on the kernels
 (time; launches per NPT step of the path named in `path`, per Adam step of
@@ -183,7 +198,8 @@ the batched form (launches_rest_hrex: of REST's HREX), per local step for the
 masked form (launches_local_md; launches_ahfe: per step of the AHFE
 windows), per replica-step of the water-sampling HREX for the batched form
 (launches_water_hrex), per run of phase 12 for the probes; nb_tiles' exact masked row
-also launches_ahfe_fire, launches_smc, launches_mtm; bound;
+also launches_ahfe_fire, launches_smc, launches_mtm, launches_barker
+and bound_ms_barker (phase 21's, per run and per launch); bound;
 plain time), the card's name and power limit from
 nvidia-smi, and as the last line {"ok": true, "device": {...}}.
 
@@ -193,6 +209,7 @@ prints no result.
 """
 
 import ctypes
+import itertools
 import json
 import os
 import subprocess
@@ -202,23 +219,27 @@ from collections import Counter
 from dataclasses import replace
 from functools import partial
 
+T_START = time.perf_counter()
+
 TEMP, DT, FRICTION, PRESSURE, BAROSTAT_INTERVAL = 300.0, 2.5e-3, 1.0, 1.013, 25
-N_FIRE, N_STEPS, N_PROFILE, N_DET = 400, 1000, 50, 100
-N_FRAMES, FRAME_INTERVAL, N_ADAM, ADAM_LR, S_START = 8, 100, 5, 2e-3, 1.01
+# N_STEPS and N_FRAMES cut from 1000 and 8 when phase 21 came
+N_FIRE, N_STEPS, N_PROFILE, N_DET = 400, 500, 50, 100
+N_FRAMES, FRAME_INTERVAL, N_ADAM, ADAM_LR, S_START = 4, 100, 5, 2e-3, 1.01
 N_ALT = 200  # 500 until phase 20 came
 # phase 13, the solvent RBFE leg: depth cut from the JAX package's
 # DEFAULT_MD_PARAMS (fe/rbfe.py: 10,000 equilibration steps, 1,000 frames of
 # 400 steps) to fit the script's time; the 12 windows and 6,404 atoms are not cut
 # (cut to 250 and 10 since phase 16 drives the leg end to end, to 100 and 10 frames of 30 since
-# phase 17 runs too, to 3 frames since phase 20 runs too)
-N13_EQ, N13_FRAMES, N13_STEPS_PER_FRAME, N13_TIMED, N13_REUSE = 100, 3, 30, 200, 60
+# phase 17 runs too, to 3 frames since phase 20 runs too, to 50, 100 and 30 equilibration, timed and reused
+# steps since phase 21 runs too)
+N13_EQ, N13_FRAMES, N13_STEPS_PER_FRAME, N13_TIMED, N13_REUSE = 50, 3, 30, 100, 30
 # phase 14, HREX over the same 12 windows: DEFAULT_HREX_PARAMS (fe/rbfe.py:
 # max_delta_states 4, K^3 swap attempts an iteration) with its depth cut as
 # phase 13's (10,000 equilibration steps, 1,000 frames of 400 steps in the
 # JAX package); the windows, atoms and replicas are not cut
 # (cut to 200 and 10 iterations of 50 from 500 and 20 when phase 18 came, to 100 and 4 iterations
-# when phase 20 came)
-N14_EQ, N14_FRAMES, N14_STEPS_PER_FRAME, N14_MAX_DELTA, N14_TIMED = 100, 4, 50, 4, 40
+# when phase 20 came, to 50 and 3 when phase 21 came)
+N14_EQ, N14_FRAMES, N14_STEPS_PER_FRAME, N14_MAX_DELTA, N14_TIMED = 50, 3, 50, 4, 40
 # phase 15, the state builder: the window whose force and run are held, the
 # run's steps; the built parameters against the cache's relative to each
 # column's largest |value|, and the force on phase 13's all-pairs norm. The
@@ -235,11 +256,12 @@ N15_WINDOW, N15_STEPS = 6, 200
 # 48, and DEFAULT_HREX_PARAMS' depth (10,000 equilibration steps, 1,000
 # frames of 400 steps, 100 frames a bisection state) cut to 100, 10 of 25
 # and 6 (200, 20 of 50 and 10 until phase 18 came, 100, 10 of 50 and 6 until
-# phase 19 came), then to 6 frames and 2 bisection frames when phase 20 came; the anchors'
+# phase 19 came), then to 6 frames and 2 bisection frames when phase 20 came, to 6 windows, 50
+# equilibration steps and 4 frames when phase 21 came; the anchors'
 # displacements held at min_cutoff 0.7 nm (JAX's
 # estimators' default) and the embedded conformers to TOL_EMBED of the cache's
-N16_EMBED_SEED, N16_WINDOWS, N16_MIN_CUTOFF, TOL_EMBED = 7, 12, 0.7, 1e-10
-N16_EQ, N16_FRAMES, N16_STEPS_PER_FRAME, N16_FRAMES_BISECTION = 100, 6, 25, 2
+N16_EMBED_SEED, N16_WINDOWS, N16_MIN_CUTOFF, TOL_EMBED = 7, 6, 0.7, 1e-10
+N16_EQ, N16_FRAMES, N16_STEPS_PER_FRAME, N16_FRAMES_BISECTION = 50, 4, 25, 2
 # phase 18, REST and local MD: REST at DEFAULT_REST_PARAMS' scale (fe/rbfe.py:
 # max_temperature_scale 3, exponential), its HREX over the 12 windows cut as
 # phase 14's (100 equilibration steps, 10 iterations of 50; 4 since phase 20); local MD on
@@ -250,9 +272,10 @@ N16_EQ, N16_FRAMES, N16_STEPS_PER_FRAME, N16_FRAMES_BISECTION = 100, 6, 25, 2
 # iterations of 50 steps (3 and 3 since phase 20). REST's scaled entries against the plain windows
 # times the scale to TOL_REST_REL (one float64 product each: measured 0 on
 # the CPU)
-N18_MAX_TEMPERATURE_SCALE, N18_EQ, N18_FRAMES, N18_STEPS_PER_FRAME = 3.0, 100, 4, 50
+# (cut when phase 21 came: N18_EQ 100 -> 50, N18_FRAMES 4 -> 3, N18_RS_EQ 100 -> 50, N18_RS_FRAMES_BISECTION 3 -> 2)
+N18_MAX_TEMPERATURE_SCALE, N18_EQ, N18_FRAMES, N18_STEPS_PER_FRAME = 3.0, 50, 3, 50
 N18_WINDOW, N18_LOCAL, N18_LOCAL_K, N18_LOCAL_RADIUS, N18_LOCAL_SEED, N18_SELECTION = 6, 50, 1_000.0, 1.0, 2023, 30
-N18_RS_WINDOWS, N18_RS_EQ, N18_RS_FRAMES_BISECTION, N18_RS_FRAMES, N18_RS_STEPS_PER_FRAME, N18_RS_LOCAL_STEPS = 4, 100, 3, 3, 50, 25
+N18_RS_WINDOWS, N18_RS_EQ, N18_RS_FRAMES_BISECTION, N18_RS_FRAMES, N18_RS_STEPS_PER_FRAME, N18_RS_LOCAL_STEPS = 4, 50, 2, 3, 50, 25
 TOL_REST_REL = 1e-12
 # phase 19, the absolute hydration leg of ethanol from SMILES (embedded with seed 7, AM1 in strict
 # mode). Windowed: run_solvent's 4.0 + 0.1 nm box at N19_WINDOWS windows (n_windows cut from 16),
@@ -266,10 +289,12 @@ TOL_REST_REL = 1e-12
 # phase 20 came, 10 since), resampled
 # below N19_RESAMPLE of the walkers' ESS; the MTM move's K; FreeSolv's experimental hydration free
 # energy of ethanol, -5.00 kcal/mol (a published number, printed for information)
+# (cut when phase 21 came: N19_EQ 100 -> 50, N19_REUSE 60 -> 30, N19_SMC_EQ 200 -> 100, N19_SOLVENT_SAMPLES 4 -> 2,
+# N19_VAC_BATCHES 32 -> 16)
 N19_EMBED_SEED, N19_SEED, N19_SMC_SEED = 7, 2023, 2022
-N19_WINDOWS, N19_EQ, N19_FRAMES, N19_STEPS_PER_FRAME, N19_REUSE = 8, 100, 3, 30, 60
-N19_SMC_EQ, N19_SOLVENT_SAMPLES, N19_STEPS_PER_SAMPLE = 200, 4, 100
-N19_VAC_WALKERS, N19_VAC_STEPS_PER_BATCH, N19_VAC_BATCHES, N19_VAC_BURN_IN = 8, 25, 32, 8
+N19_WINDOWS, N19_EQ, N19_FRAMES, N19_STEPS_PER_FRAME, N19_REUSE = 8, 50, 3, 30, 30
+N19_SMC_EQ, N19_SOLVENT_SAMPLES, N19_STEPS_PER_SAMPLE = 100, 2, 100
+N19_VAC_WALKERS, N19_VAC_STEPS_PER_BATCH, N19_VAC_BATCHES, N19_VAC_BURN_IN = 8, 25, 16, 8
 N19_ENDSTATE, N19_SMC_WALKERS, N19_SMC_WINDOWS, N19_SMC_STEPS, N19_RESAMPLE, N19_MTM_K = 64, 8, 6, 10, 0.5, 8
 FREESOLV_ETHANOL_KJ = -5.00 * 4.184
 # the ligand's internal distances after alignment against the vacuum conformer's (nm), and the
@@ -288,7 +313,8 @@ TOL_ALIGNED_GEOMETRY, TOL_WEIGHT_SUM = 1e-5, 1e-12
 # [20 single]: one window by get_context + sample_with_context, N20_SINGLE_FRAMES frames; [20 local]: the
 # time-multiplexed HREX with local MD over the last 2 windows, N20_TM_FRAMES frames, the sampler every
 # N20_TM_INTERVAL steps with N20_TM_PROPOSALS proposals (firings in each segment's global steps)
-N20_BOX, N20_WINDOWS, N20_SEED, N20_EQ, N20_FRAMES, N20_STEPS_PER_FRAME = 4.0, 6, 2024, 200, 10, 100
+# (cut when phase 21 came: N20_EQ 200 -> 100, N20_FRAMES 10 -> 5, a firing a frame per replica still)
+N20_BOX, N20_WINDOWS, N20_SEED, N20_EQ, N20_FRAMES, N20_STEPS_PER_FRAME = 4.0, 6, 2024, 100, 5, 100
 N20_INTERVAL, N20_PROPOSALS, N20_BATCH, N20_RADIUS = 100, 500, 250, 2 * 0.46
 N20_SINGLE_FRAMES, N20_TM_FRAMES, N20_TM_INTERVAL, N20_TM_PROPOSALS, N20_TM_LOCAL = 1, 1, 25, 100, 25
 N20_PLANT_NM = 0.2
@@ -297,6 +323,32 @@ TOL_WEIGHT_DRIFT_KT, TOL_RAW_LOG_P, TOL_RIGID_NM = 1e-2, 1e-2, 1e-5
 # log falls below it with probability e^-50); below, where a clash sends it to -1e20, the firing's must
 # stay below half the floor, where no uniform can accept it either
 RAW_DECISION_FLOOR = -50.0
+# phase 21, the standalone samplers, the training path and the last utilities (since PR 18).
+# [21 barker]: equilibrate_host_barker over phase 16's raw host (the solvent leg's 4.0 + 0.1 nm TIP3P box
+# around ethanol and propane, 6,393 host atoms, not cut) at JAX's defaults (sigma 1e-4 nm, 1,000 steps, 300 K),
+# seeded N21_SEED; the entry point again for its first N21_RERUN steps from the seed, its draws and states
+# bitwise the first run's (a whole second chain takes about 17.5 s on an H100 host); the first run's first
+# N21_REPLAY steps replayed on the host CPU in float64, each from the card's state with the card's own draws (a
+# float64 host-CPU force at 6,393 atoms takes about 2.7 s there), to TOL_BARKER_REPLAY nm, a coordinate
+# excepted where its flip decision fell within BARKER_FLIP_MARGIN of its threshold (|log u - log sigmoid(g z)|),
+# and the card's du/dx there against the CPU's to TOL_FORCE_REL_NORM of its norm. [21 simulate]: integrator.simulate of N21_SIM_WALKERS walkers of
+# ethanol in vacuum, N21_SIM_BATCHES batches of N21_SIM_STEPS steps. [21 train]: the training demo on ethanol
+# (phase 16's, embedded with seed 7) at a depth cut from the JAX script's 8 walkers x 60 batches of 25 steps
+# and 3 rounds of 60 Adam steps to N21_TRAIN_* (the walkers, steps a batch and Adam steps not cut); a round's
+# card gradient against a central difference (step N21_FD_H) of its estimator in float64 on the CPU to
+# TOL_TRAIN_FD relative. [21 lib] and [21 restraints] on DHFR: NonbondedMolEnergy per water to
+# TOL_MOL_ENERGY relative, SegmentedSumExp to TOL_LSE, the restraints' energy to TOL_RESTRAINT_U relative
+# and force to TOL_RESTRAINT_F of its norm, each card against the CPU in float64
+N21_SEED, N21_REPLAY, N21_RERUN, TOL_BARKER_REPLAY, BARKER_FLIP_MARGIN = 2024, 3, 20, 1e-5, 1e-3
+N21_SIM_WALKERS, N21_SIM_BATCHES, N21_SIM_STEPS, N21_SIM_SEED = 8, 2, 25, 2023
+N21_TRAIN_WALKERS, N21_TRAIN_BATCHES, N21_TRAIN_STEPS, N21_TRAIN_ROUNDS, N21_TRAIN_ADAM = 8, 3, 25, 2, 60
+N21_FD_H, TOL_TRAIN_FD = 1e-4, 1e-4
+N21_NBLIST_CUTOFF, TOL_MOL_ENERGY, TOL_LSE, TOL_RESTRAINT_U, TOL_RESTRAINT_F = 1.2, 1e-5, 1e-12, 1e-6, 1e-5
+# the CPU's float64 reference of NonbondedMolEnergy (mol_energies_near) takes 3-30 ms a water on an 8-core host,
+# so it holds N21_MOL_HELD evenly spaced waters of the 7,023; N21_NEAR_MARGIN (nm) is more than a water's O-H
+# distance
+N21_MOL_HELD, N21_NEAR_MARGIN = 512, 0.3
+EXACT_UF = "nb_tiles F+U triangular exact"  # the host du/dx's form (form_launches' name), as the host FIRE's
 # phase 17, the exact-erfc and masked forms: the window whose NPT run each form takes, and its steps;
 # the DHFR atoms (the protein's last) the dot form's mask leaves out, as many as the leg's hybrid ligand
 N17_WINDOW, N17_STEPS, N17_DOT_OUT = 6, 100, 11
@@ -1081,7 +1133,7 @@ def phase16(dev, smi, zero_counts, read_counts, masked_row, batched_row):
     batched_row["launches_run_solvent"] = launches16["rowscan_sweep_batched"]
     print(f"[16 time] phase 16 took {time.perf_counter() - t_phase16:.1f} s, host clock ({smi})")
     exact16 = {stage: stage_launches(stage, "nb_tiles") for stage in ("fire", "minimize")}
-    return launches16, exact16, (mols16, core16, ff16)
+    return launches16, exact16, (mols16, core16, ff16), host16["config"]
 
 
 def phase19(dev, smi, zero_counts, read_counts, masked_row, exact_row):
@@ -1772,6 +1824,353 @@ def phase20(dev, smi, zero_counts, read_counts, batched_row):
     return dG20
 
 
+def mol_energies_near(x, params, box, mols, beta: float, cutoff: float):
+    """Float64 reference of NonbondedMolEnergy on the host CPU: each
+    molecule's pair energies (nonbonded_block_unsummed, NaN counted +inf)
+    with the atoms of other molecules within cutoff + N21_NEAR_MARGIN of its
+    first atom, the only ones within the cutoff of any of its atoms when no
+    atom of it lies N21_NEAR_MARGIN from its first. numpy (molecules,)."""
+    import numpy as np
+    import torch
+
+    from timemachine_torch.ops.nonbonded import nonbonded_block_unsummed
+
+    f64 = torch.float64
+    x, params, box = (torch.as_tensor(np.asarray(a), dtype=f64) for a in (x, params, box))
+    diag = torch.diagonal(box)
+    reach2 = (cutoff + N21_NEAR_MARGIN) ** 2
+    out = []
+    for m in mols:
+        m = torch.as_tensor(m)
+        d = x - x[m[0]]
+        d = d - diag * torch.round(d / diag)
+        near = (d * d).sum(1) < reach2
+        near[m] = False
+        cols = torch.nonzero(near)[:, 0]
+        u = nonbonded_block_unsummed(x[m], x[cols], box, params[m], params[cols], beta, cutoff)
+        out.append(float(torch.where(torch.isnan(u), torch.inf, u).sum()))
+    return np.array(out)
+
+
+def phase21(dev, smi, zero_counts, read_counts, exact_row, inputs16, host16, dhfr):
+    """The standalone samplers, the training path and the last utilities:
+    [21 barker] equilibrate_host_barker over phase 16's raw solvent-leg
+    host (`host16`, with `inputs16`'s ethanol, propane and force field) at
+    JAX's defaults, its launches (the host du/dx's nb_tiles exact form once
+    a step and once for the final check, nothing else), the host's largest
+    |F|, its first steps rerun through it bitwise and replayed on the CPU
+    in float64 from the card's own states and draws; [21 simulate] integrator.simulate of
+    ethanol's walkers in vacuum; [21 train] the training demo on ethanol, a
+    round's card gradient against a float64 central difference on the CPU;
+    [21 lib] HilbertSort, Neighborlist, NonbondedMolEnergy over the waters
+    and SegmentedSumExp on DHFR (`dhfr`, its HostConfig); [21 restraints]
+    CentroidRestraint and FanoutSummedPotential on DHFR, card against the
+    CPU's float64. Adds the Barker's launches and the bound of its launch
+    to nb_tiles' exact row (`exact_row`)."""
+    import numpy as np
+    import torch
+
+    from timemachine_torch import lib as lib21
+    from timemachine_torch import potentials as pot21
+    from timemachine_torch.constants import BOLTZ, DEFAULT_NB_CUTOFF, DEFAULT_TEMP, MAX_FORCE_NORM
+    from timemachine_torch.integrator import simulate
+    from timemachine_torch.md import barker as barker21
+    from timemachine_torch.md import minimizer as minimizer21
+    from timemachine_torch.optimize import training_demo as demo21
+
+    t_phase21 = time.perf_counter()
+    stages, stage_start = {}, [t_phase21]
+
+    def stage_done(name):
+        """Host seconds since the previous stage ended, under `name`."""
+        now = time.perf_counter()
+        stages[name] = now - stage_start[0]
+        stage_start[0] = now
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    f32, f64, cpu = torch.float32, torch.float64, torch.device("cpu")
+    mols, _, ff = inputs16
+    kT = BOLTZ * DEFAULT_TEMP
+    sigma = 1e-4  # JAX's default proposal stddev (nm)
+
+    # -- [21 barker] -------------------------------------------------------------------------------
+    x0 = np.asarray(host16.conf)
+    n_host = x0.shape[0]
+    draw, step = barker21.barker_draws, barker21.barker_step
+
+    def recorded(run, n_steps):
+        """run()'s result, and the draws (z, u), gradients g and states after
+        each of the first n_steps steps of the Barker chain it runs, as the
+        entry point's own calls of barker_draws and barker_step made them."""
+        kept = {"z": [], "u": [], "g": [], "x": []}
+
+        def draws_kept(generator, x, sigma):
+            z, u = draw(generator, x, sigma)
+            if len(kept["z"]) < n_steps:
+                kept["z"].append(z)
+                kept["u"].append(u)
+            return z, u
+
+        def step_kept(x, g, z, u):
+            out = step(x, g, z, u)
+            if len(kept["x"]) < n_steps:
+                kept["g"].append(g)
+                kept["x"].append(out)
+            return out
+
+        barker21.barker_draws, barker21.barker_step = draws_kept, step_kept
+        try:
+            return run(), kept
+        finally:
+            barker21.barker_draws, barker21.barker_step = draw, step
+
+    steps = 1000  # JAX's default
+    zero_counts()
+    before = form_launches()
+    sync()
+    t0 = time.perf_counter()
+    x_b, kept = recorded(lambda: minimizer21.equilibrate_host_barker(mols, host16, ff, seed=N21_SEED, device=dev),
+                         max(N21_RERUN, N21_REPLAY))
+    sync()
+    t_b = time.perf_counter() - t0
+    counts, plain = read_counts()
+    forms = {f: n for f, n in (form_launches() - before).items() if n}
+    du_dx = minimizer21.make_host_du_dx_fxn(mols, host16, ff, device=dev)
+    f_max = float(torch.linalg.vector_norm(du_dx(torch.as_tensor(x_b, device=dev)), dim=1).max())
+    rms = float(np.sqrt(np.mean((x_b.astype(np.float64) - x0) ** 2)))
+    print(f"[21 barker] equilibrate_host_barker over phase 16's raw host ({n_host} atoms, box "
+          f"{np.diag(host16.box)[0]:.2f} nm) with ethanol and propane frozen, sigma {sigma} nm, {steps} steps, 300 K, seed "
+          f"{N21_SEED}: {t_b:.2f} s ({1e3 * t_b / steps:.2f} ms a step), host clock; launches by form {forms}, totals "
+          f"{counts}, plain calls {plain}; the host's largest |F| {f_max:.1f} kJ/mol/nm against MAX_FORCE_NORM "
+          f"{MAX_FORCE_NORM:g}; RMS displacement per coordinate {rms:.3e} nm ({smi})")
+    check(forms == {EXACT_UF: steps + 1} and plain == 0 and counts["nb_tiles"] == steps + 1
+          and sum(counts.values()) == steps + 1,
+          "[21] the Barker chain did not launch nb_tiles' exact form once a step and once for its check alone")
+    check(bool(np.isfinite(x_b).all()) and f_max <= MAX_FORCE_NORM, "[21] the Barker chain's host is not finite or over MAX_FORCE_NORM")
+    check(len(kept["x"]) == max(N21_RERUN, N21_REPLAY), "[21] the Barker chain's steps were not recorded")
+    stage_done("chain")
+
+    # the entry point again from the same seed for its first N21_RERUN steps: its draws and states, held bitwise
+    # against the first run's; the raw box after so few steps may fail the final force check, which is reported
+    def rerun():
+        try:
+            minimizer21.equilibrate_host_barker(mols, host16, ff, n_steps=N21_RERUN, seed=N21_SEED, device=dev)
+            return "passed"
+        except minimizer21.MinimizationError:
+            return "raised MinimizationError"
+
+    sync()
+    t0 = time.perf_counter()
+    rerun_check, kept_again = recorded(rerun, N21_RERUN)
+    sync()
+    t_rerun = time.perf_counter() - t0
+    same = len(kept_again["x"]) == N21_RERUN and all(
+        torch.equal(a, b) for key in kept_again for a, b in zip(kept[key][:N21_RERUN], kept_again[key]))
+    stage_done("rerun")
+
+    # the first N21_REPLAY steps replayed on the host CPU in float64, each from the card's state before it with
+    # the card's own draws; the card's gradient held against the CPU's at the same state
+    t0 = time.perf_counter()
+    du_cpu = minimizer21.make_host_du_dx_fxn(mols, host16, ff, device=cpu)
+    starts = [torch.as_tensor(x0, dtype=kept["x"][0].dtype), *kept["x"][: N21_REPLAY - 1]]
+    err, force_rel, force_max, n_near = 0.0, 0.0, 0.0, 0
+    for i in range(N21_REPLAY):
+        xi = starts[i].to(cpu, f64)
+        du_ref = du_cpu(xi)
+        du_card = -kT * kept["g"][i].to(cpu, f64)
+        force_rel = max(force_rel, float(torch.linalg.vector_norm(du_card - du_ref) / torch.linalg.vector_norm(du_ref)))
+        force_max = max(force_max, float(torch.abs(du_card - du_ref).max()))
+        g = -du_ref / kT
+        z, u = kept["z"][i].to(cpu, f64), kept["u"][i].to(cpu, f64)
+        near = torch.abs(torch.log(u) - torch.nn.functional.logsigmoid(g * z)) < BARKER_FLIP_MARGIN
+        n_near += int(near.sum())
+        xr = barker21.barker_step(xi, g, z, u)
+        err = max(err, float(torch.where(near, 0.0, torch.abs(kept["x"][i].to(cpu, f64) - xr)).max()))
+    t_replay = time.perf_counter() - t0
+    stage_done("replay")
+    print(f"[21 barker] the entry point again from seed {N21_SEED} for {N21_RERUN} steps ({t_rerun:.2f} s; its final "
+          f"force check {rerun_check}): draws, gradients and states bitwise the first run's {same}; the first run's "
+          f"first {N21_REPLAY} steps replayed on the host CPU in float64, each from the card's state with the card's "
+          f"draws ({t_replay:.1f} s): largest |diff| {err:.3e} nm (tol {TOL_BARKER_REPLAY:g}) over the coordinates "
+          f"whose flip decision cleared its threshold by {BARKER_FLIP_MARGIN:g}, {n_near} of "
+          f"{N21_REPLAY * x0.size} excepted; the card's du/dx against the CPU's at the same states: |diff| / |du/dx| "
+          f"{force_rel:.3e} (tol {TOL_FORCE_REL_NORM:g}), largest |diff| {force_max:.3e} kJ/mol/nm ({smi})")
+    check(same, "[21] the Barker chain is not bitwise on rerun")
+    check(err <= TOL_BARKER_REPLAY, "[21] the Barker chain's first steps differ from their float64 replay")
+    check(force_rel <= TOL_FORCE_REL_NORM, "[21] the Barker chain's du/dx on the card is off the CPU's float64")
+    # the launch's bound: the host pairs within the cutoff at the chain's start (the ligands are masked out
+    # of the host term), at the exact F+U form's operations a pair; its bytes: each atom's row and
+    # parameters read once, its force written once. Its time a launch is phase 17's of the same form over the
+    # solvent leg's host under the host mask (exact_row["ms"])
+    pairs = pairs_within_cutoff(torch.as_tensor(x0, device=dev), torch.as_tensor(host16.box, device=dev),
+                                torch.zeros(n_host, device=dev, dtype=f64), DEFAULT_NB_CUTOFF)
+    bound_ms, bound_by = bound(pair_ops("nb_tiles_exact_UF", pairs), (32 + 12) * n_host)
+    print(f"[21 bound] nb_tiles' exact F+U under the Barker chain: its bound {bound_ms:.4f} ms a launch by {bound_by} "
+          f"over the {pairs} host pairs within the cutoff at the chain's start, against phase 17's {exact_row['ms']:.4f} "
+          f"ms a launch of the same form; {counts['nb_tiles']} launches a run ({smi})")
+    exact_row["launches_barker"] = counts["nb_tiles"]
+    exact_row["bound_ms_barker"] = bound_ms
+    stage_done("bound")
+
+    # -- [21 simulate] -----------------------------------------------------------------------------
+    ethanol = mols[0]
+    energies = demo21.DemoEnergies(ethanol, ff, device=dev)
+
+    def sim():
+        sync()
+        t0 = time.perf_counter()
+        out = simulate(energies.x0, lambda y: energies.u_total(y, 1.0), DEFAULT_TEMP, energies.masses, N21_SIM_STEPS,
+                       N21_SIM_BATCHES, N21_SIM_WALKERS, seed=N21_SIM_SEED, device=dev)
+        sync()
+        return out, time.perf_counter() - t0
+
+    zero_counts()
+    (xs, vs), t_sim = sim()
+    counts, plain = read_counts()
+    (xs2, vs2), _ = sim()
+    shape = (N21_SIM_WALKERS, N21_SIM_BATCHES, ethanol.num_atoms, 3)
+    ok_sim = xs.shape == vs.shape == shape and bool(np.isfinite(xs).all() and np.isfinite(vs).all())
+    same = np.array_equal(xs, xs2) and np.array_equal(vs, vs2)
+    n_steps = N21_SIM_BATCHES * N21_SIM_STEPS
+    print(f"[21 simulate] integrator.simulate of {N21_SIM_WALKERS} ethanol walkers in vacuum, {N21_SIM_BATCHES} batches of "
+          f"{N21_SIM_STEPS} steps: shape {xs.shape}, every frame finite {ok_sim}, rerun bitwise {same}; {t_sim:.2f} s, "
+          f"{1e3 * t_sim / n_steps:.3f} ms a batched step, host clock; sweeps launched {sum(counts.values())} ({smi})")
+    check(ok_sim and same, "[21] simulate's walkers are misshapen, not finite or not bitwise on rerun")
+    stage_done("simulate")
+
+    # -- [21 train] --------------------------------------------------------------------------------
+    cfg = demo21.DemoConfig(n_walkers=N21_TRAIN_WALKERS, n_batches=N21_TRAIN_BATCHES, steps_per_batch=N21_TRAIN_STEPS,
+                            n_rounds=N21_TRAIN_ROUNDS, steps_per_round=N21_TRAIN_ADAM)
+    sync()
+    t0 = time.perf_counter()
+    rec = demo21.run_demo(ethanol, ff, cfg, device=dev, log=lambda line: print(f"[21 train] {line}"))
+    sync()
+    t_train = time.perf_counter() - t0
+    rounds = rec["rounds"]
+    numbers = [rec["label_df_kbt"], rec["label_err_kbt"], rec["scale_final"]]
+    numbers += [r[k] for r in rounds for k in ("loss_start", "loss_end", "scale", "pred_df_kbt", "ref_df_kbt", "dest_ds_start")]
+    last = rec["samples"][-1]
+    cpu_energies = demo21.DemoEnergies(ethanol, ff, device=cpu)
+    est_cpu = demo21.endpoint_estimator(cpu_energies, last["xs_a"], last["xs_b"], last["scale"], last["ref_df"])
+    with torch.no_grad():
+        fd = float((est_cpu(last["scale"] + N21_FD_H) - est_cpu(last["scale"] - N21_FD_H)) / (2 * N21_FD_H))
+    grad_card = rounds[-1]["dest_ds_start"]
+    rel_fd = abs(grad_card - fd) / abs(fd)
+    print(f"[21 train] the training demo on ethanol ({t_train:.1f} s host clock; {len(last['xs_a'])} frames a state a round; "
+          f"depth cut from 8 walkers x 60 batches of 25 steps, 3 rounds of 60 Adam steps to {cfg.n_walkers} x "
+          f"{cfg.n_batches} of {cfg.steps_per_batch}, {cfg.n_rounds} rounds of {cfg.steps_per_round}): label df* "
+          f"{rec['label_df_kbt']:.4f} +- {rec['label_err_kbt']:.4f} kT; "
+          + "; ".join(f"round {r['round']}: loss {r['loss_start']:.5f} -> {r['loss_end']:.5f}, scale {r['scale_start']:.4f} "
+                      f"-> {r['scale']:.4f}, predicted df {r['pred_df_kbt']:.4f}, reference df {r['ref_df_kbt']:.4f}"
+                      for r in rounds)
+          + f"; d df_est/ds at round {rounds[-1]['round']}'s start: card autograd {grad_card:.6f}, CPU float64 central "
+            f"difference {fd:.6f}, relative {rel_fd:.2e} (tol {TOL_TRAIN_FD:g}) ({smi})")
+    check(bool(np.isfinite(numbers).all()), "[21] a number of the training demo is not finite")
+    check(all(r["loss_end"] <= r["loss_start"] for r in rounds), "[21] a training round's loss rose")
+    check(abs(rec["scale_final"] - 1.0) < abs(cfg.scale_init - 1.0), "[21] the trained scale is no closer to 1 than its start")
+    check(rel_fd <= TOL_TRAIN_FD, "[21] the card's estimator gradient differs from the float64 central difference")
+    stage_done("train")
+
+    # -- [21 lib] ----------------------------------------------------------------------------------
+    xd = np.asarray(dhfr.conf)
+    boxd = np.asarray(dhfr.box)
+    n = xd.shape[0]
+    nb = dhfr.host_system.nonbonded_all_pairs
+    params64 = nb.params.to(cpu, f64).numpy()
+    sec = {}
+
+    def timed(name, thunk):
+        sync()
+        t0 = time.perf_counter()
+        out = thunk()
+        sync()
+        sec[name] = time.perf_counter() - t0
+        return out
+
+    perm = timed("HilbertSort", lambda: lib21.HilbertSort(n, device=dev).sort(xd, boxd))
+    is_perm = perm.shape == (n,) and np.array_equal(np.sort(perm.astype(np.int64)), np.arange(n))
+    nbl = lib21.Neighborlist(n, device=dev)
+    lists = timed("Neighborlist", lambda: nbl.get_nblist(xd, boxd, N21_NBLIST_CUTOFF))
+    # every pair within the cutoff listed: each pair (i < j) within it, keyed (i's row block, j), found among the
+    # listed keys
+    xt = torch.as_tensor(xd, device=dev, dtype=f64)
+    diag = torch.diagonal(torch.as_tensor(boxd, device=dev, dtype=f64))
+    lens = np.array([len(ids) for ids in lists])
+    flat = np.fromiter(itertools.chain.from_iterable(lists), dtype=np.int64, count=int(lens.sum()))
+    listed = torch.as_tensor(np.repeat(np.arange(len(lists)), lens) * n + flat, device=dev).sort().values
+    within, missed = 0, 0
+    cols = torch.arange(n, device=dev)
+    for i0 in range(0, n, 512):
+        rows = cols[i0 : i0 + 512]
+        d = xt[rows, None, :] - xt[None, :, :]
+        d = d - diag * torch.round(d / diag)
+        i, j = torch.nonzero(((d * d).sum(-1) < N21_NBLIST_CUTOFF**2) & (rows[:, None] < cols[None, :]), as_tuple=True)
+        keys = (rows[i] // nbl.BLOCK) * n + j
+        found = listed[torch.clamp(torch.searchsorted(listed, keys), max=len(listed) - 1)] == keys
+        within += len(keys)
+        missed += int((~found).sum())
+    ref_pairs = pairs_within_cutoff(xt, torch.as_tensor(boxd, device=dev, dtype=f64),
+                                    torch.zeros(n, device=dev, dtype=f64), N21_NBLIST_CUTOFF)
+    waters = [[3 * i, 3 * i + 1, 3 * i + 2] for i in range(dhfr.num_water_atoms // 3)]
+    mol_e = timed("NonbondedMolEnergy card", lambda: lib21.NonbondedMolEnergy(n, waters, nb.beta, nb.cutoff, device=dev)
+                  .execute(xd, params64, boxd))
+    held = np.linspace(0, len(waters) - 1, N21_MOL_HELD).astype(int)
+    mol_e_cpu = timed("the CPU reference", lambda: mol_energies_near(xd, params64, boxd, [waters[i] for i in held],
+                                                                       nb.beta, nb.cutoff))
+    rel_mol = float(np.max(np.abs(mol_e[held] - mol_e_cpu) / np.abs(mol_e_cpu)))
+    segs = [np.random.default_rng(21).normal(0, 30, k) for k in (1, 7, 1000, 100_000)]
+    lse = timed("SegmentedSumExp", lambda: lib21.SegmentedSumExp(100_000, 4, device=dev).logsumexp(segs))
+    rel_lse = max(abs(a - float(torch.logsumexp(torch.as_tensor(s, device=dev), 0))) / abs(a) for a, s in zip(lse, segs))
+    print(f"[21 lib] DHFR ({n} atoms): HilbertSort a permutation {is_perm}; Neighborlist at {N21_NBLIST_CUTOFF} nm: "
+          f"{len(lists)} row blocks, {nbl.get_tile_ixn_count()} candidates, pairs within the cutoff {within} "
+          f"(pairs_within_cutoff {ref_pairs}), missed {missed}; NonbondedMolEnergy over {len(waters)} waters on the "
+          f"card, {N21_MOL_HELD} of them evenly spaced against the CPU in float64 (each against the atoms within "
+          f"{N21_NEAR_MARGIN} nm more than the cutoff of its oxygen, mol_energies_near): largest relative difference {rel_mol:.2e} (tol {TOL_MOL_ENERGY:g}), energies "
+          f"{mol_e.min():.2f} to {mol_e.max():.2f} kJ/mol; SegmentedSumExp against torch.logsumexp: {rel_lse:.2e} (tol "
+          f"{TOL_LSE:g}); seconds " + ", ".join(f"{k} {v:.2f}" for k, v in sec.items()) + f", host clock ({smi})")
+    check(is_perm, "[21] HilbertSort is not a permutation")
+    check(missed == 0 and within == ref_pairs, "[21] the neighbour list misses a pair within the cutoff")
+    check(bool(np.isfinite(mol_e).all()) and rel_mol <= TOL_MOL_ENERGY, "[21] NonbondedMolEnergy differs from the CPU's")
+    check(rel_lse <= TOL_LSE, "[21] SegmentedSumExp differs from torch.logsumexp")
+    stage_done("lib")
+
+    # -- [21 restraints] ---------------------------------------------------------------------------
+    n_w = dhfr.num_water_atoms
+    group_a, group_b = np.arange(n_w, n_w + 20), np.arange(n_w + 1000, n_w + 1020)
+    bonds = dhfr.host_system.bond.idxs.cpu().numpy()
+    protein = (bonds >= n_w).all(1)
+    bonds, bond_params = bonds[protein], dhfr.host_system.bond.params.to(cpu, f64).numpy()[protein]
+    half = len(bonds) // 2
+
+    def restraints(device, dtype):
+        centroid = pot21.CentroidRestraint(group_a, group_b, 500.0, 0.2, np.zeros(0), n, device=device, dtype=dtype)
+        members = [
+            pot21.HarmonicBond(bonds[:half], bond_params[:half], n, device=device, dtype=dtype),
+            pot21.HarmonicBond(bonds[half : 2 * half], bond_params[:half], n, device=device, dtype=dtype),
+            pot21.CentroidRestraint(group_a, group_b, 500.0, 0.0, np.zeros(0), n, device=device, dtype=dtype),
+        ]
+        fanout = pot21.FanoutSummedPotential(members, bond_params[:half], device=device, dtype=dtype)
+        x = torch.as_tensor(xd, device=device, dtype=dtype)
+        box = torch.as_tensor(boxd, device=device, dtype=dtype)
+        return [tuple(t.to(cpu, f64) for t in m.energy_force(x, box)) for m in (centroid, fanout)]
+
+    lines = []
+    ok_r = True
+    for name, (u_c, f_c), (u_r, f_r) in zip(("CentroidRestraint", "FanoutSummedPotential"), restraints(dev, f32),
+                                            restraints(cpu, f64)):
+        rel_u = abs(float(u_c - u_r)) / abs(float(u_r))
+        rel_f = float(torch.linalg.vector_norm(f_c - f_r) / torch.linalg.vector_norm(f_r))
+        ok_r &= rel_u <= TOL_RESTRAINT_U and rel_f <= TOL_RESTRAINT_F
+        lines.append(f"{name} U {float(u_r):.6g} kJ/mol, energy {rel_u:.2e} relative, force {rel_f:.2e} of its norm")
+    print(f"[21 restraints] on DHFR, card float32 against the CPU in float64 (tol {TOL_RESTRAINT_U:g} and "
+          f"{TOL_RESTRAINT_F:g}; the groups: the protein's first 20 atoms and its atoms 1000-1019, residue-sized, the "
+          f"file holding no residue table; the fan-out: two halves of the protein's bonds on one parameter array and a "
+          f"b0 = 0 centroid restraint): " + "; ".join(lines) + f" ({smi})")
+    check(ok_r, "[21] a restraint differs from the CPU's float64")
+    stage_done("restraints")
+    print(f"[21 time] phase 21 took {time.perf_counter() - t_phase21:.1f} s: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in stages.items()) + f"; host clock ({smi})")
+
+
 def _waters_inside(x, box, ligand_idxs, water_idxs, radius) -> int:
     """Waters whose centroid lies within radius of the ligand's centroid (the sampler's inner region)."""
     import numpy as np
@@ -1855,6 +2254,16 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(f"[1 device] {name}, count {count}, nvidia-smi: {smi}, torch {torch.__version__}, cuda {torch.version.cuda}")
 
+    clock = [time.perf_counter()]
+
+    def phase_time(label):
+        """Print the host seconds since the last call (the script's start for the first)."""
+        now = time.perf_counter()
+        print(f"[{label} time] phase {label} took {now - clock[0]:.1f} s, host clock ({smi})")
+        clock[0] = now
+
+    clock[0] = T_START
+
     # -- 2. kernel build ----------------------------------------------------------
     t0 = time.perf_counter()
     _build.load_libraries(*_build.LIBRARIES)
@@ -1864,6 +2273,8 @@ def main() -> int:
         ptxas = [ln.strip() for ln in log[1:] if "registers" in ln or "spill" in ln]
         print(f"[2 build] {lib}: {log[0]} | " + " | ".join(ptxas))
     print(f"[2 build] {len(_build.LIBRARIES)} libraries in {t_build:.1f} s, one nvcc each, in parallel ({smi})")
+
+    phase_time("1-2")
 
     # -- 3. kernel vs plain at DHFR shapes -------------------------------------------
     hc = setup_dhfr(waters_first=True, device=dev, dtype=f32)
@@ -2017,6 +2428,8 @@ def main() -> int:
     )
     check(f_rel <= TOL_FORCE_REL_NORM, "total force on the card disagrees with the host CPU")
 
+    phase_time("3")
+
     # -- 4. main path -----------------------------------------------------------------
     masses = apply_hmr(hc.masses, hc.host_system.bond.idxs.cpu().numpy())
     t0 = time.perf_counter()
@@ -2110,6 +2523,8 @@ def main() -> int:
     # -- 5. determinism -----------------------------------------------------------------
     bitwise_repeat("5", bps)
 
+    phase_time("4-5")
+
     # -- 6. block-tile kernel vs plain at DHFR shapes ----------------------------------
     # the triangular form (every path's) and the symmetric form (the first design) on the same sort
     tri6 = nbk.build_block_tiles(x0, nb.params, box, nb.cutoff, nb.dp_max_tiles, DP_CB, triangular=True)
@@ -2177,6 +2592,8 @@ def main() -> int:
         f"fixed-point range {2.0**63 / rs.FIXED_SCALE:.4e} ({smi})"
     )
     check(max(dp6) < nbk.FIX_LIMIT, "[6] a DP column beyond the fixed-point limit")
+
+    phase_time("6")
 
     # -- 7. du/dp training ----------------------------------------------------------------
     frames, frame_boxes = ctxt.multiple_steps(N_FRAMES * FRAME_INTERVAL, store_x_interval=FRAME_INTERVAL)
@@ -2280,6 +2697,8 @@ def main() -> int:
     )
     print(f"[7 profile] one training step: {busy} ({smi}); table on stderr")
 
+    phase_time("7")
+
     # -- 8. the kernel="v1" path --------------------------------------------------------
     hc8 = setup_dhfr(waters_first=True, device=dev, dtype=f32)
     bps8 = hc8.host_system.get_U_fns()
@@ -2353,6 +2772,8 @@ def main() -> int:
     w_min = nb.params[:, 3].to(f32)
     pairs_min = pairs_within_cutoff(x_min, box, w_min, nb.cutoff)
 
+    phase_time("8")
+
     # -- 9. the kernel="gather" path -----------------------------------------------------
     bps9, nb9 = alt_config("9", "gather")
     state9, build9 = build_ms(nb9.md_force_provider()[0])
@@ -2421,6 +2842,8 @@ def main() -> int:
     )
     check(grad9 < nbk.FIX_LIMIT, "[9] |dU/dx| beyond the kernel's fixed-point limit")
     bitwise_repeat("9", bps9)
+
+    phase_time("9")
 
     # -- 10. the kernel="quad" path -------------------------------------------------------
     bps10, nb10 = alt_config("10", "quad")
@@ -2495,6 +2918,8 @@ def main() -> int:
     check(margin_end > 0, "[10] the constant-shift invariant fails at the end")
     check(grad_max < nbk.FIX_LIMIT, "[10] |dU/dx| beyond the kernel's fixed-point limit")
     bitwise_repeat("10", bps10)
+
+    phase_time("10")
 
     # -- 11. the kernel="dot" path --------------------------------------------------------
     bps11, nb11 = alt_config("11", "dot")
@@ -2581,6 +3006,8 @@ def main() -> int:
     check(margin11 > 0, "[11] the image bound fails at the end")
     check(grad11 < nbk.FIX_LIMIT, "[11] |dU/dx| beyond the kernel's fixed-point limit")
     bitwise_repeat("11", bps11)
+
+    phase_time("11")
 
     # -- 12. the probes ----------------------------------------------------------------
     x12 = fp.inputs(dev)
@@ -2677,6 +3104,8 @@ def main() -> int:
         (census.built, census.chopped, census.empty, census.hits) == CENSUS_DHFR,
         f"[12] the tile census {census} differs from the script's {CENSUS_DHFR}",
     )
+
+    phase_time("12")
 
     # -- 13. the solvent RBFE leg ------------------------------------------------------
     # the 12 ethanol -> propane windows of the committed cache on the card:
@@ -2868,6 +3297,8 @@ def main() -> int:
           f"({host_works.size} works) ({smi})")
     check(finite13, "[13] a pair BAR result is not finite")
     check(not host_works.any(), "[13] the host term's works are not exactly zero")
+
+    phase_time("13")
 
     # -- 14. HREX over the 12 windows ----------------------------------------------------
     # run_sims_hrex over the same windows, all K replicas in one batched step;
@@ -3126,6 +3557,8 @@ def main() -> int:
     check(len(result14.bar_results) == K14 - 1 and finite_res, "[14] the HREX pair BAR results are not 11 finite pairs")
     check(frames_ok, "[14] the HREX trajectories are not 12 finite ones of the frames asked for")
 
+    phase_time("14")
+
     # -- 15. the state builder ------------------------------------------------------------
     # the 12 windows built on this machine from the cache's recorded inputs
     # (SMILES, conformers, box, seed, λ grid) by the port's builder, held
@@ -3246,7 +3679,7 @@ def main() -> int:
     print(f"[15 time] phase 15 took {time.perf_counter() - t_phase15:.1f} s, host clock ({smi})")
 
     # -- 16. the solvent leg from two SMILES ------------------------------------------------
-    launches16, exact16, inputs16 = phase16(dev, smi, zero_counts, read_counts, masked_row, batched_row)
+    launches16, exact16, inputs16, host16 = phase16(dev, smi, zero_counts, read_counts, masked_row, batched_row)
 
     # -- 17. the exact-erfc and masked forms at the leg's window 0 ----------------------------
     # the host term of window 0 (6,404 atoms, the 11 hybrid-ligand atoms masked out) configured
@@ -3445,6 +3878,10 @@ def main() -> int:
     # -- 20. water sampling: the probe-in-water ladder's HREX with the TIBD sampler ---------------------
     phase20(dev, smi, zero_counts, read_counts, batched_row)
 
+    # -- 21. the standalone samplers, the training path and the last utilities -------------------------
+    phase21(dev, smi, zero_counts, read_counts, rows17[0], inputs16, host16, hc)
+
+    print(f"[time] the script took {time.perf_counter() - T_START:.1f} s up to its kernels line, host clock ({smi})")
     print(json.dumps({"kernels": [kernel_row, masked_row, batched_row, nb_row, gather_row, quad_row, dot_row, *probe_rows,
                                   *rows17]}))
     print(smi)

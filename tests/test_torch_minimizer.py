@@ -309,6 +309,13 @@ def test_replace_conformer_with_minimized_matches_jax(ethanol_host):
     np.testing.assert_allclose(t_mol.get_conf(), j_mol.get_conf(), rtol=0, atol=VACUUM_TOL)
 
 
-def test_equilibrate_host_barker_waits_on_barker():
-    with pytest.raises(NotImplementedError, match="barker"):
-        tm.equilibrate_host_barker([], None, None)
+def test_equilibrate_host_barker_waits_on_barker(ethanol_host):
+    """equilibrate_host_barker runs md/barker.py's chain (held to JAX in
+    tests/test_torch_barker.py): it refuses a proposal stddev over 1e-4 nm,
+    and two steps from the raw 2.5 nm box leave its clashes, which the
+    final force check reports."""
+    e = ethanol_host
+    with pytest.raises(ValueError, match="proposal_stddev"):
+        tm.equilibrate_host_barker([e["t_mol"]], e["t_host"], e["tff"], proposal_stddev=1e-3, device="cpu")
+    with pytest.raises(tm.MinimizationError):
+        tm.equilibrate_host_barker([e["t_mol"]], e["t_host"], e["tff"], n_steps=2, seed=1, device="cpu")

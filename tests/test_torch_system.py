@@ -130,6 +130,28 @@ def test_no_import_of_jax_anywhere_in_the_port_or_chip_smoke():
     assert len(files) > 30 and not bad, bad
 
 
+_FACTORIES = ("as_tensor", "tensor", "arange", "zeros", "ones", "full", "empty", "eye", "rand", "randn")
+
+
+def _factory_tensors(run):
+    """The tensors that torch's factory functions make while `run` runs:
+    where an entry point returns numpy, these are where it chose a device."""
+    from torch.overrides import TorchFunctionMode
+
+    made = []
+
+    class Record(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if getattr(func, "__name__", None) in _FACTORIES and isinstance(out, torch.Tensor):
+                made.append(out)
+            return out
+
+    with Record():
+        run()
+    return made
+
+
 def _default_device_constructions():
     """Entry points called with no device argument, each returning the
     tensors it made."""
@@ -179,7 +201,98 @@ def _default_device_constructions():
         state = VacuumState(mol, Forcefield.load_default())
         return [state.U_full(mol.get_conf()), *(b for m in state._modules for b in m.buffers())]
 
+    def ethanol():
+        from timemachine_torch.chem import mol_from_smiles
+
+        mol = mol_from_smiles("CCO", add_hs=True)
+        mol.set_conf(rbfe_solvent.metadata(rbfe_solvent.load_arrays())["conf_a"])
+        return mol
+
+    def barker():
+        # the chain's start and end, from a 1.5 nm water box around ethanol; two
+        # steps leave the raw box's clashes, which the final force check reports
+        from unittest import mock
+
+        from timemachine_torch.ff import Forcefield
+        from timemachine_torch.md import minimizer
+        from timemachine_torch.md.builders import build_water_system
+
+        mol, ff = ethanol(), Forcefield.load_default()
+        host = build_water_system(1.5, ff.water_ff, mols=[mol])
+        seen = []
+
+        def chain(gen, x0, grad_log_q_fn, sigma, n_steps):
+            seen.append(x0)
+            seen.append(barker_chain(gen, x0, grad_log_q_fn, sigma, n_steps))
+            return seen[-1]
+
+        from timemachine_torch.md.barker import barker_chain
+
+        with mock.patch.object(minimizer, "barker_chain", chain):
+            try:
+                minimizer.equilibrate_host_barker([mol], host, ff, n_steps=2, seed=1)
+            except minimizer.MinimizationError:
+                pass
+        return seen
+
+    def demo_energies():
+        from timemachine_torch.ff import Forcefield
+        from timemachine_torch.optimize.training_demo import DemoEnergies
+
+        e = DemoEnergies(ethanol(), Forcefield.load_default())
+        x = torch.as_tensor(e.x0, device=e.device, dtype=e.dtype)
+        return [e.box, e.u_total(x, 1.25), *(b for m in (*e.valence, e.pair_list) for b in m.buffers())]
+
+    def terminal_bond_map():
+        from timemachine_torch.maps.terminal_bonds import TerminalBondMap, TerminalMappableState
+
+        bonds = np.array([[0, 1], [1, 2]])
+        src = TerminalMappableState.from_harmonic_bond_params(bonds, np.array([[1e6, 0.10], [1e6, 0.11]]))
+        dst = TerminalMappableState.from_harmonic_bond_params(bonds, np.array([[2e6, 0.12], [1e6, 0.11]]))
+        return list(TerminalBondMap.from_states(src, dst)(np.array([[[0.0, 0, 0], [0.1, 0, 0], [0.1, 0.11, 0]]])))
+
+    def forces_seen(run):
+        # the tensors the entry point hands the caller's force or energy function
+        seen = []
+
+        def force(x):
+            seen.append(x)
+            return -x
+
+        def energy(x):
+            seen.append(x)
+            return (x * x).sum()
+
+        run(force, energy)
+        return seen
+
+    from timemachine_torch import integrator, lib
+    from timemachine_torch.md.local_resampling import local_resampling_move
+    from timemachine_torch.potentials import CentroidRestraint, FanoutSummedPotential
+
+    m3, box = np.ones(3), 3.0 * np.eye(3)
+    restraint = lambda: CentroidRestraint([0], [1, 2], 10.0, 0.1, np.zeros(0), 3)  # noqa: E731
     return {
+        "integrator.LangevinIntegrator": lambda: forces_seen(
+            lambda f, u: integrator.LangevinIntegrator(f, m3, 300.0, 1.5e-3, 1.0).multiple_steps(x, x, 2)),
+        "integrator.VelocityVerletIntegrator": lambda: forces_seen(
+            lambda f, u: integrator.VelocityVerletIntegrator(f, m3, 1.5e-3).multiple_steps(x, x, 2)),
+        "simulate": lambda: forces_seen(lambda f, u: integrator.simulate(x + np.eye(3), u, 300.0, m3, 2, 1, 2, seed=1)),
+        "local_resampling_move": lambda: forces_seen(lambda f, u: local_resampling_move(
+            x, lambda y: u(y), lambda y: torch.full((3,), -0.1, dtype=y.dtype, device=y.device),
+            lambda y, logpdf: (f(y), logpdf(y)), rng=np.random.default_rng(0))),
+        "TerminalBondMap": terminal_bond_map,
+        "equilibrate_host_barker": barker,
+        "DemoEnergies": demo_energies,
+        "HilbertSort": lambda: _factory_tensors(lambda: lib.HilbertSort(3).sort(x, box)),
+        "Neighborlist": lambda: _factory_tensors(lambda: lib.Neighborlist(3).get_nblist(x, box, 1.0)),
+        "SegmentedSumExp": lambda: _factory_tensors(lambda: lib.SegmentedSumExp(3, 1).logsumexp([[0.0, 1.0]])),
+        "SegmentedWeightedRandomSampler": lambda: _factory_tensors(
+            lambda: lib.SegmentedWeightedRandomSampler(3, 1, seed=0).sample([[1.0, 2.0]])),
+        "NonbondedMolEnergy": lambda: _factory_tensors(
+            lambda: lib.NonbondedMolEnergy(3, [[0], [1]], 2.0, 1.2).execute(x + np.eye(3), np.ones((3, 4)), box)),
+        "CentroidRestraint": lambda: list(restraint().buffers()),
+        "FanoutSummedPotential": lambda: list(FanoutSummedPotential([restraint()], np.zeros(0)).buffers()),
         "VacuumState": vacuum_state,
         "multiple_steps_local": local_md,
         "build_rbfe_solvent(rest_params=)": build_rest,
@@ -206,6 +319,9 @@ def _default_device_constructions():
     [
         "setup_dhfr", "Context", "SegmentSum", "MonteCarloBarostat", "HostGuestSystem.from_arrays", "load_rbfe_solvent",
         "get_context", "build_rbfe_solvent", "multiple_steps_local", "build_rbfe_solvent(rest_params=)", "VacuumState",
+        "integrator.LangevinIntegrator", "integrator.VelocityVerletIntegrator", "simulate", "local_resampling_move",
+        "TerminalBondMap", "equilibrate_host_barker", "DemoEnergies", "HilbertSort", "Neighborlist", "SegmentedSumExp",
+        "SegmentedWeightedRandomSampler", "NonbondedMolEnergy", "CentroidRestraint", "FanoutSummedPotential",
     ],
 )
 def test_default_device_is_the_card(entry):

@@ -13,6 +13,8 @@ them.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -100,12 +102,20 @@ def host_guest_arrays(obj) -> dict:
     return a
 
 
+class _Bound(NamedTuple):
+    """A member of a fan-out sum bound to the sum's shared parameters."""
+
+    potential: object
+    params: object
+
+
 def modules_from_bound_potentials(bps, num_atoms: int, device=None, dtype=torch.float64) -> list:
     """Bound potentials (the port's builders' terms, or the JAX package's),
     each as the port's module over num_atoms atoms on `device` (None: the
     card), in the order given: the AHFE windows' flat list (bond, angle,
     proper, improper, the host term, the interaction group, the pair list),
-    which no system class orders."""
+    which no system class orders. A FanoutSummedPotential becomes the
+    port's, its members each converted at the shared parameters."""
     out = []
     for bp in bps:
         pot, params, name = bp.potential, np.asarray(bp.params), type(bp.potential).__name__
@@ -122,6 +132,12 @@ def modules_from_bound_potentials(bps, num_atoms: int, device=None, dtype=torch.
             cols = None if pot.col_atom_idxs is None else np.asarray(pot.col_atom_idxs)
             out.append(modules.NonbondedInteractionGroup(int(pot.num_atoms), np.asarray(pot.row_atom_idxs), pot.beta,
                                                          pot.cutoff, params, col_atom_idxs=cols, **kw))
+        elif name == "CentroidRestraint":
+            out.append(modules.CentroidRestraint(np.asarray(pot.group_a_idxs), np.asarray(pot.group_b_idxs), pot.kb,
+                                                 pot.b0, params, num_atoms, **kw))
+        elif name == "FanoutSummedPotential":
+            members = modules_from_bound_potentials([_Bound(p, params) for p in pot.potentials], num_atoms, **kw)
+            out.append(modules.FanoutSummedPotential(members, params, **kw))
         else:
             raise ValueError(f"modules_from_bound_potentials: no port of {name}")
     return out

@@ -26,7 +26,8 @@ away what BFGS's late steps move (ROADMAP P16, P22).
 Host-side work stays on the host, as in the JAX package: scipy's BFGS loop,
 check_force_norm and the bookkeeping. The pre-equilibration's Langevin noise
 and barostat draw from the Context's torch.Generator streams, seeded with
-JAX's seeds (ROADMAP P20). equilibrate_host_barker waits on md/barker.py.
+JAX's seeds (ROADMAP P20); equilibrate_host_barker's Barker draws from a
+torch.Generator seeded with JAX's seed (ROADMAP P30).
 """
 
 from __future__ import annotations
@@ -39,11 +40,12 @@ import numpy as np
 import scipy.optimize
 import torch
 
-from timemachine_torch.constants import DEFAULT_PRESSURE, DEFAULT_TEMP, MAX_FORCE_NORM
+from timemachine_torch.constants import BOLTZ, DEFAULT_PRESSURE, DEFAULT_TEMP, MAX_FORCE_NORM
 from timemachine_torch.device import resolve_device, working_dtype
 from timemachine_torch.fe import terms, topology
 from timemachine_torch.fe.utils import get_romol_conf
 from timemachine_torch.integrators import LangevinIntegrator
+from timemachine_torch.md.barker import barker_chain
 from timemachine_torch.md.barostat import MonteCarloBarostat
 from timemachine_torch.md.context import Context
 from timemachine_torch.md.fire import FireMinimizationConfig, ScipyMinimizationConfig
@@ -299,9 +301,38 @@ def pre_equilibrate_host(
     return x[:num_host_atoms], box
 
 
-def equilibrate_host_barker(*args, **kwargs):
-    """Barker-proposal equilibration: waits on md/barker.py."""
-    raise NotImplementedError("equilibrate_host_barker waits on md/barker.py (the Barker proposal mover)")
+def equilibrate_host_barker(
+    mols,
+    host_config,
+    ff,
+    mol_coords=None,
+    temperature: float = DEFAULT_TEMP,
+    proposal_stddev: float = 0.0001,
+    n_steps: int = 1000,
+    seed=None,
+    device=None,
+) -> np.ndarray:
+    """Clash-robust host equilibration by n_steps un-Metropolized Barker
+    proposals (md/barker.py) with the mols inserted at λ 0 and frozen (ref
+    minimizer.py:429-471), on `device` (None: the card) in its working
+    dtype: grad log q = -dU/dx / kT from make_host_du_dx_fxn, one evaluation
+    a step. The draws come from a torch.Generator seeded with `seed` (None:
+    numpy's global stream picks one, as JAX's does). Returns the host's
+    coordinates as numpy; raises MinimizationError if its final forces are
+    too large."""
+    if not 0 < proposal_stddev <= 0.0001:
+        raise ValueError(f"proposal_stddev must be in (0, 1e-4], got {proposal_stddev}")
+    device = resolve_device(device)
+    du_dx_host_fxn = make_host_du_dx_fxn(mols, host_config, ff, mol_coords, device=device)
+    kT = BOLTZ * temperature
+    if seed is None:
+        seed = np.random.randint(100000)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    x0 = torch.as_tensor(host_config.conf, device=device, dtype=working_dtype(device))
+    x_host = barker_chain(gen, x0, lambda x: -du_dx_host_fxn(x) / kT, proposal_stddev, n_steps)
+    check_force_norm(-du_dx_host_fxn(x_host).cpu().numpy())
+    return x_host.cpu().numpy()
 
 
 def get_val_and_grad_fn(modules: Sequence, box) -> Callable:

@@ -4,9 +4,9 @@ MD moves NVTMove and NPTMove, and the multiple-try Metropolis moves.
 
 The JAX package draws its Metropolis uniforms and mixture choices from
 numpy's global generator; here each move draws from the numpy Generator it
-is given, so two moves never share a stream by accident. Its MTM moves draw
-from jax.random keys; here from a numpy Generator seeded with the same seed
-(ROADMAP P26).
+is given, so two moves never share a stream by accident. Its MTM moves
+draw from jax.random keys; here from a numpy Generator seeded with the same
+seed (ROADMAP P26).
 
 An MD move keeps one Context over its own copies of the potentials (the
 port's modules) for every move, so nothing is rebuilt or recompiled when a

@@ -184,3 +184,29 @@ def log_flat_bottom_force_contribs(conf, params, box, idxs, beta: float):
     e = torch.exp(-beta * u_fb)
     u = torch.sum(-torch.log(1.0 - e)) / beta
     return u, _pair_contribs(-e / (1.0 - e) * du_dr, d, r)
+
+
+def centroid_restraint_contribs(conf, group_a_idxs, group_b_idxs, kb: float, b0: float):
+    """(u, [f_a, f_b]) of U = kb (|c_a - c_b| - b0)^2 between the groups'
+    geometric centroids, or kb |c_a - c_b|^2 where b0 == 0: f_a (A, 3) the
+    force on each atom of group a, f_b (B, 3) on each of group b. At
+    coincident centroids the force is 0 and U = kb b0^2, as JAX's guarded
+    sqrt gives."""
+    dx = torch.mean(conf[group_a_idxs], dim=0) - torch.mean(conf[group_b_idxs], dim=0)
+    d2 = torch.sum(dx * dx)
+    safe_d = torch.sqrt(torch.where(d2 > 0, d2, 1.0))
+    if b0 == 0:
+        u, du_ddx = kb * d2, 2.0 * kb * dx
+    else:
+        d = torch.where(d2 > 0, safe_d, 0.0)
+        u = kb * (d - b0) ** 2
+        du_ddx = torch.where(d2 > 0, 2.0 * kb * (d - b0) / safe_d, 0.0) * dx
+    f_a = (-du_ddx / len(group_a_idxs)).expand(len(group_a_idxs), 3)
+    f_b = (du_ddx / len(group_b_idxs)).expand(len(group_b_idxs), 3)
+    return u, [f_a, f_b]
+
+
+def centroid_restraint(conf, params, box, group_a_idxs, group_b_idxs, kb: float, b0: float):
+    """U = kb (|c_a - c_b| - b0)^2 between geometric centroids (the b0 == 0
+    form kb d^2 has no sqrt); params and box are unused, as in JAX's."""
+    return centroid_restraint_contribs(conf, group_a_idxs, group_b_idxs, kb, b0)[0]

@@ -184,6 +184,68 @@ class LogFlatBottomBond(FlatBottomBond):
         return u, self.assemble(torch.cat(contribs))
 
 
+class CentroidRestraint(nn.Module):
+    """kb (|c_a - c_b| - b0)^2 between the geometric centroids of two atom
+    groups (kb d^2 where b0 == 0); params (an empty array, as JAX binds it)
+    are unused. Not flagged rigid-invariant: the groups may be two
+    molecules."""
+
+    rigid_group_invariant = False
+
+    def __init__(self, group_a_idxs, group_b_idxs, kb: float, b0: float, params, num_atoms: int, device=None,
+                 dtype=torch.float64):
+        super().__init__()
+        device = resolve_device(device)
+        a = np.ascontiguousarray(group_a_idxs, dtype=np.int64)
+        b = np.ascontiguousarray(group_b_idxs, dtype=np.int64)
+        if a.size == 0 or b.size == 0 or min(a.min(), b.min()) < 0 or max(a.max(), b.max()) >= num_atoms:
+            raise ValueError("CentroidRestraint: each group needs atoms in range")
+        self.kb, self.b0 = float(kb), float(b0)
+        self.register_buffer("group_a_idxs", torch.tensor(a, device=device))
+        self.register_buffer("group_b_idxs", torch.tensor(b, device=device))
+        self.register_buffer("params", torch.tensor(np.ascontiguousarray(params), device=device, dtype=dtype))
+        self.assemble = SegmentSum(np.concatenate([a, b]), num_atoms, device=device)
+
+    def u(self, x, params, box):
+        return bonded.centroid_restraint(x, params, box, self.group_a_idxs, self.group_b_idxs, self.kb, self.b0)
+
+    def energy(self, x, box):
+        return self.u(x, self.params, box)
+
+    def u_force(self, x, params, box):
+        u, contribs = bonded.centroid_restraint_contribs(x, self.group_a_idxs, self.group_b_idxs, self.kb, self.b0)
+        return u, self.assemble(torch.cat(contribs))
+
+    def energy_force(self, x, box):
+        return self.u_force(x, self.params, box)
+
+
+class FanoutSummedPotential(nn.Module):
+    """The sum of several modules that share one parameter array: u(x, p,
+    box) passes the same p to each (JAX's FanoutSummedPotential). `params`
+    is the shared array; each member keeps its own copy for its energy()."""
+
+    def __init__(self, members, params, device=None, dtype=torch.float64):
+        super().__init__()
+        device = resolve_device(device)
+        self.members = nn.ModuleList(members)
+        self.register_buffer("params", torch.tensor(np.ascontiguousarray(params), device=device, dtype=dtype))
+        self.rigid_group_invariant = all(getattr(m, "rigid_group_invariant", False) for m in members)
+
+    def u(self, x, params, box):
+        return sum(m.u(x, params, box) for m in self.members)
+
+    def energy(self, x, box):
+        return self.u(x, self.params, box)
+
+    def u_force(self, x, params, box):
+        u, f = zip(*(m.u_force(x, params, box) for m in self.members))
+        return sum(u), sum(f)
+
+    def energy_force(self, x, box):
+        return self.u_force(x, self.params, box)
+
+
 class _PairListTerm(_BondedTerm):
     """Shared shape of the explicit pair-list terms: idxs (P, 2), exact erfc
     electrostatics, forces in closed form summed by the SegmentSum."""

@@ -188,8 +188,22 @@ round's loss, scale and free energies; a round's card gradient against a
 float64 central difference on the CPU), lib.py's HilbertSort,
 Neighborlist, NonbondedMolEnergy and SegmentedSumExp on DHFR, and the
 CentroidRestraint and FanoutSummedPotential modules on DHFR against the
-CPU's float64. Each phase prints its host seconds ("[N time]"), and the
-script its total up to the kernels line ("[time]").
+CPU's float64. The complex leg [22]: fe/rbfe.py run_complex as a user
+calls it on the capped helix ACE-(ALA)24-NME of
+timemachine_torch/testsystems/peptide.py (its PDB text written to a file;
+12,518 atoms with the ligands) and phase 16's ethanol and propane posed 0.9 nm
+from the helix axis, the core by the native MCS (its searches counted), at
+N22_WINDOWS windows and phase 16's depth: the atom counts and the perceived
+net charge (0), each stage's host seconds (the build's parse, perception,
+Amber assignment and lattice; FIRE, NPT, the anchors' minimization,
+bisection, HREX), BFGS calls and ms a call, the host's largest |F| after
+FIRE and after NPT under MAX_FORCE_NORM, window 0's card force against the
+host CPU's float64 (TOL_FORCE_REL_NORM of the all-pairs norm), ΔG per pair,
+swap acceptance, and the rowscan and nb_tiles launches by stage and form:
+FIRE and the minimizations on nb_tiles' exact form alone, NPT and bisection
+on the masked rowscan form alone, HREX on the batched form, no plain sweep
+and no launch outside the stages. Each phase prints its host seconds ("[N
+time]"), and the script its total up to the kernels line ("[time]").
 Every path runs with all launch and plain-call counts set to
 0 just before it and read just after. Then a JSON line on the kernels
 (time; launches per NPT step of the path named in `path`, per Adam step of
@@ -199,7 +213,8 @@ masked form (launches_local_md; launches_ahfe: per step of the AHFE
 windows), per replica-step of the water-sampling HREX for the batched form
 (launches_water_hrex), per run of phase 12 for the probes; nb_tiles' exact masked row
 also launches_ahfe_fire, launches_smc, launches_mtm, launches_barker
-and bound_ms_barker (phase 21's, per run and per launch); bound;
+and bound_ms_barker (phase 21's, per run and per launch); the masked,
+batched and exact masked rows launches_run_complex (phase 22's); bound;
 plain time), the card's name and power limit from
 nvidia-smi, and as the last line {"ok": true, "device": {...}}.
 
@@ -348,6 +363,12 @@ N21_NBLIST_CUTOFF, TOL_MOL_ENERGY, TOL_LSE, TOL_RESTRAINT_U, TOL_RESTRAINT_F = 1
 # so it holds N21_MOL_HELD evenly spaced waters of the 7,023; N21_NEAR_MARGIN (nm) is more than a water's O-H
 # distance
 N21_MOL_HELD, N21_NEAR_MARGIN = 512, 0.3
+# phase 22, the complex leg: run_complex on ACE-(ALA)N22_ALA-NME (timemachine_torch/testsystems/peptide.py, its
+# axis along a box axis: a 5.1 nm box, over 12,000 atoms, past the 4,096 at which the host term takes the
+# sweeps) with phase 16's ethanol and propane posed N22_POSE_NM from the helix axis; N22_WINDOWS windows against
+# DEFAULT_NUM_WINDOWS' 48 and DEFAULT_HREX_PARAMS' depth cut as phase 16's; min_cutoff None
+N22_ALA, N22_POSE_NM, N22_MIN_ATOMS = 24, 0.9, 10_000
+N22_WINDOWS, N22_EQ, N22_FRAMES, N22_STEPS_PER_FRAME, N22_FRAMES_BISECTION = 4, 50, 4, 25, 2
 EXACT_UF = "nb_tiles F+U triangular exact"  # the host du/dx's form (form_launches' name), as the host FIRE's
 # phase 17, the exact-erfc and masked forms: the window whose NPT run each form takes, and its steps;
 # the DHFR atoms (the protein's last) the dot form's mask leaves out, as many as the leg's hybrid ligand
@@ -2171,6 +2192,238 @@ def phase21(dev, smi, zero_counts, read_counts, exact_row, inputs16, host16, dhf
           + ", ".join(f"{k} {v:.1f} s" for k, v in stages.items()) + f"; host clock ({smi})")
 
 
+def phase22(dev, smi, zero_counts, read_counts, masked_row, batched_row, exact_row, inputs16):
+    """run_complex as a user calls it: the capped helix's PDB written to a
+    file, ethanol and propane (phase 16's embedding, seed 7) posed beside the
+    helix, the core by the native MCS, then the protein host built natively
+    (parse, perception, Amber assignment, the water lattice), its FIRE and
+    NPT, the anchors' minimization, bisection and HREX on `dev`, with every
+    count zeroed just before run_complex and read just after. Adds its
+    launches to the masked, batched and exact rows."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from timemachine_torch.chem import pdb as pdb22
+    from timemachine_torch.constants import DEFAULT_ATOM_MAPPING_KWARGS, DEFAULT_TEMP, MAX_FORCE_NORM
+    from timemachine_torch.fe import mcgregor_native
+    from timemachine_torch.fe import rbfe as rbfe22
+    from timemachine_torch.fe.atom_mapping import get_cores
+    from timemachine_torch.fe.free_energy import HREXParams, MDParams
+    from timemachine_torch.fe.single_topology import SingleTopology
+    from timemachine_torch.ff import amber_xml as amber22
+    from timemachine_torch.md import builders as builders22
+    from timemachine_torch.md import minimizer as minimizer22
+    from timemachine_torch.md.context import Context
+    from timemachine_torch.potentials import NonbondedAllPairs
+    from timemachine_torch.testsystems.peptide import capped_helix_pdb, helix_axis, pocket_offset
+
+    t_phase22 = time.perf_counter()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    clock22 = StageClock(sync)
+    sec22, forms22 = clock22.sec, clock22.forms
+    host22, fire22, protein22, vgs22, contexts22 = {}, [], [], [], []
+
+    def record_host(args, kwargs, out):
+        host22.update(mols=args[0], config=args[1], x_host=out[0], box=out[1])
+
+    def count_vg(fn):
+        def wrapper(*args, **kwargs):
+            vgs22.append(fn(*args, **kwargs))
+            return vgs22[-1]
+
+        return wrapper
+
+    def catching_context(*args, **kwargs):
+        contexts22.append(Context(*args, **kwargs))
+        return contexts22[-1]
+
+    stages = (
+        (pdb22, "parse_pdb", "parse", None),
+        (pdb22, "protein_mol_from_pdb", "perception", lambda a, k, out: protein22.append(out)),
+        (amber22.AmberForceField, "parse", "assignment", None),
+        (amber22, "assign_protein_parameters", "assignment", None),
+        (builders22, "build_protein_system", "build", None),
+        (minimizer22, "fire_minimize_host", "fire", lambda a, k, out: fire22.append((a, out))),
+        (minimizer22, "pre_equilibrate_host", "npt", record_host),
+        (rbfe22, "optimize_coordinates", "minimize anchors", None),
+        (rbfe22, "optimize_coords_state", "minimize", None),
+        (rbfe22, "run_sims_bisection", "bisection", None),
+        (rbfe22, "run_sims_hrex", "hrex", None),
+    )
+    originals22 = [(minimizer22, "Context", minimizer22.Context), (minimizer22, "get_val_and_grad_fn", minimizer22.get_val_and_grad_fn),
+                   (amber22.AmberForceField, "parse", amber22.AmberForceField.__dict__["parse"])]  # the classmethod itself
+    pdb_path = None
+    try:
+        for module, attr, stage, record in stages:
+            clock22.wrap(module, attr, stage, record)
+        minimizer22.Context = catching_context
+        minimizer22.get_val_and_grad_fn = count_vg(originals22[1][2])
+        pdb_text = capped_helix_pdb(N22_ALA)
+        fd, pdb_path = tempfile.mkstemp(suffix=".pdb")
+        with os.fdopen(fd, "w") as fh:
+            fh.write(pdb_text)
+        mols16, _, ff22 = inputs16
+        mols22 = [m.copy() for m in mols16]
+        offset = pocket_offset(pdb_text, [m.get_conf() for m in mols22], N22_POSE_NM)
+        for m in mols22:
+            m.set_conf(m.get_conf() + offset)
+        searches = mcgregor_native.searches
+        t0 = time.perf_counter()
+        core22 = get_cores(*mols22, **DEFAULT_ATOM_MAPPING_KWARGS)[0]
+        t_core22 = time.perf_counter() - t0
+        native22 = mcgregor_native.searches - searches
+        md22 = MDParams(
+            n_frames=N22_FRAMES, n_eq_steps=N22_EQ, steps_per_frame=N22_STEPS_PER_FRAME, seed=2023,
+            hrex_params=HREXParams(n_frames_bisection=N22_FRAMES_BISECTION),
+        )
+        zero_counts()
+        forms_before22 = form_launches()
+        t0 = time.perf_counter()
+        res22, cfg22 = rbfe22.run_complex(mols22[0], mols22[1], core22, ff22, pdb_path, md_params=md22,
+                                          n_windows=N22_WINDOWS, min_cutoff=None, device=dev)
+        sync()
+        t_run22 = time.perf_counter() - t0
+        launches22, plain22_calls = read_counts()
+        for form, n in (form_launches() - forms_before22).items():
+            forms22["setup", form] += n
+    finally:
+        clock22.restore()
+        for module, attr, fn in originals22:
+            setattr(module, attr, fn)
+        if pdb_path is not None:
+            os.unlink(pdb_path)
+
+    n_protein = cfg22.conf.shape[0] - cfg22.num_water_atoms
+    n_lig = sum(m.num_atoms for m in mols22)
+    n_total = cfg22.conf.shape[0] + n_lig
+    charge22 = protein22[0].total_charge()
+    print(f"[22 system] capped helix ACE-(ALA){N22_ALA}-NME: {n_protein} protein atoms (perceived net charge "
+          f"{charge22:+d} e), {cfg22.num_water_atoms} water atoms, {n_lig} ligand atoms, {n_total} atoms in all; cubic box "
+          f"{cfg22.box[0, 0]:.4f} nm with the headroom; ligand pair centroid {N22_POSE_NM} nm from the helix axis "
+          f"({smi})")
+    check(charge22 == 0, "[22] the helix's perceived net charge is not 0")
+    check(n_total >= N22_MIN_ATOMS, f"[22] the complex holds fewer than {N22_MIN_ATOMS} atoms")
+    ca = np.array([r.coords[r.atom_names.index("CA")] for r in pdb22.parse_pdb(pdb_text).residues if r.name == "ALA"]) / 10
+    check(abs(helix_axis(ca)[2]) > 0.999, "[22] the helix axis is not along z")
+    print(f"[22 core] get_cores {t_core22:.3f} s, {len(core22)} core atoms, native searches {native22} ({smi})")
+    check(native22 > 0, "[22] the native MCS did not run")
+
+    n_host22 = host22["config"].conf.shape[0]
+    lig22 = np.concatenate([m.get_conf() for m in host22["mols"]])
+    ctx22 = contexts22[0]
+    (_, x_fire22), = fire22
+    with torch.no_grad():
+        f_fire = minimizer22.total_force(ctx22.potentials, torch.as_tensor(np.concatenate([x_fire22, lig22]), device=dev,
+                                         dtype=ctx22._x.dtype), torch.as_tensor(cfg22.box, device=dev, dtype=ctx22._x.dtype))
+        f_end = minimizer22.total_force(ctx22.potentials, ctx22._x, ctx22._box)
+    fmax_fire = float(torch.linalg.vector_norm(f_fire[:n_host22], dim=-1).max())
+    fmax_end = float(torch.linalg.vector_norm(f_end[:n_host22], dim=-1).max())
+    frozen22 = bool(np.array_equal(ctx22.get_x_t()[n_host22:], lig22.astype(ctx22.get_x_t().dtype)))
+    print(f"[22 host] {n_host22} host atoms: the host's largest |F| {fmax_fire:.1f} kJ/mol/nm after FIRE, {fmax_end:.1f} "
+          f"after NPT (limit MAX_FORCE_NORM {MAX_FORCE_NORM:g}); ligand bitwise unmoved {frozen22}; box volume "
+          f"{float(np.prod(np.diagonal(host22['box']))):.4f} nm^3 from {float(np.prod(np.diagonal(cfg22.box))):.4f} ({smi})")
+    check(fmax_fire < MAX_FORCE_NORM and fmax_end < MAX_FORCE_NORM, "[22] the host's forces exceed MAX_FORCE_NORM")
+    check(frozen22, "[22] the ligands moved during the host's pre-equilibration")
+
+    # window 0 as run_complex simulated it (minimized anchors, the host after NPT), its force on the card against
+    # the same window's potentials built on the host CPU in float64 at the same coordinates, both host terms on the
+    # rowscan function
+    state0 = res22.final_result.initial_states[0]
+    st22 = SingleTopology(mols22[0], mols22[1], core22, ff22)
+    cfg_h = host22["config"]
+    host_cpu = rbfe22.Host(cfg_h.host_system, cfg_h.masses, host22["x_host"], host22["box"], cfg_h.num_water_atoms,
+                           cfg_h.host_topology)
+    cpu = torch.device("cpu")
+    state_cpu = rbfe22.setup_initial_state(st22, state0.lamb, host_cpu, DEFAULT_TEMP, md22.seed, cpu, torch.float64)
+    card_pots = state0.potentials
+    check(len(card_pots) == len(state_cpu.potentials), "[22] window 0's terms differ between the card and the CPU")
+    ap_i = next(i for i, p in enumerate(state_cpu.potentials) if isinstance(p, NonbondedAllPairs))
+    dt22 = card_pots[0].params.dtype
+    xc, bc = (torch.as_tensor(a, device=dev, dtype=dt22) for a in (state0.x0, state0.box0))
+    x64, b64 = (torch.as_tensor(a, dtype=torch.float64) for a in (state0.x0, state0.box0))
+    card_pots[ap_i].configure(bc, xc, kernel="rowscan")
+    state_cpu.potentials[ap_i].configure(b64, x64, kernel="rowscan")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        f_card = [p.energy_force(xc, bc)[1].double().cpu() for p in card_pots]
+        f_cpu = [p.energy_force(x64, b64)[1] for p in state_cpu.potentials]
+        ap_norm = float(torch.linalg.vector_norm(NonbondedAllPairs.energy_force(card_pots[ap_i], xc, bc)[1]))
+    per_term = " ".join(
+        f"{type(p).__name__} {float(torch.linalg.vector_norm(a - b)) / max(float(torch.linalg.vector_norm(b)), 1e-30):.2e}"
+        for p, a, b in zip(card_pots, f_card, f_cpu))
+    rel22 = float(torch.linalg.vector_norm(sum(f_card) - sum(f_cpu))) / ap_norm
+    print(f"[22 force] window 0 (λ {state0.lamb:.1f}) as run_complex simulated it, card ({dt22}) vs host CPU (float64), "
+          f"both host terms rowscan, per term |diff| / |term force|: {per_term}; total |diff| {rel22:.3e} of the all-pairs "
+          f"force norm {ap_norm:.1f} (limit {TOL_FORCE_REL_NORM:g}; the CPU's {time.perf_counter() - t0:.1f} s) ({smi})")
+    check(rel22 <= TOL_FORCE_REL_NORM, "[22] window 0's card force is off the host CPU's")
+    # the host term's own error against the CPU's float32 plain version of it: the sweep takes every pair and
+    # subtracts the excluded ones, and an Amber 1-2 pair's LJ force (about 1e8 kJ/mol/nm at 0.1 nm) leaves
+    # float32 rounding of that size on the protein's atoms
+    state_cpu32 = rbfe22.setup_initial_state(st22, state0.lamb, host_cpu, DEFAULT_TEMP, md22.seed, cpu, torch.float32)
+    x32, b32 = (torch.as_tensor(a, dtype=torch.float32) for a in (state0.x0, state0.box0))
+    state_cpu32.potentials[ap_i].configure(b32, x32, kernel="rowscan")
+    with torch.no_grad():
+        f_ap32 = state_cpu32.potentials[ap_i].energy_force(x32, b32)[1].double()
+    f_ap64 = f_cpu[ap_i]
+    d_card, d_32 = (torch.linalg.vector_norm(f - f_ap64, dim=-1) for f in (f_card[ap_i], f_ap32))
+    rel_card, rel_32 = (float(torch.linalg.vector_norm(f - f_ap64)) / float(torch.linalg.vector_norm(f_ap64))
+                        for f in (f_card[ap_i], f_ap32))
+    print(f"[22 force] the host term against the CPU's float64: card {rel_card:.3e} of its own norm (the largest |diff| "
+          f"{float(d_card[:n_protein].max()):.3f} kJ/mol/nm on a protein atom, {float(d_card[n_protein:n_host22].max()):.4f} on "
+          f"a water atom), the CPU's float32 plain version {rel_32:.3e} ({float(d_32[:n_protein].max()):.3f} and "
+          f"{float(d_32[n_protein:n_host22].max()):.4f}); limit for the card 10x the CPU's float32 ({smi})")
+    check(rel_card <= 10 * rel_32, "[22] the card's host term is off by more than float32 rounding explains")
+
+    bfgs_calls = sum(vg.calls for vg in vgs22)
+    minimize_s = sec22.get("minimize", 0.0)
+    build_rest = sec22["build"] - sec22["parse"] - sec22["perception"] - sec22["assignment"]
+    print(f"[22 time] run_complex {t_run22:.1f} s: the build {sec22['build']:.2f} s (parse {sec22['parse']:.3f}, perception "
+          f"{sec22['perception']:.3f}, Amber assignment {sec22['assignment']:.3f}, lattice and assembly {build_rest:.3f}), "
+          f"FIRE {sec22['fire']:.1f} s, NPT {sec22['npt'] - sec22['fire']:.1f} s, anchor minimization "
+          f"{sec22['minimize anchors']:.1f} s, bisection {sec22['bisection']:.1f} s, HREX {sec22['hrex']:.1f} s; "
+          f"{bfgs_calls} BFGS energy/force calls in {minimize_s:.1f} s ({1e3 * minimize_s / max(bfgs_calls, 1):.1f} ms a "
+          f"call); host clock ({smi})")
+
+    fin22 = res22.final_result
+    finite22 = bool(np.isfinite(fin22.dGs).all() and np.isfinite(fin22.dG_errs).all())
+    rates22 = res22.hrex_diagnostics.cumulative_swap_acceptance_rates[-1]
+    print(f"[22 hrex] {len(fin22.initial_states)} replicas at λ " + " ".join(f"{s.lamb:.4f}" for s in fin22.initial_states)
+          + f", {N22_FRAMES} iterations of {N22_STEPS_PER_FRAME} steps: ΔG per pair "
+          + " ".join(f"{g:.4f} +- {e:.4f}" for g, e in zip(fin22.dGs, fin22.dG_errs))
+          + f" kJ/mol, sum {float(np.sum(fin22.dGs)):.4f} +- {float(np.linalg.norm(fin22.dG_errs)):.4f} (not converged); "
+          "swap acceptance " + " ".join(f"{r:.3f}" for r in rates22) + f"; finite {finite22} ({smi})")
+    check(len(fin22.bar_results) == N22_WINDOWS - 1 and finite22, "[22] HREX did not give finite BAR pairs for every pair")
+
+    print(f"[22 kernels] rowscan and nb_tiles launches in run_complex by stage and form: {clock22.by_stage()}; totals "
+          f"{launches22}; plain sweeps {plain22_calls} ({smi})")
+    check(plain22_calls == 0, "[22] run_complex ran a plain sweep")
+    check(all(n == 0 for (stage, _), n in forms22.items() if stage in ("setup", "build", "parse", "perception", "assignment")),
+          "[22] a kernel launch outside the sampling and minimization stages")
+    launches_at = clock22.launches
+    for stage in ("fire", "minimize"):
+        exact = sum(n for (st, form), n in forms22.items() if st == stage and form.startswith("nb_tiles") and form.endswith("exact"))
+        check(exact > 0 and launches_at(stage, "rowscan") == 0 and launches_at(stage, "nb_tiles") == exact,
+              f"[22] the {stage} stage did not run on nb_tiles' exact form alone")
+    for stage in ("npt", "bisection"):
+        masked = sum(n for (st, form), n in forms22.items() if st == stage and form.endswith("triangular minimum image w"))
+        check(masked > 0 and launches_at(stage, "rowscan") == masked and launches_at(stage, "nb_tiles") == 0,
+              f"[22] the {stage} stage did not run on the masked rowscan form alone")
+    batched = sum(n for (st, form), n in forms22.items() if st == "hrex" and form.startswith("batched"))
+    check(batched > 0 and launches_at("hrex", "nb_tiles") == 0, "[22] HREX did not run on the batched rowscan form")
+    # u_kln inside the hrex stage: every rowscan launch that is not batched is the masked form
+    unbatched = [(form, n) for (st, form), n in forms22.items() if st == "hrex" and n
+                 and not form.startswith(("batched", "nb_tiles"))]
+    check(unbatched and all(form.endswith("triangular minimum image w") for form, _ in unbatched),
+          f"[22] u_kln in the hrex stage launched a rowscan form other than the masked one: {unbatched}")
+    masked_row["launches_run_complex"] = launches22["rowscan_sweep"]
+    batched_row["launches_run_complex"] = launches22["rowscan_sweep_batched"]
+    exact_row["launches_run_complex"] = launches22["nb_tiles"]
+    print(f"[22 time] phase 22 took {time.perf_counter() - t_phase22:.1f} s, the script so far "
+          f"{time.perf_counter() - T_START:.1f} s, host clock ({smi})")
+
+
 def _waters_inside(x, box, ligand_idxs, water_idxs, radius) -> int:
     """Waters whose centroid lies within radius of the ligand's centroid (the sampler's inner region)."""
     import numpy as np
@@ -3880,6 +4133,9 @@ def main() -> int:
 
     # -- 21. the standalone samplers, the training path and the last utilities -------------------------
     phase21(dev, smi, zero_counts, read_counts, rows17[0], inputs16, host16, hc)
+
+    # -- 22. the complex leg: run_complex on a solvated capped helix ---------------------------------------
+    phase22(dev, smi, zero_counts, read_counts, masked_row, batched_row, rows17[0], inputs16)
 
     print(f"[time] the script took {time.perf_counter() - T_START:.1f} s up to its kernels line, host clock ({smi})")
     print(json.dumps({"kernels": [kernel_row, masked_row, batched_row, nb_row, gather_row, quad_row, dot_row, *probe_rows,

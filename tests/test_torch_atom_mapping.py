@@ -1,5 +1,6 @@
-"""The port's atom mapping (timemachine_torch/fe/atom_mapping.py, the
-pure-Python McGregor search) against timemachine_tpu's get_cores: the same
+"""The port's atom mapping (timemachine_torch/fe/atom_mapping.py, its
+native McGregor search; tests/test_torch_native_mcs.py holds it to the
+pure-Python one) against timemachine_tpu's get_cores: the same
 cores in the same order for ethanol -> propane (the RBFE cache's
 conformers) and toluene -> phenol (embedded once by the JAX package at
 seed 7), under the default settings and two variants. The JAX side runs its

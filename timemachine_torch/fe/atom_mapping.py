@@ -7,15 +7,16 @@ planar-torsion admissibility filters, and a joint ranking of the surviving
 cores by (core bonds broken, valence mismatch, mean-square displacement).
 
 Internally organized around a frozen `_SearchConfig` (the knobs appear once)
-and fully vectorized candidate/ranking passes.
+and fully vectorized candidate/ranking passes; the search itself runs in the
+native C++ module (fe/mcgregor_native.py, built at first use with g++), with
+the pure-Python mcgregor module as the executable spec and fallback.
 
-The port's copy of timemachine_tpu/fe/atom_mapping.py. The search runs the
-pure-Python McGregor module; the JAX package's native C++ search
-(fe/mcgregor_native.py), which returns the same cores, is not ported yet.
+The port's copy of timemachine_tpu/fe/atom_mapping.py.
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from typing import Optional
 
@@ -24,6 +25,7 @@ import numpy as np
 from timemachine_torch.fe import mcgregor
 from timemachine_torch.fe.chiral_utils import (
     ChiralRestrIdxSet,
+    enumerate_planar_torsions,
     has_chiral_atom_flips,
     setup_find_flipped_planar_torsions,
 )
@@ -179,19 +181,45 @@ def _candidate_lists(cfg: _SearchConfig, mol_a, mol_b, conf_a, conf_b, seed):
 
 
 def _admissibility(cfg: _SearchConfig, mol_a, mol_b, conf_a, conf_b):
-    """Trial-core predicate: chirality preservation and planar-torsion sign."""
+    """Trial-core predicates (chirality preservation, planar-torsion sign) and
+    the precomputed structures the native search consumes for the same checks."""
     predicates = []
+    native_kwargs: dict = {}
 
     if cfg.enforce_chiral:
         chiral_a = ChiralRestrIdxSet.from_mol(mol_a, conf_a)
         chiral_b = ChiralRestrIdxSet.from_mol(mol_b, conf_b)
         predicates.append(lambda trial: not has_chiral_atom_flips(trial, chiral_a, chiral_b))
+        native_kwargs["chiral_quartets_a"] = np.array(chiral_a.restr_idxs, dtype=np.int32).reshape(-1, 4)
+        native_kwargs["disallowed_quartets_b"] = sorted(chiral_b.disallowed_set)
 
     if cfg.disallow_planar_torsion_flips:
         find_flipped = setup_find_flipped_planar_torsions(mol_a, mol_b)
         predicates.append(lambda trial: next(find_flipped(trial), None) is None)
 
-    return lambda trial: all(p(trial) for p in predicates)
+        pt_a = enumerate_planar_torsions(mol_a)
+        pt_b = dict(enumerate_planar_torsions(mol_b))
+        pt_b.update({quartet[::-1]: sign for quartet, sign in list(pt_b.items())})
+        native_kwargs["planar_torsions_a"] = np.array(list(pt_a.keys()), dtype=np.int32).reshape(-1, 4)
+        native_kwargs["planar_signs_a"] = np.array(list(pt_a.values()), dtype=np.int8)
+        native_kwargs["planar_torsions_b"] = np.array(list(pt_b.keys()), dtype=np.int32).reshape(-1, 4)
+        native_kwargs["planar_signs_b"] = np.array(list(pt_b.values()), dtype=np.int8)
+
+    return (lambda trial: all(p(trial) for p in predicates)), native_kwargs
+
+
+def _native_search():
+    """mcgregor_native.mcs_native with its library built, or None (with a
+    warning that names the build error) where it cannot be built."""
+    from timemachine_torch.fe import mcgregor_native
+    from timemachine_torch.native import NativeBuildError
+
+    try:
+        mcgregor_native.load_library()
+    except (NativeBuildError, OSError) as e:  # no toolchain, or a library that will not load: the Python search
+        warnings.warn(f"native MCS unavailable ({e}); using the pure-Python search")
+        return None
+    return mcgregor_native.mcs_native
 
 
 # ---------------------------------------------------------------------------
@@ -256,7 +284,7 @@ def _search(cfg: _SearchConfig, mol_a, mol_b, seed):
     conf_a, conf_b = mol_ap.get_conf(), mol_b.get_conf()
 
     candidates = _candidate_lists(cfg, mol_ap, mol_b, conf_a, conf_b, seed_p)
-    predicate = _admissibility(cfg, mol_ap, mol_b, conf_a, conf_b)
+    predicate, native_kwargs = _admissibility(cfg, mol_ap, mol_b, conf_a, conf_b)
 
     search_args = (
         mol_a.num_atoms,
@@ -273,7 +301,13 @@ def _search(cfg: _SearchConfig, mol_a, mol_b, seed):
         seed_p,
     )
 
-    cores, _, diagnostics = mcgregor.mcs(*search_args, predicate)
+    # the native C++ search is the production path: the chiral and planar filters run as built-in hash-table
+    # checks instead of per-node Python callbacks; the Python module is the spec and the fallback
+    native = _native_search()
+    if native is not None:
+        cores, _, diagnostics = native(*search_args, **native_kwargs)
+    else:
+        cores, _, diagnostics = mcgregor.mcs(*search_args, predicate)
 
     cores = _dedupe(remove_cores_smaller_than_largest(cores))
     ranking = _rank_cores(mol_ap, mol_b, conf_a, conf_b, cores)

@@ -1,7 +1,7 @@
 """Relative binding free energy (RBFE) drivers over a single-topology
 edge: window states, the λ-chain minimization of their coordinates, the
-fixed-grid, bisection and HREX estimators, and the vacuum and solvent legs
-(the port of timemachine_tpu/fe/rbfe.py).
+fixed-grid, bisection and HREX estimators, and the vacuum, solvent and
+complex legs (the port of timemachine_tpu/fe/rbfe.py).
 
 An AlchemicalEdge holds the edge's SingleTopology, its pre-equilibrated host
 (md/minimizer.py pre_equilibrate_host), its seed and the anchor states whose
@@ -18,8 +18,7 @@ With REST parameters the edge's topology is fe/rest/'s SingleTopologyREST,
 whose intermediate states run the hot region at a raised effective
 temperature (DEFAULT_REST_PARAMS). Differences: the estimators return no
 plots (plots=None, hrex_plots=None: fe/plots.py is not ported, ROADMAP
-P21); rebalance_lambda_schedule raises (ROADMAP R8), and run_complex
-waits on the protein builders.
+P21); rebalance_lambda_schedule raises (ROADMAP R8).
 """
 
 from __future__ import annotations
@@ -706,6 +705,35 @@ def run_solvent(
     return result, host_config
 
 
-def run_complex(*args, **kwargs):
-    """The complex leg: waits on md/builders.py's protein builders."""
-    raise NotImplementedError("run_complex waits on md/builders.py's build_protein_system (chem/pdb.py, ff/amber_xml.py)")
+def run_complex(
+    mol_a,
+    mol_b,
+    core: np.ndarray,
+    forcefield,
+    protein,
+    md_params: MDParams = DEFAULT_HREX_PARAMS,
+    n_windows: Optional[int] = None,
+    min_overlap: Optional[float] = None,
+    min_cutoff: Optional[float] = 0.7,
+    device=None,
+):
+    """The complex leg on `device` (None: the card): the protein (a PDB path
+    or its text) solvated natively by md/builders.py's build_protein_system
+    around both ligands plus 0.1 nm of headroom, pre-equilibrated, then the
+    estimator MDParams asks for. Returns (result, host config)."""
+    host_config = builders.build_protein_system(protein, forcefield.protein_ff, forcefield.water_ff, mols=[mol_a, mol_b])
+    host_config.box += np.diag([0.1, 0.1, 0.1])  # headroom against clashes
+    result = estimate_relative_free_energy_bisection_or_hrex(
+        mol_a,
+        mol_b,
+        core,
+        forcefield,
+        host_config,
+        prefix="complex",
+        md_params=md_params,
+        n_windows=n_windows,
+        min_overlap=min_overlap,
+        min_cutoff=min_cutoff,
+        device=device,
+    )
+    return result, host_config

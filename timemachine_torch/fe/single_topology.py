@@ -1241,7 +1241,7 @@ class SingleTopology(AtomMapMixin):
         hg_nb_ixn_params = np.array(host_nonbonded.params.detach()).copy()
         if ff.env_bcc_handle is not None and host_topology is not None:
             env_bcc_h = ff.env_bcc_handle.get_env_handle(host_topology, ff)
-            hg_nb_ixn_params[:, NBParamIdx.Q_IDX] = env_bcc_h.parameterize(ff.env_bcc_handle.params)
+            hg_nb_ixn_params[:, NBParamIdx.Q_IDX] = env_bcc_h.parameterize(ff.env_bcc_handle.params).detach().numpy()
 
         ixn_pot, ixn_params = get_ligand_ixn_pots_params(
             lig_idxs, env_idxs, hg_nb_ixn_params, guest_ixn_env_params,

@@ -312,7 +312,7 @@ class HostGuestTopology:
         self.hg_nb_ixn_params = np.array(self.host_nonbonded.params.detach()).copy()
         if self.ff.env_bcc_handle is not None and host_topology is not None:
             env_bcc_h = self.ff.env_bcc_handle.get_env_handle(host_topology, self.ff)
-            self.hg_nb_ixn_params[:, NBParamIdx.Q_IDX] = env_bcc_h.parameterize(self.ff.env_bcc_handle.params)
+            self.hg_nb_ixn_params[:, NBParamIdx.Q_IDX] = env_bcc_h.parameterize(self.ff.env_bcc_handle.params).detach().numpy()
 
     def get_water_idxs(self):
         return np.arange(self.num_water_atoms, dtype=np.int32) + self.num_other_atoms

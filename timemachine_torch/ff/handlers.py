@@ -706,7 +706,9 @@ class EnvironmentBCCPartialHandler(SerializableMixIn):
         self.props = props
 
     def get_env_handle(self, host_topology, ff):
-        raise NotImplementedError("environment BCC (ff/envbcc.py) is not ported yet: it comes with the protein builders")
+        from timemachine_torch.ff.envbcc import EnvironmentBCCHandler
+
+        return EnvironmentBCCHandler(self.smirks, self.params, ff.protein_ff, ff.water_ff, host_topology)
 
 
 class EnvironmentNNPartialHandler(EnvironmentBCCPartialHandler):

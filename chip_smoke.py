@@ -202,7 +202,18 @@ host CPU's float64 (TOL_FORCE_REL_NORM of the all-pairs norm), ΔG per pair,
 swap acceptance, and the rowscan and nb_tiles launches by stage and form:
 FIRE and the minimizations on nb_tiles' exact form alone, NPT and bisection
 on the masked rowscan form alone, HREX on the batched form, no plain sweep
-and no launch outside the stages. Each phase prints its host seconds ("[N
+and no launch outside the stages. HREX checkpoint and resume [23]: phase 14's
+runner over the 12 windows takes 4 iterations of 25 steps straight, a second
+2, its pickled state_dict() loads into a fresh runner that takes the last 2,
+and the resumed iterations are bitwise the straight run's (frames, boxes,
+permutations, swap counts, U_kl) with equal launches, on the batched form
+alone; the same on phase 20's probe ladder with the TIBD sampler firing after
+the split (frames and sampler counters bitwise); an InteractionGroupTraj of
+the ligand over the run's frames, its U and dU/dp on the card against the
+host CPU's float64; the frames through StoredArrays; a DevicePoolClient task
+launching the masked rowscan form in a spawned worker, bitwise this
+process's launch; whether matplotlib imports and the estimators' plots
+(None without it). Each phase prints its host seconds ("[N
 time]"), and the script its total up to the kernels line ("[time]").
 Every path runs with all launch and plain-call counts set to
 0 just before it and read just after. Then a JSON line on the kernels
@@ -214,7 +225,9 @@ windows), per replica-step of the water-sampling HREX for the batched form
 (launches_water_hrex), per run of phase 12 for the probes; nb_tiles' exact masked row
 also launches_ahfe_fire, launches_smc, launches_mtm, launches_barker
 and bound_ms_barker (phase 21's, per run and per launch); the masked,
-batched and exact masked rows launches_run_complex (phase 22's); bound;
+batched and exact masked rows launches_run_complex (phase 22's); the batched
+row launches_resume (phase 23's, per replica-step of the resumed HREX
+iterations); bound;
 plain time), the card's name and power limit from
 nvidia-smi, and as the last line {"ok": true, "device": {...}}.
 
@@ -999,6 +1012,7 @@ def phase16(dev, smi, zero_counts, read_counts, masked_row, batched_row):
         forms_before16 = form_launches()
         t0 = time.perf_counter()
         res16, cfg16 = rbfe16.run_solvent(mols16[0], mols16[1], core16, ff16, None, md_params=md16, n_windows=N16_WINDOWS)
+        PLOTS_SEEN["run_solvent RBFE (phase 16)"] = (res16.plots, res16.hrex_plots)
         sync()
         t_run16 = time.perf_counter() - t0
         launches16, plain16_calls = read_counts()
@@ -1214,6 +1228,7 @@ def phase19(dev, smi, zero_counts, read_counts, masked_row, exact_row):
         before = form_launches()
         t0 = time.perf_counter()
         res19, cfg19 = ah19.run_solvent(mol, ff, None, md19, n_windows=N19_WINDOWS, device=dev)
+        PLOTS_SEEN["run_solvent AHFE (phase 19)"] = (res19.plots,)
         sync()
         t_run19 = time.perf_counter() - t0
         counts19, plain19 = read_counts()
@@ -1438,7 +1453,10 @@ def phase20(dev, smi, zero_counts, read_counts, batched_row):
     against a float64 rebuild, the diagnostics' counts, occupancy and
     acceptance per window, ΔG); [20 single] one window by
     get_context + sample_with_context; [20 local] the time-multiplexed HREX
-    with local MD. Adds launches_water_hrex to the batched row."""
+    with local MD. Adds launches_water_hrex to the batched row. Returns
+    {"dG", "states", "make_runner"}: the ladder's states and
+    make_runner(water) -> an initialized ReplicaExchangeRunner over them
+    (phase 23 resumes one)."""
     import numpy as np
     import torch
 
@@ -1842,7 +1860,7 @@ def phase20(dev, smi, zero_counts, read_counts, batched_row):
           "[20] the time-multiplexed HREX did not give each state its sampler parameters and counts")
     check(plain_tm == 0 and bool(np.isfinite(res_tm.dGs).all()), "[20] the time-multiplexed HREX ran a plain sweep or failed")
     print(f"[20 time] phase 20 took {time.perf_counter() - t_phase20:.1f} s, host clock ({smi})")
-    return dG20
+    return {"dG": dG20, "states": states, "make_runner": make_runner}
 
 
 def mol_energies_near(x, params, box, mols, beta: float, cutoff: float):
@@ -2422,6 +2440,238 @@ def phase22(dev, smi, zero_counts, read_counts, masked_row, batched_row, exact_r
     exact_row["launches_run_complex"] = launches22["nb_tiles"]
     print(f"[22 time] phase 22 took {time.perf_counter() - t_phase22:.1f} s, the script so far "
           f"{time.perf_counter() - T_START:.1f} s, host clock ({smi})")
+
+
+N23_STEPS, N23_WATER_STEPS, N23_SPLIT, N23_ITERS = 25, 50, 2, 4  # iterations of each run; the split after N23_SPLIT
+N23_IG_CUTOFF, TOL_IG_REL = 1.2, 1e-5  # nm; the interaction group's U and dU/dp against the CPU's float64
+PLOTS_SEEN = {}  # an estimator's name -> its plots fields, recorded by phases 16 and 19 for phase 23
+
+
+def _phase23_task(inputs):
+    """A DevicePoolClient task: one masked rowscan F launch (triangular,
+    minimum image, w) in a spawned worker, on the card its
+    CUDA_VISIBLE_DEVICES names; (forces, its launches, the card's name,
+    CUDA_VISIBLE_DEVICES)."""
+    import torch
+
+    from timemachine_torch.ops import rowscan_kernel as rs
+
+    dev = torch.device("cuda", 0)
+    *arrays, series = inputs
+    rs.rowscan_sweep.launches = 0
+    out = rs.rowscan_sweep(*(torch.as_tensor(a, device=dev) for a in arrays), series, rs.FORCE, triangular=True, has_w=True)
+    torch.cuda.synchronize()
+    return out.cpu().numpy(), rs.rowscan_sweep.launches, torch.cuda.get_device_name(0), os.environ.get("CUDA_VISIBLE_DEVICES")
+
+
+def phase23(dev, smi, zero_counts, read_counts, batched_row, make_runner14, ladder20, states13, args13):
+    """HREX checkpoint and resume, frames on disk, and the last modules:
+    [23 resume] the 12 windows of the solvent RBFE leg as phase 14 builds
+    its runner (make_runner14(K), the barostat on): one runner takes
+    N23_ITERS iterations of N23_STEPS steps straight; a second takes
+    N23_SPLIT, its state_dict() is pickled, and a fresh runner
+    load_state_dict()s the pickle and takes the rest. The resumed
+    iterations' frames, boxes, permutations, accepted and proposed counts
+    and U_kl must be bitwise the straight run's, and their launches (every
+    count zeroed just before them) equal, on the batched rowscan form alone;
+    [23 water] the same split on phase 20's probe ladder with the TIBD
+    sampler (ladder20["make_runner"](True), N23_WATER_STEPS a segment: a
+    firing before the split and one after it), bitwise frames and sampler
+    counters; [23 ixn] an InteractionGroupTraj of the ligand against the
+    host atoms at N23_IG_CUTOFF nm over the straight run's frames by state,
+    make_U_fxn(nb_pair_fxn) under state 0's interaction-group parameters on
+    the card against the same on the host CPU in float64 (U within
+    TOL_IG_REL of the largest |U|, dU/dp within TOL_IG_REL of the CPU's
+    norm; the card's float32 printed beside); [23 frames] those frames
+    through Trajectory's StoredArrays, read back and unpickled bitwise;
+    [23 client] a DevicePoolClient(max_workers=1) task runs one masked
+    rowscan F launch (phase 13's inputs, args13) in a spawned worker after
+    this process has used the card: bitwise this process's launch; [23
+    plots] whether matplotlib imports, and the plots phases 16 and 19's
+    estimators returned (None without it). Adds launches_resume to the
+    batched row."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from timemachine_torch.fe.free_energy import Trajectory
+    from timemachine_torch.fe.interaction_group_traj import InteractionGroupTraj, nb_pair_fxn
+    from timemachine_torch.fe.stored_arrays import StoredArrays
+    from timemachine_torch.ops import rowscan_kernel as rs
+    from timemachine_torch.parallel.client import DevicePoolClient
+    from timemachine_torch.potentials import NonbondedInteractionGroup
+
+    t_phase23 = time.perf_counter()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    fields = ("frames_by_state", "boxes_by_state", "replica_idx_by_state", "accepted_by_pair", "proposed_by_pair", "U_kl")
+
+    def iterate(runner, n_iters, n_steps):
+        """n_iters HREX iterations, every count zeroed just before them and
+        read just after: (results, launches, plain calls, launches by form, host s)."""
+        sync()
+        zero_counts()
+        before = form_launches()
+        t_start = time.perf_counter()
+        out = [runner.advance_frame(n_steps) for _ in range(n_iters)]
+        sync()
+        sec = time.perf_counter() - t_start
+        counts, plain = read_counts()
+        return out, counts, plain, form_launches() - before, sec
+
+    def split_and_resume(make, n_steps):
+        straight = make()
+        head, *_, sec_head = iterate(straight, N23_SPLIT, n_steps)
+        tail_a, counts_a, plain_a, forms_a, sec_a = iterate(straight, N23_ITERS - N23_SPLIT, n_steps)
+        split = make()
+        iterate(split, N23_SPLIT, n_steps)
+        t_start = time.perf_counter()
+        blob = pickle.dumps(split.state_dict())
+        t_save = time.perf_counter() - t_start
+        resumed = make()
+        t_start = time.perf_counter()
+        resumed.load_state_dict(pickle.loads(blob))
+        t_load = time.perf_counter() - t_start
+        tail_b, counts_b, plain_b, forms_b, sec_b = iterate(resumed, N23_ITERS - N23_SPLIT, n_steps)
+        same = {f: all(np.array_equal(getattr(a, f), getattr(b, f)) for a, b in zip(tail_a, tail_b)) for f in fields}
+        return dict(straight=straight, resumed=resumed, head=head, tail_a=tail_a, tail_b=tail_b, same=same, blob=blob,
+                    counts=(counts_a, counts_b), plain=(plain_a, plain_b), forms=(forms_a, forms_b),
+                    sec=(sec_head, sec_a, sec_b, t_save, t_load))
+
+    def only_batched(counts, plain):
+        return plain == 0 and counts["rowscan_sweep_batched"] > 0 and all(
+            n == 0 for k, n in counts.items() if k != "rowscan_sweep_batched")
+
+    # -- [23 resume] the 12 windows ------------------------------------------------------------------
+    K = len(states13)
+    r = split_and_resume(lambda: make_runner14(K), N23_STEPS)
+    state = pickle.loads(r["blob"])
+    forms_a, forms_b = r["forms"]
+    counts_a, counts_b = r["counts"]
+    sec_head, sec_a, sec_b, t_save, t_load = r["sec"]
+    n_resumed = (N23_ITERS - N23_SPLIT) * N23_STEPS
+    print(f"[23 resume] {K} windows of {states13[0].x0.shape[0]} atoms, {N23_ITERS} iterations of {N23_STEPS} steps "
+          f"straight against {N23_SPLIT} + pickle({len(r['blob'])} bytes: keys {sorted(state)}, torch named in it "
+          f"{b'torch' in r['blob']}, written on {state['device_type']!r} at t {state['t']}, step {state['step']}) + "
+          f"load_state_dict + {N23_ITERS - N23_SPLIT}: iterations {N23_SPLIT + 1}-{N23_ITERS} bitwise "
+          + ", ".join(f"{f} {v}" for f, v in r["same"].items())
+          + f"; their launches straight {dict(forms_a)}, resumed {dict(forms_b)} (plain calls {r['plain']}); host s "
+          f"{sec_a:.2f} straight, {sec_b:.2f} resumed, {sec_head:.2f} for the first {N23_SPLIT}; state_dict + pickle "
+          f"{t_save * 1e3:.1f} ms, unpickle + load_state_dict {t_load * 1e3:.1f} ms; accepted by pair in the last "
+          f"iteration {r['tail_b'][-1].accepted_by_pair.tolist()} ({smi})")
+    check(all(r["same"].values()), "[23] the resumed HREX run is not bitwise the straight one")
+    check(counts_a == counts_b and forms_a == forms_b and only_batched(counts_b, r["plain"][1]) and r["plain"][0] == 0,
+          "[23] the resumed iterations' launches differ from the straight run's, or left the batched rowscan form")
+    check(b"torch" not in r["blob"] and state["device_type"] == dev.type, "[23] the checkpoint holds a torch object")
+    batched_row["launches_resume"] = counts_b["rowscan_sweep_batched"] / (K * n_resumed)
+
+    # -- [23 water] the probe ladder with the TIBD sampler ---------------------------------------------
+    w = split_and_resume(lambda: ladder20["make_runner"](True), N23_WATER_STEPS)
+    k_w = len(w["resumed"].water_counters_by_replica()[0])
+    at_split = [int(v) for v in pickle.loads(w["blob"])["mover_leaves"][-3]]  # the sampler's n_proposed (then params, generator)
+    acc_a, prop_a = w["straight"].water_counters_by_replica()
+    acc_b, prop_b = w["resumed"].water_counters_by_replica()
+    counters_same = bool(np.array_equal(acc_a, acc_b) and np.array_equal(prop_a, prop_b))
+    fired_after = all(b > a for a, b in zip(at_split, prop_b))
+    print(f"[23 water] the probe ladder, {k_w} replicas, {N23_ITERS} iterations of {N23_WATER_STEPS} steps, the sampler "
+          f"every {N20_INTERVAL} steps: resumed iterations bitwise " + ", ".join(f"{f} {v}" for f, v in w["same"].items())
+          + f"; sampler proposed by replica at the split {at_split}, at the end {prop_b.tolist()} (straight "
+          f"{prop_a.tolist()}), accepted {acc_b.tolist()} (straight {acc_a.tolist()}), equal {counters_same}; launches "
+          f"straight {dict(w['forms'][0])}, resumed {dict(w['forms'][1])}; host s {w['sec'][1]:.2f} straight, "
+          f"{w['sec'][2]:.2f} resumed ({smi})")
+    check(all(w["same"].values()) and counters_same and fired_after,
+          "[23] the resumed water-sampling run is not bitwise the straight one, or the sampler did not fire after the split")
+    check(w["counts"][0] == w["counts"][1] and only_batched(w["counts"][1], w["plain"][1]),
+          "[23] the resumed water-sampling iterations' launches differ or left the batched rowscan form")
+
+    # -- [23 ixn] the interaction group over the straight run's frames ----------------------------------
+    runs = r["head"] + r["tail_a"]
+    frames = np.concatenate([res.frames_by_state for res in runs])  # (iterations x K, N, 3), by state within each
+    box_diags = np.concatenate([np.diagonal(res.boxes_by_state, axis1=1, axis2=2) for res in runs])
+    lig = np.asarray(states13[0].ligand_idxs)
+    env = np.setdiff1d(np.arange(frames.shape[1]), lig)
+    t_start = time.perf_counter()
+    traj = InteractionGroupTraj(frames.astype(np.float64), box_diags.astype(np.float64), lig, env, cutoff=N23_IG_CUTOFF,
+                                verbose=False)
+    t_build = time.perf_counter() - t_start
+    ig = next(p for p in states13[0].potentials if isinstance(p, NonbondedInteractionGroup))
+    params = ig.params.detach().cpu().to(torch.float64)
+    u_fn = traj.make_U_fxn(nb_pair_fxn)
+
+    def u_and_grad(device, dtype):
+        q = params.to(device=device, dtype=dtype).requires_grad_(True)
+        sync()
+        t_start = time.perf_counter()
+        u = u_fn(q)
+        (g,) = torch.autograd.grad(u.sum(), q)
+        sync()
+        return u.detach().cpu().to(torch.float64), g.cpu().to(torch.float64), time.perf_counter() - t_start
+
+    u_cpu, g_cpu, s_cpu = u_and_grad(torch.device("cpu"), torch.float64)
+    u_64, g_64, s_64 = u_and_grad(dev, torch.float64)
+    u_32, g_32, s_32 = u_and_grad(dev, torch.float32)
+
+    def gaps(u, g):
+        return (float((u - u_cpu).abs().max() / u_cpu.abs().max()),
+                float(torch.linalg.vector_norm(g - g_cpu) / torch.linalg.vector_norm(g_cpu)))
+
+    gap64, gap32 = gaps(u_64, g_64), gaps(u_32, g_32)
+    print(f"[23 ixn] InteractionGroupTraj of the {len(lig)} ligand atoms against {len(env)} host atoms at "
+          f"{N23_IG_CUTOFF} nm over {traj.n_frames} frames ({N23_ITERS} iterations x {K} states): shell padded to "
+          f"{traj.selected_env_idxs.shape[1]} atoms, built in {t_build:.2f} s; U under state 0's interaction-group "
+          f"parameters {u_cpu.min():.3f} to {u_cpu.max():.3f} kJ/mol; card float64 vs CPU float64: U {gap64[0]:.2e} of "
+          f"the largest |U|, dU/dp {gap64[1]:.2e} of the CPU's norm (tol {TOL_IG_REL:g}); card float32: {gap32[0]:.2e}, "
+          f"{gap32[1]:.2e} (not held); U and dU/dp in {s_64 * 1e3:.1f} ms float64, {s_32 * 1e3:.1f} ms float32 on the "
+          f"card, {s_cpu * 1e3:.1f} ms on the host ({smi})")
+    check(gap64[0] <= TOL_IG_REL and gap64[1] <= TOL_IG_REL and bool(torch.isfinite(u_32).all()),
+          "[23] the interaction group's energies or gradient on the card disagree with the CPU's")
+
+    # -- [23 frames] the straight run's frames through StoredArrays ------------------------------------
+    trajs = [Trajectory.empty() for _ in range(K)]
+    for res in runs:
+        for k, t in enumerate(trajs):
+            t.frames.extend(res.frames_by_state[k][None])
+            t.boxes.append(res.boxes_by_state[k])
+    by_state = frames.reshape(len(runs), K, *frames.shape[1:]).transpose(1, 0, 2, 3)
+    read_back = all(np.array_equal(np.asarray(t.frames), by_state[k]) for k, t in enumerate(trajs))
+    unpickled = [pickle.loads(pickle.dumps(t)) for t in trajs]
+    pickled_back = all(isinstance(u.frames, StoredArrays) and u.frames == t.frames for u, t in zip(unpickled, trajs))
+    spilled = sum(len(os.listdir(t.frames._dir.name)) for t in trajs)
+    print(f"[23 frames] {K} trajectories of {len(runs)} frames on StoredArrays ({spilled} .npy files under the "
+          f"temporary directory): read back bitwise {read_back}, unpickled bitwise {pickled_back} ({smi})")
+    check(read_back and pickled_back and spilled == K * len(runs), "[23] frames did not round-trip through StoredArrays")
+
+    # -- [23 client] a card task in a spawned worker ------------------------------------------------------
+    inputs = [a.cpu().numpy() for a in args13[:5]] + [args13[5]]
+    parent = rs.rowscan_sweep(*args13, rs.FORCE, triangular=True, has_w=True).cpu().numpy()
+    t_start = time.perf_counter()
+    client = DevicePoolClient(max_workers=1)
+    try:
+        forces, worker_launches, worker_card, visible = client.submit(_phase23_task, inputs).result()
+    finally:
+        client.executor.shutdown()
+    t_client = time.perf_counter() - t_start
+    same_forces = bool(np.array_equal(forces, parent))
+    print(f"[23 client] DevicePoolClient(max_workers=1), platform {client.platform!r}, a {client.executor._mp_context.get_start_method()} "
+          f"worker: one masked rowscan F launch there on {worker_card} (CUDA_VISIBLE_DEVICES {visible}), launches "
+          f"{worker_launches}, forces bitwise this process's launch {same_forces}; {t_client:.1f} s host clock with the "
+          f"worker's start ({smi})")
+    check(same_forces and worker_launches == 1 and visible == "0", "[23] the pool's card task did not run as asked")
+
+    # -- [23 plots] -----------------------------------------------------------------------------------------
+    try:
+        import matplotlib  # noqa: F401
+
+        have_mpl = True
+    except ImportError:
+        have_mpl = False
+    seen = {name: [None if p is None else {k: len(v) for k, v in vars(p).items()} for p in plots]
+            for name, plots in PLOTS_SEEN.items()}
+    print(f"[23 plots] matplotlib imports here: {have_mpl}; the estimators' plots (None, or PNG bytes by figure): "
+          + "; ".join(f"{name} {v}" for name, v in seen.items()) + f" ({smi})")
+    check(len(seen) == 2 and all((p is not None) == have_mpl for v in seen.values() for p in v),
+          "[23] an estimator's plots disagree with whether matplotlib imports")
+    print(f"[23 time] phase 23 took {time.perf_counter() - t_phase23:.1f} s, host clock ({smi})")
 
 
 def _waters_inside(x, box, ligand_idxs, water_idxs, radius) -> int:
@@ -4129,13 +4379,16 @@ def main() -> int:
     phase19(dev, smi, zero_counts, read_counts, masked_row, rows17[0])
 
     # -- 20. water sampling: the probe-in-water ladder's HREX with the TIBD sampler ---------------------
-    phase20(dev, smi, zero_counts, read_counts, batched_row)
+    ladder20 = phase20(dev, smi, zero_counts, read_counts, batched_row)
 
     # -- 21. the standalone samplers, the training path and the last utilities -------------------------
     phase21(dev, smi, zero_counts, read_counts, rows17[0], inputs16, host16, hc)
 
     # -- 22. the complex leg: run_complex on a solvated capped helix ---------------------------------------
     phase22(dev, smi, zero_counts, read_counts, masked_row, batched_row, rows17[0], inputs16)
+
+    # -- 23. HREX checkpoint and resume, frames on disk, the client, the interaction group, the plots ------
+    phase23(dev, smi, zero_counts, read_counts, batched_row, make_runner, ladder20, states13, args13)
 
     print(f"[time] the script took {time.perf_counter() - T_START:.1f} s up to its kernels line, host clock ({smi})")
     print(json.dumps({"kernels": [kernel_row, masked_row, batched_row, nb_row, gather_row, quad_row, dot_row, *probe_rows,

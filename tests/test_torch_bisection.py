@@ -14,10 +14,10 @@ vacuum leg (fe/rbfe.py run_vacuum) against timemachine_tpu.
 - run_vacuum at tests/test_rbfe_default.py's toy settings (3 windows, so both
   packages' schedule is [0, 0.5, 1]): the same λ schedule as JAX's, finite
   dGs, each HREX iteration's replica permutation a permutation, frames of
-  the asked count; the port's returns no plots (ROADMAP P21).
+  the asked count; the port's renders its plots where matplotlib imports (ROADMAP P21).
 - run_sims_bisection's early stop and its MinOverlapWarning, as JAX's, on the
   vacuum windows; the fixed-grid estimator and the bisection estimator
-  without HREX in vacuum (the λ grid, finite pairs, no plots).
+  without HREX in vacuum (the λ grid, finite pairs, the plots rendered).
 """
 
 import sys
@@ -147,7 +147,8 @@ def test_run_vacuum_schedule_matches_jax(vacuum_legs):
 def test_run_vacuum_result_is_finite_and_valid(vacuum_legs):
     _, t = vacuum_legs
     assert isinstance(t, tfe.HREXSimulationResult)
-    assert t.plots is None and t.hrex_plots is None
+    assert isinstance(t.plots, tfe.PairBarPlots) and isinstance(t.hrex_plots, tfe.HREXPlots)
+    assert all(png.startswith(b"\x89PNG") for png in (*vars(t.plots).values(), *vars(t.hrex_plots).values()))
     assert len(t.final_result.dGs) == 2 and np.isfinite(t.final_result.dGs).all() and np.isfinite(t.final_result.dG_errs).all()
     assert len(t.trajectories) == 3
     for traj in t.trajectories:
@@ -216,13 +217,13 @@ def _vacuum_edge():
 def test_fixed_grid_and_plain_bisection_estimators_in_vacuum():
     """estimate_relative_free_energy on a linear 3-window grid, and run_vacuum
     without HREXParams (estimate_relative_free_energy_bisection): each a
-    SimulationResult of 2 finite pairs over λ 0, 0.5, 1, without plots."""
+    SimulationResult of 2 finite pairs over λ 0, 0.5, 1, its plots rendered."""
     mol_a, mol_b, core, ff = _vacuum_edge()
     md = tfe.MDParams(**BISECT_MD)
     fixed = trbfe.estimate_relative_free_energy(mol_a, mol_b, core, ff, None, n_windows=3, md_params=md, device="cpu")
     bisected = trbfe.run_vacuum(mol_a, mol_b, core, ff, None, md_params=md, n_windows=3, device="cpu")
     for res in (fixed, bisected):
-        assert type(res) is tfe.SimulationResult and res.plots is None
+        assert type(res) is tfe.SimulationResult and isinstance(res.plots, tfe.PairBarPlots)
         assert [s.lamb for s in res.final_result.initial_states] == [0.0, 0.5, 1.0]
         assert len(res.final_result.dGs) == 2 and np.isfinite(res.final_result.dGs).all()
     assert fixed.intermediate_results == [] and len(bisected.intermediate_results) == 2

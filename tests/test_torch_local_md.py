@@ -519,5 +519,5 @@ def test_time_multiplexed_hrex_on_small_windows(multiplexed_runs):
     assert len(res.bar_results) == 1 and np.isfinite(res.dGs).all()
     assert diag.replica_idx_by_state_by_iter == diag2.replica_idx_by_state_by_iter
     for t, t2 in zip(trajs, trajs2):
-        assert all(np.array_equal(a, b) for a, b in zip(t.frames + t.boxes, t2.frames + t2.boxes))
+        assert all(np.array_equal(a, b) for a, b in zip(list(t.frames) + t.boxes, list(t2.frames) + t2.boxes))
     assert np.array_equal(res.u_kln_by_component_by_lambda, res2.u_kln_by_component_by_lambda)

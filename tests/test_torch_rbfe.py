@@ -462,7 +462,7 @@ def test_run_sims_sequential_is_finite_and_repeats_bitwise(port_runs):
     assert not (u[:, HOST, 0, 1] - u[:, HOST, 0, 0]).any()
     assert np.array_equal(u, res2.u_kln_by_component_by_lambda)
     for t, t2 in zip(trajs, trajs2):
-        assert all(np.array_equal(a, b) for a, b in zip(t.frames + t.boxes, t2.frames + t2.boxes))
+        assert all(np.array_equal(a, b) for a, b in zip(list(t.frames) + t.boxes, list(t2.frames) + t2.boxes))
 
 
 def test_sample_equals_the_reused_window(port_runs):
@@ -473,7 +473,7 @@ def test_sample_equals_the_reused_window(port_runs):
     states, runs = port_runs
     t = tfe.sample(states[2], RSS_MD, max_buffer_frames=1)
     ref = runs[0][1][2]
-    assert all(np.array_equal(a, b) for a, b in zip(t.frames + t.boxes, ref.frames + ref.boxes))
+    assert all(np.array_equal(a, b) for a, b in zip(list(t.frames) + t.boxes, list(ref.frames) + ref.boxes))
     assert np.array_equal(t.final_velocities, ref.final_velocities) and t.final_barostat_volume_scale_factor == ref.final_barostat_volume_scale_factor
 
 

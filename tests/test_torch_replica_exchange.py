@@ -349,7 +349,7 @@ def test_run_sims_hrex_is_finite_and_repeats_bitwise(hrex_runs):
     assert np.array_equal(u, res2.u_kln_by_component_by_lambda)
     assert diag.replica_idx_by_state_by_iter == diag2.replica_idx_by_state_by_iter
     for t, t2 in zip(trajs, trajs2):
-        assert all(np.array_equal(a, b) for a, b in zip(t.frames + t.boxes, t2.frames + t2.boxes))
+        assert all(np.array_equal(a, b) for a, b in zip(list(t.frames) + t.boxes, list(t2.frames) + t2.boxes))
 
 
 def test_hrex_simulation_result_by_replica(small, hrex_runs):

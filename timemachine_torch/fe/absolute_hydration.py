@@ -10,7 +10,8 @@ w = λ cutoff, its intramolecular pair list, HMR masses, a barostat every 15
 steps, every window the same integrator and barostat seed. The windows are
 sampled in one reused Context (run_sims_sequential: the masked rowscan
 sweep on the card), the host's FIRE on nb_tiles' exact form (site
-"host_du_dx"). Plots are not made (plots=None, ROADMAP P21).
+"host_du_dx"). The pair-BAR plots are rendered where matplotlib imports;
+where it does not, plots=None with one warning (ROADMAP P21).
 
 The SMC path anneals walkers made of equilibrium solvent frames and
 importance-resampled vacuum conformers (md/enhanced.py) with one NPTMove,
@@ -39,9 +40,11 @@ from timemachine_torch.fe.free_energy import (
     InitialState,
     MDParams,
     SimulationResult,
+    make_pair_bar_plots,
     run_sims_sequential,
 )
 from timemachine_torch.fe.lambda_schedule import construct_pre_optimized_absolute_lambda_schedule_solvent
+from timemachine_torch.fe.plots import plots_available
 from timemachine_torch.fe.rbfe import _postmortem_on_failure
 from timemachine_torch.fe.topology import BaseTopology
 from timemachine_torch.fe.utils import get_mol_name, get_romol_conf
@@ -270,7 +273,8 @@ def estimate_absolute_free_energy(
     run_name = f"{get_mol_name(mol)}_{prefix}"
     with _postmortem_on_failure(run_name, (initial_states, md_params), kind="ahfe"):
         result, stored_trajectories = run_sims_sequential(initial_states, md_params, temperature)
-    return SimulationResult(result, None, stored_trajectories, md_params, [])
+    plots = make_pair_bar_plots(result, temperature, run_name) if plots_available("plots") else None
+    return SimulationResult(result, plots, stored_trajectories, md_params, [])
 
 
 def run_solvent(mol, forcefield: Forcefield, _, md_params: MDParams, n_windows=16, device=None) -> tuple:

@@ -14,8 +14,9 @@ and AbsoluteFreeEnergy build the absolute hydration leg's edges
 (fe/absolute_hydration.py).
 
 An InitialState holds the port's potential modules on their device. Frames
-come back from the card as numpy and stay in memory (the JAX package's
-StoredArrays, which spills them to disk, is not ported). The host term takes
+come back from the card as numpy and go to disk: a Trajectory's frames are
+a StoredArrays (fe/stored_arrays.py), one .npy file a chunk in a temporary
+directory under TMPDIR, as JAX's. The host term takes
 JAX's get_context form (configure_all_pairs): dense on the CPU and below
 4,096 atoms, the rowscan sweep on the card from there up.
 """
@@ -33,18 +34,27 @@ import numpy as np
 import torch
 
 from timemachine_torch.constants import BOLTZ
+from timemachine_torch.fe import model_utils
 from timemachine_torch.fe.bar import (
     bar_with_pessimistic_uncertainty,
     df_and_err_from_u_kln,
     pair_overlap_from_ukln,
     works_from_ukln,
 )
+from timemachine_torch.fe.stored_arrays import StoredArrays
 from timemachine_torch.integrators import LangevinIntegrator
 from timemachine_torch.md.barostat import MonteCarloBarostat
 from timemachine_torch.md.context import Context
 from timemachine_torch.md.hrex import HREX, HREXDiagnostics, get_swap_attempts_per_iter_heuristic
 from timemachine_torch.md.states import CoordsVelBox
-from timemachine_torch.potentials import Nonbonded, NonbondedAllPairs, NonbondedInteractionGroup, all_pairs_kernel
+from timemachine_torch.md.utils import get_bond_list, get_group_indices
+from timemachine_torch.potentials import (
+    HarmonicBond,
+    Nonbonded,
+    NonbondedAllPairs,
+    NonbondedInteractionGroup,
+    all_pairs_kernel,
+)
 from timemachine_torch.utils import batches
 
 
@@ -218,10 +228,24 @@ class PairBarResult:
 
 
 @dataclass
+class PairBarPlots:
+    dG_errs_png: bytes
+    overlap_summary_png: bytes
+    overlap_detail_png: bytes
+
+
+@dataclass
+class HREXPlots:
+    transition_matrix_png: bytes
+    swap_acceptance_rates_convergence_png: bytes
+    replica_state_distribution_heatmap_png: bytes
+
+
+@dataclass
 class Trajectory:
     """Frames and boxes, with the final MD state needed to continue a run."""
 
-    frames: list  # (atom, dim) numpy arrays
+    frames: StoredArrays  # (frame, atom, dim)
     boxes: list  # (dim, dim) numpy arrays
     final_velocities: Optional[np.ndarray]
     final_barostat_volume_scale_factor: Optional[float] = None
@@ -229,6 +253,11 @@ class Trajectory:
     def __post_init__(self):
         if len(self.boxes) != len(self.frames):
             raise ValueError("frames and boxes must have equal length")
+        if len(self.frames):
+            n_atoms, n_dims = self.frames[0].shape
+            assert self.boxes[0].shape == (n_dims, n_dims)
+            if self.final_velocities is not None:
+                assert self.final_velocities.shape == (n_atoms, n_dims)
 
     def extend(self, other: "Trajectory"):
         """Append other's frames; other's final state wins."""
@@ -239,19 +268,19 @@ class Trajectory:
 
     @classmethod
     def empty(cls) -> "Trajectory":
-        return Trajectory([], [], None, None)
+        return Trajectory(StoredArrays(), [], None, None)
 
 
 @dataclass
 class SimulationResult:
     final_result: PairBarResult
-    plots: Optional[object]
+    plots: Optional[PairBarPlots]
     trajectories: list
     md_params: MDParams
     intermediate_results: list
 
     @property
-    def frames(self) -> list:
+    def frames(self) -> list[StoredArrays]:
         return [traj.frames for traj in self.trajectories]
 
     @property
@@ -276,7 +305,7 @@ class WaterSamplingDiagnostics:
 @dataclass
 class HREXSimulationResult(SimulationResult):
     hrex_diagnostics: HREXDiagnostics = None  # type: ignore[assignment]
-    hrex_plots: Optional[object] = None
+    hrex_plots: Optional[HREXPlots] = None
     water_sampling_diagnostics: Optional[WaterSamplingDiagnostics] = None
 
     def extract_trajectories_by_replica(self, atom_idxs) -> np.ndarray:
@@ -298,6 +327,22 @@ def trajectories_by_replica_to_by_state(trajectory_by_iter_by_replica: np.ndarra
     replica_idx_by_iter_by_state = np.asarray(replica_idx_by_state_by_iter).T
     assert replica_idx_by_iter_by_state.shape == trajectory_by_iter_by_replica.shape[:2]
     return np.take_along_axis(trajectory_by_iter_by_replica, replica_idx_by_iter_by_state[:, :, None, None], axis=0)
+
+
+def image_frames(initial_state: InitialState, frames, boxes) -> np.ndarray:
+    """Frames imaged into the periodic box, each molecule whole, with the
+    ligand's centroid at the box's center (for viewing)."""
+    assert np.array(boxes).shape[1:] == (3, 3), "Boxes are not 3x3"
+    assert len(frames) == len(boxes), "Number of frames and boxes don't match"
+    hb = get_potential_by_type(initial_state.potentials, HarmonicBond)
+    group_indices = get_group_indices(get_bond_list(hb), len(initial_state.integrator.masses))
+
+    def image_one(frame, box):
+        assert frame.ndim == 2 and frame.shape[-1] == 3, "frames must have shape (N, 3)"
+        shift = np.mean(frame[initial_state.ligand_idxs], axis=0) + np.diagonal(box) / 2
+        return model_utils.image_frame(group_indices, frame - shift, box)
+
+    return np.array([image_one(np.asarray(frame), np.asarray(box)) for frame, box in zip(frames, boxes)])
 
 
 class BaseFreeEnergy:
@@ -377,6 +422,38 @@ def get_potential_by_type(potentials: Sequence, pot_type):
         if type(pot) is pot_type:
             return pot
     raise ValueError(f"Unable to find potential of type: {pot_type}")
+
+
+def assert_deep_eq(obj1, obj2, custom_assertion=lambda path, x1, x2: False):
+    """obj1 and obj2 equal through dataclasses, lists and tuples, arrays and
+    tensors compared elementwise; an AssertionError names the first path at
+    which they differ. custom_assertion(path, x1, x2) returning True
+    accepts a node as it is."""
+    import dataclasses
+
+    def is_dataclass_instance(obj):
+        return dataclasses.is_dataclass(obj) and not isinstance(obj, type)
+
+    def as_numpy(x):
+        return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    def go(x1, x2, path=("$",)):
+        if custom_assertion(path, x1, x2):
+            pass
+        elif is_dataclass_instance(x1) and is_dataclass_instance(x2):
+            assert type(x1) is type(x2), f"types differ at {path}"
+            for f in dataclasses.fields(x1):
+                go(getattr(x1, f.name), getattr(x2, f.name), (*path, f.name))
+        elif isinstance(x1, (np.ndarray, torch.Tensor)) or isinstance(x2, (np.ndarray, torch.Tensor)):
+            assert np.array_equal(as_numpy(x1), as_numpy(x2)), f"arrays differ at {path}"
+        elif isinstance(x1, (list, tuple)) and isinstance(x2, (list, tuple)):
+            assert len(x1) == len(x2), f"lengths differ at {path}"
+            for i, (y1, y2) in enumerate(zip(x1, x2)):
+                go(y1, y2, (*path, i))
+        else:
+            assert x1 == x2, f"values differ at {path}: {x1} != {x2}"
+
+    go(obj1, obj2)
 
 
 def _buffers(pot) -> dict:
@@ -553,7 +630,7 @@ def sample_with_context_iter(
 def sample_with_context(
     ctxt: Context, md_params: MDParams, temperature: float, ligand_idxs: np.ndarray, max_buffer_frames: int
 ) -> Trajectory:
-    frames, boxes, final_velocities = [], [], None
+    frames, boxes, final_velocities = StoredArrays(), [], None
     for batch_coords, batch_boxes, final_velocities in sample_with_context_iter(
         ctxt, md_params, temperature, ligand_idxs, max_buffer_frames
     ):
@@ -580,6 +657,25 @@ class IndeterminateEnergyWarning(UserWarning):
 
 class MinOverlapWarning(UserWarning):
     pass
+
+
+def make_pair_bar_plots(res: PairBarResult, temperature: float, prefix: str) -> PairBarPlots:
+    """The pair-BAR figures of a result as PNG bytes (matplotlib must import)."""
+    from timemachine_torch.fe import plots
+
+    U_names = [type(p).__name__ for p in res.initial_states[0].potentials]
+    lambdas = [s.lamb for s in res.initial_states]
+    overlap_detail_png = plots.plot_as_png_fxn(
+        plots.plot_overlap_detail_figure, U_names, res.dGs, res.dG_errs, res.u_kln_by_component_by_lambda, temperature,
+        prefix,
+    )
+    dG_errs_png = plots.plot_as_png_fxn(
+        plots.plot_dG_errs_figure, U_names, lambdas, res.dG_errs, res.dG_err_by_component_by_lambda
+    )
+    overlap_summary_png = plots.plot_as_png_fxn(
+        plots.plot_overlap_summary_figure, U_names, lambdas, res.overlaps, res.overlap_by_component_by_lambda
+    )
+    return PairBarPlots(dG_errs_png, overlap_summary_png, overlap_detail_png)
 
 
 def estimate_free_energy_bar(u_kln_by_component: np.ndarray, temperature: float) -> BarResult:
@@ -917,7 +1013,7 @@ def run_sims_hrex(
             counts = np.stack(runner.water_counters_by_replica(), -1) - np.stack(counters_before, -1)
             water_counts_by_state_by_iter.append([tuple(int(c) for c in counts[perm[s]]) for s in range(n_states)])
         for s, samples in enumerate(samples_by_state):
-            samples.frames.append(res.frames_by_state[s])
+            samples.frames.extend(res.frames_by_state[s][None])
             samples.boxes.append(res.boxes_by_state[s])
         pair_stats = list(zip(res.accepted_by_pair.tolist(), res.proposed_by_pair.tolist()))
         if strip_identity_pair:
@@ -1052,7 +1148,7 @@ def _run_sims_hrex_time_multiplexed(
             fraction_accepted_by_pair = fraction_accepted_by_pair[1:]
 
         for samples, (xs, boxes, velos, scale) in zip(samples_by_state, samples_by_state_iter):
-            samples.frames.append(xs)
+            samples.frames.extend([xs])
             samples.boxes.append(boxes)
             samples.final_velocities = velos
             samples.final_barostat_volume_scale_factor = scale

@@ -1,9 +1,17 @@
-"""Hydrogen mass repartitioning (same rule as timemachine_tpu/fe/model_utils.py)
-and the vacuum energy of a ligand for its minimization."""
+"""Hydrogen mass repartitioning (same rule as timemachine_tpu/fe/model_utils.py),
+the vacuum energy of a ligand for its minimization, and the imaging of a
+frame's molecules into the box."""
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def image_frame(group_idxs, coords, box):
+    """Each molecule moved whole by box vectors so its centroid lies in the home box (numpy)."""
+    from timemachine_torch.ops.pbc import image_molecules
+
+    return image_molecules(coords, box, group_idxs)
 
 
 def apply_hmr(masses, bond_list, multiplier=2):

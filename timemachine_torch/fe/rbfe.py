@@ -16,9 +16,10 @@ bytes: the velocities' and the barostat's from the ligand conformer, the
 integrator's from every potential's f64 parameters (ROADMAP P18, P20).
 With REST parameters the edge's topology is fe/rest/'s SingleTopologyREST,
 whose intermediate states run the hot region at a raised effective
-temperature (DEFAULT_REST_PARAMS). Differences: the estimators return no
-plots (plots=None, hrex_plots=None: fe/plots.py is not ported, ROADMAP
-P21); rebalance_lambda_schedule raises (ROADMAP R8).
+temperature (DEFAULT_REST_PARAMS). The estimators render their plots
+(fe/plots.py) where matplotlib imports; where it does not they return
+plots=None and hrex_plots=None, with one warning (ROADMAP P21).
+rebalance_lambda_schedule raises (ROADMAP R8).
 """
 
 from __future__ import annotations
@@ -45,17 +46,20 @@ from timemachine_torch.device import resolve_device, working_dtype
 from timemachine_torch.fe import model_utils
 from timemachine_torch.fe.free_energy import (
     HREXParams,
+    HREXPlots,
     HREXSimulationResult,
     InitialState,
     MDParams,
     RESTParams,
     SimulationResult,
     Trajectory,
+    make_pair_bar_plots,
     run_sims_bisection,
     run_sims_hrex,
     run_sims_sequential,
 )
 from timemachine_torch.fe.lambda_schedule import bisection_lambda_schedule
+from timemachine_torch.fe.plots import plots_available
 from timemachine_torch.fe.rest.single_topology import SingleTopologyREST
 from timemachine_torch.fe.single_topology import AtomMapFlags, SingleTopology
 from timemachine_torch.fe.terms import HostTerms
@@ -476,7 +480,8 @@ def estimate_relative_free_energy(
 
     with _postmortem_on_failure(edge.tag, (initial_states, md_params)):
         result, stored_trajectories = run_sims_sequential(initial_states, md_params, edge.temperature)
-        return SimulationResult(result, None, stored_trajectories, md_params, [])
+        plots = make_pair_bar_plots(result, edge.temperature, edge.tag) if plots_available("plots") else None
+        return SimulationResult(result, plots, stored_trajectories, md_params, [])
 
 
 def estimate_relative_free_energy_bisection(
@@ -511,7 +516,9 @@ def estimate_relative_free_energy_bisection(
             temperature=edge.temperature,
             min_overlap=min_overlap,
         )
-        return SimulationResult(results[-1], None, trajectories, md_params, results)
+        final_result = results[-1]
+        plots = make_pair_bar_plots(final_result, edge.temperature, edge.tag) if plots_available("plots") else None
+        return SimulationResult(final_result, plots, trajectories, md_params, results)
 
 
 def _mean_final_barostat_volume_scale(trajs: Iterable[Trajectory]) -> Optional[float]:
@@ -606,16 +613,42 @@ def estimate_relative_free_energy_bisection_hrex(
             initial_states_hrex,
             replace(md_params, n_eq_steps=0),  # bisection already equilibrated
         )
+        plots = hrex_plots = None
+        if plots_available("plots and hrex_plots"):
+            plots = make_pair_bar_plots(pair_bar_result, edge.temperature, edge.tag)
+            hrex_plots = _render_hrex_plots(hrex_diagnostics, initial_states_hrex, edge.tag)
         return HREXSimulationResult(
             pair_bar_result,
-            None,
+            plots,
             trajectories_by_state,
             md_params,
             results,
             hrex_diagnostics,
-            None,
+            hrex_plots,
             water_sampling_diagnostics=ws_diagnostics,
         )
+
+
+def _render_hrex_plots(hrex_diagnostics, initial_states, tag: str) -> HREXPlots:
+    from timemachine_torch.fe.plots import (
+        plot_as_png_fxn,
+        plot_hrex_replica_state_distribution_heatmap,
+        plot_hrex_swap_acceptance_rates_convergence,
+        plot_hrex_transition_matrix,
+    )
+
+    return HREXPlots(
+        transition_matrix_png=plot_as_png_fxn(plot_hrex_transition_matrix, hrex_diagnostics.transition_matrix, prefix=tag),
+        swap_acceptance_rates_convergence_png=plot_as_png_fxn(
+            plot_hrex_swap_acceptance_rates_convergence, hrex_diagnostics.cumulative_swap_acceptance_rates, prefix=tag
+        ),
+        replica_state_distribution_heatmap_png=plot_as_png_fxn(
+            plot_hrex_replica_state_distribution_heatmap,
+            hrex_diagnostics.cumulative_replica_state_counts,
+            [state.lamb for state in initial_states],
+            prefix=tag,
+        ),
+    )
 
 
 def estimate_relative_free_energy_bisection_or_hrex(*args, **kwargs) -> SimulationResult:

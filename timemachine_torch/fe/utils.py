@@ -1,6 +1,6 @@
 """Ligand/conformer utilities (the port's copy of the conformer, mass, SDF,
-seed-hash and bond helpers of timemachine_tpu/fe/utils.py; its drawing and
-energy-table helpers are not ported)."""
+seed-hash, bond and 2D-projection helpers of timemachine_tpu/fe/utils.py;
+its atom-mapping grid drawing and energy-table helpers are not ported)."""
 
 from __future__ import annotations
 
@@ -57,3 +57,51 @@ def bytes_to_id(data: bytes) -> int:
 def get_romol_bonds(mol: Mol) -> np.ndarray:
     """(B, 2) bond indices (ref fe/utils.py:437-445)."""
     return np.array([[b.src, b.dst] for b in mol.bonds], dtype=np.int32)
+
+
+def recenter_mol(mol: Mol) -> Mol:
+    """A copy of mol with its conformer centred on its centroid."""
+    import copy
+
+    mol_copy = copy.deepcopy(mol)
+    conf = get_romol_conf(mol)
+    mol_copy.set_conf(conf - np.mean(conf, axis=0))
+    return mol_copy
+
+
+def score_2d(conf, norm=2):
+    """Crowding of a conformer's 2D projection: low when atoms are spread."""
+    score = 0.0
+    for idx, (x0, y0, _) in enumerate(conf):
+        for x1, y1, _ in conf[idx + 1 :]:
+            score += 1 / ((x0 - x1) ** norm + (y0 - y1) ** norm)
+    return score / len(conf)
+
+
+def generate_good_rotations(mol_a, mol_b, num_rotations: int = 3, max_rotations: int = 1000, seed: int = 1234):
+    """The num_rotations of max_rotations random rotations (numpy, from
+    seed) whose 2D projections of both molecules are least crowded."""
+    assert num_rotations < max_rotations
+    conf_a = get_romol_conf(mol_a)
+    conf_b = get_romol_conf(mol_b)
+    rng = np.random.default_rng(seed)
+
+    def random_so3():
+        q = rng.normal(size=4)
+        q /= np.linalg.norm(q)
+        w, x, y, z = q
+        return np.array(
+            [
+                [1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+                [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+                [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)],
+            ]
+        )
+
+    scores, rotations = [], []
+    for _ in range(max_rotations):
+        r = random_so3()
+        scores.append(max(score_2d(conf_a @ r.T), score_2d(conf_b @ r.T)))
+        rotations.append(r)
+    perm = np.argsort(scores, kind="stable")
+    return np.array(rotations)[perm][:num_rotations]

@@ -45,3 +45,17 @@ def idxs_within_cutoff(x, x_lig, box, cutoff: float = 0.5):
     for point in x_lig:
         near |= distance(point, x, box) < cutoff
     return torch.nonzero(near).squeeze(1).cpu().numpy()
+
+
+def image_molecules(x, box, mol_groups):
+    """Each molecule (mol_groups: index arrays) shifted by box vectors so its
+    centroid lies in the home box; numpy in and out, for writing frames."""
+    import numpy as np
+
+    x = np.asarray(x)
+    box_diag = np.diagonal(box)
+    out = x.copy()
+    for idxs in mol_groups:
+        centroid = x[idxs].mean(axis=0)
+        out[idxs] = x[idxs] - box_diag * np.floor(centroid / box_diag)
+    return out

@@ -20,11 +20,22 @@ sampler its proposals from its own, seeded from its mover's seed (ROADMAP
 P28); a swap batch draws from numpy default_rng((seed, iteration)). The JAX runner folds a key
 per replica and per step, and draws its swaps from a key folded with the
 iteration. Both are reproducible from the seed.
+
+Checkpoint and resume: state_dict() holds JAX's keys (xs, vs, boxes,
+mover_leaves, perm, t, iteration) and what the port's streams carry where
+JAX's are pure functions of the step (ROADMAP P37): the batch's step count
+(which times the list rebuilds, the barostat and the water sampler), the
+noise generator's state, every mover state's fields with its generator's
+state among them, and the device type that wrote it. Every value is a
+numpy array, bytes or a plain number, so the pickled dict holds no torch
+object. A run resumed by load_state_dict is bitwise the uninterrupted one
+on the same device type; another device type raises, since a CUDA
+generator's state cannot seed a CPU generator.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields, replace
 from typing import Optional, Sequence
 
 import numpy as np
@@ -167,6 +178,54 @@ class ReplicaExchangeRunner:
         self.iteration += 1
         return IterationResult(frames, boxes, perm_during_segment, accepted, proposed, U)
 
+    # -- checkpoint / resume ---------------------------------------------------
+
+    def state_dict(self) -> dict:
+        """Everything a bitwise resume needs, as numpy arrays and numbers.
+        mover_leaves lists every mover state's fields in order, a
+        generator as its state's bytes (uint8)."""
+        b = self._batch
+        return {
+            "xs": b.get_x_t(),
+            "vs": b.get_v_t(),
+            "boxes": b.get_box(),
+            "mover_leaves": [_leaf(getattr(st, f.name)) for st in b.get_mover_states() for f in fields(st)],
+            "perm": np.asarray(self.perm).copy(),
+            "t": int(self.t),
+            "iteration": int(self.iteration),
+            "step": int(b._step),
+            "noise_state": _leaf(b._noise),
+            "device_type": self._context.device.type,
+        }
+
+    def load_state_dict(self, state: dict):
+        """Restore from state_dict(). The runner must be built as the one
+        that wrote it (the same context, parameters and seed): the batch is
+        built as initialize builds it, then every field is restored, the
+        mover states' structure from the fresh batch and their leaves from
+        the checkpoint."""
+        here = self._context.device.type
+        if state["device_type"] != here:
+            raise ValueError(
+                f"the checkpoint was written on {state['device_type']!r} and cannot resume on {here!r}: "
+                "its generator states are that device type's"
+            )
+        self.initialize(state["xs"], state["vs"], state["boxes"])
+        b = self._batch
+        leaves = list(state["mover_leaves"])
+        if len(leaves) != sum(len(fields(st)) for st in b._mover_states):
+            raise ValueError("the checkpoint's mover states do not match this runner's movers")
+        leaves.reverse()
+        b._mover_states = [
+            replace(st, **{f.name: _restore(getattr(st, f.name), leaves.pop()) for f in fields(st)})
+            for st in b._mover_states
+        ]
+        b._noise = _restore(b._noise, state["noise_state"])
+        b._step = int(state["step"])
+        self.perm = np.asarray(state["perm"]).copy()
+        self.t = int(state["t"])
+        self.iteration = int(state["iteration"])
+
     # -- state-ordered observers ----------------------------------------------
 
     def final_state_arrays(self):
@@ -183,3 +242,20 @@ class ReplicaExchangeRunner:
     def mover_state_field_by_state(self, mover_idx: int, field: str) -> np.ndarray:
         """A per-replica mover-state field, ordered by state."""
         return getattr(self._batch.get_mover_states()[mover_idx], field).cpu().numpy()[self.perm]
+
+
+def _leaf(value) -> np.ndarray:
+    """A mover-state field or generator as a numpy array (a generator: its state's bytes)."""
+    if isinstance(value, torch.Generator):
+        return value.get_state().numpy().copy()
+    return value.detach().cpu().numpy().copy()
+
+
+def _restore(like, leaf):
+    """leaf (from _leaf) as the kind of `like`: a generator on like's device
+    in that state, or a tensor of like's dtype and device."""
+    if isinstance(like, torch.Generator):
+        gen = torch.Generator(device=like.device)
+        gen.set_state(torch.as_tensor(np.asarray(leaf, dtype=np.uint8)))
+        return gen
+    return torch.as_tensor(np.asarray(leaf), device=like.device, dtype=like.dtype).clone()

@@ -213,8 +213,13 @@ the ligand over the run's frames, its U and dU/dp on the card against the
 host CPU's float64; the frames through StoredArrays; a DevicePoolClient task
 launching the masked rowscan form in a spawned worker, bitwise this
 process's launch; whether matplotlib imports and the estimators' plots
-(None without it). Each phase prints its host seconds ("[N
-time]"), and the script its total up to the kernels line ("[time]").
+(None without it). Phases 16, 19, 21 and 22 run in a second process (the
+worker: `chip_smoke.py --worker DIR T_START EXACT_MS`, started after phase
+17) while this one runs phase 20 and then phase 18, which takes phase 16's
+embedded molecules from the worker; the worker's lines follow phase 18's,
+then its additions to the kernels line's rows, then phase 23. Each phase
+prints its host seconds ("[N time]"), and the script its total up to the
+kernels line ("[time]").
 Every path runs with all launch and plain-call counts set to
 0 just before it and read just after. Then a JSON line on the kernels
 (time; launches per NPT step of the path named in `path`, per Adam step of
@@ -236,10 +241,13 @@ Without a CUDA card, or when any phase fails, the script exits non-zero and
 prints no result.
 """
 
+import atexit
 import ctypes
 import itertools
 import json
 import os
+import pickle
+import shutil
 import subprocess
 import sys
 import time
@@ -259,8 +267,8 @@ N_ALT = 200  # 500 until phase 20 came
 # 400 steps) to fit the script's time; the 12 windows and 6,404 atoms are not cut
 # (cut to 250 and 10 since phase 16 drives the leg end to end, to 100 and 10 frames of 30 since
 # phase 17 runs too, to 3 frames since phase 20 runs too, to 50, 100 and 30 equilibration, timed and reused
-# steps since phase 21 runs too)
-N13_EQ, N13_FRAMES, N13_STEPS_PER_FRAME, N13_TIMED, N13_REUSE = 50, 3, 30, 100, 30
+# steps since phase 21 runs too, to 20 equilibration steps since phase 23 runs too)
+N13_EQ, N13_FRAMES, N13_STEPS_PER_FRAME, N13_TIMED, N13_REUSE = 20, 3, 30, 100, 30
 # phase 14, HREX over the same 12 windows: DEFAULT_HREX_PARAMS (fe/rbfe.py:
 # max_delta_states 4, K^3 swap attempts an iteration) with its depth cut as
 # phase 13's (10,000 equilibration steps, 1,000 frames of 400 steps in the
@@ -318,9 +326,9 @@ TOL_REST_REL = 1e-12
 # below N19_RESAMPLE of the walkers' ESS; the MTM move's K; FreeSolv's experimental hydration free
 # energy of ethanol, -5.00 kcal/mol (a published number, printed for information)
 # (cut when phase 21 came: N19_EQ 100 -> 50, N19_REUSE 60 -> 30, N19_SMC_EQ 200 -> 100, N19_SOLVENT_SAMPLES 4 -> 2,
-# N19_VAC_BATCHES 32 -> 16)
+# N19_VAC_BATCHES 32 -> 16; when phase 23 came: N19_EQ 50 -> 20)
 N19_EMBED_SEED, N19_SEED, N19_SMC_SEED = 7, 2023, 2022
-N19_WINDOWS, N19_EQ, N19_FRAMES, N19_STEPS_PER_FRAME, N19_REUSE = 8, 50, 3, 30, 30
+N19_WINDOWS, N19_EQ, N19_FRAMES, N19_STEPS_PER_FRAME, N19_REUSE = 8, 20, 3, 30, 30
 N19_SMC_EQ, N19_SOLVENT_SAMPLES, N19_STEPS_PER_SAMPLE = 100, 2, 100
 N19_VAC_WALKERS, N19_VAC_STEPS_PER_BATCH, N19_VAC_BATCHES, N19_VAC_BURN_IN = 8, 25, 16, 8
 N19_ENDSTATE, N19_SMC_WALKERS, N19_SMC_WINDOWS, N19_SMC_STEPS, N19_RESAMPLE, N19_MTM_K = 64, 8, 6, 10, 0.5, 8
@@ -341,8 +349,9 @@ TOL_ALIGNED_GEOMETRY, TOL_WEIGHT_SUM = 1e-5, 1e-12
 # [20 single]: one window by get_context + sample_with_context, N20_SINGLE_FRAMES frames; [20 local]: the
 # time-multiplexed HREX with local MD over the last 2 windows, N20_TM_FRAMES frames, the sampler every
 # N20_TM_INTERVAL steps with N20_TM_PROPOSALS proposals (firings in each segment's global steps)
-# (cut when phase 21 came: N20_EQ 200 -> 100, N20_FRAMES 10 -> 5, a firing a frame per replica still)
-N20_BOX, N20_WINDOWS, N20_SEED, N20_EQ, N20_FRAMES, N20_STEPS_PER_FRAME = 4.0, 6, 2024, 100, 5, 100
+# (cut when phase 21 came: N20_EQ 200 -> 100, N20_FRAMES 10 -> 5, a firing a frame per replica still;
+# when phase 23 came: N20_EQ 100 -> 50, N20_FRAMES 5 -> 4, a firing a frame)
+N20_BOX, N20_WINDOWS, N20_SEED, N20_EQ, N20_FRAMES, N20_STEPS_PER_FRAME = 4.0, 6, 2024, 50, 4, 100
 N20_INTERVAL, N20_PROPOSALS, N20_BATCH, N20_RADIUS = 100, 500, 250, 2 * 0.46
 N20_SINGLE_FRAMES, N20_TM_FRAMES, N20_TM_INTERVAL, N20_TM_PROPOSALS, N20_TM_LOCAL = 1, 1, 25, 100, 25
 N20_PLANT_NM = 0.2
@@ -586,6 +595,52 @@ def graph_nodes(fn, generator):
         check(libcuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0, "cuGraphNodeGetType failed")
         kinds[kind.value] += 1
     return kinds
+
+
+def kernel_counters() -> tuple:
+    """(kernel wrappers, plain versions): each wrapper counts its launches in
+    .launches, each plain version its calls in .calls."""
+    from timemachine_torch.ops import dotscan_kernel as dk
+    from timemachine_torch.ops import gather_kernel as gk
+    from timemachine_torch.ops import nonbonded_kernel as nbk
+    from timemachine_torch.ops import quadscan_kernel as qk
+    from timemachine_torch.ops import rowscan_kernel as rs
+    from timemachine_torch.probes import bf16_rate as br
+    from timemachine_torch.probes import fp32_peak as fp
+
+    sweeps = (
+        rs.rowscan_sweep, rs.rowscan_sweep_batched, nbk.nb_tiles, gk.gather_sweep, qk.quadscan_sweep,
+        dk.dotscan_sweep, fp.fp32_peak, br.bf16_rate,
+    )
+    plains = (
+        rs.rowscan_sweep_plain, rs.rowscan_sweep_batched_plain, nbk.nb_tiles_plain, gk.gather_sweep_plain,
+        qk.quadscan_sweep_plain, dk.dotscan_sweep_plain, fp.fp32_peak_plain, br.bf16_rate_plain,
+    )
+    return sweeps, plains
+
+
+def zero_counts():
+    """Every kernel's launch count and every plain version's call count
+    to 0, just before a path runs."""
+    sweeps, plains = kernel_counters()
+    for fn in sweeps:
+        fn.launches = 0
+    for fn in plains:
+        fn.calls = 0
+
+
+def read_counts():
+    """({kernel: launches}, plain calls) since zero_counts()."""
+    sweeps, plains = kernel_counters()
+    return {fn.__name__: fn.launches for fn in sweeps}, sum(fn.calls for fn in plains)
+
+
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def form_launches():
@@ -2684,6 +2739,119 @@ def _waters_inside(x, box, ligand_idxs, water_idxs, radius) -> int:
     return int(np.sum(np.linalg.norm(d, axis=-1) < radius))
 
 
+# phases 16, 19, 21 and 22 run in a second process (the worker) beside phases 20 and 18 of main(): all are
+# host-bound legs that leave the card idle most of the time, and one after another they took the script
+# past its time on a slow host. The longest either process waits for the other, in seconds
+WORKER_WAIT_S = 1_100
+
+
+def put_handoff(handoff: str, name: str, obj) -> None:
+    """Pickle obj under name in the handoff directory, whole or not at all."""
+    tmp = os.path.join(handoff, f"{name}.tmp")
+    with open(tmp, "wb") as f:
+        pickle.dump(obj, f)
+    os.replace(tmp, os.path.join(handoff, f"{name}.pkl"))
+
+
+def take_handoff(handoff: str, name: str, alive):
+    """What the other process put under name, waited for while alive() holds."""
+    path = os.path.join(handoff, f"{name}.pkl")
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if not alive() and not os.path.exists(path):
+            if os.path.exists(os.path.join(handoff, "err.log")):
+                dump_worker_logs(handoff)
+            check(False, f"[worker] the other process ended without handing over {name}")
+        check(time.perf_counter() - t0 < WORKER_WAIT_S, f"[worker] no {name} after {WORKER_WAIT_S} s")
+        time.sleep(0.2)
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def dump_worker_logs(handoff: str) -> None:
+    """The worker's standard output to ours, its standard error to ours."""
+    for log, stream in (("out.log", sys.stdout), ("err.log", sys.stderr)):
+        with open(os.path.join(handoff, log), encoding="utf-8", errors="replace") as f:
+            stream.write(f.read())
+        stream.flush()
+
+
+def start_worker(exact_ms: float):
+    """(process, handoff directory) of `chip_smoke.py --worker DIR T_START EXACT_MS`: worker() with this
+    script's start time and phase 17's exact-form time; its output goes to files in the directory. The
+    process is stopped and the directory removed when this one exits."""
+    import tempfile
+
+    handoff = tempfile.mkdtemp(prefix="chip_smoke_worker_")
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.stdout.flush()
+    with open(os.path.join(handoff, "out.log"), "wb") as out, open(os.path.join(handoff, "err.log"), "wb") as err:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.join(here, "chip_smoke.py"), "--worker", handoff, repr(T_START), repr(exact_ms)],
+            stdout=out, stderr=err, cwd=here,
+        )
+
+    def stop():
+        if proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(handoff, ignore_errors=True)
+
+    atexit.register(stop)
+    print(f"[worker] phases 16, 19, 21 and 22 in process {proc.pid}, beside phases 20 and 18 here; their lines follow "
+          "phase 18's")
+    return proc, handoff
+
+
+def finish_worker(proc, handoff: str) -> dict:
+    """Wait for the worker, print its output and return what its phases added: {"rows": {"masked", "batched",
+    "exact": {key: value}}, "plots": {estimator: plots}}."""
+    t0 = time.perf_counter()
+    try:
+        rc = proc.wait(WORKER_WAIT_S)
+    except subprocess.TimeoutExpired:
+        rc = None
+    dump_worker_logs(handoff)
+    print(f"[worker] ended with code {rc}, {time.perf_counter() - t0:.1f} s after phase 18 (host clock)")
+    check(rc == 0, f"[worker] phases 16, 19, 21 and 22 failed or outlasted {WORKER_WAIT_S} s (code {rc})")
+    return take_handoff(handoff, "added", lambda: False)
+
+
+def worker(handoff: str, exact_ms: float) -> int:
+    """Phases 16, 19, 21 and 22, as main() runs them in a second process: hands phase 16's inputs to main()
+    for phase 18, and what the phases add to the kernels line's rows and the estimators' plots back at its
+    end. Every count it reads is its own process's, zeroed by each phase just before its path runs."""
+    import torch
+
+    from timemachine_torch.ops import _build
+    from timemachine_torch.testsystems.dhfr import setup_dhfr
+
+    parent = os.getppid()
+    ctypes.CDLL(None, use_errno=True).prctl(1, 15)  # PR_SET_PDEATHSIG, SIGTERM: end with main()
+    _build.load_libraries(*_build.LIBRARIES)  # built by main(): loaded, not compiled again
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = card_line()
+    rows = {"masked": {}, "batched": {}, "exact": {}}
+    launches16, exact16, inputs16, host16 = phase16(dev, smi, zero_counts, read_counts, rows["masked"], rows["batched"])
+    check(os.getppid() == parent, "[worker] main() ended")
+    put_handoff(handoff, "inputs16", inputs16)
+    rows["exact"].update(launches=launches16["nb_tiles"], launches_by_stage_run_solvent=exact16)
+    phase19(dev, smi, zero_counts, read_counts, rows["masked"], rows["exact"])
+    hc = setup_dhfr(waters_first=True, device=dev, dtype=torch.float32)
+    rows["exact"]["ms"] = exact_ms  # phase 21 prints its chain's sweep against phase 17's
+    phase21(dev, smi, zero_counts, read_counts, rows["exact"], inputs16, host16, hc)
+    del rows["exact"]["ms"]
+    phase22(dev, smi, zero_counts, read_counts, rows["masked"], rows["batched"], rows["exact"], inputs16)
+    put_handoff(handoff, "added", {"rows": rows, "plots": PLOTS_SEEN})
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2715,6 +2883,7 @@ def main() -> int:
     from timemachine_torch.potentials import DP_CB, SKIN, Nonbonded, NonbondedAllPairs
     from timemachine_torch.probes import bf16_rate as br
     from timemachine_torch.probes import fp32_peak as fp
+    from timemachine_torch.probes import queued_ms
     from timemachine_torch.probes import tile_census as tc
     from timemachine_torch.testsystems.dhfr import setup_dhfr
     from timemachine_torch.ff.handlers import AM1ELF10_CHARGE_CACHE, GASTEIGER_CHARGE_CACHE
@@ -2727,34 +2896,10 @@ def main() -> int:
     f32 = torch.float32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    sweeps = (
-        rs.rowscan_sweep, rs.rowscan_sweep_batched, nbk.nb_tiles, gk.gather_sweep, qk.quadscan_sweep,
-        dk.dotscan_sweep, fp.fp32_peak, br.bf16_rate,
-    )
-    plains = (
-        rs.rowscan_sweep_plain, rs.rowscan_sweep_batched_plain, nbk.nb_tiles_plain, gk.gather_sweep_plain,
-        qk.quadscan_sweep_plain, dk.dotscan_sweep_plain, fp.fp32_peak_plain, br.bf16_rate_plain,
-    )
-
-    def zero_counts():
-        """Every kernel's launch count and every plain version's call count
-        to 0, just before a path runs."""
-        for fn in sweeps:
-            fn.launches = 0
-        for fn in plains:
-            fn.calls = 0
-
-    def read_counts():
-        """({kernel: launches}, plain calls) since zero_counts()."""
-        return {fn.__name__: fn.launches for fn in sweeps}, sum(fn.calls for fn in plains)
-
     # -- 1. device ------------------------------------------------------------
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line()
     print(f"[1 device] {name}, count {count}, nvidia-smi: {smi}, torch {torch.__version__}, cuda {torch.version.cuda}")
 
     clock = [time.perf_counter()]
@@ -2854,7 +2999,9 @@ def main() -> int:
     def compare_kernel(tag, calls):
         """Kernel against plain for each (label, kernel(), plain()) at one
         set of inputs: per-column relative norm, two launches bitwise equal,
-        ms over 20 launches and 2 plain calls. Returns the first's (max_abs,
+        the kernel's device ms over 20 launches queued behind a spin kernel
+        (probes.queued_ms: a busy host cannot stretch them) and ms over 2
+        plain calls. Returns the first's (max_abs,
         ms, plain_ms)."""
         first = None
         for label, kernel, plain in calls:
@@ -2871,7 +3018,7 @@ def main() -> int:
                     rels.append(float(torch.linalg.vector_norm(out_k[:, col] - out_p[:, col])) / norm)
             max_abs = float((out_k - out_p).abs().max())
             same = torch.equal(out_k, out_k2)
-            ms = cuda_ms(kernel, 20)
+            ms = queued_ms(kernel, 20)
             plain_ms = cuda_ms(plain, 2)
             print(
                 f"[{tag} kernel {label}] rel_norm per column " + " ".join(f"{r:.3e}" for r in rels)
@@ -3014,7 +3161,7 @@ def main() -> int:
         float(rs.rowscan_sweep(*end_args, rs.FORCE, **end_form)[:, 1:4].abs().max()),
         float(NonbondedAllPairs.energy_force(nb, x_end, box_end)[1].abs().max()),
     )
-    ms_end = cuda_ms(lambda: rs.rowscan_sweep(*end_args, rs.FORCE, **end_form), 20)
+    ms_end = queued_ms(lambda: rs.rowscan_sweep(*end_args, rs.FORCE, **end_form), 20)
     print(
         f"[4 invariant] image-bound margin at cutoff + skin: {float(tiles.margin):.4f} nm at the start, "
         f"{float(t_end.margin):.4f} nm at the end; largest |dU/dx| {grad_end:.4e} of the kernel's fixed-point "
@@ -3525,7 +3672,7 @@ def main() -> int:
     ratio = ms_fma2 / ms_fma
     print(
         f"[12 fp32] {fp.GRID} x ({fp.ROWS}, {fp.LANES}) elements, 4 FMA chains: {ms_fma:.4f} ms at INNER {fp.INNER}, "
-        f"{ms_fma2:.4f} ms at {2 * fp.INNER} (CUDA events over 20 launches each; ratio {ratio:.3f}, want "
+        f"{ms_fma2:.4f} ms at {2 * fp.INNER} (CUDA events over 20 launches each, queued behind a spin kernel; ratio {ratio:.3f}, want "
         f"{PROBE_RATIO[0]}-{PROBE_RATIO[1]}); "
         f"measured FP32 peak {tflops:.2f} TFLOP/s, {fp.flops(x12.numel()) / ((ms_fma2 - ms_fma) * 1e-3) / 1e12:.2f} from "
         f"the difference, against the data sheet's {PEAK_FP32 / 1e12:.0f} ({tflops * 1e12 / PEAK_FP32:.3f}; {smi})"
@@ -4181,9 +4328,6 @@ def main() -> int:
     masked_row["launches_from_built_states"] = launches15["rowscan_sweep"] / N15_STEPS
     print(f"[15 time] phase 15 took {time.perf_counter() - t_phase15:.1f} s, host clock ({smi})")
 
-    # -- 16. the solvent leg from two SMILES ------------------------------------------------
-    launches16, exact16, inputs16, host16 = phase16(dev, smi, zero_counts, read_counts, masked_row, batched_row)
-
     # -- 17. the exact-erfc and masked forms at the leg's window 0 ----------------------------
     # the host term of window 0 (6,404 atoms, the 11 hybrid-ligand atoms masked out) configured
     # as kernel="v1" (nb_tiles' exact form: JAX's "tiled" and, on the card, its minimizers'
@@ -4350,7 +4494,7 @@ def main() -> int:
     for name17, source, replaces, label, pairs_label, pairs, nbytes, launches, path in (
         ("nb_tiles_exact_masked", "nb_tiles.cu", "nonbonded_kernel.py:213", "nb_tiles exact F+U", "nb_tiles_exact_UF", pairs13,
          tensor_bytes(tiles17.atoms, tiles17.row_start, tiles17.row_count) + host_pairs_bytes,
-         launches16["nb_tiles"], "run_solvent's host FIRE and minimizations (per run; phase 16)"),
+         None, "run_solvent's host FIRE and minimizations (per run; phase 16)"),
         ("gather_sweep_masked", "gather.cu", "gather_kernel.py:64", "gather F", "gather_sweep", pairs13,
          tensor_bytes(atoms_g17, lists17.counts, lists17.tri_start) + 4 * int(lists17.counts.sum()) + 16 * atoms_g17.shape[0],
          launches17["gather"] / N17_STEPS, f"window {N17_WINDOW} NPT, kernel=\"gather\" under the mask (per step)"),
@@ -4364,28 +4508,33 @@ def main() -> int:
         row["ms_by_mode"] = {k: v[1] for k, v in res17.items() if k.split()[0] == label.split()[0]}
         rows17.append(row)
     rows17[0]["launches_npt_per_step"] = launches17["v1"] / N17_STEPS
-    rows17[0]["launches_by_stage_run_solvent"] = exact16
     for row in rows17:
+        launches = "phase 16's, from the worker" if row["launches"] is None else row["launches"]
         print(f"[17 bound] {row['name']}: {row['ms']:.4f} ms against its bound {row['bound_ms']:.4f} ms by "
-              f"{row['bound_by']} over the pairs of its system; plain {row['plain_ms']:.2f} ms; launches {row['launches']} "
+              f"{row['bound_by']} over the pairs of its system; plain {row['plain_ms']:.2f} ms; launches {launches} "
               f"({row['path']}) ({smi})")
     print(f"[17 time] phase 17 took {time.perf_counter() - t_phase17:.1f} s, host clock ({smi})")
 
-    # -- 18. REST and local MD ----------------------------------------------------------------
-    phase18(dev, smi, zero_counts, read_counts, masked_row, batched_row, states15, states13, float(np.sum(result14.dGs)),
-            inputs16)
-
-    # -- 19. the absolute hydration leg, windowed and by SMC ---------------------------------------
-    phase19(dev, smi, zero_counts, read_counts, masked_row, rows17[0])
+    # -- 16, 19, 21, 22 in the worker, beside 20 and 18 here ----------------------------------------
+    # 16. the solvent leg from two SMILES; 19. the absolute hydration leg, windowed and by SMC; 21. the
+    # standalone samplers, the training path and the last utilities; 22. the complex leg: run_complex on a
+    # solvated capped helix
+    worker_proc, handoff = start_worker(rows17[0]["ms"])
 
     # -- 20. water sampling: the probe-in-water ladder's HREX with the TIBD sampler ---------------------
     ladder20 = phase20(dev, smi, zero_counts, read_counts, batched_row)
 
-    # -- 21. the standalone samplers, the training path and the last utilities -------------------------
-    phase21(dev, smi, zero_counts, read_counts, rows17[0], inputs16, host16, hc)
+    # -- 18. REST and local MD ----------------------------------------------------------------
+    inputs16 = take_handoff(handoff, "inputs16", lambda: worker_proc.poll() is None)
+    phase18(dev, smi, zero_counts, read_counts, masked_row, batched_row, states15, states13, float(np.sum(result14.dGs)),
+            inputs16)
 
-    # -- 22. the complex leg: run_complex on a solvated capped helix ---------------------------------------
-    phase22(dev, smi, zero_counts, read_counts, masked_row, batched_row, rows17[0], inputs16)
+    # the worker's output, and what its phases add to the rows and the plots seen
+    added = finish_worker(worker_proc, handoff)
+    for row, key in ((masked_row, "masked"), (batched_row, "batched"), (rows17[0], "exact")):
+        row.update(added["rows"][key])
+    PLOTS_SEEN.update(added["plots"])
+    check(bool(rows17[0]["launches"]), "[16] run_solvent's FIRE and minimizations launched no nb_tiles kernel")
 
     # -- 23. HREX checkpoint and resume, frames on disk, the client, the interaction group, the plots ------
     phase23(dev, smi, zero_counts, read_counts, batched_row, make_runner, ladder20, states13, args13)
@@ -4399,4 +4548,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--worker"]:
+        T_START = float(sys.argv[3])
+        sys.exit(worker(sys.argv[2], float(sys.argv[4])))
     sys.exit(main())

@@ -23,12 +23,24 @@
         script's directory). Point DIR at an unpacked checkout of another
         commit to compare two trees in one call.
 
+    python3 sweep_variants.py host-load [--burners 0 16 48] [--idle 10]
+        Times the rowscan sweep's main-path form and its symmetric form (the
+        first design) in F mode at the DHFR start while each count of
+        processes spins on the host's cores, two ways: CUDA events around 20
+        launches as the host queues them (cuda_ms), and probes.queued_ms (a
+        spin kernel holds the stream while the host queues them; the least
+        of 3 rounds). Each way starts after the card has idled --idle
+        seconds, the main form first, as chip_smoke.py's phase 3 times them
+        after the build. Prints both times and the main / symmetric ratio of
+        each way; the spinning processes are stopped after each count.
+
 Every line names the card and its power limit as nvidia-smi reports them.
 Exits non-zero without a CUDA card.
 """
 
 import argparse
 import ctypes
+import multiprocessing
 import re
 import subprocess
 import sys
@@ -139,10 +151,15 @@ def gather_splits(splits, smi: str) -> None:
         )
 
 
-def rowscan_main(smi: str) -> None:
+def rowscan_forms(symmetric: bool = False):
+    """{form: thunk} of the rowscan F sweep at the DHFR start: the main-path
+    form ("main": Newton-triangular, row-center images, no w) and, if
+    symmetric, the symmetric form ("symmetric": minimum image, w) on the
+    same sort, as chip_smoke.py's phase 3 builds them."""
     import torch
 
     from timemachine_torch.ops import rowscan_kernel as rs
+    from timemachine_torch.potentials import SKIN
 
     dev = torch.device("cuda", 0)
     conf, nb, box = dhfr_start(dev)
@@ -152,11 +169,63 @@ def rowscan_main(smi: str) -> None:
     tiles = state.lists
     atoms = rs.assemble_atoms(conf, box, tiles.pad_order, state.prows)
     row_count = rs.chop_row_counts(atoms[:, :3], tiles.rank_mat, tiles.row_count, box, nb.cutoff)
-    args = (atoms, tiles.row_start, row_count, tiles.col_ids, rs.sweep_scalars(box, nb.cutoff),
-            rs.es_energy_force_series(nb.beta, nb.cutoff))
+    scalars, series = rs.sweep_scalars(box, nb.cutoff), rs.es_energy_force_series(nb.beta, nb.cutoff)
+    args = (atoms, tiles.row_start, row_count, tiles.col_ids, scalars, series)
     form = dict(triangular=True, rcen_q=tiles.rcen_q, has_w=has_w)
-    ms = cuda_ms(lambda: rs.rowscan_sweep(*args, rs.FORCE, **form))
+    forms = {"main": lambda: rs.rowscan_sweep(*args, rs.FORCE, **form)}
+    if symmetric:
+        cut = nb.cutoff + SKIN
+        sym = rs.build_rowscan_tiles(conf, box, cut, rs.suggest_max_pairs(conf, box, cut, cell_size=nb.md_cell_size),
+                                     nb.md_cell_size)
+        if int(sym.overflow) or not torch.equal(sym.pad_order, tiles.pad_order):
+            raise SystemExit("sweep_variants: the symmetric lists at DHFR overflow or sort differently")
+        sym_count = rs.chop_row_counts(atoms[:, :3], sym.rank_mat, sym.row_count, box, nb.cutoff)
+        sym_args = (atoms, sym.row_start, sym_count, sym.col_ids, scalars, series)
+        forms["symmetric"] = lambda: rs.rowscan_sweep(*sym_args, rs.FORCE)
+    return forms
+
+
+def rowscan_main(smi: str) -> None:
+    from timemachine_torch.ops import rowscan_kernel as rs
+
+    ms = cuda_ms(rowscan_forms()["main"])
     print(f"[rowscan main] {rs.__file__}: main form F {ms:.4f} ms (CUDA events over {REPS} launches, DHFR start; {smi})")
+
+
+def _spin(stop) -> None:
+    while not stop.is_set():
+        pass
+
+
+def host_load(burners, idle_s: float, smi: str) -> None:
+    import os
+    import time
+
+    from timemachine_torch.probes import queued_ms
+
+    forms = rowscan_forms(symmetric=True)
+    ctx = multiprocessing.get_context("spawn")
+    for n in burners:
+        stop = ctx.Event()
+        procs = [ctx.Process(target=_spin, args=(stop,), daemon=True) for _ in range(n)]
+        for p in procs:
+            p.start()
+        try:
+            for how, timer in (("events as queued", cuda_ms), ("queued_ms", lambda fn: queued_ms(fn, REPS))):
+                time.sleep(idle_s)
+                ms = {form: timer(fn) for form, fn in forms.items()}
+                print(
+                    f"[host load] {n} spinning processes on {os.cpu_count()} cores, {how} after {idle_s:g} s idle: main form F "
+                    f"{ms['main']:.4f} ms, symmetric F {ms['symmetric']:.4f} ms, ratio "
+                    f"{ms['main'] / ms['symmetric']:.3f} ({REPS} launches, DHFR start; {smi})"
+                )
+        finally:
+            stop.set()
+            for p in procs:
+                p.join(5)
+                if p.is_alive():
+                    p.terminate()
+                    p.join()
 
 
 def bf16_elems(elems, smi: str) -> None:
@@ -189,9 +258,11 @@ def bf16_elems(elems, smi: str) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("what", choices=("gather-splits", "rowscan-main", "bf16-elems"))
+    parser.add_argument("what", choices=("gather-splits", "rowscan-main", "bf16-elems", "host-load"))
     parser.add_argument("--splits", type=int, nargs="+", default=[1, 2, 4])
     parser.add_argument("--elems", type=int, nargs="+", default=[2, 4, 8])
+    parser.add_argument("--burners", type=int, nargs="+", default=[0, 16, 48])
+    parser.add_argument("--idle", type=float, default=10.0)
     parser.add_argument("--package-root", default=str(Path(__file__).resolve().parent))
     a = parser.parse_args()
     sys.path.insert(0, a.package_root)
@@ -205,6 +276,8 @@ def main() -> int:
         gather_splits(a.splits, smi)
     elif a.what == "bf16-elems":
         bf16_elems(a.elems, smi)
+    elif a.what == "host-load":
+        host_load(a.burners, a.idle, smi)
     else:
         rowscan_main(smi)
     return 0

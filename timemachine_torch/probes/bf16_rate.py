@@ -40,7 +40,7 @@ import torch
 from timemachine_torch.device import resolve_device
 from timemachine_torch.ops import _build
 from timemachine_torch.ops.rowscan_kernel import check_tensor
-from timemachine_torch.probes import kernel_ms
+from timemachine_torch.probes import kernel_ms, queued_ms
 
 SUB, LANE, ITERS = 256, 1024, 64  # the TPU script's block and sweep iterations
 CUT2 = 1.44
@@ -155,31 +155,6 @@ SPIN_CYCLES = 10_000_000  # about 5 ms at the H100's 1.98 GHz boost clock
 WARM_S = 0.5  # seconds of launches before timing, to bring the clocks up
 
 
-def backlogged_ms(fn, reps: int = REPS) -> float:
-    """Device time per call of fn over reps back-to-back calls, by CUDA
-    events, each call launching one short kernel. A spin kernel holds the
-    stream first, so every launch is queued before the first runs and the
-    events time the device, with its gap between launches, not the host;
-    raises if the host took longer to queue them than the spin lasted."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    spin_start, spin_end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    spin_start.record()
-    torch.cuda._sleep(SPIN_CYCLES)
-    spin_end.record()
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    end.record()
-    torch.cuda.synchronize()
-    if host_ms >= spin_start.elapsed_time(spin_end):
-        raise RuntimeError(f"backlogged_ms: queuing {reps} launches took {host_ms:.3f} ms, longer than the spin")
-    return start.elapsed_time(end) / reps
-
-
 @dataclass
 class GateFit:
     """One kernel's times at ITERS x MULTIPLES iterations and their line."""
@@ -203,7 +178,7 @@ def measure(a, b, designs=(False, True)) -> dict:
     """{(dtype, first_design): GateFit} for f32 and bf16 and each of
     `designs` on a's card: after WARM_S seconds of launches that bring the
     clocks up, each kernel's time per launch at ITERS x MULTIPLES
-    iterations (backlogged_ms), and its own device time at ITERS (time_ms)."""
+    iterations (probes.queued_ms behind a spin of SPIN_CYCLES), and its own device time at ITERS (time_ms)."""
     t0 = time.perf_counter()
     while time.perf_counter() - t0 < WARM_S:
         bf16_rate(a, b, torch.float32, ITERS * MULTIPLES[-1], first_design=True)
@@ -211,7 +186,8 @@ def measure(a, b, designs=(False, True)) -> dict:
     fits = {}
     for dt in (torch.float32, torch.bfloat16):
         for first in designs:
-            ms = {ITERS * m: backlogged_ms(lambda k=ITERS * m: bf16_rate(a, b, dt, k, first_design=first)) for m in MULTIPLES}
+            ms = {ITERS * m: queued_ms(lambda k=ITERS * m: bf16_rate(a, b, dt, k, first_design=first), REPS, SPIN_CYCLES)
+                  for m in MULTIPLES}
             slope, intercept = fit(ms)
             ratio = ms[ITERS * MULTIPLES[-1]] / ms[ITERS * MULTIPLES[-2]]
             fits[dt, first] = GateFit(ms, slope, intercept, ratio, *time_ms(a, b, dt, first_design=first))

@@ -23,6 +23,7 @@ import torch
 from timemachine_torch.device import resolve_device
 from timemachine_torch.ops import _build
 from timemachine_torch.ops.rowscan_kernel import check_tensor
+from timemachine_torch.probes import queued_ms
 
 GRID, ROWS, LANES = 256, 8, 1024  # the TPU script's grid and block
 INNER = 512
@@ -114,31 +115,16 @@ def flops(n: int, inner: int = INNER) -> int:
     return 2 * 4 * inner * n
 
 
-def _events_ms(fn, reps: int) -> float:
-    """Device time per call of fn over reps back-to-back calls (after one),
-    by CUDA events: each launch of the kernel runs for over 0.1 ms, far
-    longer than the host takes to issue the next, so the stream never
-    drains and the events time the device."""
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def measure(x, inner: int = INNER, reps: int = 20, warm_s: float = 0.5):
     """(TFLOP/s at inner, ms at inner, ms at 2 * inner) on x's card: the
     device time per launch over reps launches at inner, then over reps at
-    2 * inner (CUDA events), after warm_s seconds of launches that bring the
-    clocks up."""
+    2 * inner (probes.queued_ms), after warm_s seconds of launches that bring
+    the clocks up."""
     t0 = time.perf_counter()
     while time.perf_counter() - t0 < warm_s:
         fp32_peak(x, 2 * inner)
         torch.cuda.synchronize()
-    ms, ms2 = (_events_ms(lambda k=k: fp32_peak(x, k), reps) for k in (inner, 2 * inner))
+    ms, ms2 = (queued_ms(lambda k=k: fp32_peak(x, k), reps) for k in (inner, 2 * inner))
     return flops(x.numel(), inner) / (ms * 1e-3) / 1e12, ms, ms2
 
 

@@ -213,11 +213,29 @@ the ligand over the run's frames, its U and dU/dp on the card against the
 host CPU's float64; the frames through StoredArrays; a DevicePoolClient task
 launching the masked rowscan form in a spawned worker, bitwise this
 process's launch; whether matplotlib imports and the estimators' plots
-(None without it). Phases 16, 19, 21 and 22 run in a second process (the
-worker: `chip_smoke.py --worker DIR T_START EXACT_MS`, started after phase
-17) while this one runs phase 20 and then phase 18, which takes phase 16's
-embedded molecules from the worker; the worker's lines follow phase 18's,
-then its additions to the kernels line's rows, then phase 23. Each phase
+(None without it). The reset's seed, the DHFR-size water box, the
+prefactor energies and the examples [24]: `Context.reset_for_state(window
+0, seed=)` twice over 100 NPT steps, bitwise, and another seed moving the
+noise's and the barostat's generators; `setup_dhfr_scale_waterbox()` (its
+atoms and build seconds, FIRE, the card's force against the host CPU's,
+100 + 500 NPT steps on the rowscan main form with ns/day, launches a step
+and the idle share, the image-bound margins and the largest |dU/dx|); the
+coulomb and LJ interaction-group energies of window 0's ligand over 10
+frames by the linear-basis prefactors, the card's float32 against the host
+CPU's float64 and both times; and the five `timemachine_torch/examples/`
+entry points through `main(argv)` at a cut depth (water_sampling_mc at
+--box_width 4.0, run_rbfe_legs --legs vacuum solvent, relative_free_energy
+--legs solvent; in the worker, after phase 22, biphenyl_torsion_sampling_hrex
+twice, bitwise, and water_sampling_hrex at JAX's 3.0 nm): their lines,
+seconds and launches by form (the legs' also by stage), the legs' host
+pre-equilibration, run_rbfe_legs's bisection frames and biphenyl's
+equilibration cut where no argument reaches them, run_rbfe_legs's legs in
+this process. Phases 16, 19, 21 and 22 and phase 24's two dense examples
+run in a second process (the worker: `chip_smoke.py --worker DIR T_START
+EXACT_MS`, started after phase 17) while this one runs phase 20, phase 18,
+which takes phase 16's embedded molecules from the worker, and phase 24;
+the worker's lines follow phase 24's, then its additions to the kernels
+line's rows, then phase 23. Each phase
 prints its host seconds ("[N time]"), and the script its total up to the
 kernels line ("[time]").
 Every path runs with all launch and plain-call counts set to
@@ -232,7 +250,9 @@ also launches_ahfe_fire, launches_smc, launches_mtm, launches_barker
 and bound_ms_barker (phase 21's, per run and per launch); the masked,
 batched and exact masked rows launches_run_complex (phase 22's); the batched
 row launches_resume (phase 23's, per replica-step of the resumed HREX
-iterations); bound;
+iterations); the main row launches_waterbox and launches_water_sampling_mc
+(per step of each), the masked, batched and exact masked rows
+launches_examples (phase 24's, per run of the examples); bound;
 plain time), the card's name and power limit from
 nvidia-smi, and as the last line {"ok": true, "device": {...}}.
 
@@ -2729,6 +2749,416 @@ def phase23(dev, smi, zero_counts, read_counts, batched_row, make_runner14, ladd
     print(f"[23 time] phase 23 took {time.perf_counter() - t_phase23:.1f} s, host clock ({smi})")
 
 
+# phase 24: the reset's seed, the DHFR-size water box, the prefactor energies and the repository's examples as
+# the port's entry points. The examples run at a cut depth through their main(argv); where their depth is not an
+# argument (the legs' host pre-equilibration, 500 FIRE steps a window and 1,000 NPT steps; run_rbfe_legs's 100
+# bisection frames; biphenyl's 1,000 equilibration steps) it is cut here, and run_rbfe_legs's legs run in this process (its DevicePoolClient, one card
+# here, replaced by the serial client) so that their launches count here. relative_free_energy takes run_rbfe_legs's
+# solvent leg (the same run_solvent on the same pair at the same depth) instead of running it again: it runs its
+# own CIF and plot path on that leg's result
+N24_SEED, N24_STEPS, N24_FRAMES = 2031, 100, 10  # the reset runs' NPT steps; the prefactors' frames among them
+N24_WARM, N24_TIMED = 100, 500  # the water box's NPT steps
+TOL_PREFACTOR = 1e-5  # of the energy's scale, the sum of its pair terms' |values| (float32 pair terms cancel)
+N24_FIRE, N24_NPT, N24_BISECTION = 100, 100, 2
+N24_MC = ["--box_width", "4.0", "--n_iterations", "3", "--md_steps_per_batch", "100", "--mc_proposals_per_batch", "200"]
+N24_LEGS = ["--legs", "vacuum", "solvent", "--n_eq_steps", "50", "--n_frames", "3", "--steps_per_frame", "25",
+            "--n_windows", "3", "--seed", "2025"]
+N24_RFE = ["--n_frames", "3", "--n_eq_steps", "50", "--steps_per_frame", "25", "--seed", "2025", "--legs", "solvent",
+           "--n_windows", "3"]
+N24_BIPHENYL = ["--n_states", "8", "--n_frames", "5", "--steps_per_frame", "100"]
+N24_BIPHENYL_EQ = 100  # the script's fixed 1,000 equilibration steps, cut
+N24_WATER_HREX = ["--box_width", "3.0", "--n_windows", "4", "--n_frames", "2", "--steps_per_frame", "100",
+                  "--n_eq_steps", "100", "--water_sampling_interval", "100", "--n_proposals", "100"]
+
+
+def phase24(dev, smi, zero_counts, read_counts, kernel_row, masked_row, batched_row, exact_row, states13):
+    """[24 faults] Context.reset_for_state(state, seed=) on phase 13's window
+    0: two resets with one seed give the same N24_STEPS NPT steps bitwise
+    (frames, box, the noise's and the barostat's generators), another seed
+    moves both generators and the coordinates. [24 waterbox]
+    setup_dhfr_scale_waterbox() built natively: its atoms and build seconds,
+    the card's total force at the FIRE-minimized start against the host
+    CPU's (TOL_FORCE_REL_NORM of the all-pairs norm, as phase 3), N24_WARM +
+    N24_TIMED NPT steps on the rowscan main form (ns/day, launches a step,
+    the idle share of 50 profiled steps), the image-bound margins and the
+    largest |dU/dx| at the end (as phase 4). [24 prefactors] the coulomb and
+    LJ interaction-group energies of window 0's ligand over the reset run's
+    N24_FRAMES frames, by the linear-basis prefactors on the card in float32
+    against the host CPU in float64 (TOL_PREFACTOR of each energy's scale)
+    and their times. [24 examples] water_sampling_mc, run_rbfe_legs and
+    relative_free_energy through their main(argv) (run_example: every count
+    zeroed just before each; seconds, launches by form, summary lines,
+    finite results); relative_free_energy on run_rbfe_legs's solvent leg,
+    its CIF and plot path alone; the other two run in the worker
+    (phase24_dense). Adds the phase's launches to the rows they use:
+    water_sampling_mc's to the masked form's, the form it runs."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from timemachine_torch.chem import mol_from_smiles
+    from timemachine_torch.chem.sdf import write_sdf
+    from timemachine_torch.constants import DEFAULT_TEMP
+    from timemachine_torch.convert import host_system_arrays
+    from timemachine_torch.examples import relative_free_energy as ex_rfe
+    from timemachine_torch.examples import run_rbfe_legs as ex_legs
+    from timemachine_torch.examples import water_sampling_mc as ex_mc
+    from timemachine_torch.fe import rbfe as rbfe24
+    from timemachine_torch.fe.free_energy import HREXParams, get_context
+    from timemachine_torch.fe.model_utils import apply_hmr
+    from timemachine_torch.fe.system import HostSystem
+    from timemachine_torch.integrators import LangevinIntegrator
+    from timemachine_torch.md import minimizer as minimizer24
+    from timemachine_torch.md.barostat import MonteCarloBarostat
+    from timemachine_torch.md.context import Context
+    from timemachine_torch.md.fire import FireMinimizationConfig, fire_minimize
+    from timemachine_torch.md.utils import sample_velocities
+    from timemachine_torch.ops import nonbonded as nbm
+    from timemachine_torch.ops import nonbonded_kernel as nbk
+    from timemachine_torch.ops import rowscan_kernel as rs
+    from timemachine_torch.parallel.client import SerialClient
+    from timemachine_torch.potentials import NonbondedAllPairs, NonbondedInteractionGroup, all_pairs_kernel
+    from timemachine_torch.testsystems.dhfr import setup_dhfr_scale_waterbox
+    from timemachine_torch.testsystems.rbfe_solvent import load_arrays, metadata
+
+    t_phase24 = time.perf_counter()
+    f32 = torch.float32
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)  # the CPU rehearses the phase
+
+    # -- [24 faults] ------------------------------------------------------------------------------------------
+    s0 = states13[0]
+    ctx = get_context(s0)
+
+    def reset_run(seed):
+        ctx.reset_for_state(s0, seed=seed)
+        xs, boxes = [], []
+        for _ in range(N24_FRAMES):
+            ctx.multiple_steps(N24_STEPS // N24_FRAMES)
+            xs.append(ctx.get_x_t())
+            boxes.append(ctx.get_box())
+        sync()
+        return dict(x=np.stack(xs), box=np.stack(boxes), noise=ctx._noise.get_state(),
+                    barostat=ctx.get_mover_states()[0].generator.get_state())
+
+    zero_counts()
+    t0 = time.perf_counter()
+    first = reset_run(N24_SEED)
+    t_reset = time.perf_counter() - t0
+    launches_reset, plain_reset = read_counts()
+    again, other = reset_run(N24_SEED), reset_run(N24_SEED + 1)
+    same = all(np.array_equal(first[k], again[k]) for k in ("x", "box")) and all(
+        torch.equal(first[k], again[k]) for k in ("noise", "barostat"))
+    moved = {k: not torch.equal(first[k], other[k]) for k in ("noise", "barostat")}
+    moved["x"] = not np.array_equal(first["x"], other["x"])
+    print(f"[24 faults] reset_for_state(window 0, seed={N24_SEED}) twice, {N24_STEPS} NPT steps each ({t_reset:.2f} s "
+          f"host clock, launches {launches_reset}, plain calls {plain_reset}): frames, box and the noise's and the "
+          f"barostat's generators bitwise {same}; seed {N24_SEED + 1} moves noise {moved['noise']}, barostat "
+          f"{moved['barostat']}, x {moved['x']} ({smi})")
+    check(same and all(moved.values()), "[24] reset_for_state(seed=) is not a reseed of the noise and the barostat")
+    check(bool(np.isfinite(first["x"]).all()), "[24] the reset run is not finite")
+    check(plain_reset == 0 and launches_reset["rowscan_sweep"] >= N24_STEPS, "[24] the reset run did not launch rowscan")
+
+    # -- [24 prefactors] ------------------------------------------------------------------------------------
+    ixn = next(p for p in s0.potentials if isinstance(p, NonbondedInteractionGroup))
+    lig = torch.as_tensor(np.asarray(s0.ligand_idxs), device=dev)
+    env = torch.as_tensor(np.setdiff1d(np.arange(s0.x0.shape[0]), np.asarray(s0.ligand_idxs)), device=dev)
+
+    def prefactor_energies(x, box, params):
+        xl, xe = x[:, lig.to(x.device)], x[:, env.to(x.device)]
+        pl, pe = params[lig.to(x.device)], params[env.to(x.device)]
+        cq = nbm.coulomb_prefactors_on_snapshot(xl, xe, pe[:, 0], box, ixn.beta, ixn.cutoff)
+        cl = nbm.lj_prefactors_on_snapshot(xl, xe, pe[:, 1], pe[:, 2], box, ixn.cutoff)
+        return nbm.coulomb_interaction_group_energy(pl[:, 0], cq), nbm.lj_interaction_group_energy(pl[:, 1], pl[:, 2], cl)
+
+    x_card = torch.as_tensor(first["x"], device=dev, dtype=f32)
+    box_card = torch.as_tensor(first["box"], device=dev, dtype=f32)
+    p_card = ixn.params.to(f32)
+    prefactor_energies(x_card, box_card, p_card)  # the first call's allocations
+    sync()
+    t0 = time.perf_counter()
+    u_card = prefactor_energies(x_card, box_card, p_card)
+    sync()
+    ms_card = (time.perf_counter() - t0) * 1e3
+    x64, box64, p64 = x_card.double().cpu(), box_card.double().cpu(), p_card.double().cpu()
+    t0 = time.perf_counter()
+    u_cpu = prefactor_energies(x64, box64, p64)
+    ms_cpu = (time.perf_counter() - t0) * 1e3
+    # each energy's scale: the sum over frames' pairs of |its pair term|, float64 on the CPU
+    d = nbm._ligand_env_distances(x64[:, lig.cpu()], x64[:, env.cpu()], box64, ixn.cutoff)
+    pl, pe = p64[lig.cpu()], p64[env.cpu()]
+    q_abs = (pl[:, 0, None] * pe[None, :, 0] / d * torch.special.erfc(ixn.beta * d) * nbm.switch_fn(d)).abs().sum((-1, -2))
+    s6 = ((pl[:, 1, None] + pe[None, :, 1]) / d) ** 6
+    lj_abs = (4.0 * pl[:, 2, None] * pe[None, :, 2] * (s6 * s6 + s6)).sum((-1, -2))
+    errs = []
+    for label, uc, uh, scale in (("coulomb", u_card[0], u_cpu[0], q_abs), ("LJ", u_card[1], u_cpu[1], lj_abs)):
+        diff = (uc.double().cpu() - uh).abs()
+        errs.append(float((diff / scale).max()))
+        print(f"[24 prefactors] {label} over {N24_FRAMES} frames of window 0's ligand ({lig.numel()} atoms against "
+              f"{env.numel()}): card float32 vs host CPU float64, largest |dU| / scale {errs[-1]:.3e} (tol "
+              f"{TOL_PREFACTOR:g}), largest |dU| / |U| {float((diff / uh.abs()).max()):.3e}; U frame 0 "
+              f"{float(uh[0]):.4f} kJ/mol ({smi})")
+    print(f"[24 prefactors] both energies over the {N24_FRAMES} frames: card {ms_card:.2f} ms, host CPU float64 "
+          f"{ms_cpu:.1f} ms, host clock ({smi})")
+    check(max(errs) <= TOL_PREFACTOR, "[24] the card's prefactor energies disagree with the CPU's float64")
+
+    # -- [24 waterbox] -----------------------------------------------------------------------------------------
+    t0 = time.perf_counter()
+    wb = setup_dhfr_scale_waterbox()
+    t_build = time.perf_counter() - t0
+    n = wb.conf.shape[0]
+    arrays = host_system_arrays(wb.host_system)
+    hs = HostSystem.from_arrays(arrays, device=dev, dtype=f32)
+    bps, nb = hs.get_U_fns(), hs.nonbonded_all_pairs
+    x0 = torch.as_tensor(wb.conf, device=dev, dtype=f32)
+    box = torch.as_tensor(wb.box, device=dev, dtype=f32)
+    has_w = bool((nb.params[:, 3] != 0).any())  # False for water, as phase 3's DHFR
+    nb.configure(box, x0, kernel=all_pairs_kernel("context", n, dev), rowscan_has_w=has_w)
+    check(nb.kernel == "rowscan" and nb.md_preshift, "[24] the water box did not take the rowscan main form")
+    t0 = time.perf_counter()
+    x_min = fire_minimize(x0, lambda x: sum(p.energy_force(x, box)[1] for p in bps), FireMinimizationConfig(N_FIRE))
+    sync()
+    t_fire = time.perf_counter() - t0
+    # FIRE rearranges the built lattice: the lists are sized again from its result
+    invalid_fire = int(nb.md_force_provider()[0](x_min, box).invalid)
+    nb.configure(box, x_min, kernel=nb.kernel, rowscan_has_w=has_w)
+    check(nb.kernel == "rowscan" and nb.md_preshift, "[24] the relaxed water box did not take the rowscan main form")
+    hs_cpu = HostSystem.from_arrays(arrays, device="cpu", dtype=f32)
+    hs_cpu.nonbonded_all_pairs.configure(box.cpu(), x_min.cpu(), kernel=nb.kernel, rowscan_has_w=has_w)
+    f_card = sum(p.energy_force(x_min, box)[1] for p in bps)
+    f_host = sum(p.energy_force(x_min.cpu(), box.cpu())[1] for p in hs_cpu.get_U_fns())
+    f_ap = NonbondedAllPairs.energy_force(nb, x_min, box)[1]
+    f_rel = float(torch.linalg.vector_norm(f_card.cpu() - f_host)) / float(torch.linalg.vector_norm(f_ap))
+    print(f"[24 waterbox] setup_dhfr_scale_waterbox(): {n} atoms, a {float(box[0, 0]):.4f} nm box, built in {t_build:.2f} s; "
+          f"FIRE {N_FIRE} steps {t_fire:.2f} s (the lists sized at the lattice invalid after it: {invalid_fire}; sized "
+          f"again); total force card vs host CPU |diff| / |all-pairs force| {f_rel:.3e} (tol {TOL_FORCE_REL_NORM:g}); "
+          f"largest |F| {float(f_host.norm(dim=-1).max()):.1f} kJ/mol/nm ({smi})")
+    check(f_rel <= TOL_FORCE_REL_NORM, "[24] the water box's force on the card disagrees with the host CPU")
+    masses = apply_hmr(wb.masses, arrays["bond_idxs"])
+    intg = LangevinIntegrator(TEMP, DT, FRICTION, masses, seed=N24_SEED)
+    v0 = sample_velocities(masses, TEMP, seed=N24_SEED + 1)
+    baro = MonteCarloBarostat(n, PRESSURE, TEMP, wb.host_topology.group_idxs, BAROSTAT_INTERVAL, seed=N24_SEED + 2)
+    wctx = Context(x_min, v0, box, intg, bps, movers=[baro], device=dev)
+    zero_counts()
+    forms_before = form_launches()
+    wctx.multiple_steps(N24_WARM)
+    sync()
+    t0 = time.perf_counter()
+    wctx.multiple_steps(N24_TIMED)
+    sync()
+    elapsed = time.perf_counter() - t0
+    launches_wb, plain_wb = read_counts()
+    forms_wb = form_launches() - forms_before
+    main_wb = sum(k for f, k in forms_wb.items() if "preshift" in f and not f.startswith(("batched", "nb_tiles")))
+    ns_day = N24_TIMED * DT / 1000.0 / elapsed * 86_400.0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wctx.multiple_steps(N_PROFILE)
+        sync()
+    print(f"{smi}; {N_PROFILE} NPT steps of the water box\n{prof.key_averages().table(sort_by='cuda_time_total', row_limit=20)}",
+          file=sys.stderr)
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA) / 1e3 / N_PROFILE
+    step_ms = elapsed * 1e3 / N24_TIMED
+    idle = f"{1 - busy_ms / step_ms:.3f}" if busy_ms > 0 else "not measured (the profiler saw no device time)"
+    x_end = torch.as_tensor(wctx.get_x_t(), device=dev, dtype=f32)
+    box_end = torch.as_tensor(wctx.get_box(), device=dev, dtype=f32)
+    state0, state_end = nb.md_force_provider()[0](x_min, box), nb.md_force_provider()[0](x_end, box_end)
+    check(int(state_end.invalid) == 0, "[24] the water box's lists invalid at the end state")
+    t_end = state_end.lists
+    atoms_end = rs.assemble_atoms(x_end, box_end, t_end.pad_order, state_end.prows)
+    count_end = rs.chop_row_counts(atoms_end[:, :3], t_end.rank_mat, t_end.row_count, box_end, nb.cutoff)
+    end_args = (atoms_end, t_end.row_start, count_end, t_end.col_ids, rs.sweep_scalars(box_end, nb.cutoff),
+                rs.es_energy_force_series(nb.beta, nb.cutoff))
+    images = dict(rcen_q=t_end.rcen_q) if nb.md_preshift else {}  # the CPU rehearsal's small box: minimum image
+    grad_end = max(
+        float(rs.rowscan_sweep(*end_args, rs.FORCE, triangular=True, has_w=has_w, **images)[:, 1:4].abs().max()),
+        float(NonbondedAllPairs.energy_force(nb, x_end, box_end)[1].abs().max()),
+    )
+    finite_wb = bool(torch.isfinite(x_end).all() and torch.isfinite(box_end).all())
+    print(f"[24 waterbox] NPT {N24_WARM} warm-up + {N24_TIMED} timed steps: {ns_day:.2f} ns/day ({step_ms:.4f} ms/step, "
+          f"host clock); device busy {busy_ms:.4f} ms/step, idle share {idle} ({N_PROFILE} profiled steps); rowscan "
+          f"launches {launches_wb['rowscan_sweep']} ({launches_wb['rowscan_sweep'] / (N24_WARM + N24_TIMED):.3f} a step), "
+          f"main form {main_wb}, plain calls {plain_wb}; box {float(box_end[0, 0]):.4f} nm; finite {finite_wb} ({smi})")
+    margins = [float(getattr(st.lists, "margin", float("nan"))) for st in (state0, state_end)]
+    print(f"[24 waterbox] image-bound margin at cutoff + skin: {margins[0]:.4f} nm at the start, "
+          f"{margins[1]:.4f} nm at the end; largest |dU/dx| {grad_end:.4e} of the kernel's fixed-point limit "
+          f"{nbk.FIX_LIMIT:.4e} kJ/mol/nm ({smi})")
+    check(finite_wb and plain_wb == 0, "[24] the water box's run is not finite or ran a plain sweep")
+    check(main_wb == launches_wb["rowscan_sweep"] >= N24_WARM + N24_TIMED, "[24] the water box left the rowscan main form")
+    check(grad_end < nbk.FIX_LIMIT, "[24] the water box's |dU/dx| beyond the kernel's fixed-point limit")
+    kernel_row["launches_waterbox"] = launches_wb["rowscan_sweep"] / (N24_WARM + N24_TIMED)
+
+    # -- [24 examples] ---------------------------------------------------------------------------------------
+    a13 = load_arrays()
+    meta = metadata(a13)
+    mols = [mol_from_smiles(str(s), add_hs=True, name=str(nm)) for s, nm in zip(meta["smiles"], meta["names"])]
+    for mol, key in zip(mols, ("conf_a", "conf_b")):
+        mol.set_conf(np.asarray(meta[key]))
+    names = [str(nm) for nm in meta["names"]]
+    workdir = tempfile.mkdtemp(prefix="chip_smoke24_")
+    sdf = os.path.join(workdir, "ligands.sdf")
+    write_sdf(mols, sdf)
+    added = Counter()
+
+    # water_sampling_mc at 4.0 nm: over the 4,096-atom line, the rowscan kernel every step. By JAX's rule it takes
+    # the masked row's form, not the main form: the host term keeps w (get_context's rule), and the preshift image
+    # bound fails in a 4.0 nm box (as dot's does at the RBFE leg's 4.03 nm)
+    (mc_ctx, occ), forms_mc, _, _ = run_example(dev, smi, "water_sampling_mc", ex_mc.main, N24_MC)
+    n_mc = mc_ctx.get_x_t().shape[0]
+    steps_mc = int(N24_MC[N24_MC.index("--n_iterations") + 1]) * int(N24_MC[N24_MC.index("--md_steps_per_batch") + 1])
+    check(n_mc > 4096 and dict(forms_mc) == {MASKED_F: steps_mc} and bool(np.isfinite(mc_ctx.get_x_t()).all())
+          and len(occ) == 3, "[24] water_sampling_mc did not launch the masked rowscan form once a step or is not finite")
+    masked_row["launches_water_sampling_mc"] = forms_mc[MASKED_F] / steps_mc
+
+    # run_rbfe_legs and relative_free_energy: the host pre-equilibration and bisection cut, the legs in this process
+    restore = [(minimizer24, "pre_equilibrate_host", minimizer24.pre_equilibrate_host),
+               (ex_legs, "HREXParams", ex_legs.HREXParams), (ex_legs, "DevicePoolClient", ex_legs.DevicePoolClient),
+               (ex_legs, "run_solvent", ex_legs.run_solvent), (ex_rfe, "run_solvent", ex_rfe.run_solvent)]
+    minimizer24.pre_equilibrate_host = partial(minimizer24.pre_equilibrate_host, minimizer_steps_per_window=N24_FIRE,
+                                               equilibration_steps=N24_NPT)
+    # at the script's --target_overlap the schedule is rebalanced, which raises (ROADMAP R8)
+    ex_legs.HREXParams = lambda **kw: HREXParams(**{**kw, "n_frames_bisection": N24_BISECTION,
+                                                     "optimize_target_overlap": None})
+    ex_legs.DevicePoolClient = lambda n_devices: SerialClient()
+    solvent_leg = {}
+
+    def record_solvent(mol_a, mol_b, core, ff, host, md_params, **kw):
+        solvent_leg["call"] = (mol_a.name, mol_b.name, np.asarray(core), md_params, kw.get("n_windows"))
+        solvent_leg["out"] = restore[3][2](mol_a, mol_b, core, ff, host, md_params, **kw)
+        return solvent_leg["out"]
+
+    def replay_solvent(mol_a, mol_b, core, ff, host, md_params=None, n_windows=None, device=None):
+        names_a, names_b, core_legs, md_legs, n_legs = solvent_leg["call"]
+        same = (mol_a.name, mol_b.name, n_windows) == (names_a, names_b, n_legs) and np.array_equal(core, core_legs)
+        same = same and all(getattr(md_params, k) == getattr(md_legs, k)
+                            for k in ("n_frames", "n_eq_steps", "steps_per_frame", "seed"))
+        check(same, "[24] relative_free_energy asked for another solvent leg than run_rbfe_legs ran")
+        return solvent_leg["out"]
+
+    ex_legs.run_solvent = record_solvent
+    ex_rfe.run_solvent = replay_solvent
+    clock = StageClock(sync)
+    for module, attr, stage in ((minimizer24, "fire_minimize_host", "fire"), (minimizer24, "pre_equilibrate_host", "npt"),
+                                (rbfe24, "optimize_coords_state", "minimize"), (rbfe24, "run_sims_bisection", "bisection"),
+                                (rbfe24, "run_sims_hrex", "hrex")):
+        clock.wrap(module, attr, stage)
+    try:
+        out_legs = os.path.join(workdir, "legs")
+        legs, _, counts_legs, _ = run_example(
+            dev, smi, "run_rbfe_legs", ex_legs.main,
+            ["--sdf_path", sdf, "--mol_a", names[0], "--mol_b", names[1], *N24_LEGS, "--output_dir", out_legs], added, clock)
+        stages_legs = clock.by_stage() + "; seconds " + ", ".join(f"{k} {v:.1f}" for k, v in clock.sec.items())
+        stage_forms_legs = dict(clock.forms)
+        out_rfe = os.path.join(workdir, "rfe")
+        rfe, forms_rfe, _, _ = run_example(
+            dev, smi, "relative_free_energy", ex_rfe.main,
+            ["--ligands", sdf, "--mol_a_name", names[0], "--mol_b_name", names[1], "--protein", "unused.pdb",
+             *N24_RFE, "--output_dir", out_rfe])
+    finally:
+        clock.restore()
+        for module, attr, fn in restore:
+            setattr(module, attr, fn)
+    print(f"[24 examples] run_rbfe_legs launches by stage and form: {stages_legs} ({smi})")
+    files_legs = sorted(os.path.relpath(os.path.join(d, f), out_legs) for d, _, fs in os.walk(out_legs) for f in fs)
+    print(f"[24 examples] run_rbfe_legs wrote {files_legs} ({smi})")
+    check(len(legs) == 2 and all(np.isfinite(v) for leg in legs for v in leg), "[24] run_rbfe_legs's ΔG not finite")
+    check({"vacuum/results.npz", "solvent/results.npz", "solvent/lambda1_traj.npz"} <= set(files_legs),
+          "[24] run_rbfe_legs did not write JAX's files")
+    res_rfe = rfe["solvent"]
+    n_cif = len([f for f in os.listdir(out_rfe) if f.startswith("solvent_traj_") and f.endswith(".cif")])
+    check(res_rfe is solvent_leg["out"][0] and not forms_rfe and n_cif == len(res_rfe.frames)
+          and bool(np.isfinite(res_rfe.final_result.dGs).all()),
+          "[24] relative_free_energy did not write a CIF a window of run_rbfe_legs's solvent leg, or launched a kernel")
+    check(counts_legs["nb_tiles"] > 0 and counts_legs["rowscan_sweep"] > 0, "[24] run_rbfe_legs did not launch nb_tiles and rowscan")
+    for stage in ("fire", "minimize"):
+        in_stage = {f: k for (st, f), k in stage_forms_legs.items() if st == stage and k}
+        check(in_stage.get(EXACT_UF, 0) > 0 and set(in_stage) == {EXACT_UF},
+              f"[24] run_rbfe_legs's {stage} stage is not on nb_tiles' exact F+U form alone")
+    check(stage_forms_legs.get(("npt", MASKED_F), 0) > 0, "[24] run_rbfe_legs's host NPT did not launch the masked form")
+    check(any(st == "hrex" and f.startswith("batched") and k for (st, f), k in stage_forms_legs.items()),
+          "[24] run_rbfe_legs's HREX did not launch the batched form")
+    masked = added[MASKED_F]
+    batched = sum(k for f, k in added.items() if f.startswith("batched"))
+    exact = added[EXACT_UF]
+    check(masked > 0 and batched > 0 and exact > 0,
+          "[24] the solvent legs did not launch the masked, batched and exact F+U forms")
+    masked_row["launches_examples"], batched_row["launches_examples"], exact_row["launches_examples"] = masked, batched, exact
+
+    print(f"[24 time] phase 24 took {time.perf_counter() - t_phase24:.1f} s, host clock ({smi})")
+
+
+def run_example(dev, smi, label, main_fn, argv, added=None, clock=None):
+    """An example's main(argv) on `dev` with every count zeroed just before
+    it: its printed lines (prefixed), seconds and launches by form. With
+    `added`, its launches by form are added there; with a StageClock, the
+    launches outside its stages go under "setup"."""
+    import contextlib
+    import io
+
+    import torch
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    zero_counts()
+    before = form_launches()
+    buf = io.StringIO()
+    t_start = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = main_fn([*argv, "--device", dev.type])
+    sync()
+    sec = time.perf_counter() - t_start
+    counts, plain = read_counts()
+    forms = form_launches() - before
+    if added is not None:
+        added.update(forms)
+    if clock is not None:
+        for form, k in forms.items():
+            clock.forms["setup", form] += k
+    for line in buf.getvalue().splitlines():
+        if line.strip():
+            print(f"[24 examples] {label} | {line}")
+    print(f"[24 examples] {label}: {sec:.1f} s host clock; launches {counts}, plain calls {plain}; by form "
+          f"{dict(sorted(forms.items()))} ({smi})")
+    check(plain == 0, f"[24] {label} ran a plain sweep")
+    return out, forms, counts, sec
+
+
+def phase24_dense(dev, smi):
+    """Phase 24's two examples at JAX's sizes below 4,096 atoms, in the
+    worker (they read nothing of this process's phases):
+    biphenyl_torsion_sampling_hrex twice, its rerun bitwise, and
+    water_sampling_hrex at 3.0 nm; no kernel launches there (JAX's dense
+    form)."""
+    import numpy as np
+
+    from timemachine_torch.examples import biphenyl_torsion_sampling_hrex as ex_biphenyl
+    from timemachine_torch.examples import water_sampling_hrex as ex_water_hrex
+
+    t_start = time.perf_counter()
+    # the two examples at JAX's sizes, below 4,096 atoms: the dense form on the card, no kernel. Biphenyl's
+    # equilibration is cut, and its rerun takes the first run's embedded molecule
+    restore = [(ex_biphenyl, "MDParams", ex_biphenyl.MDParams), (ex_biphenyl, "get_biphenyl", ex_biphenyl.get_biphenyl)]
+    biphenyl = ex_biphenyl.get_biphenyl()
+    ex_biphenyl.MDParams = lambda **kw: restore[0][2](**{**kw, "n_eq_steps": N24_BIPHENYL_EQ})
+    ex_biphenyl.get_biphenyl = lambda: biphenyl
+    try:
+        first_b, _, counts_b, _ = run_example(dev, smi, "biphenyl_torsion_sampling_hrex", ex_biphenyl.main, N24_BIPHENYL)
+        again_b, _, _, _ = run_example(dev, smi, "biphenyl_torsion_sampling_hrex (rerun)", ex_biphenyl.main, N24_BIPHENYL)
+    finally:
+        for module, attr, fn in restore:
+            setattr(module, attr, fn)
+    same_b = bool(np.array_equal(first_b[0].dGs, again_b[0].dGs)) and all(
+        np.array_equal(np.asarray(a.frames), np.asarray(b.frames)) for a, b in zip(first_b[1], again_b[1]))
+    print(f"[24 examples] biphenyl_torsion_sampling_hrex rerun: ΔG and every state's frames bitwise {same_b} ({smi})")
+    check(same_b and bool(np.isfinite(first_b[0].dGs).all()), "[24] biphenyl's rerun differs or its ΔG is not finite")
+    water_hrex, _, counts_w, _ = run_example(dev, smi, "water_sampling_hrex", ex_water_hrex.main, N24_WATER_HREX)
+    n_w = water_hrex[1][0].frames[0].shape[0]
+    check(bool(np.isfinite(water_hrex[0].dGs).all()) and n_w < 4096, "[24] water_sampling_hrex's ΔG not finite")
+    check(sum(counts_b.values()) == 0 and sum(counts_w.values()) == 0,
+          "[24] an example below 4,096 atoms launched a kernel (JAX's dense form there)")
+    print(f"[24 time] phase 24's dense examples took {time.perf_counter() - t_start:.1f} s in the worker, host clock ({smi})")
+
+
 def _waters_inside(x, box, ligand_idxs, water_idxs, radius) -> int:
     """Waters whose centroid lies within radius of the ligand's centroid (the sampler's inner region)."""
     import numpy as np
@@ -2816,19 +3246,19 @@ def finish_worker(proc, handoff: str) -> dict:
     except subprocess.TimeoutExpired:
         rc = None
     dump_worker_logs(handoff)
-    print(f"[worker] ended with code {rc}, {time.perf_counter() - t0:.1f} s after phase 18 (host clock)")
+    print(f"[worker] ended with code {rc}, {time.perf_counter() - t0:.1f} s after phase 24, the last before it in this process (host clock)")
     check(rc == 0, f"[worker] phases 16, 19, 21 and 22 failed or outlasted {WORKER_WAIT_S} s (code {rc})")
     return take_handoff(handoff, "added", lambda: False)
 
 
 def worker(handoff: str, exact_ms: float) -> int:
-    """Phases 16, 19, 21 and 22, as main() runs them in a second process: hands phase 16's inputs to main()
+    """Phases 16, 19, 21 and 22 and phase 24's dense examples, as main() runs them in a second process: hands phase 16's inputs to main()
     for phase 18, and what the phases add to the kernels line's rows and the estimators' plots back at its
     end. Every count it reads is its own process's, zeroed by each phase just before its path runs."""
     import torch
 
     from timemachine_torch.ops import _build
-    from timemachine_torch.testsystems.dhfr import setup_dhfr
+    from timemachine_torch.testsystems.dhfr import setup_dhfr_native
 
     parent = os.getppid()
     ctypes.CDLL(None, use_errno=True).prctl(1, 15)  # PR_SET_PDEATHSIG, SIGTERM: end with main()
@@ -2843,11 +3273,12 @@ def worker(handoff: str, exact_ms: float) -> int:
     put_handoff(handoff, "inputs16", inputs16)
     rows["exact"].update(launches=launches16["nb_tiles"], launches_by_stage_run_solvent=exact16)
     phase19(dev, smi, zero_counts, read_counts, rows["masked"], rows["exact"])
-    hc = setup_dhfr(waters_first=True, device=dev, dtype=torch.float32)
+    hc = setup_dhfr_native(waters_first=True, device=dev, dtype=torch.float32)
     rows["exact"]["ms"] = exact_ms  # phase 21 prints its chain's sweep against phase 17's
     phase21(dev, smi, zero_counts, read_counts, rows["exact"], inputs16, host16, hc)
     del rows["exact"]["ms"]
     phase22(dev, smi, zero_counts, read_counts, rows["masked"], rows["batched"], rows["exact"], inputs16)
+    phase24_dense(dev, smi)
     put_handoff(handoff, "added", {"rows": rows, "plots": PLOTS_SEEN})
     return 0
 
@@ -2885,7 +3316,7 @@ def main() -> int:
     from timemachine_torch.probes import fp32_peak as fp
     from timemachine_torch.probes import queued_ms
     from timemachine_torch.probes import tile_census as tc
-    from timemachine_torch.testsystems.dhfr import setup_dhfr
+    from timemachine_torch.testsystems.dhfr import setup_dhfr_native
     from timemachine_torch.ff.handlers import AM1ELF10_CHARGE_CACHE, GASTEIGER_CHARGE_CACHE
     from timemachine_torch.probes.am1_host import blas_kernels
     from timemachine_torch.testsystems.rbfe_solvent import build_differences, build_rbfe_solvent, load_rbfe_solvent, term_differences
@@ -2925,7 +3356,7 @@ def main() -> int:
     phase_time("1-2")
 
     # -- 3. kernel vs plain at DHFR shapes -------------------------------------------
-    hc = setup_dhfr(waters_first=True, device=dev, dtype=f32)
+    hc = setup_dhfr_native(waters_first=True, device=dev, dtype=f32)
     bps = hc.host_system.get_U_fns()
     nb = hc.host_system.nonbonded_all_pairs
     x0 = torch.as_tensor(hc.conf, device=dev, dtype=f32)
@@ -3065,7 +3496,7 @@ def main() -> int:
           f"{main_rel:.3e} (tol {TOL_ALT_FORCE:g}; {smi})")
     check(main_rel <= TOL_ALT_FORCE, "the main form's MD force disagrees with the symmetric form's")
 
-    hc_cpu = setup_dhfr(waters_first=True, device="cpu", dtype=f32)
+    hc_cpu = setup_dhfr_native(waters_first=True, device="cpu", dtype=f32)
     hc_cpu.host_system.nonbonded_all_pairs.configure(box.cpu(), x0.cpu(), rowscan_has_w=has_w)
     f_card = sum(p.energy_force(x0, box)[1] for p in bps)
     f_host = sum(p.energy_force(x0.cpu(), box.cpu())[1] for p in hc_cpu.host_system.get_U_fns())
@@ -3350,7 +3781,7 @@ def main() -> int:
     phase_time("7")
 
     # -- 8. the kernel="v1" path --------------------------------------------------------
-    hc8 = setup_dhfr(waters_first=True, device=dev, dtype=f32)
+    hc8 = setup_dhfr_native(waters_first=True, device=dev, dtype=f32)
     bps8 = hc8.host_system.get_U_fns()
     nb8 = hc8.host_system.nonbonded_all_pairs.configure(box, x_min, kernel="v1")
     f_v1 = nb8.energy_force(x_min, box)[1]
@@ -3397,7 +3828,7 @@ def main() -> int:
     def alt_config(tag, kernel):
         """DHFR configured as `kernel` at the minimized start, and its net
         nonbonded force against the rowscan configuration's."""
-        hc_k = setup_dhfr(waters_first=True, device=dev, dtype=f32)
+        hc_k = setup_dhfr_native(waters_first=True, device=dev, dtype=f32)
         nb_k = hc_k.host_system.nonbonded_all_pairs.configure(box, x_min, kernel=kernel)
         check(nb_k.kernel == kernel, f"[{tag}] DHFR configured as {nb_k.kernel!r}, not {kernel!r}")
         f_k = nb_k.energy_force(x_min, box)[1]
@@ -4356,7 +4787,7 @@ def main() -> int:
           f"nm, hilbert {margins17['hilbert']:.4f} nm (must exceed 0.1): kernel=\"dot\" takes "
           f"{forms17['dot'].kernel!r}, as JAX's configure_pallas does ({smi})")
     check(max(margins17.values()) <= 0.1, "[17] dot's image bound holds at window 0: the dot form should run there")
-    hc17 = setup_dhfr(waters_first=True, device=dev, dtype=f32)
+    hc17 = setup_dhfr_native(waters_first=True, device=dev, dtype=f32)
     bps17 = hc17.host_system.get_U_fns()
     nb_i17 = next(i for i, p in enumerate(bps17) if isinstance(p, Nonbonded))
     nb_d = bps17[nb_i17]
@@ -4528,6 +4959,9 @@ def main() -> int:
     inputs16 = take_handoff(handoff, "inputs16", lambda: worker_proc.poll() is None)
     phase18(dev, smi, zero_counts, read_counts, masked_row, batched_row, states15, states13, float(np.sum(result14.dGs)),
             inputs16)
+
+    # -- 24. the reset's seed, the DHFR-size water box, the prefactors and the examples (while the worker ends) --
+    phase24(dev, smi, zero_counts, read_counts, kernel_row, masked_row, batched_row, rows17[0], states13)
 
     # the worker's output, and what its phases add to the rows and the plots seen
     added = finish_worker(worker_proc, handoff)

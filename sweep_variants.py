@@ -74,9 +74,9 @@ def dhfr_start(dev):
     """(conf, params, box) of the DHFR start, f32 on dev."""
     import torch
 
-    from timemachine_torch.testsystems.dhfr import setup_dhfr
+    from timemachine_torch.testsystems.dhfr import setup_dhfr_native
 
-    hc = setup_dhfr(waters_first=True, device=dev, dtype=torch.float32)
+    hc = setup_dhfr_native(waters_first=True, device=dev, dtype=torch.float32)
     nb = hc.host_system.nonbonded_all_pairs
     conf = torch.as_tensor(hc.conf, device=dev, dtype=torch.float32)
     return conf, nb, torch.as_tensor(hc.box, device=dev, dtype=torch.float32)

@@ -84,9 +84,9 @@ def test_kernel_matches_plain(cuda, mode):
 
 
 def test_kernel_matches_plain_dhfr(cuda):
-    from timemachine_torch.testsystems.dhfr import setup_dhfr
+    from timemachine_torch.testsystems.dhfr import setup_dhfr_native
 
-    hc = setup_dhfr(device=cuda, dtype=torch.float32)
+    hc = setup_dhfr_native(waters_first=True, device=cuda, dtype=torch.float32)
     conf = torch.as_tensor(hc.conf, device=cuda, dtype=torch.float32)
     box = torch.as_tensor(hc.box, device=cuda, dtype=torch.float32)
     args = _sweep_args(conf, hc.host_system.nonbonded_all_pairs.params, box)
@@ -447,9 +447,9 @@ SWEEPS = {
 
 
 def _dhfr(device):
-    from timemachine_torch.testsystems.dhfr import setup_dhfr
+    from timemachine_torch.testsystems.dhfr import setup_dhfr_native
 
-    hc = setup_dhfr(device=device, dtype=torch.float32)
+    hc = setup_dhfr_native(waters_first=True, device=device, dtype=torch.float32)
     conf = torch.as_tensor(hc.conf, device=device, dtype=torch.float32)
     box = torch.as_tensor(hc.box, device=device, dtype=torch.float32)
     return conf, hc.host_system.nonbonded_all_pairs.params, box
@@ -855,9 +855,9 @@ def test_bf16_rate_wrapper_rejects_what_the_kernel_cannot_take(cuda):
 
 
 def test_tile_census_on_the_card_equals_its_cpu_run(cuda):
-    from timemachine_torch.testsystems.dhfr import setup_dhfr
+    from timemachine_torch.testsystems.dhfr import setup_dhfr_native
 
-    hc = setup_dhfr(waters_first=True, device="cpu")
+    hc = setup_dhfr_native(waters_first=True, device="cpu")
     assert tc.tile_census(hc.conf, hc.box, cuda) == tc.tile_census(hc.conf, hc.box, "cpu")
 
 

@@ -21,7 +21,7 @@ from timemachine_torch.fe import reweighting as trw
 from timemachine_torch.ops import nonbonded_kernel as nbk
 from timemachine_torch.ops import rowscan_kernel as rs
 from timemachine_torch.potentials import NonbondedAllPairs
-from timemachine_torch.testsystems.dhfr import setup_dhfr
+from timemachine_torch.testsystems.dhfr import setup_dhfr_native
 from timemachine_tpu import constants as jconst
 from timemachine_tpu import potentials as jpot
 from timemachine_tpu.fe import loss as jloss
@@ -47,7 +47,7 @@ def _rel(a, b):
 def test_bonded_du_dp_matches_jax(term, cls):
     """f64 on the DHFR arrays: autograd of the port's energy against
     jax.grad(pot, argnums=1), to 1e-10 relative norm."""
-    cfg = setup_dhfr(device="cpu")
+    cfg = setup_dhfr_native(waters_first=True, device="cpu")
     pot = getattr(cfg.host_system, term)
     p = pot.params.clone().requires_grad_(True)
     x, box = torch.as_tensor(cfg.conf), torch.as_tensor(cfg.box)

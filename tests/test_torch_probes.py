@@ -36,7 +36,7 @@ from timemachine_torch.ops import nonbonded_kernel as nbk
 from timemachine_torch.probes import bf16_rate as br
 from timemachine_torch.probes import fp32_peak as fp
 from timemachine_torch.probes import tile_census as tc
-from timemachine_torch.testsystems.dhfr import setup_dhfr
+from timemachine_torch.testsystems.dhfr import setup_dhfr_native
 
 torch.set_num_threads(1)  # the suite's workers share the host's cores
 
@@ -234,7 +234,7 @@ def test_tile_census_matches_the_script_on_dhfr(monkeypatch, capsys):
     _, script = _scripts(monkeypatch)
     script.probe_census()
     printed = capsys.readouterr().out
-    hc = setup_dhfr(waters_first=True, device="cpu")
+    hc = setup_dhfr_native(waters_first=True, device="cpu")
     c = tc.tile_census(hc.conf, hc.box, "cpu")
     assert (c.built, c.chopped, c.empty) == (24523, 22889, 7531)
     assert printed == (

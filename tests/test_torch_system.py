@@ -6,6 +6,7 @@ terms on the full DHFR arrays, and the rule that the port never imports JAX.
 import ast
 import subprocess
 import sys
+import warnings
 from pathlib import Path
 
 import jax
@@ -17,7 +18,7 @@ import torch
 from timemachine_torch.convert import host_config_from_jax
 from timemachine_torch.fe.model_utils import apply_hmr
 from timemachine_torch.md import utils as tutils
-from timemachine_torch.testsystems.dhfr import setup_dhfr
+from timemachine_torch.testsystems.dhfr import setup_dhfr, setup_dhfr_native as torch_setup_dhfr_native
 from timemachine_tpu.fe import model_utils as jmodel_utils
 from timemachine_tpu.md import utils as jutils
 from timemachine_tpu.md.builders import build_water_system
@@ -28,7 +29,7 @@ torch.set_num_threads(1)  # the suite's workers share the host's cores
 
 @pytest.fixture(scope="module")
 def dhfr():
-    return setup_dhfr_native(waters_first=True), setup_dhfr(waters_first=True, device="cpu")
+    return setup_dhfr_native(waters_first=True), torch_setup_dhfr_native(waters_first=True, device="cpu")
 
 
 def test_dhfr_loader_matches_jax(dhfr):
@@ -163,7 +164,22 @@ def _default_device_constructions():
     from timemachine_torch.ops.segment import SegmentSum
     from timemachine_torch.testsystems import rbfe_solvent
 
+    from timemachine_torch.examples import water_sampling_mc as water_mc
+    from timemachine_torch.fe import system as fe_system
+
     x = np.zeros((3, 3))
+
+    def biphenyl_state():
+        from timemachine_torch.chem import mol_from_smiles
+        from timemachine_torch.examples.biphenyl_torsion_sampling_hrex import make_state
+        from timemachine_torch.ff import Forcefield
+
+        mol = mol_from_smiles("Fc1cccc(F)c1-c1ccccc1F")
+        mol.set_conf(np.random.default_rng(0).uniform(0.0, 0.5, (mol.num_atoms, 3)))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            state = make_state(mol, Forcefield.load_default(), 0.0, 10.0, 1)
+        return [b for p in state.potentials for b in p.buffers()]
 
     def barostat_move():
         baro = MonteCarloBarostat(3, 1.0, 300.0, [[0, 1, 2]], 25)
@@ -296,7 +312,14 @@ def _default_device_constructions():
         "VacuumState": vacuum_state,
         "multiple_steps_local": local_md,
         "build_rbfe_solvent(rest_params=)": build_rest,
-        "setup_dhfr": lambda: [b for p in setup_dhfr().host_system.get_U_fns() for b in p.buffers()],
+        "setup_dhfr": lambda: [b for p in setup_dhfr()[0] for b in p.buffers()],
+        "setup_dhfr_native": lambda: [b for p in torch_setup_dhfr_native().host_system.get_U_fns() for b in p.buffers()],
+        "minimize_scipy": lambda: _factory_tensors(lambda: fe_system.minimize_scipy(lambda y: (y * y).sum(), x + 1.0)),
+        "simulate_system": lambda: _factory_tensors(lambda: fe_system.simulate_system(
+            lambda y: (y * y).sum(), x, num_samples=1, steps_per_batch=1, num_workers=1, minimize=False)),
+        "examples.biphenyl_torsion_sampling_hrex.make_state": biphenyl_state,
+        "examples.water_sampling_mc": lambda: [t for t in (lambda c: [c._x, c._v])(water_mc.main(
+            ["--box_width", "2.5", "--n_iterations", "0"])[0])],
         "Context": lambda: [Context(x, x, 3.0 * np.eye(3), LangevinIntegrator(300.0, 1e-3, 1.0, np.ones(3), 0), [])._x],
         "SegmentSum": lambda: list(SegmentSum([0, 1, 1], 2).buffers()),
         "MonteCarloBarostat": barostat_move,
@@ -322,6 +345,8 @@ def _default_device_constructions():
         "integrator.LangevinIntegrator", "integrator.VelocityVerletIntegrator", "simulate", "local_resampling_move",
         "TerminalBondMap", "equilibrate_host_barker", "DemoEnergies", "HilbertSort", "Neighborlist", "SegmentedSumExp",
         "SegmentedWeightedRandomSampler", "NonbondedMolEnergy", "CentroidRestraint", "FanoutSummedPotential",
+        "setup_dhfr_native", "minimize_scipy", "simulate_system", "examples.biphenyl_torsion_sampling_hrex.make_state",
+        "examples.water_sampling_mc",
     ],
 )
 def test_default_device_is_the_card(entry):

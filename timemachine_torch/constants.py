@@ -10,11 +10,17 @@ AVOGADRO = 6.0221367e23  # 1/mol
 RGAS = BOLTZMANN * AVOGADRO  # J/(mol K)
 BOLTZ = RGAS / 1000.0  # kJ/(mol K)
 ONE_4PI_EPS0 = 138.935456  # Coulomb constant, kJ nm / (mol e^2)
+VIBRATIONAL_CONSTANT = 1302.79  # conversion for Hessian eigenvalues -> cm^-1
 KCAL_TO_KJ = 4.184
 
 # default thermodynamic ensemble
 DEFAULT_TEMP = 300.0  # K
 DEFAULT_PRESSURE = 1.013  # bar
+DEFAULT_KT = BOLTZ * DEFAULT_TEMP  # kJ/mol
+
+# unit conversions
+BAR_TO_KJ_PER_NM3 = 1e-25  # kJ/nm^3 per bar (divided by Avogadro in barostat)
+KCAL_TO_DEFAULT_KT = KCAL_TO_KJ / DEFAULT_KT
 
 # default force fields
 DEFAULT_FF = "smirnoff_2_0_0_ccc"
@@ -41,6 +47,12 @@ MAX_SEED_VALUE = 10000
 MD_DT = 2.5e-3
 MD_FRICTION = 1.0
 BAROSTAT_INTERVAL = 25
+
+# MD integration defaults under JAX's names
+DEFAULT_DT = MD_DT  # ps, with HMR
+DEFAULT_FRICTION = MD_FRICTION  # 1/ps
+DEFAULT_BAROSTAT_INTERVAL = BAROSTAT_INTERVAL
+DEFAULT_HMR_SCALE = 2.0
 
 # atom mapping defaults
 DEFAULT_ATOM_MAPPING_KWARGS: dict[str, Any] = {

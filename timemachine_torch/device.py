@@ -1,6 +1,6 @@
 """The port's default device: the CUDA card.
 
-Entry points (Context, setup_dhfr, HostSystem.from_arrays, the potentials,
+Entry points (Context, setup_dhfr_native, HostSystem.from_arrays, the potentials,
 the barostat, SegmentSum) take `device=None` to mean the card. On a machine
 without one, building a tensor there raises as torch raises; nothing falls
 back to the CPU. Tests and host-side tools ask for the CPU by name.

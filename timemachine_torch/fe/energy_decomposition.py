@@ -11,12 +11,14 @@ which the BAR estimate takes as +inf.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Sequence
+from typing import Callable, Sequence, TypeVar
 
 import numpy as np
 import torch
 
 from timemachine_torch.constants import BOLTZ, DEFAULT_TEMP
+
+Frames = TypeVar("Frames")
 
 
 @dataclass

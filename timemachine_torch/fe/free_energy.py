@@ -54,8 +54,11 @@ from timemachine_torch.potentials import (
     NonbondedAllPairs,
     NonbondedInteractionGroup,
     all_pairs_kernel,
+    get_potential_by_type,
 )
 from timemachine_torch.utils import batches
+
+InterpolationFxnName = str
 
 
 @dataclass(frozen=True)
@@ -65,7 +68,7 @@ class RESTParams:
     (fe/rest/single_topology.py)."""
 
     max_temperature_scale: float
-    temperature_scale_interpolation: str = "exponential"
+    temperature_scale_interpolation: InterpolationFxnName = "exponential"
 
 
 @dataclass(frozen=True)
@@ -415,13 +418,6 @@ class AbsoluteFreeEnergy(BaseFreeEnergy):
         if host_values is None:
             return ligand_values
         return np.concatenate([host_values, ligand_values])
-
-
-def get_potential_by_type(potentials: Sequence, pot_type):
-    for pot in potentials:
-        if type(pot) is pot_type:
-            return pot
-    raise ValueError(f"Unable to find potential of type: {pot_type}")
 
 
 def assert_deep_eq(obj1, obj2, custom_assertion=lambda path, x1, x2: False):

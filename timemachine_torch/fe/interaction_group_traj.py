@@ -22,6 +22,7 @@ import torch
 from timemachine_torch.ops import nonbonded
 from timemachine_torch.ops.pbc import distance_sq
 
+Position = np.ndarray
 PairFxn = Callable
 
 _TRAJ_FIELDS = ("xs_lig", "xs_env", "box_diags", "cutoff", "selected_env_idxs", "ligand_idxs")

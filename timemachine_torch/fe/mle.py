@@ -18,6 +18,10 @@ import numpy as np
 
 from timemachine_torch.graph_utils import Graph, connected_components, graph_from_bonds
 
+# the graph type the front end reads: the port's Graph, or any object with
+# nodes(), edges() and subscripted edge data (a networkx DiGraph included)
+NxDiGraph = Graph
+
 MIN_EDGE_STDDEV = 1e-3
 
 

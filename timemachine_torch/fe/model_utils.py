@@ -32,6 +32,19 @@ def apply_hmr(masses, bond_list, multiplier=2):
     return masses
 
 
+def verify_chiral_validity_of_core(mol_a, mol_b, core, ff):
+    """Raise ValueError when the core maps a chiral center of mol_a onto one
+    of mol_b's with the opposite chirality."""
+    from timemachine_torch.fe import chiral_utils
+    from timemachine_torch.fe.utils import get_romol_conf
+
+    chiral_set_a = chiral_utils.ChiralRestrIdxSet.from_mol(mol_a, get_romol_conf(mol_a))
+    chiral_set_b = chiral_utils.ChiralRestrIdxSet.from_mol(mol_b, get_romol_conf(mol_b))
+    conflicts = chiral_utils.find_atom_map_chiral_conflicts(np.asarray(core), chiral_set_a, chiral_set_b)
+    if conflicts:
+        raise ValueError(f"core has chiral conflicts: {conflicts}")
+
+
 def get_vacuum_val_and_grad_fn(mol, ff, device=None):
     """coords (numpy) -> (U, dU/dx) of mol's end-state potentials in vacuum,
     float64 (md/minimizer.py get_val_and_grad_fn over BaseTopology's end

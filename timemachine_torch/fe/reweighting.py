@@ -14,6 +14,10 @@ from typing import Callable, Collection
 import numpy as np
 import torch
 
+Samples = Collection
+Params = Collection
+BatchedReducedPotentialFxn = Callable
+
 __all__ = [
     "construct_endpoint_reweighting_estimator",
     "construct_mixture_reweighting_estimator",

@@ -4,11 +4,13 @@ and of the HostConfig of timemachine_tpu/md/builders.py).
 
 A system is an ordered bag of potentials, one per field; `get_U_fns` lists
 them in field order, leaving out the chiral bond restraints, which the JAX
-package ships disabled.
+package ships disabled. `minimize_scipy` and `simulate_system` minimize and
+sample a torch energy function of the coordinates, for estimator tests.
 """
 
 from __future__ import annotations
 
+from abc import ABC
 from dataclasses import dataclass, fields
 
 import numpy as np
@@ -26,13 +28,99 @@ from timemachine_torch.potentials import (
     PeriodicTorsion,
 )
 
+def minimize_scipy(U_fn, x0, return_traj=False, seed=2024, method="BFGS", device=None):
+    """scipy minimization of a torch energy function U_fn(x) over flattened
+    coordinates, its gradient by autograd in float64 on `device` (None: the
+    card); numpy out. method="basinhopping" runs scipy's stochastic global
+    search from `seed`."""
+    import scipy.optimize
+
+    device = resolve_device(device)
+    shape = tuple(np.shape(x0))
+    unflatten = lambda flat: flat.reshape(*shape)
+
+    def fun(flat):
+        x = torch.tensor(flat, dtype=torch.float64, device=device).reshape(shape).requires_grad_(True)
+        u = U_fn(x)
+        (g,) = torch.autograd.grad(u, x)
+        return float(u.detach()), g.detach().cpu().numpy().reshape(-1)
+
+    traj = []
+    kwargs = dict(jac=True, callback=lambda flat: traj.append(unflatten(flat)))
+    flat0 = np.asarray(x0, dtype=np.float64).reshape(-1)
+    if method == "basinhopping":
+        res = scipy.optimize.basinhopping(fun, flat0, minimizer_kwargs=kwargs, seed=seed)
+    else:
+        res = scipy.optimize.minimize(fun, flat0, method=method, **kwargs)
+    return traj if return_traj else unflatten(res.x)
+
+
+def _walker_noise(generator: torch.Generator, shape, dtype):
+    """One step's normals for every walker, (W, N, 3)."""
+    return torch.randn(shape, generator=generator, dtype=dtype, device=generator.device)
+
+
+def simulate_system(U_fn, x0, num_samples=20000, steps_per_batch=500, num_workers=None, minimize=True, temperature=300.0,
+                    device=None):
+    """Vacuum Langevin samples of U_fn(x) for estimator tests: num_workers
+    walkers (default 8) stepped together on `device` (None: the card), their
+    forces by autograd of the walkers' summed energy, their noise drawn from
+    one torch.Generator where JAX splits keys (ROADMAP P38). Each walker
+    keeps one frame a batch of steps_per_batch steps after a tenth of its
+    batches of burn-in; (num_samples, N, 3) numpy, walker-major."""
+    from timemachine_torch.integrators import langevin_coefficients
+
+    device = resolve_device(device)
+    num_atoms = x0.shape[0]
+    seed = 2023
+    x_min = minimize_scipy(U_fn, x0, seed=seed, device=device) if minimize else np.asarray(x0)
+
+    num_workers = num_workers or 8
+    samples_per_worker = int(np.ceil(num_samples / num_workers))
+    burn_in = samples_per_worker // 10 + 1
+
+    dt = 1.5e-3
+    masses = np.ones(num_atoms) * 4.0
+    ca, cb, cc = langevin_coefficients(temperature, dt, 1.0, masses)
+    cb = torch.tensor(cb[:, None], dtype=torch.float64, device=device)
+    cc = torch.tensor(cc[:, None], dtype=torch.float64, device=device)
+    generator = torch.Generator(device).manual_seed(seed)
+
+    x = torch.tensor(np.asarray(x_min, dtype=np.float64), device=device).expand(num_workers, num_atoms, 3).clone()
+    v = torch.zeros_like(x)
+    frames = []
+    for batch in range(samples_per_worker + burn_in):
+        for _ in range(steps_per_batch):
+            xg = x.detach().requires_grad_(True)
+            (grad,) = torch.autograd.grad(torch.func.vmap(U_fn)(xg).sum(), xg)
+            noise = _walker_noise(generator, x.shape, x.dtype)
+            v_mid = v - cb * grad
+            v2 = ca * v_mid + cc * noise
+            x = x + 0.5 * dt * (v_mid + v2)
+            v = v2
+        if batch >= burn_in:
+            frames.append(x.detach())
+    frames = torch.stack(frames, dim=1).cpu().numpy().reshape(-1, num_atoms, 3)[:num_samples]
+    assert len(frames) == num_samples
+    return frames
+
+
 _INACTIVE_TERMS = frozenset({"chiral_bond"})
 
 
-class _System:
+@dataclass
+class AbstractSystem(ABC):
+    """A system is an ordered bag of potentials, one per dataclass field;
+    subclasses differ only in which term families they carry."""
+
     def get_U_fns(self) -> list:
         """The potentials in field order, without the inactive chiral bond term."""
         return [getattr(self, f.name) for f in fields(self) if f.name not in _INACTIVE_TERMS]
+
+    def get_U_fn(self):
+        """x -> the vacuum energy summed over get_U_fns()."""
+        bound = self.get_U_fns()
+        return lambda x: sum(m.energy(x, None) for m in bound)
 
 
 def _valence_terms(a: dict, n: int, kw: dict) -> dict:
@@ -56,7 +144,7 @@ def _guest_terms(a: dict, n: int, kw: dict) -> dict:
 
 
 @dataclass
-class HostSystem(_System):
+class HostSystem(AbstractSystem):
     bond: HarmonicBond
     angle: HarmonicAngle
     proper: PeriodicTorsion
@@ -79,7 +167,7 @@ class HostSystem(_System):
 
 
 @dataclass
-class GuestSystem(_System):
+class GuestSystem(AbstractSystem):
     """A ligand alone (the vacuum leg's system)."""
 
     bond: HarmonicBond
@@ -99,7 +187,7 @@ class GuestSystem(_System):
 
 
 @dataclass
-class HostGuestSystem(_System):
+class HostGuestSystem(AbstractSystem):
     """One alchemical window of a ligand in its host: the combined valence
     terms, the ligand's chiral restraints and intramolecular pairs, the
     host-only all-pairs term (an atom subset) and the ligand x environment

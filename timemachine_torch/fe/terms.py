@@ -21,8 +21,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from timemachine_torch.convert import host_guest_arrays
-from timemachine_torch.fe.system import GuestSystem, HostGuestSystem
 from timemachine_torch.ff.handlers import as_f64
 
 
@@ -31,47 +29,59 @@ class BoundPotential:
     potential: object
     params: torch.Tensor
 
+    def __call__(self, conf, box):
+        """The energy at (conf, box), by the port's module of this potential
+        on conf's device and in its dtype."""
+        if isinstance(self.potential, SummedPotential):
+            return self.potential(conf, self.params, box)
+        from timemachine_torch.convert import modules_from_bound_potentials
 
-class _Potential:
+        module = modules_from_bound_potentials([self], conf.shape[0], device=conf.device, dtype=conf.dtype)[0]
+        return module.energy(conf, box)
+
+
+class Potential:
+    """Base class of the builders' potentials (JAX's potentials.Potential)."""
+
     def bind(self, params) -> BoundPotential:
         return BoundPotential(self, as_f64(params))
 
 
 @dataclass(eq=False)
-class HarmonicBond(_Potential):
+class HarmonicBond(Potential):
     idxs: np.ndarray
 
 
 @dataclass(eq=False)
-class HarmonicAngle(_Potential):
+class HarmonicAngle(Potential):
     idxs: np.ndarray
 
 
 @dataclass(eq=False)
-class PeriodicTorsion(_Potential):
+class PeriodicTorsion(Potential):
     idxs: np.ndarray
 
 
 @dataclass(eq=False)
-class ChiralAtomRestraint(_Potential):
+class ChiralAtomRestraint(Potential):
     idxs: np.ndarray
 
 
 @dataclass(eq=False)
-class ChiralBondRestraint(_Potential):
+class ChiralBondRestraint(Potential):
     idxs: np.ndarray
     signs: np.ndarray
 
 
 @dataclass(eq=False)
-class NonbondedPairListPrecomputed(_Potential):
+class NonbondedPairListPrecomputed(Potential):
     idxs: np.ndarray
     beta: float
     cutoff: float
 
 
 @dataclass(eq=False)
-class Nonbonded(_Potential):
+class Nonbonded(Potential):
     num_atoms: int
     exclusion_idxs: np.ndarray
     scale_factors: np.ndarray
@@ -81,7 +91,7 @@ class Nonbonded(_Potential):
 
 
 @dataclass(eq=False)
-class NonbondedInteractionGroup(_Potential):
+class NonbondedInteractionGroup(Potential):
     num_atoms: int
     row_atom_idxs: np.ndarray
     beta: float
@@ -90,7 +100,7 @@ class NonbondedInteractionGroup(_Potential):
 
 
 @dataclass(eq=False)
-class SummedPotential(_Potential):
+class SummedPotential(Potential):
     """Several potentials over one flat parameter vector, the concatenation
     of each one's raveled parameters (HostGuestTopology's nonbonded term)."""
 
@@ -163,6 +173,9 @@ class GuestTerms(_Terms):
 
     def to_system(self, num_atoms: int, device=None, dtype=torch.float64):
         """The port's GuestSystem over `num_atoms` atoms on `device` (None: the card)."""
+        from timemachine_torch.convert import host_guest_arrays
+        from timemachine_torch.fe.system import GuestSystem
+
         a = host_guest_arrays([getattr(self, f.name) for f in fields(self)])
         return GuestSystem.from_arrays(a, num_atoms, device=device, dtype=dtype)
 
@@ -181,8 +194,12 @@ class HostGuestTerms(_Terms):
 
     def arrays(self) -> dict:
         """Numpy arrays under HostGuestSystem.from_arrays' keys."""
+        from timemachine_torch.convert import host_guest_arrays
+
         return host_guest_arrays(self)
 
     def to_system(self, device=None, dtype=torch.float64):
         """The port's HostGuestSystem on `device` (None: the card)."""
+        from timemachine_torch.fe.system import HostGuestSystem
+
         return HostGuestSystem.from_arrays(self.arrays(), device=device, dtype=dtype)

@@ -306,3 +306,64 @@ def max_cardinality_matching(g: Graph) -> set:
             match[end], match[pv] = pv, end
             end = ppv
     return {(nodes[i], nodes[j]) for i, j in enumerate(match) if j > i}
+
+
+# Adjacency-list helpers (the JAX package's own graph_utils API)
+
+
+def mol_adjacency(mol) -> list[list[int]]:
+    """Adjacency list of a chem.Mol's bond graph, indexed by atom index."""
+    adj: list[list[int]] = [[] for _ in range(mol.num_atoms)]
+    for b in mol.bonds:
+        adj[b.src].append(b.dst)
+        adj[b.dst].append(b.src)
+    return adj
+
+
+def adjacency_from_bonds(n_nodes: int, bond_idxs: Iterable[Sequence[int]]) -> list[list[int]]:
+    """Adjacency list from an iterable of (src, dst) edges."""
+    adj: list[list[int]] = [[] for _ in range(n_nodes)]
+    for i, j in bond_idxs:
+        adj[int(i)].append(int(j))
+        adj[int(j)].append(int(i))
+    return adj
+
+
+def simple_paths_from(adj: Sequence[Sequence[int]], start: int, n_nodes: int) -> list[tuple[int, ...]]:
+    """Simple (no repeated node) paths of exactly `n_nodes` nodes starting at
+    `start`, via an explicit DFS stack."""
+    found: list[tuple[int, ...]] = []
+    stack: list[tuple[int, ...]] = [(start,)]
+    while stack:
+        path = stack.pop()
+        if len(path) == n_nodes:
+            found.append(path)
+            continue
+        tail = path[-1]
+        for nb in adj[tail]:
+            if nb not in path:
+                stack.append(path + (nb,))
+    return found
+
+
+def simple_paths(adj: Sequence[Sequence[int]], n_nodes: int) -> list[tuple[int, ...]]:
+    """All simple paths of exactly `n_nodes` nodes, from every start node."""
+    out: list[tuple[int, ...]] = []
+    for start in range(len(adj)):
+        out.extend(simple_paths_from(adj, start, n_nodes))
+    return out
+
+
+def connected_component(adj: Sequence[Sequence[int]], seed: int) -> set[int]:
+    """Nodes reachable from `seed` (BFS)."""
+    seen = {seed}
+    frontier = [seed]
+    while frontier:
+        nxt = []
+        for node in frontier:
+            for nb in adj[node]:
+                if nb not in seen:
+                    seen.add(nb)
+                    nxt.append(nb)
+        frontier = nxt
+    return seen

@@ -7,6 +7,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
+import torch
 
 from timemachine_torch.constants import BOLTZ
 
@@ -70,3 +71,16 @@ class VelocityVerletIntegrator:
         cb = self.dt / np.asarray(self.masses, dtype=np.float64)
         cb = np.where(np.isfinite(cb), cb, 0.0)[:, None]
         return 1.0, cb, np.zeros_like(cb)
+
+
+def _standard_normals(generator: torch.Generator, shape, dtype):
+    return torch.randn(shape, generator=generator, dtype=dtype, device=generator.device)
+
+
+def sample_velocities(masses, temperature, generator: torch.Generator, dtype=torch.float64):
+    """Maxwell-Boltzmann velocities, (N, 3) on the generator's device: the
+    normals are drawn from `generator` where JAX's function takes a key
+    (ROADMAP P38)."""
+    m = torch.as_tensor(np.asarray(masses, dtype=np.float64), dtype=dtype, device=generator.device)
+    sigma = torch.sqrt(BOLTZ * temperature / m)[:, None]
+    return sigma * _standard_normals(generator, (len(m), 3), dtype)

@@ -280,6 +280,10 @@ def build_water_system_from_pdb(water_pdb) -> HostConfig:
     return HostConfig(system, conf, structure.box.copy(), 3 * n_waters, topology, masses)
 
 
+def strip_units(coords):
+    return np.asarray(coords)
+
+
 def build_protein_system(host_pdbfile, protein_ff: str, water_ff: str, mols=None, box_margin: float = 0.0) -> HostConfig:
     """Solvated protein system with ~1 nm padding (ref md/builders.py:197-313),
     built natively: the PDB (a path or raw text) perceived by chem/pdb.py,

@@ -132,7 +132,7 @@ class Context:
             pot.params.copy_(torch.as_tensor(p))
         self._prov_states = None
 
-    def reset_for_state(self, initial_state):
+    def reset_for_state(self, initial_state, seed: Optional[int] = None):
         """Point this Context at another compatible InitialState: swap x, v,
         box and every parameter, restart the step count, reseed the noise
         from the state's integrator seed, and rebuild every mover's state,
@@ -140,18 +140,26 @@ class Context:
         water sampler's from the seed get_context derives from the state's
         integrator seed. The run that follows is the one a fresh Context of
         the state would take, but for the water sampler's parameters, which
-        restart from the mover's own, as JAX's do (ROADMAP R11)."""
+        restart from the mover's own, as JAX's do (ROADMAP R11).
+
+        With `seed`, all three streams are reseeded from it as a state built
+        with integrator seed `seed` seeds them (ROADMAP P38): the noise from
+        seed, the barostat from seed + 1, the water sampler from
+        water_sampler_seed(seed)."""
         self.set_x_t(initial_state.x0)
         self.set_v_t(initial_state.v0)
         self.set_box(initial_state.box0)
         self.set_params([pot.params for pot in initial_state.potentials])
         self._step = 0
-        self._noise.manual_seed(getattr(initial_state.integrator, "seed", 0))
+        integrator_seed = getattr(initial_state.integrator, "seed", 0) if seed is None else seed
+        self._noise.manual_seed(integrator_seed)
         for i, m in enumerate(self.movers):
-            if isinstance(m, MonteCarloBarostat) and initial_state.barostat is not None:
+            if isinstance(m, MonteCarloBarostat) and seed is not None:
+                self.movers[i] = replace(m, seed=seed + 1)
+            elif isinstance(m, MonteCarloBarostat) and initial_state.barostat is not None:
                 self.movers[i] = replace(m, seed=initial_state.barostat.seed)
             elif isinstance(m, TIBDExchangeMove):
-                self.movers[i] = m.reseeded(getattr(initial_state.integrator, "seed", 0))
+                self.movers[i] = m.reseeded(integrator_seed)
         self._mover_states = [m.init_state(self.device, self._x.dtype) for m in self.movers]
         return self
 

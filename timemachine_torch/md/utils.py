@@ -7,6 +7,18 @@ import numpy as np
 from timemachine_torch.constants import BOLTZ
 
 
+def compute_box_volume(box) -> float:
+    assert box.shape == (3, 3)
+    return float(np.linalg.det(box))
+
+
+def compute_box_center(box) -> np.ndarray:
+    box = np.asarray(box)
+    assert box.shape == (3, 3)
+    assert not np.any(box - np.diag(np.diagonal(box))), "expected an axis-aligned box"
+    return 0.5 * np.diagonal(box).copy()
+
+
 def get_bond_list(harmonic_bond_potential) -> list[tuple[int, int]]:
     """Topology read off a harmonic-bond potential's indices (every valence
     bond is assumed to be there)."""
@@ -38,6 +50,13 @@ def get_group_indices(bond_list, num_atoms: int) -> list[np.ndarray]:
     sorted_labels = labels[order]
     starts = np.flatnonzero(np.r_[True, sorted_labels[1:] != sorted_labels[:-1]])
     return [np.array(chunk) for chunk in np.split(order, starts[1:])]
+
+
+def compute_intramolecular_distances(coords, group_indices):
+    """Condensed pairwise distances within each group."""
+    from scipy.spatial.distance import pdist
+
+    return [pdist(coords[inds]) for inds in group_indices]
 
 
 def sample_velocities(masses, temperature: float, seed: int) -> np.ndarray:

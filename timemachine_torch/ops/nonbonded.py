@@ -54,6 +54,58 @@ def lennard_jones(dij, sig_ij, eps_ij):
     return 4.0 * eps_ij * (sig6 * sig6 - sig6)
 
 
+def direct_space_pme(dij, qij, beta):
+    """q_ij erfc(beta d) / d, the real-space Ewald term."""
+    return qij * torch.special.erfc(beta * dij) / dij
+
+
+def validate_coulomb_cutoff(cutoff=1.0, beta=2.0, threshold=1e-2):
+    import warnings
+
+    tail = float(math.erfc(beta * cutoff))
+    if tail > threshold:
+        warnings.warn(f"erfc(beta * cutoff) = {tail} > threshold = {threshold}")
+
+
+def exclusions_to_rescale_masks(exclusion_idxs, scale_factors, n):
+    """Dense (N, N) multiplicative masks from the exclusion list, 1 - scale:
+    column 0 of scale_factors scales charge, column 1 LJ. Host-side."""
+    charge_mask = np.ones((n, n))
+    lj_mask = np.ones((n, n))
+    for (i, j), (q_scale, lj_scale) in zip(np.asarray(exclusion_idxs), np.asarray(scale_factors)):
+        charge_mask[i, j] = charge_mask[j, i] = 1.0 - q_scale
+        lj_mask[i, j] = lj_mask[j, i] = 1.0 - lj_scale
+    return charge_mask, lj_mask
+
+
+def filter_exclusions(atom_idxs, exclusion_idxs, scale_factors, update_idxs=False):
+    """Drop exclusions touching atoms outside atom_idxs; with update_idxs,
+    renumber the rest into atom_idxs' order. Host-side."""
+    keep = set(int(a) for a in atom_idxs)
+    remap = {int(j): i for i, j in enumerate(atom_idxs)}
+    out_idxs, out_scales = [], []
+    for (i, j), sf in zip(np.asarray(exclusion_idxs), np.asarray(scale_factors)):
+        i, j = int(i), int(j)
+        if i not in keep or j not in keep:
+            continue
+        if update_idxs:
+            i, j = remap[i], remap[j]
+        out_idxs.append((i, j))
+        out_scales.append(sf)
+    out_idxs_arr = np.array(out_idxs, dtype=np.int32).reshape(-1, 2)
+    n_cols = np.asarray(scale_factors).reshape(len(scale_factors), -1).shape[1] if len(scale_factors) else 2
+    out_scales_arr = np.array(out_scales, dtype=np.float64).reshape(-1, n_cols)
+    return out_idxs_arr, out_scales_arr
+
+
+def validate_interaction_group_idxs(n_atoms, a_idxs, b_idxs):
+    a, b = set(map(int, a_idxs)), set(map(int, b_idxs))
+    ab = a | b
+    assert a.isdisjoint(b)
+    assert max(ab) < n_atoms and min(ab) >= 0
+    assert len(a_idxs) == len(a) and len(b_idxs) == len(b)
+
+
 def switched_direct_space_pme(dij, qij, beta):
     return qij * torch.special.erfc(beta * dij) / dij * switch_fn(dij)
 
@@ -513,3 +565,73 @@ class DenseAllPairs:
         if self.act is not None:
             grad = conf.new_zeros(conf.shape).index_copy(0, self.act, grad)
         return u, -grad
+
+
+# The ligand-environment interaction group as dot products in the ligand's
+# parameters (the linear-basis expansion), so that frames can be rescored for
+# new ligand charges or LJ parameters without revisiting the environment. The
+# ligand's coordinates may carry leading frame axes, (..., N_lig, 3) against
+# (..., N_env, 3) and a box (..., 3, 3): every (ligand, environment) distance
+# of a frame is taken at once.
+
+
+def _ligand_env_distances(x_ligand, x_env, box, cutoff):
+    """(..., N_lig, N_env) minimum-image distances, +inf beyond cutoff."""
+    diff = x_ligand[..., :, None, :] - x_env[..., None, :, :]
+    if box is not None:
+        box_diag = torch.diagonal(box, dim1=-2, dim2=-1)[..., None, None, :]
+        diff = diff - box_diag * torch.floor(diff / box_diag + 0.5)
+    d2 = torch.sum(diff * diff, dim=-1)
+    return torch.where(d2 <= cutoff**2, torch.sqrt(d2), torch.inf)
+
+
+def coulomb_prefactors_on_snapshot(x_ligand, x_env, q_env, box=None, beta=2.0, cutoff=float("inf")):
+    """(..., N_lig): prefactor_i = sum_j q_j erfc(beta d_ij) switch(d_ij) / d_ij."""
+    d = _ligand_env_distances(x_ligand, x_env, box, cutoff)
+    return torch.sum(q_env[..., None, :] / d * torch.special.erfc(beta * d) * switch_fn(d), dim=-1)
+
+
+def coulomb_interaction_group_energy(q_ligand, q_prefactors):
+    return q_prefactors @ q_ligand
+
+
+def _lj_basis_powers(power):
+    from scipy.special import binom
+
+    exponents = power - np.arange(power + 1)
+    return exponents, binom(power, exponents)
+
+
+def basis_expand_lj_env(sig_env, eps_env, r_env):
+    """(..., 20) basis vector summarizing the environment for the linear-basis
+    LJ expansion; r_env (..., N_env) and sig_env, eps_env (..., N_env) give
+    one vector per leading index."""
+    parts = []
+    for power, sign in ((12, 1.0), (6, -1.0)):
+        exps, coeffs = _lj_basis_powers(power)
+        exps = torch.as_tensor(exps, dtype=sig_env.dtype, device=sig_env.device)
+        coeffs = torch.as_tensor(coeffs, dtype=sig_env.dtype, device=sig_env.device)
+        raised = sig_env[..., None, :] ** exps[:, None] * coeffs[:, None] * eps_env[..., None, :]
+        h = 4.0 * torch.einsum("...j,...kj->...k", r_env ** (-power), raised)
+        parts.append(sign * h)
+    return torch.cat(parts, dim=-1)
+
+
+def basis_expand_lj_atom(sig, eps):
+    """(..., 20) projection of each atom's (sigma, eps) onto the basis."""
+    sig = torch.as_tensor(sig)
+    exponents = torch.cat([torch.arange(13.0), torch.arange(7.0)]).to(sig.dtype).to(sig.device)
+    return torch.as_tensor(eps)[..., None] * sig[..., None] ** exponents
+
+
+def lj_prefactors_on_snapshot(x_ligand, x_env, sig_env, eps_env, box=None, cutoff=float("inf")):
+    """(..., N_lig, 20) environment prefactors."""
+    r = _ligand_env_distances(x_ligand, x_env, box, cutoff)
+    return basis_expand_lj_env(sig_env[..., None, :], eps_env[..., None, :], r)
+
+
+def lj_interaction_group_energy(sig_ligand, eps_ligand, lj_prefactors):
+    """sum over the ligand's atoms and the basis; leading frame axes of
+    lj_prefactors stay."""
+    projection = basis_expand_lj_atom(sig_ligand, eps_ligand)
+    return torch.sum(projection * lj_prefactors, dim=(-2, -1))

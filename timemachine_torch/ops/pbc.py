@@ -6,6 +6,7 @@ Boxes are rectangular: only the diagonal of a (3, 3) box is used.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -36,6 +37,24 @@ def lifted_distance_on_pairs(ri, rj, box=None, w_offsets=None):
     return torch.sqrt(d2)
 
 
+def pairwise_distance_matrix(x, box=None, w=None):
+    """(N, N) periodic distances, lifted into 4D by w when given; the
+    diagonal and coincident points are exactly 0."""
+    n = x.shape[0]
+    d2 = distance_sq(x[:, None, :], x[None, :, :], box)
+    if w is not None:
+        dw = w[:, None] - w[None, :]
+        d2 = d2 + dw * dw
+    d2 = d2.masked_fill(torch.eye(n, dtype=torch.bool, device=x.device), 0.0)
+    return torch.sqrt(d2)
+
+
+def distances_from_point(x_i, x_others, box=None, cutoff=float("inf")):
+    """Distances from one point to a set; entries beyond cutoff become +inf."""
+    d2 = distance_sq(x_i, x_others, box)
+    return torch.where(d2 <= cutoff**2, torch.sqrt(d2), torch.inf)
+
+
 def idxs_within_cutoff(x, x_lig, box, cutoff: float = 0.5):
     """Indices (numpy int64, ascending) of the rows of x within `cutoff` of
     any point of x_lig under the minimum image, as JAX's idxs_within_cutoff;
@@ -45,6 +64,19 @@ def idxs_within_cutoff(x, x_lig, box, cutoff: float = 0.5):
     for point in x_lig:
         near |= distance(point, x, box) < cutoff
     return torch.nonzero(near).squeeze(1).cpu().numpy()
+
+
+def all_pairs_idxs(n: int) -> np.ndarray:
+    """All (i, j) with i < j, host-side."""
+    return np.stack(np.triu_indices(n, k=1)).T.astype(np.int32)
+
+
+def interaction_group_idxs(group_a, group_b) -> np.ndarray:
+    """Cartesian product pairs (a, b), host-side."""
+    a = np.asarray(group_a)
+    b = np.asarray(group_b)
+    pairs = np.stack(np.meshgrid(a, b, indexing="ij")).reshape(2, -1).T
+    return pairs.astype(np.int32)
 
 
 def image_molecules(x, box, mol_groups):

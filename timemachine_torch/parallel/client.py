@@ -106,6 +106,10 @@ def get_device_count() -> int:
     return torch.cuda.device_count()
 
 
+# the reference's name for the device pool
+CUDAPoolClient = DevicePoolClient
+
+
 class AbstractFileClient(ABC):
     @abstractmethod
     def store(self, path: str, data: bytes): ...

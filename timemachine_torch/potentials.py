@@ -17,11 +17,14 @@ stateful MD provider the Context uses (`md_force_provider`).
 
 from __future__ import annotations
 
+from typing import Optional, Sequence
+
 import numpy as np
 import torch
 from torch import nn
 
 from timemachine_torch.device import resolve_device
+from timemachine_torch.fe.terms import BoundPotential, Potential, SummedPotential, make_summed_potential  # noqa: F401
 from timemachine_torch.ops import bonded, chiral, nonbonded
 from timemachine_torch.ops import dotscan_kernel as dk
 from timemachine_torch.ops import gather_kernel as gk
@@ -403,6 +406,25 @@ class NonbondedAllPairs(nn.Module):
         self.h_coeffs = rs.es_energy_force_series(self.beta, self.cutoff)[0]
         self._energy = self._energy_force = self._ef64 = self._u = self._md = self._md_batched = None
         self.kernel = None
+
+    # the closures configure() makes; a term pickles (as the examples pickle
+    # their results) unconfigured, and configure() is called again after loading
+    _CONFIGURED = ("_energy", "_energy_force", "_ef64", "_u", "_md", "_md_batched")
+
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state.update(dict.fromkeys(self._CONFIGURED), kernel=None)
+        return state
+
+    def __deepcopy__(self, memo):
+        """A copy as configured as this term (deepcopy's default, which
+        __getstate__ would otherwise change): the closures are shared."""
+        import copy
+
+        new = type(self).__new__(type(self))
+        memo[id(self)] = new
+        new.__setstate__(copy.deepcopy(self.__dict__, memo))
+        return new
 
     def _dense_exclusions(self):
         """(exclusion_idxs, scale_factors) the dense form scales by 1 - scale: none here."""
@@ -798,3 +820,39 @@ class Nonbonded(NonbondedAllPairs):
             )
 
         return init, apply_fn, energy_fn, energy_ap, energy_with_params_fn
+
+
+# The builders' potentials (fe/terms.py) under JAX's module path: the
+# descriptors a builder binds, and the helpers over lists of them.
+
+Conf = torch.Tensor
+Params = torch.Tensor
+Box = Optional[torch.Tensor]
+
+def unflatten_params(params_flat, shapes):
+    sizes = [int(np.prod(s)) for s in shapes]
+    offsets = np.cumsum([0] + sizes)
+    return [params_flat[offsets[i] : offsets[i + 1]].reshape(shapes[i]) for i in range(len(shapes))]
+
+
+def get_potential_by_type(pots: Sequence, pot_type):
+    for pot in pots:
+        if isinstance(pot, pot_type):
+            return pot
+    raise ValueError(f"Unable to find potential of type: {pot_type}")
+
+
+def get_bound_potential_by_type(bps: Sequence[BoundPotential], pot_type):
+    for bp in bps:
+        if isinstance(bp.potential, pot_type):
+            return bp
+    raise ValueError(f"Unable to find potential of type: {pot_type}")
+
+
+def sum_potential_energies(bps: Sequence, conf, box):
+    """Total energy of a list of bound potentials: the builders' (each
+    evaluated by its module on conf's device) or the port's modules."""
+    total = 0.0
+    for bp in bps:
+        total = total + (bp.energy(conf, box) if isinstance(bp, nn.Module) else bp(conf, box))
+    return total

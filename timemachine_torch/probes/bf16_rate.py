@@ -256,7 +256,7 @@ def sass_loop_counts() -> dict:
 
 if __name__ == "__main__":
     from timemachine_torch.probes.tile_census import describe, tile_census
-    from timemachine_torch.testsystems.dhfr import setup_dhfr
+    from timemachine_torch.testsystems.dhfr import setup_dhfr_native
 
     a, b = inputs()
     card = torch.cuda.get_device_name(0)
@@ -274,5 +274,5 @@ if __name__ == "__main__":
     for name, loop in sass_loop_counts().items():
         print(f"SASS {name}: {loop.per_slot:.2f} instructions per slot-iteration ({sum(loop.body.values())} over "
               f"{loop.slots}), {loop.fused} fused multiply-adds: " + " ".join(f"{op} {c}" for op, c in sorted(loop.body.items())))
-    hc = setup_dhfr(waters_first=True)
+    hc = setup_dhfr_native(waters_first=True)
     print(f"tile census of the DHFR start: {describe(tile_census(hc.conf, hc.box))}")

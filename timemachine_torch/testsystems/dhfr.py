@@ -1,9 +1,11 @@
-"""Solvated DHFR (23,558 atoms), the apo-MD benchmark system
-(counterpart of timemachine_tpu/testsystems/dhfr.py setup_dhfr_native and
-of load_host_config / permute_host_config_atoms in md/builders.py).
+"""Solvated DHFR (23,558 atoms), the apo-MD benchmark system, and a pure
+water box of its size (counterpart of timemachine_tpu/testsystems/dhfr.py,
+and of load_host_config / permute_host_config_atoms in md/builders.py).
 
 Reads the parameterized arrays that ship with the JAX package
-(timemachine_tpu/testsystems/cache/dhfr_native.npz) with numpy alone.
+(timemachine_tpu/testsystems/cache/dhfr_native.npz) with numpy alone: the
+native build of the protein, which is also what JAX's setup_dhfr returns
+where OpenMM is absent (the port never uses OpenMM, ROADMAP P36).
 """
 
 from __future__ import annotations
@@ -56,12 +58,23 @@ def permute_host_arrays(a: dict, perm: np.ndarray) -> dict:
     return out
 
 
-def setup_dhfr(waters_first: bool = True, device=None, dtype=torch.float64, path=DHFR_NPZ) -> HostConfig:
-    """The DHFR HostConfig. waters_first=True puts the 7,023 waters ahead of
-    the protein, the apo-benchmark order. The potentials live on `device`
-    (None: the card). Molecule groups come from the bond
-    graph of the file's own atom order, renumbered like the atoms."""
-    a = load_host_arrays(path)
+def setup_dhfr(cutoff: float = 1.0, device=None, dtype=torch.float64):
+    """(host_fns, host_masses, host_coords, box) of solvated DHFR in the
+    file's atom order: the native build, as JAX's returns it without OpenMM
+    (cutoff is unused there too). The potentials live on `device` (None:
+    the card)."""
+    del cutoff
+    cfg = setup_dhfr_native(device=device, dtype=dtype)
+    return cfg.host_system.get_U_fns(), cfg.masses, cfg.conf, cfg.box
+
+
+def setup_dhfr_native(waters_first: bool = False, cache_path=DHFR_NPZ, device=None, dtype=torch.float64) -> HostConfig:
+    """The DHFR HostConfig from the shipped arrays at cache_path.
+    waters_first=True puts the 7,023 waters ahead of the protein, the
+    apo-benchmark order. The potentials live on `device` (None: the card).
+    Molecule groups come from the bond graph of the file's own atom order,
+    renumbered like the atoms."""
+    a = load_host_arrays(cache_path)
     n = a["conf"].shape[0]
     groups = get_group_indices([tuple(map(int, b)) for b in a["bond_idxs"]], n)
     if waters_first:
@@ -79,3 +92,12 @@ def setup_dhfr(waters_first: bool = True, device=None, dtype=torch.float64, path
         group_idxs=groups,
         masses=a["masses"],
     )
+
+
+def setup_dhfr_scale_waterbox(n_atoms_target: int = 23_000):
+    """A pure water box of about n_atoms_target atoms (DHFR's size by
+    default), built natively (md/builders.py's HostConfig)."""
+    from timemachine_torch.md import builders
+
+    box_width = (n_atoms_target / 3 / 33.3) ** (1 / 3)
+    return builders.build_water_system(box_width)

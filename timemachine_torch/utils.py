@@ -3,6 +3,7 @@ timemachine_tpu/utils.py)."""
 
 from __future__ import annotations
 
+from functools import reduce
 from itertools import repeat
 from typing import Iterator, Sequence
 
@@ -20,3 +21,8 @@ def batches(n: int, batch_size: int) -> Iterator[int]:
 def not_ragged(xss: Sequence[Sequence]) -> bool:
     """True when every row has the same length."""
     return len({len(xs) for xs in xss}) <= 1
+
+
+def pairwise_transform_and_combine(xs, transform, combine):
+    """Left-fold combine(acc, transform(x)) with xs[0] as the seed."""
+    return reduce(lambda acc, x: combine(acc, transform(x)), xs[1:], xs[0])

@@ -213,7 +213,14 @@ the ligand over the run's frames, its U and dU/dp on the card against the
 host CPU's float64; the frames through StoredArrays; a DevicePoolClient task
 launching the masked rowscan form in a spawned worker, bitwise this
 process's launch; whether matplotlib imports and the estimators' plots
-(None without it). The reset's seed, the DHFR-size water box, the
+(None without it). The sorted-state step [25] (every single-system Context
+above takes it where JAX's conditions hold, as JAX's default does; the
+canonical step runs with md/context.py SORTED_MD off): phase 4's relaxed
+DHFR (the main form) and phase 13's window 6 (the masked form), 100 steps
+of each step from one start, x, v and box bitwise; 500 DHFR steps of each
+in alternating rounds (ns/day, not gated) and the idle share; a step of
+each captured in a CUDA graph (kernels a step); the shared contribution
+plan's force on the card against the CPU's float64 (TOL_PLAN_REL). The reset's seed, the DHFR-size water box, the
 prefactor energies and the examples [24]: `Context.reset_for_state(window
 0, seed=)` twice over 100 NPT steps, bitwise, and another seed moving the
 noise's and the barostat's generators; `setup_dhfr_scale_waterbox()` (its
@@ -235,7 +242,7 @@ run in a second process (the worker: `chip_smoke.py --worker DIR T_START
 EXACT_MS`, started after phase 17) while this one runs phase 20, phase 18,
 which takes phase 16's embedded molecules from the worker, and phase 24;
 the worker's lines follow phase 24's, then its additions to the kernels
-line's rows, then phase 23. Each phase
+line's rows, then phase 23, then phase 25. Each phase
 prints its host seconds ("[N time]"), and the script its total up to the
 kernels line ("[time]").
 Every path runs with all launch and plain-call counts set to
@@ -250,7 +257,8 @@ also launches_ahfe_fire, launches_smc, launches_mtm, launches_barker
 and bound_ms_barker (phase 21's, per run and per launch); the masked,
 batched and exact masked rows launches_run_complex (phase 22's); the batched
 row launches_resume (phase 23's, per replica-step of the resumed HREX
-iterations); the main row launches_waterbox and launches_water_sampling_mc
+iterations); the main row launches_sorted (phase 25's, per DHFR step under
+the sorted-state step), launches_waterbox and launches_water_sampling_mc
 (per step of each), the masked, batched and exact masked rows
 launches_examples (phase 24's, per run of the examples); bound;
 plain time), the card's name and power limit from
@@ -3159,6 +3167,173 @@ def phase24_dense(dev, smi):
     print(f"[24 time] phase 24's dense examples took {time.perf_counter() - t_start:.1f} s in the worker, host clock ({smi})")
 
 
+# phase 25, the sorted-state step: the DHFR run and the RBFE window held
+# bitwise against the canonical step, the steps timed alternately, the
+# plan's force against the CPU's float64
+N25_BITWISE, N25_TIMED, N25_ROUNDS, N25_PROFILE, N25_WINDOW = 100, 500, 5, 20, 6
+TOL_PLAN_REL = 1e-5
+
+
+def phase25(dev, smi, zero_counts, read_counts, kernel_row, dhfr, states13):
+    """[25 dhfr] Two Contexts of phase 4's relaxed DHFR (the main form:
+    preshift, no w), one taking the sorted-state step (md/context.py
+    SORTED_MD, the default) and one the canonical step, N25_BITWISE NPT
+    steps each from the same start: x, v and box bitwise equal, the rowscan
+    launches of each (the sorted run's per step on the kernels line's main
+    row as launches_sorted). [25 time] N25_TIMED more steps of each in
+    N25_ROUNDS alternating rounds (host clock, ns/day; not gated: the step
+    is host-bound), and N25_PROFILE profiled steps of each for the device's
+    busy time and idle share. [25 launches] a step of each that neither
+    rebuilds nor moves the box, captured in a CUDA graph (its kernels,
+    memory sets and copies), and the aten operations a step dispatches.
+    [25 window] phase 13's window N25_WINDOW (the masked form: minimum
+    image, w) through get_context, sorted and canonical, N25_BITWISE steps
+    each, bitwise. [25 plan] the one contribution plan's assembled force at
+    the relaxed DHFR start (the bonded tails past the leading waters and the
+    exclusion tail) on the card in float32 against the same plan on the
+    host CPU in float64, within TOL_PLAN_REL of the latter's norm."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from timemachine_torch.fe.free_energy import MDParams, get_context
+    from timemachine_torch.md import context as context_module
+    from timemachine_torch.ops import nonbonded as nbops
+    from timemachine_torch.ops.assembly import assemble_forces, build_contrib_plan
+    from timemachine_torch.testsystems.dhfr import setup_dhfr_native
+
+    t_phase = time.perf_counter()
+    names = ("sorted", "canonical")
+
+    def built(make, sorted_md):
+        context_module.SORTED_MD = sorted_md
+        try:
+            ctx = make()
+        finally:
+            context_module.SORTED_MD = True
+        check((ctx._sorted_info is not None) == sorted_md, f"[25] a Context did not take the {names[not sorted_md]} step")
+        return ctx
+
+    def run_pair(make, label):
+        """Both steps from one start, N25_BITWISE steps each: (contexts, launches a step, bitwise)."""
+        ctxs, launches = {}, {}
+        for name in names:
+            zero_counts()
+            ctx = ctxs[name] = built(make, name == "sorted")
+            ctx.multiple_steps(N25_BITWISE)
+            torch.cuda.synchronize()
+            counts, plain = read_counts()
+            check(plain == 0 and counts["rowscan_sweep"] >= N25_BITWISE, f"[25] the {label} {name} run did not launch the rowscan kernel every step")
+            launches[name] = counts["rowscan_sweep"] / N25_BITWISE
+        a, b = ctxs["sorted"], ctxs["canonical"]
+        same = {k: bool(np.array_equal(getattr(a, f)(), getattr(b, f)())) for k, f in (("x", "get_x_t"), ("v", "get_v_t"), ("box", "get_box"))}
+        finite = bool(np.isfinite(a.get_x_t()).all())
+        moved = int(a.get_mover_states()[0].total_accepted)
+        print(f"[25 {label}] sorted vs canonical step, {N25_BITWISE} NPT steps from one start (rebuilds every 20, the "
+              f"barostat every {BAROSTAT_INTERVAL}, {moved} moves accepted): bitwise " + ", ".join(f"{k} {v}" for k, v in same.items())
+              + f"; finite {finite}; rowscan launches a step: sorted {launches['sorted']:.3f}, canonical "
+              f"{launches['canonical']:.3f} ({smi})")
+        check(all(same.values()) and finite, f"[25] the {label} sorted step is not bitwise the canonical step")
+        return ctxs, launches
+
+    # -- DHFR, the main form
+    ctxs, launches = run_pair(dhfr["make_context"], "dhfr")
+    nb_i = ctxs["sorted"]._sorted_info[0]
+    check(bool(ctxs["sorted"].potentials[nb_i].md_preshift), "[25] DHFR is not on the main form (preshift)")
+    kernel_row["launches_sorted"] = launches["sorted"]
+
+    seconds = dict.fromkeys(names, 0.0)
+    per_round = N25_TIMED // N25_ROUNDS
+    for r in range(N25_ROUNDS):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ctxs[name].multiple_steps(per_round)
+            torch.cuda.synchronize()
+            seconds[name] += time.perf_counter() - t0
+    step_ms = {k: v * 1e3 / N25_TIMED for k, v in seconds.items()}
+    busy = {}
+    for name in names:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ctxs[name].multiple_steps(N25_PROFILE)
+            torch.cuda.synchronize()
+        busy[name] = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA) / 1e3 / N25_PROFILE
+    print("[25 time] DHFR " + "; ".join(
+        f"{name} step {step_ms[name]:.4f} ms ({N25_TIMED * DT / 1000.0 / seconds[name] * 86_400.0:.2f} ns/day), device busy "
+        f"{busy[name]:.4f} ms/step, idle " + (f"{1 - busy[name] / step_ms[name]:.3f}" if busy[name] > 0 else "not measured")
+        for name in names) + f"; {N25_TIMED} steps each in {N25_ROUNDS} alternating rounds, host clock, {N25_PROFILE} "
+        f"profiled steps each; sorted / canonical step time {step_ms['sorted'] / step_ms['canonical']:.3f} ({smi})")
+
+    # two steps in a row that neither rebuild nor move the box (t % 20 != 0, (t + 1) % 25 != 0): the first
+    # counts the aten operations, the second is captured
+    for ctx in ctxs.values():
+        while ctx._step % 20 in (0, 19) or (ctx._step + 1) % BAROSTAT_INTERVAL in (0, 24):
+            ctx.multiple_steps(1)
+    steps = {}
+    sorted_ctx = ctxs["sorted"]
+    for name, ctx in ctxs.items():
+        if name == "sorted":
+            carry = sorted_ctx._to_sorted(sorted_ctx._x, sorted_ctx._v, sorted_ctx._prov_states[nb_i])
+
+            def one(carry=carry):
+                return sorted_ctx._sorted_step(carry)
+        else:
+            one = ctx._one_step
+        with torch.no_grad(), count_ops() as ops:
+            out = one()
+        torch.cuda.synchronize()
+        if name == "sorted":
+            carry = out
+
+            def one(carry=carry):
+                return sorted_ctx._sorted_step(carry)
+        with torch.no_grad():
+            nodes = graph_nodes(one, ctx._noise)  # the Context is left unusable
+        steps[name] = (nodes, ops.n)
+    print("[25 launches] DHFR, a step without a rebuild or a barostat move captured in a CUDA graph: " + "; ".join(
+        f"{name} {nodes[0]} kernels, {nodes[2]} memory sets, {nodes[1]} copies, {ops_n} aten operations dispatched"
+        for name, (nodes, ops_n) in steps.items()) + f" ({smi})")
+    check(all(n[0] > 0 for n, _ in steps.values()), "[25] a captured step launched no kernel")
+
+    # -- the RBFE window, the masked form
+    md = MDParams(n_frames=1, n_eq_steps=0, steps_per_frame=1, seed=2023)
+    wctxs, wlaunches = run_pair(lambda: get_context(states13[N25_WINDOW], md), f"window {N25_WINDOW}")
+    wnb = wctxs["sorted"].potentials[wctxs["sorted"]._sorted_info[0]]
+    check(wnb.atom_mask is not None and not wnb.md_preshift, "[25] the window is not on the masked form")
+
+    # -- the plan's force: the card's float32 against the CPU's float64
+    x, box = dhfr["x_min"], dhfr["box"]
+    ctx = built(dhfr["make_context"], True)
+    contribs = []
+    with torch.no_grad():
+        for i, fn in ctx._contrib_entries:
+            contribs.extend(fn(x, ctx.potentials[i].params, box)[0])
+        f_card = assemble_forces(ctx._plan, contribs)
+    f64 = torch.float64
+    pots64 = setup_dhfr_native(waters_first=True, device="cpu", dtype=f64).host_system.get_U_fns()
+    x64, box64 = x.cpu().to(f64), box.cpu().to(f64)
+    groups, contribs64 = [], []
+    for term in pots64[:4]:
+        g, fn = term.force_contribs()
+        groups += g
+        contribs64 += fn(x64, term.params, box64)[0]
+    nb64 = pots64[4]
+    _, (f_l, f_r) = nbops.specific_pairs_force_contribs(
+        x64, nb64.params, box64, nb64.tail_idxs, nb64.beta, nb64.cutoff, nb64.tail_scales, nb64.h_coeffs
+    )
+    groups.append(nb64.tail_idxs.numpy())
+    contribs64.append([-f_l, -f_r])
+    plan64 = build_contrib_plan(groups, x64.shape[0], device="cpu")
+    check(np.array_equal(plan64.perm, ctx._plan.perm), "[25] the card's plan is not the CPU's")
+    f_ref = assemble_forces(plan64, contribs64)
+    plan_rel = float(torch.linalg.vector_norm(f_card.cpu().to(f64) - f_ref) / torch.linalg.vector_norm(f_ref))
+    print(f"[25 plan] the plan's assembled force at the relaxed DHFR start ({len(groups)} groups, {plan64.perm.shape[0]} "
+          f"contributions): card float32 vs CPU float64 |diff| / |force| {plan_rel:.3e} (tol {TOL_PLAN_REL:g}) ({smi})")
+    check(plan_rel <= TOL_PLAN_REL, "[25] the card's plan force disagrees with the CPU's float64")
+    print(f"[25 time] phase 25 took {time.perf_counter() - t_phase:.1f} s, host clock ({smi})")
+
+
 def _waters_inside(x, box, ligand_idxs, water_idxs, radius) -> int:
     """Waters whose centroid lies within radius of the ligand's centroid (the sampler's inner region)."""
     import numpy as np
@@ -4972,6 +5147,10 @@ def main() -> int:
 
     # -- 23. HREX checkpoint and resume, frames on disk, the client, the interaction group, the plots ------
     phase23(dev, smi, zero_counts, read_counts, batched_row, make_runner, ladder20, states13, args13)
+
+    # -- 25. the sorted-state step against the canonical step, on DHFR and an RBFE window --------------
+    phase25(dev, smi, zero_counts, read_counts, kernel_row, dict(make_context=make_context, x_min=x_min, box=box),
+            states13)
 
     print(f"[time] the script took {time.perf_counter() - T_START:.1f} s up to its kernels line, host clock ({smi})")
     print(json.dumps({"kernels": [kernel_row, masked_row, batched_row, nb_row, gather_row, quad_row, dot_row, *probe_rows,

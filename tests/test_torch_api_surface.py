@@ -22,7 +22,6 @@ KERNEL_MODULE = "ROADMAP queue 2: a TPU kernel module, ported as a csrc/*.cu ker
 # JAX modules with no counterpart file
 MODULES_LEFT_OUT = {
     "ff/openmm_deserializer.py": "needs OpenMM, which neither machine has (ROADMAP P36)",
-    "ops/assembly.py": "ROADMAP item 4, the scatter-free force assembly",
     "parallel/hrex_sharded.py": "ROADMAP item 7, the mesh code",
     "parallel/spatial_md.py": "ROADMAP item 7, the mesh code",
     "ops/pallas/__init__.py": KERNEL_MODULE,
@@ -33,20 +32,8 @@ MODULES_LEFT_OUT = {
     "ops/pallas/rowscan_kernel.py": KERNEL_MODULE,
 }
 
-WATER_FAST_PATH = "ROADMAP item 5, the strided water lane-slice fast paths of the bonded terms"
-
 # public names of ported modules that the port does not hold
 NAMES_LEFT_OUT = {
-    "ops/bonded.py": {
-        "WATER_FAST_PATH": WATER_FAST_PATH,
-        "generic_angle_energy_force": WATER_FAST_PATH,
-        "generic_bond_energy_force": WATER_FAST_PATH,
-        "torsion_energy_force": WATER_FAST_PATH,
-        "water_angle_energy_force": WATER_FAST_PATH,
-        "water_bond_energy_force": WATER_FAST_PATH,
-    },
-    "ops/nonbonded.py": {"specific_pairs_force_contribs": "ROADMAP item 4, the scatter-free force assembly"},
-    "potentials.py": {"SortedNBInfo": "ROADMAP item 3, the sorted-state MD path"},
     "parallel/replica_exchange.py": {"make_replica_mesh": "ROADMAP item 7, the mesh code"},
     "md/fire.py": {"fire_minimize_jax": "a name that says JAX; the port's fire_minimize is its function"},
     "ff/handlers.py": {

@@ -1,4 +1,5 @@
-"""The CUDA kernels (rowscan, with its replica-batched masked form,
+"""The CUDA kernels (rowscan, with its replica-batched masked form and its
+sweep on the sorted-state step's pad-ordered coordinates,
 block-tile, gather, quadscan and dotscan sweeps, the FP32 and bf16 probes,
 the latter in both designs) against their plain PyTorch versions, and the
 tile census against its CPU run, on a card.
@@ -181,6 +182,48 @@ def test_provider_runs_on_the_kernel(cuda):
     assert bool(torch.isfinite(force).all()) and bool(torch.isfinite(u))
     assert rs.rowscan_sweep.launches == before_k + 2
     assert rs.rowscan_sweep_plain.calls == before_p
+
+
+@pytest.mark.parametrize("form", ["masked", "preshift"])
+def test_sorted_sweep_runs_on_the_kernel(cuda, form):
+    """The sorted-state step's sweep (make_rowscan_sorted_protocol) on
+    pad-ordered coordinates, in the masked form (minimum image, w, 9 atoms
+    out) and the main form (preshift, no w): one kernel launch and no plain
+    call; its force, un-sorted, bitwise the provider's apply; within TOL per
+    column of the plain sweep on the provider's rows."""
+    from timemachine_torch.ops import dotscan_kernel as dk
+
+    preshift = form == "preshift"
+    # the main form's image bound at cutoff + skin on the snake sort holds from a 6.8 nm box of this fluid
+    conf, params, box = _fluid(cuda, n_side=22 if preshift else 16, seed=3)
+    mask = None
+    if preshift:
+        params[:, 3] = 0.0
+        assert dk.dotscan_valid(conf, box, CUTOFF + 0.1)
+    else:
+        mask = torch.ones(conf.shape[0], dtype=torch.bool, device=cuda)
+        mask[:9] = False
+    init, apply, _, _ = rs.make_nonbonded_rowscan_md(
+        BETA, CUTOFF, max_pairs=10**6, preshift=preshift, has_w=not preshift, atom_mask=mask
+    )
+    proto = rs.make_rowscan_sorted_protocol(BETA, CUTOFF, 20, preshift=preshift, has_w=not preshift)
+    state = init(conf, params, box)
+    force, _ = apply(state, conf, params, box, 1)
+    po, inv = proto.pad_order(state), proto.inv(state)
+    before_k, before_p = rs.rowscan_sweep.launches, rs.rowscan_sweep_plain.calls
+    out = proto.sweep(state, conf[po], box)
+    assert rs.rowscan_sweep.launches == before_k + 1 and rs.rowscan_sweep_plain.calls == before_p
+    assert out.shape == (po.shape[0], 4) and torch.equal(-out[inv, 1:4], force)
+    t = state.lists
+    atoms = rs.assemble_atoms(conf, box, po, state.prows)
+    row_count = rs.chop_row_counts(atoms[:, :3], t.rank_mat, t.row_count, box, CUTOFF)
+    out_p = rs.rowscan_sweep_plain(
+        atoms, t.row_start, row_count, t.col_ids, rs.sweep_scalars(box, CUTOFF), rs.es_energy_force_series(BETA, CUTOFF),
+        rs.FORCE, True, t.rcen_q if preshift else None, not preshift,
+    )
+    torch.cuda.synchronize()
+    for col in range(1, 4):
+        assert _rel(out[:, col], out_p[:, col]) <= TOL
 
 
 # -- the replica-batched masked form (rowscan_sweep_batched) ------------------------

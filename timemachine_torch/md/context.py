@@ -9,9 +9,32 @@ device: the rebuild and mover schedules read the host's step counter, the
 barostat's accept and the list-overflow poison are torch.where on device,
 and the one host sync per call is the coordinate/box check at its end.
 
-Potentials with an `md_force_provider` (the nonbonded term) keep list
-state that is carried across calls, so how steps are split into calls does
-not change the trajectory; set_x_t, set_box and set_params drop it. The
+The step splits its potentials into JAX's four tiers once, when the
+Context is made: the stateful providers (the nonbonded term's
+`md_force_provider`, or its `md_force_provider_split`), one shared
+contribution plan for every irregular term list (the bonded terms' tails
+past the leading waters and the exclusion tail, `force_contribs`, summed per
+atom once by ops/assembly.py), the closed-form terms (`energy_force_fn`),
+and the rest, each by its closed-form energy_force (JAX's grad tier). A
+step's force is the providers' force plus `residual_force(x, box)`.
+
+Langevin steps take JAX's sorted-state path where JAX's conditions hold (no
+Verlet, one stateful provider, no mover that moves atoms nonlocally, and a
+provider with a sorted protocol: the rowscan sweep) and the module constant
+SORTED_MD is True when the Context is made: x, v and the per-atom
+integrator rows are carried in the provider's pad order, the sweep runs on
+them with no gather, and the rest of the force (the provider's canonical
+force, then `residual_force`) is computed at the un-sorted coordinates and
+gathered to pad order. A rebuild and a mover un-sort the carry, act and
+re-sort it; frames and the state left at the end are un-sorted. The sorted
+step is bitwise the canonical one: the same operands meet in the same
+order, the noise is drawn in canonical shape and gathered, and the wrap
+commutes with the gather (ROADMAP P39). Local MD and the Verlet path keep
+the canonical step.
+
+Providers keep list state that is carried across calls, so how steps are
+split into calls does not change the trajectory; set_x_t, set_box and
+set_params drop it. The
 Langevin noise and every mover draw from their own torch.Generator, seeded
 from the integrator's and the movers' seeds; reset_for_state reseeds them
 from the new state's, so a window run in a reused Context is the same
@@ -43,7 +66,12 @@ from timemachine_torch.device import resolve_device
 from timemachine_torch.integrators import LangevinIntegrator, VelocityVerletIntegrator, langevin_step
 from timemachine_torch.md.barostat import MonteCarloBarostat
 from timemachine_torch.md.exchange.targeted_insertion import TIBDExchangeMove
+from timemachine_torch.ops.assembly import assemble_forces, build_contrib_plan
 from timemachine_torch.ops.pbc import periodic_delta
+
+# Whether a Context takes the sorted-state step where JAX's conditions hold
+# (JAX's TM_SORTED_MD, default on); read when a Context is made.
+SORTED_MD = True
 
 
 class Context:
@@ -76,14 +104,56 @@ class Context:
         self._noise.manual_seed(getattr(integrator, "seed", 0))
         self._mover_states = [m.init_state(self.device, dtype) for m in self.movers]
         self._step = 0
+        self._prov_states = None
+        self._build_step()
+        self._move_fns = [self._make_move_fn(m) for m in self.movers]
+        self._local_md_temperature = None
+
+    def _build_step(self):
+        """Split the potentials into JAX's four tiers (md/context.py
+        _make_step_fn), build the one contribution plan, and decide the
+        sorted-state step under JAX's conditions."""
         self._providers = {}
+        self._contrib_entries, self._fused, self._grad = [], [], []
+        groups = []
         for i, pot in enumerate(self.potentials):
+            split_m = getattr(pot, "md_force_provider_split", None)
+            split = split_m() if split_m is not None else None
+            if split is not None:
+                self._providers[i], pot_groups, fn = split
+                groups.extend(pot_groups)
+                self._contrib_entries.append((i, fn))
+                continue
             md = getattr(pot, "md_force_provider", None)
             if md is not None:
                 self._providers[i] = md()
-        self._prov_states = None
-        self._move_fns = [self._make_move_fn(m) for m in self.movers]
-        self._local_md_temperature = None
+                continue
+            fc_m = getattr(pot, "force_contribs", None)
+            fc = fc_m() if fc_m is not None else None
+            if fc is not None:
+                pot_groups, fn = fc
+                groups.extend(pot_groups)
+                self._contrib_entries.append((i, fn))
+                continue
+            ef_m = getattr(pot, "energy_force_fn", None)
+            ef = ef_m() if ef_m is not None else None
+            if ef is not None:
+                self._fused.append((i, ef))
+            else:
+                self._grad.append(i)
+        self._plan = build_contrib_plan(groups, self._x.shape[0], self.device) if groups else None
+        self._sorted_info = self._tail = None
+        if (
+            SORTED_MD
+            and not self._verlet
+            and len(self._providers) == 1
+            and not any(getattr(m, "moves_atoms_nonlocally", False) for m in self.movers)
+        ):
+            (i,) = self._providers
+            sorted_m = getattr(self.potentials[i], "md_force_provider_sorted", None)
+            info = sorted_m() if sorted_m is not None else None
+            if info is not None:
+                self._sorted_info = (i, info)
 
     def _make_move_fn(self, mover):
         rigid = getattr(mover, "rigid_group_move", False)
@@ -206,14 +276,32 @@ class Context:
                 total = total + pot.energy(x, box)
         return total
 
-    def _force(self, x, box, t: int):
-        """The total force at x, the providers at step t."""
+    def residual_force(self, x, box):
+        """The force of everything but the stateful providers, in JAX's
+        order: the grad tier's terms (each by its closed form), the
+        closed-form tier, then the strided water forces of the plan's
+        entries and the one plan's assembly of every contribution."""
         force = torch.zeros_like(x)
-        for i, pot in enumerate(self.potentials):
-            if i in self._providers:
-                f, self._prov_states[i] = self._providers[i][1](self._prov_states[i], x, box, t)
-            else:
-                f = pot.energy_force(x, box)[1]
+        for i in self._grad:
+            force = force + self.potentials[i].energy_force(x, box)[1]
+        for i, ef in self._fused:
+            force = force + ef(x, self.potentials[i].params, box)[1]
+        if self._plan is not None:
+            contribs = []
+            for i, fn in self._contrib_entries:
+                cs, extra = fn(x, self.potentials[i].params, box)
+                contribs.extend(cs)
+                if extra is not None:
+                    force = force + extra
+            force = force + assemble_forces(self._plan, contribs)
+        return force
+
+    def _force(self, x, box, t: int):
+        """The total force at x, the providers at step t: the residual, then
+        each provider's force."""
+        force = self.residual_force(x, box)
+        for i, prov in self._providers.items():
+            f, self._prov_states[i] = prov[1](self._prov_states[i], x, box, t)
             force = force + f
         return force
 
@@ -260,19 +348,90 @@ class Context:
         frames, boxes = [], []
         with torch.no_grad():
             self._ensure_lists()
-            if self._verlet:
-                self._half_kick(-0.5)
-            for s in range(1, n_steps + 1):
-                self._one_step()
-                if s % interval == 0 and len(frames) < n_frames:
-                    frames.append(self._x)  # steps rebind x and box, never write them in place
-                    boxes.append(self._box)
-            if self._verlet:
-                self._half_kick(0.5)
+            if self._sorted_info is not None:
+                self._run_sorted(n_steps, interval, n_frames, frames, boxes)
+            else:
+                if self._verlet:
+                    self._half_kick(-0.5)
+                for s in range(1, n_steps + 1):
+                    self._one_step()
+                    if s % interval == 0 and len(frames) < n_frames:
+                        frames.append(self._x)  # steps rebind x and box, never write them in place
+                        boxes.append(self._box)
+                if self._verlet:
+                    self._half_kick(0.5)
         self._validate_state()
         if not frames:
             return np.zeros((0, *self._x.shape)), np.zeros((0, 3, 3))
         return torch.stack(frames).cpu().numpy(), torch.stack(boxes).cpu().numpy()
+
+    # -- the sorted-state step ---------------------------------------------------
+
+    def _pad_tail(self, n_pad: int):
+        """(Npad, 1) bool, True at the pad slots (the last Npad - N), made once."""
+        if self._tail is None or self._tail.shape[0] != n_pad:
+            self._tail = (torch.arange(n_pad, device=self.device) >= self._x.shape[0])[:, None]
+        return self._tail
+
+    def _to_sorted(self, x, v, state):
+        """(x_s, v_s, cb_s, cc_s): canonical x, v and the per-atom integrator
+        rows in the state's pad order, the pad slots' v, cb and cc zero so
+        that they never move."""
+        _, info = self._sorted_info
+        po = info.pad_order(state)
+        tail = self._pad_tail(po.shape[0])
+        return (
+            x[po], torch.where(tail, 0.0, v[po]), torch.where(tail, 0.0, self._cb[po]),
+            torch.where(tail, 0.0, self._cc[po]),
+        )
+
+    def _sorted_step(self, carry):
+        """One Langevin step on the sorted carry (x_s, v_s, cb_s, cc_s);
+        returns the next carry. The lists are rebuilt at t %
+        rebuild_interval == 0 from the un-sorted coordinates, and the carry
+        re-sorted; the pad slots track atom 0 every step, as the canonical
+        sweep's rows do; the force is the sweep's plus the provider's
+        canonical force and the residual, both gathered to pad order; the
+        noise is drawn in canonical shape from the Context's generator and
+        gathered; each mover due runs on the un-sorted state."""
+        x_s, v_s, cb_s, cc_s = carry
+        t, box = self._step, self._box
+        i, info = self._sorted_info
+        state = self._prov_states[i]
+        if t % info.rebuild_interval == 0:
+            inv = info.inv(state)
+            x_c, v_c = x_s[inv], v_s[inv]
+            state = self._prov_states[i] = self._providers[i][0](x_c, box)
+            x_s, v_s, cb_s, cc_s = self._to_sorted(x_c, v_c, state)
+        po, inv = info.pad_order(state), info.inv(state)
+        tail = self._pad_tail(po.shape[0])
+        x_s = torch.where(tail, x_s[inv[:1]], x_s)
+        f_s = -info.sweep(state, x_s, box)[:, 1:4]
+        x_c = x_s[inv]
+        if info.canonical_force is not None:
+            f_s = f_s + info.canonical_force(x_c, self.potentials[i].params, box)[po]
+        f_s = torch.where(tail, 0.0, f_s + self.residual_force(x_c, box)[po])
+        noise = torch.randn(x_c.shape, generator=self._noise, device=self.device, dtype=x_c.dtype)
+        x_s, v_s = langevin_step(x_s, v_s, f_s, noise[po], self._ca, cb_s, cc_s, self.integrator.dt)
+        for k, (mover, move) in enumerate(zip(self.movers, self._move_fns)):
+            if (t + 1) % mover.interval == 0:
+                self._mover_states[k], x_c, v_c, self._box = move(self._mover_states[k], x_s[inv], v_s[inv], self._box)
+                x_s, v_s = x_c[po], torch.where(tail, 0.0, v_c[po])
+        self._step = t + 1
+        return x_s, v_s, cb_s, cc_s
+
+    def _run_sorted(self, n_steps: int, interval: int, n_frames: int, frames: list, boxes: list):
+        """n_steps sorted steps from the canonical state, frames un-sorted
+        into `frames` and `boxes`, the canonical state set at the end."""
+        i, info = self._sorted_info
+        carry = self._to_sorted(self._x, self._v, self._prov_states[i])
+        for s in range(1, n_steps + 1):
+            carry = self._sorted_step(carry)
+            if s % interval == 0 and len(frames) < n_frames:
+                frames.append(carry[0][info.inv(self._prov_states[i])])
+                boxes.append(self._box)
+        inv = info.inv(self._prov_states[i])
+        self._x, self._v = carry[0][inv], carry[1][inv]
 
     def _half_kick(self, sign: float):
         """v += sign dt/m F(x): the Verlet path's entry and exit kicks."""

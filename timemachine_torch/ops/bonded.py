@@ -4,12 +4,18 @@
 Energies take (conf, params, box, idxs) and return a scalar in kJ/mol. The
 `*_force_contribs` functions return (u, per-role force contributions): one
 (T, 3) tensor per atom role of the term, each the force (-dU/dx) the term
-puts on that atom. Callers sum them per atom with `ops.segment.SegmentSum`.
-Index rows must be valid atom indices (no -1 padding rows in this port).
+puts on that atom. Callers sum them per atom with `ops.segment.SegmentSum`
+or one shared plan (`ops.assembly`). Index rows must be valid atom indices
+(no -1 padding rows in this port).
+
+Leading TIP3P waters (atoms 3w..3w+2, the builders' layout) have strided
+paths (`water_bond_energy_force`, `water_angle_energy_force`): the force is
+assembled by a reshape, with no index gather and no segment sum.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from timemachine_torch.constants import DEFAULT_POSITIONAL_RESTRAINT_K
@@ -134,6 +140,132 @@ def torsion_force_contribs(conf, params, idxs):
     gk = t[:, None] * gi - (s + 1.0)[:, None] * gl
     w = dU[:, None]
     return u, [w * gi, w * gj, w * gk, w * gl]
+
+
+# The strided water paths are on, as in the JAX package (its default).
+WATER_FAST_PATH = True
+
+
+def _leading_water_bonds(bond_idxs) -> int:
+    """Number of leading waters whose O-H bonds are rows 2w, 2w+1 =
+    (3w, 3w+1), (3w, 3w+2), the builders' layout (host-side)."""
+    if not WATER_FAST_PATH:
+        return 0
+    idxs = np.asarray(bond_idxs)
+    if idxs.ndim != 2 or idxs.shape[0] < 2:
+        return 0
+    w = np.arange(idxs.shape[0] // 2)
+    ok = (
+        (idxs[2 * w, 0] == 3 * w)
+        & (idxs[2 * w, 1] == 3 * w + 1)
+        & (idxs[2 * w + 1, 0] == 3 * w)
+        & (idxs[2 * w + 1, 1] == 3 * w + 2)
+    )
+    bad = np.nonzero(~ok)[0]
+    return int(bad[0]) if bad.size else w.size
+
+
+def _leading_water_angles(angle_idxs) -> int:
+    """Number of leading waters whose H-O-H angle is row w = (3w+1, 3w,
+    3w+2), the builders' layout (host-side)."""
+    if not WATER_FAST_PATH:
+        return 0
+    idxs = np.asarray(angle_idxs)
+    if idxs.ndim != 2 or idxs.shape[0] < 1:
+        return 0
+    w = np.arange(idxs.shape[0])
+    ok = (idxs[:, 0] == 3 * w + 1) & (idxs[:, 1] == 3 * w) & (idxs[:, 2] == 3 * w + 2)
+    bad = np.nonzero(~ok)[0]
+    return int(bad[0]) if bad.size else w.size
+
+
+def _water_force(conf, f_o, f_h1, f_h2):
+    """(N, 3) force: the first nw waters' per-atom forces laid out by a
+    reshape (water w is atoms 3w..3w+2), zero elsewhere."""
+    nw = f_o.shape[0]
+    force_w = torch.stack([f_o, f_h1, f_h2], dim=1).reshape(3 * nw, 3)
+    return torch.cat([force_w, conf.new_zeros((conf.shape[0] - 3 * nw, 3))])
+
+
+def water_bond_energy_force(conf, params, nw: int):
+    """(u, force) of the first nw waters' O-H bonds (params rows 2w, 2w+1),
+    in closed form on the (nw, 3, 3) reshape of their coordinates."""
+    x = conf[: 3 * nw].reshape(nw, 3, 3)  # (water, atom {O, H1, H2}, xyz)
+    o = x[:, 0]
+    u = conf.new_zeros(())
+    f_o = torch.zeros_like(o)
+    f_h = []
+    for h, row in ((1, 0), (2, 1)):
+        d = x[:, h] - o
+        r = torch.sqrt(torch.clamp(torch.sum(d * d, dim=1), min=1e-24))
+        k, r0 = params[row : 2 * nw : 2, 0], params[row : 2 * nw : 2, 1]
+        delta = r - r0
+        u = u + torch.sum(0.5 * k * delta * delta)
+        pref = (k * delta / r)[:, None]  # dU/dr / r
+        f_h.append(-pref * d)
+        f_o = f_o + pref * d
+    return u, _water_force(conf, f_o, *f_h)
+
+
+def water_angle_energy_force(conf, params, nw: int):
+    """(u, force) of the first nw waters' H-O-H angles (params rows w) in
+    the arccos form, clipped at 1 -+ 1e-7: `stable_angle` at eps = 0, which
+    the water rows carry; it agrees with the generic path away from the
+    clip, and H-O-H never nears it."""
+    x = conf[: 3 * nw].reshape(nw, 3, 3)
+    o, h1, h2 = x[:, 0], x[:, 1], x[:, 2]
+    d1, d2 = h1 - o, h2 - o
+    r1 = torch.sqrt(torch.clamp(torch.sum(d1 * d1, dim=1), min=1e-24))
+    r2 = torch.sqrt(torch.clamp(torch.sum(d2 * d2, dim=1), min=1e-24))
+    u1, u2 = d1 / r1[:, None], d2 / r2[:, None]
+    c = torch.clamp(torch.sum(u1 * u2, dim=1), -1.0 + 1e-7, 1.0 - 1e-7)
+    s_inv = (1.0 - c * c) ** -0.5
+    k, a0 = params[:nw, 0], params[:nw, 1]
+    delta = torch.arccos(c) - a0
+    u = torch.sum(0.5 * k * delta * delta)
+    # dtheta/d(d1) = (c u1 - u2) s_inv / r1; force = -k delta dtheta/dx
+    g = (k * delta * s_inv)[:, None]
+    f_h1 = -g * (c[:, None] * u1 - u2) / r1[:, None]
+    f_h2 = -g * (c[:, None] * u2 - u1) / r2[:, None]
+    return u, _water_force(conf, -(f_h1 + f_h2), f_h1, f_h2)
+
+
+def _assembled(conf, idxs, contribs, assemble, width: int = 3):
+    """The (N, 3) sum of per-role contributions onto their atoms by a
+    fixed-order SegmentSum over the role-major atoms of idxs (built here
+    when not given), widened with zero columns to conf's width."""
+    if assemble is None:
+        from timemachine_torch.ops.segment import SegmentSum
+
+        assemble = SegmentSum(np.asarray(idxs.cpu() if torch.is_tensor(idxs) else idxs).T.ravel(), conf.shape[0],
+                              device=conf.device)
+    force = assemble(torch.cat(contribs))
+    if conf.shape[1] > width:
+        force = torch.cat([force, conf.new_zeros((conf.shape[0], conf.shape[1] - width))], dim=1)
+    return force
+
+
+def generic_bond_energy_force(conf, params, box, idxs, assemble=None):
+    """(u, force) of arbitrary harmonic-bond rows: bond_force_contribs summed
+    onto atoms by a fixed-order SegmentSum (`assemble`, over cat([idxs[:, 0],
+    idxs[:, 1]]); built here when None), not a scatter."""
+    u, contribs = bond_force_contribs(conf, params, idxs)
+    return u, _assembled(conf, idxs, contribs, assemble, conf.shape[1])
+
+
+def generic_angle_energy_force(conf, params, box, idxs, assemble=None):
+    """(u, force) of harmonic-angle rows, eps stabilizer included
+    (angle_force_contribs), summed as generic_bond_energy_force's."""
+    u, contribs = angle_force_contribs(conf, params, idxs)
+    return u, _assembled(conf, idxs, contribs, assemble, conf.shape[1])
+
+
+def torsion_energy_force(conf, params, box, idxs, assemble=None):
+    """(u, force) of periodic-torsion rows (torsion_force_contribs), summed
+    as generic_bond_energy_force's; columns of conf past the third get zero
+    force."""
+    u, contribs = torsion_force_contribs(conf, params, idxs)
+    return u, _assembled(conf, idxs, contribs, assemble)
 
 
 def harmonic_positional_restraint(x_init, x_new, box, k: float = DEFAULT_POSITIONAL_RESTRAINT_K):

@@ -139,19 +139,29 @@ def _poly_derivative(coeffs):
     return tuple(float(c) for c in np.polynomial.polynomial.polyder(np.asarray(coeffs)))
 
 
-def specific_pairs_energy_force(conf, params, box, pairs, cutoff, rescale_mask, h_coeffs, assemble):
-    """(u, force) of an explicit pair list with polynomial electrostatics:
-    u = sum of scaled pair energies, force = -dU/dx. rescale_mask (P, 2)
-    holds [q_scale, lj_scale]; `assemble` is a SegmentSum over
-    cat([pairs[:, 0], pairs[:, 1]]) onto atoms."""
+def specific_pairs_force_contribs(conf, params, box, pairs, beta, cutoff, rescale_mask, es_poly_coeffs):
+    """(u, [f_l, f_r]) of an explicit pair list with polynomial
+    electrostatics: u the sum of scaled pair energies, f_l and f_r (P, 3) the
+    force (-dU/dx) each pair puts on its first and second atom, zero at or
+    beyond the cutoff. rescale_mask (P, 2) holds [q_scale, lj_scale]; beta
+    is unused (the series holds it), as in JAX's. Shared by
+    specific_pairs_energy_force and the Context's contribution plan."""
     l, r = pairs[:, 0], pairs[:, 1]
     q, sig, eps, w = params.unbind(1)
     d = periodic_delta(conf[l], conf[r], box)
     u, g = _poly_pair_grad(
         d, w[l] - w[r], q[l] * q[r] * rescale_mask[:, 0], combine_sigma(sig[l], sig[r]),
-        combine_epsilon(eps[l], eps[r]) * rescale_mask[:, 1], cutoff, h_coeffs,
+        combine_epsilon(eps[l], eps[r]) * rescale_mask[:, 1], cutoff, es_poly_coeffs,
     )
-    return torch.sum(u), assemble(torch.cat([-g, g]))
+    return torch.sum(u), [-g, g]
+
+
+def specific_pairs_energy_force(conf, params, box, pairs, cutoff, rescale_mask, h_coeffs, assemble):
+    """(u, force) of an explicit pair list with polynomial electrostatics
+    (specific_pairs_force_contribs), force = -dU/dx summed onto atoms by
+    `assemble`, a SegmentSum over cat([pairs[:, 0], pairs[:, 1]])."""
+    u, contribs = specific_pairs_force_contribs(conf, params, box, pairs, None, cutoff, rescale_mask, h_coeffs)
+    return u, assemble(torch.cat(contribs))
 
 
 def leading_water_exclusions(exc_idxs, exc_scales) -> int:

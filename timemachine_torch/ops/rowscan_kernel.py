@@ -645,19 +645,68 @@ def make_nonbonded_rowscan_md(
     JAX's configuration."""
     if preshift and atom_mask is not None:
         raise ValueError("make_nonbonded_rowscan_md: preshift takes no atom subset")
-    series = es_energy_force_series(beta, cutoff)
+    sweep_atoms = _md_sweep(beta, cutoff, preshift, has_w)
 
     def sweep(state, conf, box, mode):
+        return sweep_atoms(state, assemble_atoms(conf, box, state.lists.pad_order, state.prows), box, mode)
+
+    build = _md_build(cutoff, max_pairs, skin, cell_size, preshift, has_w, atom_mask)
+    return make_list_md_provider(build, sweep, FORCE, ENERGY, rebuild_interval, prows_fn=param_rows_of(atom_mask))
+
+
+def _md_sweep(beta: float, cutoff: float, preshift: bool, has_w: bool):
+    """sweep_atoms(state, atoms, box, mode) -> (Npad, 4): the MD providers'
+    chop and launch on sorted sweep rows `atoms` (Npad, 8)."""
+    series = es_energy_force_series(beta, cutoff)
+
+    def sweep_atoms(state, atoms, box, mode):
         t = state.lists
-        atoms = assemble_atoms(conf, box, t.pad_order, state.prows)
         row_count = chop_row_counts(atoms[:, :3], t.rank_mat, t.row_count, box, cutoff)
         return rowscan_sweep(
             atoms, t.row_start, row_count, t.col_ids, sweep_scalars(box, cutoff), series, mode, True,
             t.rcen_q if preshift else None, has_w,
         )
 
-    build = _md_build(cutoff, max_pairs, skin, cell_size, preshift, has_w, atom_mask)
-    return make_list_md_provider(build, sweep, FORCE, ENERGY, rebuild_interval, prows_fn=param_rows_of(atom_mask))
+    return sweep_atoms
+
+
+class SortedSweepProtocol(NamedTuple):
+    """The sorted-state step's view of a rowscan MD provider (JAX's protocol
+    of this name): `sweep(state, x_sorted, box, mode)` runs the provider's
+    sweep on coordinates already in the state's pad order; `pad_order(state)`
+    and `inv(state)` give the state's permutation (pad slot -> atom, atom ->
+    slot), so that the Context owns the round trips; `rebuild_interval` is
+    the provider's rebuild period."""
+
+    sweep: object
+    pad_order: object
+    inv: object
+    rebuild_interval: int
+
+
+def make_rowscan_sorted_protocol(
+    beta: float, cutoff: float, rebuild_interval: int = 20, preshift: bool = False, has_w: bool = True,
+) -> SortedSweepProtocol:
+    """The SortedSweepProtocol of make_nonbonded_rowscan_md's provider of the
+    same settings (every rowscan form: the main form with preshift and no w,
+    the masked form with minimum image and w). Its sweep wraps the
+    pad-ordered coordinates (Npad, 3) into the box, joins the state's
+    parameter rows and launches the same csrc/rowscan.cu kernel as the
+    provider's apply, with no gather: it returns the (Npad, 4) output [u_i,
+    dU/dx_i] in pad order, NaN where the state is invalid. The wrap is
+    elementwise, so on x[pad_order] it gives the apply's rows bitwise."""
+    sweep_atoms = _md_sweep(beta, cutoff, preshift, has_w)
+
+    def sweep_sorted(state, x_sorted, box, mode: int = FORCE):
+        box_diag = torch.diagonal(box, dim1=-2, dim2=-1)[..., None, :]
+        prows = state.prows
+        atoms = torch.cat([_wrap(x_sorted[:, :3], box_diag), prows, prows.new_zeros((prows.shape[0], 1))], dim=-1)
+        return poison_on_overflow(state.invalid, sweep_atoms(state, atoms, box, mode))
+
+    return SortedSweepProtocol(
+        sweep=sweep_sorted, pad_order=lambda state: state.lists.pad_order, inv=lambda state: state.inv,
+        rebuild_interval=rebuild_interval,
+    )
 
 
 def batched_sweep_inputs(lists, xs, prows, boxes, lists_of, cutoff: float):

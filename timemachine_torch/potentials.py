@@ -17,7 +17,7 @@ stateful MD provider the Context uses (`md_force_provider`).
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -32,6 +32,22 @@ from timemachine_torch.ops import nonbonded_kernel as nbk
 from timemachine_torch.ops import quadscan_kernel as qk
 from timemachine_torch.ops import rowscan_kernel as rs
 from timemachine_torch.ops.segment import SegmentSum
+
+
+class SortedNBInfo(NamedTuple):
+    """What the Context's sorted-state step needs of its one stateful
+    provider (JAX's SortedNBInfo): `sweep(state, x_sorted, box, mode)` the
+    sweep on pad-ordered coordinates, `pad_order(state)` and `inv(state)`
+    the state's permutation, `rebuild_interval`, and `canonical_force(conf,
+    params, box)`, where not None, the term's force outside the sweep that
+    its provider's apply adds (the leading waters' exclusion correction);
+    the Context adds it in canonical order and gathers it to pad order."""
+
+    sweep: object
+    pad_order: object
+    inv: object
+    rebuild_interval: int
+    canonical_force: object
 
 # list capacity over the count at configure time, the MD lists' skin (nm)
 # and their rebuild period (steps), as the JAX package's rowscan path
@@ -83,11 +99,17 @@ def all_pairs_kernel(site: str, num_atoms: int, device) -> str:
 
 
 class _BondedTerm(nn.Module):
-    """Shared shape of the valence terms: idxs (T, k) atoms, params (T, 3|2)."""
+    """Shared shape of the valence terms: idxs (T, k) atoms, params (T, 3|2).
+
+    A term with a strided water path (`_water`: the leading-water count's
+    function, rows per water, the strided (u, force)) takes it for its
+    leading waters (`num_waters`, the first `water_rows` rows) and sums the
+    rest, its tail, with the SegmentSum."""
 
     # bond-graph-local: a rigid per-molecule move (the barostat's) leaves the
     # energy unchanged, so volume moves skip the term
     rigid_group_invariant = True
+    _water = None
 
     def __init__(self, idxs, params, num_atoms: int, device=None, dtype=torch.float64):
         super().__init__()
@@ -97,8 +119,10 @@ class _BondedTerm(nn.Module):
             raise ValueError(f"{type(self).__name__}: atom index out of range")
         self.register_buffer("idxs", torch.tensor(idxs, device=device))
         self.register_buffer("params", torch.tensor(np.ascontiguousarray(params), device=device, dtype=dtype))
+        self.num_waters = self._water[0](idxs) if self._water is not None else 0
+        self.water_rows = self._water[1] * self.num_waters if self.num_waters else 0
         # role-major: contributions arrive as cat([role 0 rows, role 1 rows, ...])
-        self.assemble = SegmentSum(idxs.T.ravel(), num_atoms, device=device)
+        self.assemble = SegmentSum(idxs[self.water_rows :].T.ravel(), num_atoms, device=device)
 
     def u(self, x, params, box):
         """Energy as a function of (x, params, box), differentiable in both
@@ -109,24 +133,61 @@ class _BondedTerm(nn.Module):
         return self.u(x, self.params, box)
 
     def u_force(self, x, params, box):
-        u, contribs = type(self)._contribs(x, params, self.idxs)
-        return u, self.assemble(torch.cat(contribs))
+        rows = self.water_rows
+        if not rows:
+            u, contribs = type(self)._contribs(x, params, self.idxs)
+            return u, self.assemble(torch.cat(contribs))
+        u, force = self._water[2](x, params[:rows], self.num_waters)
+        if rows < self.idxs.shape[0]:
+            u_tail, contribs = type(self)._contribs(x, params[rows:], self.idxs[rows:])
+            u, force = u + u_tail, force + self.assemble(torch.cat(contribs))
+        return u, force
 
     def energy_force(self, x, box):
         return self.u_force(x, self.params, box)
 
 
-class HarmonicBond(_BondedTerm):
+class _ValenceTerm(_BondedTerm):
+    """The three terms of the JAX package's scatter-free step protocol."""
+
+    def energy_force_fn(self):
+        """(conf, params, box) -> (u, force): the strided path for the
+        leading waters, the closed form summed by the SegmentSum for the
+        rest; None for an empty term."""
+        return self.u_force if self.idxs.shape[0] else None
+
+    def force_contribs(self):
+        """(groups, fn) of the Context's shared contribution plan (see
+        ops/assembly.py), or None for an empty or pure-water term, as JAX's.
+        groups = [the tail's idxs (host)]; fn(conf, params, box) -> ([the
+        tail's per-role force contributions], the strided waters' (N, 3)
+        force or None)."""
+        rows, n_rows = self.water_rows, self.idxs.shape[0]
+        if n_rows == 0 or rows == n_rows:
+            return None
+        tail = self.idxs[rows:]
+
+        def fn(conf, params, box):
+            extra = self._water[2](conf, params[:rows], self.num_waters)[1] if rows else None
+            _, contribs = type(self)._contribs(conf, params[rows:], tail)
+            return [contribs], extra
+
+        return [tail.cpu().numpy()], fn
+
+
+class HarmonicBond(_ValenceTerm):
     _energy = staticmethod(bonded.harmonic_bond)
     _contribs = staticmethod(bonded.bond_force_contribs)
+    _water = (bonded._leading_water_bonds, 2, bonded.water_bond_energy_force)
 
 
-class HarmonicAngle(_BondedTerm):
+class HarmonicAngle(_ValenceTerm):
     _energy = staticmethod(bonded.harmonic_angle)
     _contribs = staticmethod(bonded.angle_force_contribs)
+    _water = (bonded._leading_water_angles, 1, bonded.water_angle_energy_force)
 
 
-class PeriodicTorsion(_BondedTerm):
+class PeriodicTorsion(_ValenceTerm):
     _energy = staticmethod(bonded.periodic_torsion)
     _contribs = staticmethod(bonded.torsion_force_contribs)
 
@@ -405,11 +466,12 @@ class NonbondedAllPairs(nn.Module):
         # the exclusion corrections' electrostatics: the rowscan polynomial, or None for exact erfc
         self.h_coeffs = rs.es_energy_force_series(self.beta, self.cutoff)[0]
         self._energy = self._energy_force = self._ef64 = self._u = self._md = self._md_batched = None
+        self._md_sorted = None
         self.kernel = None
 
     # the closures configure() makes; a term pickles (as the examples pickle
     # their results) unconfigured, and configure() is called again after loading
-    _CONFIGURED = ("_energy", "_energy_force", "_ef64", "_u", "_md", "_md_batched")
+    _CONFIGURED = ("_energy", "_energy_force", "_ef64", "_u", "_md", "_md_batched", "_md_sorted")
 
     def __getstate__(self):
         state = self.__dict__.copy()
@@ -478,7 +540,7 @@ class NonbondedAllPairs(nn.Module):
         configure_pallas takes the same two)."""
         if kernel not in KERNELS:
             raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
-        self._md_batched = self._ef64 = None
+        self._md_batched = self._ef64 = self._md_sorted = None
         mask = self.atom_mask
         if kernel == "dense":
             self.kernel, self.h_coeffs, self.dot_sort = "dense", None, None
@@ -550,6 +612,9 @@ class NonbondedAllPairs(nn.Module):
                 self._md = rs.make_nonbonded_rowscan_md(
                     self.beta, self.cutoff, md_pairs, skin=SKIN, rebuild_interval=REBUILD_INTERVAL, cell_size=cell,
                     preshift=preshift, has_w=rowscan_has_w, atom_mask=mask,
+                )
+                self._md_sorted = rs.make_rowscan_sorted_protocol(
+                    self.beta, self.cutoff, REBUILD_INTERVAL, preshift=preshift, has_w=rowscan_has_w
                 )
                 if not preshift:
                     self._md_batched = rs.make_nonbonded_rowscan_md_batched(
@@ -626,6 +691,17 @@ class NonbondedAllPairs(nn.Module):
             return energy(state, x, self.params, box)
 
         return init_fn, apply_fn, energy_fn, energy_fn, energy_with_params
+
+    def md_force_provider_sorted(self):
+        """SortedNBInfo of the Context's sorted-state step, or None where the
+        configuration has no sorted protocol: only the rowscan MD provider
+        (kernel="rowscan", in every form) has one, as in JAX; gather, quad,
+        dot, v1 and dense have none."""
+        self._configured()
+        if self._md_sorted is None:
+            return None
+        ss = self._md_sorted
+        return SortedNBInfo(ss.sweep, ss.pad_order, ss.inv, ss.rebuild_interval, canonical_force=None)
 
     def md_force_provider_batched(self):
         """The provider of K replicas stepped together, each with its own
@@ -790,6 +866,55 @@ class Nonbonded(NonbondedAllPairs):
             return energy_params_ap(state, x, params, box) - self.exclusion_energy(x, params, box)
 
         return init_fn, apply_fn, energy_fn, energy_ap, energy_with_params_fn
+
+    def _water_exclusion_grad(self, x, params, box):
+        """dU_exc/dx of the leading waters' exclusions in the rowscan
+        polynomial: their correction's force (it enters the net force as +)."""
+        return nonbonded.water_exclusion_energy_force(x, params, box, self.num_waters, self.cutoff, self.h_coeffs)[1]
+
+    def md_force_provider_split(self):
+        """The Context's split of this term (JAX's md_force_provider_split):
+        (provider, [tail idxs (host)], tail_fn). The provider is
+        md_force_provider's, but its apply adds only the leading waters'
+        exclusion correction; every energy (the movers', rigid or not, and
+        under other parameters) keeps the full correction. tail_fn(conf,
+        params, box) -> ([[f_l, f_r]], None) gives the exclusion tail's
+        correction as per-role contributions for the Context's shared plan.
+        None where there is no polynomial series to cancel (kernel "v1",
+        "dense") or no exclusion tail, as JAX's."""
+        self._configured()
+        tail = self.tail_idxs
+        if not self._subtracts or self.h_coeffs is None or tail.shape[0] == 0:
+            return None
+        init_fn, apply_ap, *_ = NonbondedAllPairs.md_force_provider(self)
+        _, _, energy_fn, rigid_fn, energy_with_params_fn = self.md_force_provider()
+        nw = self.num_waters
+
+        def apply_fn(state, x, box, t):
+            f, state = apply_ap(state, x, box, t)
+            return (f + self._water_exclusion_grad(x, self.params, box) if nw else f), state
+
+        def tail_fn(conf, params, box):
+            _, (f_l, f_r) = nonbonded.specific_pairs_force_contribs(
+                conf, params, box, tail, self.beta, self.cutoff, self.tail_scales.to(params.dtype), self.h_coeffs
+            )
+            # the correction is subtracted from the energy, so it adds +dU_exc/dx to the force
+            return [[-f_l, -f_r]], None
+
+        return (init_fn, apply_fn, energy_fn, rigid_fn, energy_with_params_fn), [tail.cpu().numpy()], tail_fn
+
+    def md_force_provider_sorted(self):
+        """As NonbondedAllPairs', with canonical_force the leading waters'
+        exclusion correction (None without leading waters). The exclusion
+        tail is not in it: the Context's sorted step takes the split
+        (md_force_provider_split), whose tail goes through its shared plan.
+        None where the exclusions have no polynomial series to cancel."""
+        info = super().md_force_provider_sorted()
+        if info is None or not self._subtracts or self.h_coeffs is None:
+            return None
+        if not self.num_waters:
+            return info
+        return info._replace(canonical_force=self._water_exclusion_grad)
 
     def md_force_provider_batched(self):
         """As NonbondedAllPairs', with the exclusions subtracted for every

@@ -242,7 +242,20 @@ run in a second process (the worker: `chip_smoke.py --worker DIR T_START
 EXACT_MS`, started after phase 17) while this one runs phase 20, phase 18,
 which takes phase 16's embedded molecules from the worker, and phase 24;
 the worker's lines follow phase 24's, then its additions to the kernels
-line's rows, then phase 23, then phase 25. Each phase
+line's rows, then phase 23, then phase 25, then phase 26. The mesh code
+[26] on torch.distributed: the rowscan kernel's row slab at phase 4's
+relaxed DHFR in the spatial runner's form (triangular, minimum image, w),
+F and U, D = 1, 2, 4 and 8 slabs, their int64 accumulators summed before
+the store bitwise the whole launch, each slab within TOL_KERNEL_COL of its
+plain version, each slab's time beside its own pairs' bound;
+make_spatial_md_runner of DHFR (NVT) on a one-rank nccl mesh against a
+Context of the same seed (x's drift within TOL_DRIFT_RATIO of a control's),
+ms a step of each, the idle share, one slab launch a step, bitwise on
+repeat; the same run on two gloo ranks sharing the card, spawned and joined
+by the phase (x's drift from one rank within the same bound);
+run_hrex_sharded over phase 14's windows, and ReplicaExchangeRunner with a
+one-rank replica mesh bitwise its no-mesh run, the per-rank cost of the
+terms a replica mesh evaluates over the whole batch. Each phase
 prints its host seconds ("[N time]"), and the script its total up to the
 kernels line ("[time]").
 Every path runs with all launch and plain-call counts set to
@@ -258,7 +271,10 @@ and bound_ms_barker (phase 21's, per run and per launch); the masked,
 batched and exact masked rows launches_run_complex (phase 22's); the batched
 row launches_resume (phase 23's, per replica-step of the resumed HREX
 iterations); the main row launches_sorted (phase 25's, per DHFR step under
-the sorted-state step), launches_waterbox and launches_water_sampling_mc
+the sorted-state step), launches_slabs, slab_ms, slab_plain_ms and
+slab_bound_ms (phase 26's: slab launches per step of the spatial runner,
+each slab's kernel and plain ms by mode and D, each slab's bound from the
+pairs its row chunks sweep), launches_waterbox and launches_water_sampling_mc
 (per step of each), the masked, batched and exact masked rows
 launches_examples (phase 24's, per run of the examples); bound;
 plain time), the card's name and power limit from
@@ -585,6 +601,27 @@ def pairs_within_cutoff(x, box, w, cutoff: float) -> int:
     return total
 
 
+def pairs_by_row_chunk(x, box, w, cutoff: float, pad_order, n_rows: int):
+    """pairs_within_cutoff's pairs by the Newton-triangular row chunk that
+    sweeps each: the 32-slot chunk of the pair's earlier slot in the sweep's
+    order (pad_order: slot -> atom), an (n_rows,) int64 tensor."""
+    import torch
+
+    n = x.shape[0]
+    slot = torch.empty(n, dtype=torch.int64, device=x.device)
+    slot[pad_order[:n]] = torch.arange(n, device=x.device)
+    diag = torch.diagonal(box)
+    counts = torch.zeros(n_rows, dtype=torch.int64, device=x.device)
+    for i0 in range(0, n, 1024):
+        d = x[i0 : i0 + 1024, None, :] - x[None, :, :]
+        d = d - diag * torch.round(d / diag)
+        r2 = (d * d).sum(2) + (w[i0 : i0 + 1024, None] - w[None, :]) ** 2
+        later = torch.arange(i0, min(i0 + 1024, n), device=x.device)[:, None] < torch.arange(n, device=x.device)
+        i, j = ((r2 < cutoff * cutoff) & (r2 > 1e-7) & later).nonzero(as_tuple=True)
+        counts += torch.bincount(torch.minimum(slot[i + i0], slot[j]) // 32, minlength=n_rows)
+    return counts
+
+
 def count_ops():
     """A dispatch mode that counts the aten operations run inside it (its .n)."""
     from torch.utils._python_dispatch import TorchDispatchMode
@@ -655,6 +692,7 @@ def zero_counts():
         fn.launches = 0
     for fn in plains:
         fn.calls = 0
+    sweeps[0].launches_slabs = 0  # rowscan's slab launches (phase 26)
 
 
 def read_counts():
@@ -3334,6 +3372,425 @@ def phase25(dev, smi, zero_counts, read_counts, kernel_row, dhfr, states13):
     print(f"[25 time] phase 25 took {time.perf_counter() - t_phase:.1f} s, host clock ({smi})")
 
 
+# phase 26, the mesh code on torch.distributed: the rowscan kernel's row slab at DHFR, spatially decomposed MD of
+# DHFR on a one-rank nccl mesh and on two gloo ranks sharing the card, HREX over phase 14's windows on a one-rank mesh
+N26_SLABS, N26_STEPS, N26_WARM, N26_PROFILE, N26_SEED = (1, 2, 4, 8), 100, 20, 20, 2031
+N26_HREX_ITERS, N26_HREX_STEPS, N26_RANKS = 2, 10, 2
+# the spatial runner's force against the Context's at the relaxed DHFR start, and two ranks' against one's: the norm
+# of the difference over the all-pairs force's (phase 3's TOL_FORCE_REL_NORM); the trajectories' drift apart after
+# N26_CMP and N26_STEPS steps is printed beside a control's (the Context with its bonded terms summed in another
+# order), not held to JAX's 5e-4 nm (TOL_SPATIAL_X, its bound for a water box at 1 fs over 10 steps): float32 sums of
+# the protein's swept-and-subtracted excluded pairs differ by up to tens of kJ/mol/nm an atom between any two orders
+# (PERF.md Open question 20), which moves DHFR's trajectories further apart than that within 10 steps of 2.5 fs
+TOL_SPATIAL_X, N26_CMP = 5e-4, 10
+# the spatial runner's x drift from the Context (and two ranks' from one) after N26_CMP steps, at most this many
+# times the drift of the Context with its bonded terms summed in another order: both come from float32 sums taken
+# in another order, so a fault of the runner's integrator (its noise, its coefficients, a rebuild at the wrong
+# step) shows as a drift many times the control's
+TOL_DRIFT_RATIO = 3.0
+N26_SHARE = 4  # ranks of the replica mesh whose per-rank share [26 hrex] times the whole batch against
+
+
+def _slabs26(n_rows: int, d: int) -> list:
+    """The spatial runner's split of n_rows row chunks over d ranks: (row_base, n_rows_local) each."""
+    local = -(-n_rows // d)
+    return [(r * local, min(local, n_rows - r * local)) for r in range(d) if r * local < n_rows]
+
+
+def _sync26(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _phase26_rank(rank: int, inputs_path: str, out_dir: str):
+    """One of phase 26's two gloo ranks sharing the card: DHFR's spatial runner over the 2-rank mesh,
+    n_warm steps, n_cmp steps, then n_steps twice from the same start, its rowscan launches counted."""
+    import numpy as np
+    import torch
+
+    from timemachine_torch.ops import _build
+    from timemachine_torch.ops import rowscan_kernel as rs
+    from timemachine_torch.parallel.mesh import make_mesh
+    from timemachine_torch.parallel.spatial_md import make_spatial_md_runner
+    from timemachine_torch.testsystems.dhfr import setup_dhfr_native
+
+    inputs = dict(np.load(inputs_path))
+    dev = torch.device(str(inputs["device"]))
+    if dev.type == "cuda":
+        _build.load_libraries("rowscan")
+    hc = setup_dhfr_native(waters_first=True, device=dev, dtype=torch.float32)
+    mesh = make_mesh(dev, "spatial")
+    x0, v0, box = inputs["x0"], inputs["v0"], inputs["box"]
+    make_run = make_spatial_md_runner(hc.host_system.get_U_fns(), inputs["masses"], mesh, conf0=x0, box0=box)
+    n_steps = int(inputs["n_steps"])
+    make_run(TEMP, DT, FRICTION, int(inputs["n_warm"]))(x0, v0, box, N26_SEED)
+    x_cmp = make_run(TEMP, DT, FRICTION, int(inputs["n_cmp"]))(x0, v0, box, N26_SEED)[0]
+    f0 = make_run.force(x0, box)
+    run = make_run(TEMP, DT, FRICTION, n_steps)
+    _sync26(dev)
+    before, slabs_before = rs.rowscan_sweep.launches, rs.rowscan_sweep.launches_slabs
+    t0 = time.perf_counter()
+    x = run(x0, v0, box, N26_SEED)[0]
+    _sync26(dev)
+    seconds = time.perf_counter() - t0
+    launches = (rs.rowscan_sweep.launches - before, rs.rowscan_sweep.launches_slabs - slabs_before)
+    x2 = run(x0, v0, box, N26_SEED)[0]
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), x=x.cpu().numpy(), x2=x2.cpu().numpy(),
+             x_cmp=x_cmp.cpu().numpy(), force=f0.cpu().numpy(), launches=np.array(launches), seconds=seconds)
+
+
+def _overlap_batch26(dev, same_w: bool):
+    """tests/test_torch_cuda.py's _batched_case at overlap_in=4: 3 replicas of a masked 4,089-atom fluid (the first
+    9 atoms out of the subset), 3 parameter sets each; system 4's atoms 9 and 10 0.01 nm apart in xyz, their w
+    offsets lifting them apart unless same_w. Returns (the batched sweep's arguments, system 4's single sweep's)."""
+    import numpy as np
+    import torch
+
+    from timemachine_torch.ops import rowscan_kernel as rs
+
+    lists, systems = [], []
+    for k in range(3):
+        rng = np.random.default_rng(20 + k)
+        pts = np.stack(np.meshgrid(*[np.arange(16)] * 3, indexing="ij"), -1).reshape(-1, 3) * 0.31
+        n = len(pts) - 7
+        conf = torch.as_tensor(pts[:n] + rng.normal(0, 0.03, (n, 3)), device=dev, dtype=torch.float32)
+        params = torch.as_tensor(np.stack([
+            rng.uniform(-0.6, 0.6, n) * np.sqrt(138.935456), rng.uniform(0.05, 0.16, n), rng.uniform(0.05, 0.9, n) ** 0.5,
+            rng.uniform(0.0, 0.2, n)], 1), device=dev, dtype=torch.float32)
+        box = torch.eye(3, device=dev) * 16 * 0.31
+        mask = torch.ones(n, dtype=torch.bool, device=dev)
+        mask[:9] = False
+        tiles = rs.build_rowscan_tiles(conf, box, 1.3, 10**7, triangular=True, atom_mask=mask)
+        lists.append(tiles)
+        for s in range(3):
+            c, prm = conf, params * (1.0 + 0.03 * s)
+            if len(systems) == 4:
+                c, prm = conf.clone(), prm.clone()
+                c[10] = c[9] + torch.tensor([0.01, 0.0, 0.0], device=dev)
+                prm[9:11, 1], prm[9:11, 2] = 0.15, 1.0
+                if same_w:
+                    prm[9:11, 3] = 0.0
+            atoms = rs.assemble_atoms(c, box, tiles.pad_order, rs.param_rows(prm, tiles.pad_order, n, mask))
+            row_count = rs.chop_row_counts(atoms[:, :3], tiles.rank_mat, tiles.row_count, box, 1.2)
+            systems.append((atoms, tiles.row_start, row_count, tiles.col_ids, rs.sweep_scalars(box, 1.2)))
+    series = rs.es_energy_force_series(2.0, 1.2)
+    batched = (
+        torch.stack([a for a, *_ in systems]), torch.stack([t.row_start for t in lists]),
+        torch.stack([systems[3 * k][2] for k in range(3)]), torch.stack([t.col_ids for t in lists]),
+        torch.arange(3, device=dev, dtype=torch.int32).repeat_interleave(3), torch.stack([sc for *_, sc in systems]), series,
+    )
+    return batched, (*systems[4], series)
+
+
+def phase26(dev, smi, zero_counts, read_counts, kernel_row, dhfr, make_runner14, states13):
+    """[26 fault 0] tests/test_torch_cuda.py's batched overflow case
+    (ROADMAP §3 item 0): system 4's largest |dU/dx| and per-atom energy by
+    the plain version, the kernel's NaN rows, bitwise its single launch;
+    NaN everywhere where the sum leaves the fixed-point range, else within
+    TOL_KERNEL_COL of plain. [26 slabs] The rowscan kernel's row slab at phase 4's relaxed DHFR in
+    the spatial runner's form (Newton-triangular lists at cutoff + skin
+    chopped to the cutoff, minimum image, w), F and U: D = 1, 2, 4 and 8
+    slabs (the runner's split), their int64 accumulators summed before the
+    store bitwise the whole-range launch, each slab's own output within
+    TOL_KERNEL_COL per column of rowscan_sweep_plain's slab, each slab's
+    device time by probes.queued_ms beside its bound (the pairs its row
+    chunks own under the triangular lists: a pair goes to the chunk of its
+    earlier slot) and its plain version's (CUDA events over 2 calls). [26 spatial] make_spatial_md_runner of DHFR (NVT) on a one-rank
+    nccl mesh against a Context (the sorted step) of the same potentials
+    and seed from the same start: the force at the start within
+    TOL_FORCE_REL_NORM of the all-pairs force's norm; x's drift after
+    N26_CMP steps within TOL_DRIFT_RATIO times a control's (the Context
+    with its bonded terms summed in another order: the float32 drift of a
+    reordered sum), after N26_STEPS printed; ms a step of each after
+    N26_WARM steps, the runner's idle share over N26_PROFILE profiled steps,
+    rowscan launches a step (one F slab; a list rebuild launches no sweep);
+    a second run bitwise. [26 two ranks] the same runs over N26_RANKS gloo
+    ranks sharing the card (spawned and joined here): the force at the start
+    within TOL_FORCE_REL_NORM of one rank's, x's drift from the one-rank
+    run after N26_CMP steps within TOL_DRIFT_RATIO times the control's,
+    bitwise on repeat, each rank one slab launch a step. [26 hrex] run_hrex_sharded over phase 14's
+    windows (a bare u_fn: the windows' summed potential, forces by autograd)
+    and ReplicaExchangeRunner over them with a one-rank replica mesh against
+    the same runner without one, N26_HREX_ITERS iterations of N26_HREX_STEPS
+    steps: bitwise (frames, boxes, permutations, U_kl), the batched form's
+    launches equal; then the device ms of what a rank of a replica mesh
+    evaluates over the whole batch to keep that bitwise (the terms without
+    a batched provider, forces by vmap, and the step's noise), over all K
+    rows against the K / N26_SHARE rows a rank owns on an N26_SHARE-rank
+    mesh."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from timemachine_torch.fe.terms import make_summed_potential
+    from timemachine_torch.integrators import LangevinIntegrator
+    from timemachine_torch.md.context import Context
+    from timemachine_torch.ops import rowscan_kernel as rs
+    from timemachine_torch.parallel.hrex_sharded import run_hrex_sharded
+    from timemachine_torch.parallel.mesh import default_backend, make_mesh, spawn_ranks
+    from timemachine_torch.parallel.replica_exchange import make_replica_mesh
+    from timemachine_torch.parallel.spatial_md import make_spatial_md_runner
+    from timemachine_torch.potentials import SKIN, NonbondedAllPairs
+    from timemachine_torch.probes import queued_ms
+
+    t_phase = time.perf_counter()
+    bps, x_min, box, masses, v0 = dhfr["bps"], dhfr["x_min"], dhfr["box"], dhfr["masses"], dhfr["v0"]
+
+    # -- [26 fault 0] ------------------------------------------------------------------------------------
+    for same_w in (False, True):
+        batched, single = _overlap_batch26(dev, same_w)
+        parts = []
+        for label, mode in (("F", rs.FORCE), ("U", rs.ENERGY)):
+            out = rs.rowscan_sweep_batched(*batched, mode)[4]
+            plain = rs.rowscan_sweep_batched_plain(*batched, mode)[4]
+            col = 0 if mode == rs.ENERGY else slice(1, 4)
+            nan_rows = int(torch.isnan(out).any(1).sum())
+            same = torch.equal(out, rs.rowscan_sweep(*single, mode, triangular=True)) or bool(
+                torch.isnan(out).all() and torch.isnan(rs.rowscan_sweep(*single, mode, triangular=True)).all())
+            largest = float(plain[:, col].abs().max())
+            expect_nan = same_w or mode == rs.FORCE
+            rel = None
+            if not expect_nan:
+                rel = float(torch.linalg.vector_norm(out[:, 0] - plain[:, 0]) / torch.linalg.vector_norm(plain[:, 0]))
+            parts.append(f"{label}: plain's largest |{'u_i' if mode == rs.ENERGY else 'dU/dx'}| {largest:.4e}, kernel NaN "
+                         f"rows {nan_rows} of {out.shape[0]}, bitwise its single launch {same}"
+                         + ("" if rel is None else f", energy column vs plain {rel:.3e}"))
+            check(same and (nan_rows == out.shape[0] if expect_nan else nan_rows == 0 and rel <= TOL_KERNEL_COL),
+                  f"[26] the batched sweep's overflow case disagrees (same_w {same_w}, {label})")
+        print(f"[26 fault 0] the batched masked sweep's system 4, a pair 0.01 nm apart in xyz "
+              + ("with equal w" if same_w else "lifted apart by w") + " (limit 2^30 = 1.0737e+09): " + "; ".join(parts)
+              + f" ({smi})")
+    nb = next(p for p in bps if hasattr(p, "exclusion_energy_force"))
+    n = x_min.shape[0]
+
+    # -- [26 slabs] ------------------------------------------------------------------------------------
+    max_pairs = rs.suggest_max_pairs(x_min, box, nb.cutoff + SKIN, margin=1.4, triangular=True)
+    tiles = rs.build_rowscan_tiles(x_min, box, nb.cutoff + SKIN, max_pairs, triangular=True)
+    atoms = rs.assemble_atoms(x_min, box, tiles.pad_order, rs.param_rows(nb.params, tiles.pad_order, n))
+    row_count = rs.chop_row_counts(atoms[:, :3], tiles.rank_mat, tiles.row_count, box, nb.cutoff)
+    args = (atoms, tiles.row_start, row_count, tiles.col_ids, rs.sweep_scalars(box, nb.cutoff),
+            rs.es_energy_force_series(nb.beta, nb.cutoff))
+    n_rows = atoms.shape[0] // 32
+    pairs = pairs_within_cutoff(x_min, box, nb.params[:, 3], nb.cutoff)
+    pairs_by_row = pairs_by_row_chunk(x_min, box, nb.params[:, 3], nb.cutoff, tiles.pad_order, n_rows)
+    check(int(pairs_by_row.sum()) == pairs, "[26] the row chunks' pairs do not sum to the sweep's")
+    def plain_ms(fn, reps=2):
+        """Device ms a call of a plain version by CUDA events over reps calls (after one)."""
+        fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    slab_ms, slab_plain_ms, slab_bound_ms = {}, {}, {}
+    for label, mode in (("F", rs.FORCE), ("U", rs.ENERGY)):
+        whole = rs.rowscan_sweep(*args, mode, True)
+        name = "rowscan_sweep_masked" if mode == rs.FORCE else "rowscan_sweep_batched_U"  # its function: minimum image, w
+        whole_bound = bound(pair_ops(name, pairs), 0)[0]
+        slab_ms[label], slab_plain_ms[label], slab_bound_ms[label] = {}, {}, {}
+        for d in N26_SLABS:
+            slabs = _slabs26(n_rows, d)
+            accs, worst = [], 0.0
+            for base, local in slabs:
+                out = rs.rowscan_sweep(*args, mode, True, None, True, base, local, lambda a: accs.append(a.clone()))
+                plain = rs.rowscan_sweep_plain(*args, mode, True, None, True, base, local)
+                for col in range(4):
+                    norm = float(torch.linalg.vector_norm(plain[:, col]))
+                    if norm == 0:
+                        check(not bool(out[:, col].any()), f"[26] slab column {col} not zero ({label}, D {d})")
+                    else:
+                        worst = max(worst, float(torch.linalg.vector_norm(out[:, col] - plain[:, col])) / norm)
+            reduced = rs.rowscan_store_checked(torch.stack(accs).sum(0))
+            same = torch.equal(reduced, whole)
+            ms = [queued_ms(lambda b=base, l=local: rs.rowscan_sweep(*args, mode, True, None, True, b, l), 20)
+                  for base, local in slabs]
+            ms_plain = [plain_ms(lambda b=base, l=local: rs.rowscan_sweep_plain(*args, mode, True, None, True, b, l))
+                        for base, local in slabs] if dev.type == "cuda" else [0.0] * len(slabs)
+            # each slab's bound from its own pairs: a triangular row lists only later columns, so the slabs'
+            # work falls from the first to the last; the bounds sum to the whole launch's
+            slab_pairs = [int(pairs_by_row[base : base + local].sum()) for base, local in slabs]
+            bounds = [bound(pair_ops(name, p), 0)[0] for p in slab_pairs]
+            slab_ms[label][str(d)], slab_plain_ms[label][str(d)] = ms, ms_plain
+            slab_bound_ms[label][str(d)] = bounds
+            print(f"[26 slabs] DHFR {label}, D {d} ({len(slabs)} slabs of {slabs[0][1]}-{slabs[-1][1]} of {n_rows} row "
+                  f"chunks): int64 sums reduced then stored bitwise the whole launch: {same}; worst slab column vs plain "
+                  f"{worst:.3e} (tol {TOL_KERNEL_COL:g}); slab ms " + " ".join(f"{m:.4f}" for m in ms)
+                  + f" (sum {sum(ms):.4f}); slab pairs " + " ".join(str(p) for p in slab_pairs)
+                  + "; slab bound ms " + " ".join(f"{b:.5f}" for b in bounds)
+                  + f" (sum {sum(bounds):.5f}, the whole launch's {whole_bound:.5f}); slab ms / bound "
+                  + " ".join(f"{m / b:.1f}" for m, b in zip(ms, bounds)) + "; plain ms "
+                  + " ".join(f"{m:.2f}" for m in ms_plain) + f" ({smi})")
+            check(same, f"[26] {d} slabs reduced are not the whole launch ({label})")
+            check(worst <= TOL_KERNEL_COL, f"[26] a slab disagrees with plain ({label}, D {d})")
+    kernel_row.update(slab_ms=slab_ms, slab_plain_ms=slab_plain_ms, slab_bound_ms=slab_bound_ms)
+
+    # -- [26 spatial] ----------------------------------------------------------------------------------
+    mesh = make_mesh(dev, "spatial")
+    backend = torch.distributed.get_backend(torch.distributed.group.WORLD)
+    make_run = make_spatial_md_runner(bps, masses, mesh, conf0=x_min, box0=box)
+    make_run(TEMP, DT, FRICTION, N26_WARM)(x_min, v0, box, N26_SEED)
+    run = make_run(TEMP, DT, FRICTION, N26_STEPS)
+    _sync26(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    x_sp = run(x_min, v0, box, N26_SEED)[0]
+    _sync26(dev)
+    ms_sp = (time.perf_counter() - t0) * 1e3 / N26_STEPS
+    counts, plain = read_counts()
+    slabs_launched = rs.rowscan_sweep.launches_slabs
+    kernel_row["launches_slabs"] = slabs_launched / N26_STEPS
+    check(plain == 0 and counts["rowscan_sweep"] == slabs_launched == N26_STEPS,
+          "[26] the spatial runner did not launch one rowscan slab a step")
+    x_sp2 = run(x_min, v0, box, N26_SEED)[0]
+    repeat = torch.equal(x_sp, x_sp2)
+
+    def context_x(potentials, n_steps):
+        ctx = Context(x_min, v0, box, LangevinIntegrator(TEMP, DT, FRICTION, masses, seed=N26_SEED), potentials,
+                      device=dev)
+        ctx.multiple_steps(n_steps)
+        return ctx.get_x_t()
+
+    # the force at the start: the runner's against the Context's, on the all-pairs force's scale
+    f_sp = make_run.force(x_min, box)
+    ctx0 = Context(x_min, v0, box, LangevinIntegrator(TEMP, DT, FRICTION, masses, seed=N26_SEED), bps, device=dev)
+    with torch.no_grad():
+        ctx0._ensure_lists()
+        f_ctx = ctx0._force(x_min, box, 0)
+    nb_ap = torch.linalg.vector_norm(NonbondedAllPairs.energy_force(nb, x_min, box)[1])
+    f_rel = float(torch.linalg.vector_norm(f_sp - f_ctx) / nb_ap)
+    # the drift: the runner and a control (the same Context's function with its bonded terms summed in another
+    # order) against the Context, after N26_CMP and N26_STEPS steps from one start
+    x_sp_cmp = make_run(TEMP, DT, FRICTION, N26_CMP)(x_min, v0, box, N26_SEED)[0].cpu().numpy()
+    control = [bps[1], bps[0], *bps[2:]]
+    x_ctx_cmp = context_x(bps, N26_CMP)
+    dx_cmp = float(np.abs(x_sp_cmp - x_ctx_cmp).max())
+    dx_ctrl_cmp = float(np.abs(context_x(control, N26_CMP) - x_ctx_cmp).max())
+    x_ctx = context_x(bps, N26_STEPS)
+    dx = float(np.abs(x_sp.cpu().numpy() - x_ctx).max())
+    dx_ctrl = float(np.abs(context_x(control, N26_STEPS) - x_ctx).max())
+    ctx = Context(x_min, v0, box, LangevinIntegrator(TEMP, DT, FRICTION, masses, seed=N26_SEED), bps, device=dev)
+    ctx.multiple_steps(N26_WARM)
+    _sync26(dev)
+    t0 = time.perf_counter()
+    ctx.multiple_steps(N26_STEPS)
+    _sync26(dev)
+    ms_ctx = (time.perf_counter() - t0) * 1e3 / N26_STEPS
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        make_run(TEMP, DT, FRICTION, N26_PROFILE)(x_min, v0, box, N26_SEED)
+        _sync26(dev)
+    busy = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA) / 1e3 / N26_PROFILE
+    print(f"[26 spatial] DHFR NVT, make_spatial_md_runner on a one-rank {backend} mesh: the force at the start vs the "
+          f"Context's |diff| / |all-pairs force| {f_rel:.3e} (tol {TOL_FORCE_REL_NORM:g}); |x - Context x|max after "
+          f"{N26_CMP} steps {dx_cmp:.3e} nm, the control's {dx_ctrl_cmp:.3e} (limit {TOL_DRIFT_RATIO:g} x the "
+          f"control's; JAX's bound for a water box {TOL_SPATIAL_X:g}); after {N26_STEPS} {dx:.3e} nm, the control's {dx_ctrl:.3e}; {ms_sp:.4f} ms a step ({N26_STEPS} after "
+          f"{N26_WARM}) against the Context's {ms_ctx:.4f} (host clock); device busy {busy:.4f} ms a step over "
+          f"{N26_PROFILE} profiled steps, idle " + (f"{1 - busy / ms_sp:.3f}" if busy > 0 else "not measured")
+          + f"; rowscan launches a step {counts['rowscan_sweep'] / N26_STEPS:.3f} (slabs {slabs_launched}); a second run "
+          f"bitwise: {repeat} ({smi})")
+    check(bool(torch.isfinite(x_sp).all()) and f_rel <= TOL_FORCE_REL_NORM, "[26] the spatial runner's force is not the Context's")
+    check(dx_cmp <= TOL_DRIFT_RATIO * dx_ctrl_cmp,
+          f"[26] the spatial runner drifts from the Context {dx_cmp:.3e} nm in {N26_CMP} steps, past "
+          f"{TOL_DRIFT_RATIO:g} x the control's {dx_ctrl_cmp:.3e}")
+    check(repeat, "[26] two spatial runs differ")
+
+    # -- [26 two ranks] --------------------------------------------------------------------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = os.path.join(tmp, "inputs.npz")
+        np.savez(inputs, x0=x_min.cpu().numpy(), v0=np.asarray(v0), box=box.cpu().numpy(), masses=np.asarray(masses),
+                 device=str(dev), n_steps=N26_STEPS, n_warm=N26_WARM, n_cmp=N26_CMP)
+        spawn_ranks(_phase26_rank, N26_RANKS, (inputs, tmp), backend=default_backend(dev, N26_RANKS), store_dir=tmp)
+        ranks = [dict(np.load(os.path.join(tmp, f"rank{r}.npz"))) for r in range(N26_RANKS)]
+    f2_rel = max(float(np.linalg.norm(r["force"] - f_sp.cpu().numpy())) for r in ranks) / float(nb_ap)
+    dx2_cmp = max(float(np.abs(r["x_cmp"] - x_sp_cmp).max()) for r in ranks)
+    dx2 = max(float(np.abs(r["x"] - x_sp.cpu().numpy()).max()) for r in ranks)
+    same_ranks = all(np.array_equal(r["x"], ranks[0]["x"]) for r in ranks)
+    repeat2 = all(np.array_equal(r["x"], r["x2"]) for r in ranks)
+    launches2 = [r["launches"].tolist() for r in ranks]
+    print(f"[26 two ranks] DHFR NVT over {N26_RANKS} {default_backend(dev, N26_RANKS)} ranks sharing the card: the force "
+          f"at the start vs one rank's |diff| / |all-pairs force| {f2_rel:.3e} (tol {TOL_FORCE_REL_NORM:g}); |x - one-rank "
+          f"x|max after {N26_CMP} steps {dx2_cmp:.3e} nm (limit {TOL_DRIFT_RATIO:g} x the control's {dx_ctrl_cmp:.3e}), after {N26_STEPS} {dx2:.3e} nm; every rank the same x: "
+          f"{same_ranks}; bitwise on repeat: {repeat2}; rowscan launches (all, slabs) over {N26_STEPS} steps by rank "
+          f"{launches2}; "
+          + ", ".join(f"rank {k} {1e3 * float(r['seconds']) / N26_STEPS:.4f} ms a step" for k, r in enumerate(ranks))
+          + f"; the leg took {time.perf_counter() - t0:.1f} s with the ranks' start ({smi})")
+    check(f2_rel <= TOL_FORCE_REL_NORM and same_ranks and repeat2, "[26] the two-rank run disagrees")
+    check(dx2_cmp <= TOL_DRIFT_RATIO * dx_ctrl_cmp,
+          f"[26] two ranks drift from one {dx2_cmp:.3e} nm in {N26_CMP} steps, past {TOL_DRIFT_RATIO:g} x the control's")
+    check(all(a == s == N26_STEPS for a, s in launches2), "[26] a rank did not launch one slab a step")
+
+    # -- [26 hrex] ---------------------------------------------------------------------------------------
+    rmesh = make_replica_mesh(dev)
+    summed = make_summed_potential(states13[0].potentials)
+    flat = np.stack([make_summed_potential(s.potentials).params.cpu().numpy() for s in states13])
+    k = len(states13)
+    zero_counts()
+    t0 = time.perf_counter()
+    res = run_hrex_sharded(
+        lambda x, bx, p: summed.potential(x, p, bx), flat, np.stack([s.x0 for s in states13]),
+        np.stack([s.v0 for s in states13]), np.stack([s.box0 for s in states13]), states13[0].integrator.masses,
+        temperature=TEMP, dt=states13[0].integrator.dt, friction=FRICTION, n_iters=N26_HREX_ITERS,
+        steps_per_iter=N26_HREX_STEPS, neighbor_pairs=[(i, i + 1) for i in range(k - 1)], n_swap_attempts_per_iter=k**3,
+        seed=N26_SEED, mesh=rmesh, device=dev, dtype=torch.float32,
+    )
+    _sync26(dev)
+    seconds = time.perf_counter() - t0
+    counts, plain = read_counts()
+    finite = bool(np.isfinite(res.frames).all() and np.isfinite(res.log_q_kl_by_iter).any(axis=-1).all())
+    print(f"[26 hrex] run_hrex_sharded over phase 14's {k} windows on a one-rank mesh (u_fn the windows' summed "
+          f"potential, forces by autograd), {N26_HREX_ITERS} iterations of {N26_HREX_STEPS} steps: frames finite "
+          f"{finite}, swaps accepted {int(res.accepted_by_pair_by_iter.sum())} of {int(res.proposed_by_pair_by_iter.sum())}, "
+          f"{seconds:.1f} s; launches {dict((c, v) for c, v in counts.items() if v)}, plain calls {plain} ({smi})")
+    check(finite and plain == 0, "[26] run_hrex_sharded over the windows failed")
+
+    results, launches = {}, {}
+    for label, m in (("no mesh", None), ("one-rank mesh", rmesh)):
+        runner = make_runner14(k, mesh=m)
+        zero_counts()
+        results[label] = [runner.advance_frame(N26_HREX_STEPS) for _ in range(N26_HREX_ITERS)]
+        _sync26(dev)
+        launches[label] = read_counts()[0]["rowscan_sweep_batched"]
+    same = all(
+        np.array_equal(getattr(a, f), getattr(b, f))
+        for a, b in zip(*results.values())
+        for f in ("frames_by_state", "boxes_by_state", "replica_idx_by_state", "accepted_by_pair", "U_kl")
+    )
+    print(f"[26 hrex] ReplicaExchangeRunner over the {k} windows, {N26_HREX_ITERS} iterations of {N26_HREX_STEPS} "
+          f"steps, with a one-rank replica mesh against without: bitwise {same}; batched launches "
+          + ", ".join(f"{lbl} {v}" for lbl, v in launches.items()) + f" ({smi})")
+    check(same and len(set(launches.values())) == 1, "[26] the replica mesh's run is not the no-mesh run")
+
+    # what a rank of a replica mesh evaluates over the whole batch (BatchedContext draw_rows): the terms without a
+    # batched provider and the step's noise, over all K rows against the K / N26_SHARE rows it owns
+    batch = runner.batch
+    closed = [i for i in range(len(batch.potentials)) if i not in batch._providers]
+    x_b, box_b = batch._x, batch._box
+
+    def replicated(rows):
+        for i in closed:
+            batch._u_force[i](x_b[rows], batch._params[i][rows], box_b[rows])
+        torch.randn(x_b[rows].shape, generator=batch._noise, device=dev, dtype=x_b.dtype)
+
+    share = slice(0, k // N26_SHARE)
+    with torch.no_grad():
+        ms_whole, ms_share = ((plain_ms(lambda: replicated(slice(None)), 20), plain_ms(lambda: replicated(share), 20))
+                              if dev.type == "cuda" else (float("nan"), float("nan")))
+    print(f"[26 hrex] what a replica-mesh rank evaluates over the whole batch to step bitwise as the no-mesh run "
+          f"({len(closed)} terms without a batched provider, forces by vmap, and the step's noise): {ms_whole:.4f} ms "
+          f"a step over the {k} rows against {ms_share:.4f} ms over the {k // N26_SHARE} a rank of {N26_SHARE} owns "
+          f"(CUDA events over 20 calls) ({smi})")
+    torch.distributed.destroy_process_group()  # the one-rank group the meshes above made
+    print(f"[26 time] phase 26 took {time.perf_counter() - t_phase:.1f} s, host clock ({smi})")
+
+
 def _waters_inside(x, box, ligand_idxs, water_idxs, radius) -> int:
     """Waters whose centroid lies within radius of the ligand's centroid (the sampler's inner region)."""
     import numpy as np
@@ -4568,12 +5025,12 @@ def main() -> int:
     )
     ctx14 = get_context(states13[0], md14)
 
-    def make_runner(k):
-        """A runner over the first k windows at their x0, lists built."""
+    def make_runner(k, mesh=None):
+        """A runner over the first k windows at their x0, lists built, over `mesh` (None: no mesh)."""
         r = ReplicaExchangeRunner(
             ctx14, [[p.params for p in s.potentials] for s in states13[:k]], temperature=TEMP,
             neighbor_pairs=[(i, i + 1) for i in range(k - 1)], n_swap_attempts_per_iter=k**3, max_delta_states=D14,
-            seed=2023,
+            seed=2023, mesh=mesh,
         )
         r.initialize([s.x0 for s in states13[:k]], [s.v0 for s in states13[:k]], [s.box0 for s in states13[:k]])
         r.batch.multiple_steps(0)
@@ -5151,6 +5608,10 @@ def main() -> int:
     # -- 25. the sorted-state step against the canonical step, on DHFR and an RBFE window --------------
     phase25(dev, smi, zero_counts, read_counts, kernel_row, dict(make_context=make_context, x_min=x_min, box=box),
             states13)
+
+    # -- 26. the mesh code: the row slab, spatially decomposed MD, sharded HREX, the replica mesh -------------
+    phase26(dev, smi, zero_counts, read_counts, kernel_row,
+            dict(bps=bps, x_min=x_min, box=box, masses=masses, v0=v0), make_runner, states13)
 
     print(f"[time] the script took {time.perf_counter() - T_START:.1f} s up to its kernels line, host clock ({smi})")
     print(json.dumps({"kernels": [kernel_row, masked_row, batched_row, nb_row, gather_row, quad_row, dot_row, *probe_rows,

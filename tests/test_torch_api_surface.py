@@ -22,8 +22,6 @@ KERNEL_MODULE = "ROADMAP queue 2: a TPU kernel module, ported as a csrc/*.cu ker
 # JAX modules with no counterpart file
 MODULES_LEFT_OUT = {
     "ff/openmm_deserializer.py": "needs OpenMM, which neither machine has (ROADMAP P36)",
-    "parallel/hrex_sharded.py": "ROADMAP item 7, the mesh code",
-    "parallel/spatial_md.py": "ROADMAP item 7, the mesh code",
     "ops/pallas/__init__.py": KERNEL_MODULE,
     "ops/pallas/dotscan_kernel.py": KERNEL_MODULE,
     "ops/pallas/gather_kernel.py": KERNEL_MODULE,
@@ -34,7 +32,6 @@ MODULES_LEFT_OUT = {
 
 # public names of ported modules that the port does not hold
 NAMES_LEFT_OUT = {
-    "parallel/replica_exchange.py": {"make_replica_mesh": "ROADMAP item 7, the mesh code"},
     "md/fire.py": {"fire_minimize_jax": "a name that says JAX; the port's fire_minimize is its function"},
     "ff/handlers.py": {
         "native_am1_enabled": "the TM_NATIVE_AM1 environment switch, which the port does not copy (ROADMAP §3)"

@@ -1,5 +1,5 @@
-"""The CUDA kernels (rowscan, with its replica-batched masked form and its
-sweep on the sorted-state step's pad-ordered coordinates,
+"""The CUDA kernels (rowscan, with its replica-batched masked form, its
+row slab and its sweep on the sorted-state step's pad-ordered coordinates,
 block-tile, gather, quadscan and dotscan sweeps, the FP32 and bf16 probes,
 the latter in both designs) against their plain PyTorch versions, and the
 tile census against its CPU run, on a card.
@@ -172,6 +172,98 @@ def test_kernel_forms_match_plain(cuda, mode, triangular, preshift, has_w):
             assert _rel(out_k[:, col], out_p[:, col]) < TOL, col
 
 
+# -- the row slab (rowscan_sweep with row_base, n_rows_local; rowscan_sweep_sharded) ----------
+
+
+def _slabs(n_rows, d):
+    """The spatial runner's split of n_rows row chunks over d ranks: (row_base, n_rows_local) each."""
+    local = -(-n_rows // d)
+    return [(r * local, min(local, n_rows - r * local)) for r in range(d) if r * local < n_rows]
+
+
+def _slab_outputs(args, mode, triangular, slabs):
+    """Each slab's stored output, and the whole-range result of the slabs:
+    the int64 accumulators summed and stored (triangular), or the outputs
+    summed (symmetric: every row is one slab's)."""
+    stored, accs = [], []
+    for base, local in slabs:
+        reduce = (lambda acc: accs.append(acc.clone())) if triangular else None
+        stored.append(rs.rowscan_sweep(*args, mode, triangular, None, True, base, local, reduce))
+    if triangular:
+        return stored, rs.rowscan_store_checked(torch.stack(accs).sum(0))
+    return stored, torch.stack(stored).sum(0)
+
+
+@pytest.mark.parametrize("mode,triangular", [(rs.FORCE, True), (rs.ENERGY, True), (rs.FORCE, False)],
+                         ids=["F-triangular", "U-triangular", "F-symmetric"])
+def test_slabs_reduce_to_the_whole_launch(cuda, mode, triangular):
+    """D = 2, 4, 8 slabs (the spatial runner's split of 132 row chunks)
+    against the whole launch, bitwise: the triangular form's int64
+    accumulators summed before the store, the symmetric form's rows each
+    written by one slab. Each slab's own output within 1e-4 per column of
+    the plain slab; the wrapper counts every slab launch."""
+    conf, params, box = _fluid(cuda)
+    if triangular:
+        args = _sweep_args(conf, params, box)
+    else:
+        tiles = rs.build_rowscan_tiles(conf, box, CUTOFF + 0.1, 10**7)
+        atoms = rs.assemble_atoms(conf, box, tiles.pad_order, rs.param_rows(params, tiles.pad_order, conf.shape[0]))
+        args = (atoms, tiles.row_start, tiles.row_count, tiles.col_ids, rs.sweep_scalars(box, CUTOFF),
+                rs.es_energy_force_series(BETA, CUTOFF))
+    whole = rs.rowscan_sweep(*args, mode, triangular)
+    n_rows = args[0].shape[0] // rs.ROW
+    for d in (2, 4, 8):
+        slabs = _slabs(n_rows, d)
+        before = rs.rowscan_sweep.launches_slabs
+        stored, reduced = _slab_outputs(args, mode, triangular, slabs)
+        torch.cuda.synchronize()
+        assert rs.rowscan_sweep.launches_slabs == before + len(slabs)
+        assert torch.equal(reduced, whole), d
+        for (base, local), out in zip(slabs, stored):
+            plain = rs.rowscan_sweep_plain(*args, mode, triangular, None, True, base, local)
+            for col in range(4):
+                if not plain[:, col].any():
+                    assert not out[:, col].any()
+                else:
+                    assert _rel(out[:, col], plain[:, col]) < TOL, (d, base, col)
+
+
+def test_slab_overflow_is_nan_after_the_reduction(cuda):
+    """Two atoms of one row chunk in the last of 4 slabs put 0.01 nm apart
+    (equal w): that slab's partial sums raise the flag, and after the
+    accumulators are summed every row comes back NaN, in F and U; the
+    first slab's own output stays finite."""
+    conf, params, box = _fluid(cuda)
+    tiles = rs.build_rowscan_tiles(conf, box, CUTOFF + 0.1, 10**7, triangular=True)
+    n_rows = tiles.row_start.shape[0]
+    slabs = _slabs(n_rows, 4)
+    row = slabs[-1][0] + 1
+    a, b = (int(tiles.pad_order[row * rs.ROW + k]) for k in (3, 7))
+    conf, params = conf.clone(), params.clone()
+    conf[b] = conf[a] + torch.tensor([0.01, 0.0, 0.0], device=cuda)
+    params[[a, b], 1], params[[a, b], 2], params[[a, b], 3] = 0.15, 1.0, 0.0
+    atoms = rs.assemble_atoms(conf, box, tiles.pad_order, rs.param_rows(params, tiles.pad_order, conf.shape[0]))
+    args = (atoms, tiles.row_start, tiles.row_count, tiles.col_ids, rs.sweep_scalars(box, CUTOFF),
+            rs.es_energy_force_series(BETA, CUTOFF))
+    for mode in (rs.FORCE, rs.ENERGY):
+        stored, reduced = _slab_outputs(args, mode, True, slabs)
+        assert bool(torch.isnan(reduced).all()), mode
+        assert bool(torch.isnan(stored[-1]).all()) and bool(torch.isfinite(stored[0]).all()), mode
+        assert bool(torch.isnan(rs.rowscan_sweep(*args, mode, True)).all()), mode
+
+
+def test_slab_wrapper_rejects_a_bad_slab(cuda):
+    """A row_base or n_rows_local outside the row chunks raises ValueError
+    before any launch."""
+    args = _sweep_args(*_fluid(cuda))
+    n_rows = args[0].shape[0] // rs.ROW
+    before = rs.rowscan_sweep.launches
+    for base, local in ((-1, 4), (n_rows - 3, 4), (0, 0), (5, None)):
+        with pytest.raises(ValueError):
+            rs.rowscan_sweep(*args, rs.FORCE, True, None, True, base, local)
+    assert rs.rowscan_sweep.launches == before
+
+
 def test_provider_runs_on_the_kernel(cuda):
     conf, params, box = _fluid(cuda, seed=2)
     init, apply, energy, _ = rs.make_nonbonded_rowscan_md(BETA, CUTOFF, max_pairs=10**6)
@@ -229,12 +321,14 @@ def test_sorted_sweep_runs_on_the_kernel(cuda, form):
 # -- the replica-batched masked form (rowscan_sweep_batched) ------------------------
 
 
-def _batched_case(device, n_replicas=3, n_sets=3, overlap_in=None):
+def _batched_case(device, n_replicas=3, n_sets=3, overlap_in=None, overlap_nm=0.01, same_w=False):
     """K replicas of a masked fluid (the first 9 atoms outside the subset),
     each with its own coordinates and lists, S parameter sets a replica:
     the batched sweep's arguments over B = K S systems (system b reads the
     lists of replica b // S), and each system's single-sweep arguments.
-    overlap_in: a system whose atoms 9 and 10 sit 0.01 nm apart."""
+    overlap_in: a system whose atoms 9 and 10 sit overlap_nm apart in xyz
+    (their w offsets lift them apart in r^2 unless same_w, which gives both
+    w = 0)."""
     lists, systems = [], []
     mask = None
     for k in range(n_replicas):
@@ -248,8 +342,10 @@ def _batched_case(device, n_replicas=3, n_sets=3, overlap_in=None):
             c, prm = conf, params * (1.0 + 0.03 * s)
             if b == overlap_in:
                 c, prm = conf.clone(), prm.clone()
-                c[10] = c[9] + torch.tensor([0.01, 0.0, 0.0], device=device)
+                c[10] = c[9] + torch.tensor([overlap_nm, 0.0, 0.0], device=device)
                 prm[9:11, 1], prm[9:11, 2] = 0.15, 1.0
+                if same_w:
+                    prm[9:11, 3] = 0.0
             atoms = rs.assemble_atoms(c, box, tiles.pad_order, rs.param_rows(prm, tiles.pad_order, c.shape[0], mask))
             row_count = rs.chop_row_counts(atoms[:, :3], tiles.rank_mat, tiles.row_count, box, CUTOFF)
             systems.append((atoms, tiles.row_start, row_count, tiles.col_ids, rs.sweep_scalars(box, CUTOFF)))
@@ -289,14 +385,26 @@ def test_batched_kernel_is_each_systems_launch(cuda, mode):
                 assert _rel(out[b, :, col], plain[b, :, col]) < TOL, (b, col)
 
 
-def test_batched_kernel_overflow_is_per_system(cuda):
-    """A system with a pair 0.01 nm apart (a force far past the fixed-point
-    range) comes back NaN in every row; the other systems, one of them on
-    the same replica's lists, stay finite and bitwise their single launches."""
-    batched, singles = _batched_case(cuda, overlap_in=4)
+@pytest.mark.parametrize("same_w", [False, True], ids=["lifted", "overlapping"])
+def test_batched_kernel_overflow_is_per_system(cuda, same_w):
+    """A system with a pair 0.01 nm apart in xyz. Lifted apart by their w
+    offsets, the pair's force (1.95e10 kJ/mol/nm by the plain version) is
+    past the fixed-point range 2^30 and its largest per-atom energy (6.29e8)
+    inside it: NaN in every row in FORCE mode, and in ENERGY mode finite,
+    bitwise the single launch and within 1e-4 per column of plain. With
+    equal w the energy (2.1e18) leaves the range too: NaN in every row in
+    both modes. Either way the other systems, one of them on the same
+    replica's lists, stay finite and bitwise their single launches."""
+    batched, singles = _batched_case(cuda, overlap_in=4, same_w=same_w)
     for mode in (rs.FORCE, rs.ENERGY):
         out = rs.rowscan_sweep_batched(*batched, mode)
-        assert bool(torch.isnan(out[4]).all())
+        if mode == rs.ENERGY and not same_w:
+            plain = rs.rowscan_sweep_batched_plain(*batched, mode)[4]
+            assert bool(torch.isfinite(out[4]).all()) and float(plain[:, 0].abs().max()) < 2.0**30
+            assert torch.equal(out[4], rs.rowscan_sweep(*singles[4], mode, triangular=True))
+            assert _rel(out[4, :, 0], plain[:, 0]) < TOL
+        else:
+            assert bool(torch.isnan(out[4]).all())
         for b in (0, 3, 5, 8):
             assert bool(torch.isfinite(out[b]).all())
             assert torch.equal(out[b], rs.rowscan_sweep(*singles[b], mode, triangular=True))

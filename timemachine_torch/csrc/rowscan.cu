@@ -10,6 +10,19 @@
 // the 10; it refuses the rest). Plain PyTorch version, in every form:
 // rowscan_sweep_plain in timemachine_torch/ops/rowscan_kernel.py.
 //
+// Every built form sweeps a row slab: row chunks [row_base, row_base +
+// n_rows_local) of the whole lists (grid n_rows_local row chunks, row =
+// row_base + blockIdx.x for the lists, the covering chunk, the row atoms and
+// the diagonal gate), the counterpart of the TPU kernel's `row_base` scalar
+// (rowscan_kernel.py:403, used :253 and :372), which spatially decomposed MD
+// gives each device's slab. Columns and lists stay whole. A triangular
+// slab's column reactions land in the whole (4 Npad + 1) accumulator, and
+// rowscan_sweep_slab_launch can leave the store out (store = 0): ranks then
+// add their int64 accumulators (exact and order-free) before
+// rowscan_store_checked_launch converts them, so D slabs give the
+// whole-range launch bitwise. A symmetric slab writes its own rows of out
+// and nothing else.
+//
 // The triangular forms take a system axis (gridDim.z): one launch sweeps B
 // systems, each with its own atoms, scalars and accumulator, reading the
 // lists of the replica list_of_system[b]. It is the counterpart of JAX's
@@ -167,13 +180,13 @@ __global__ void __launch_bounds__(THREADS) sym_kernel(
     const int* __restrict__ row_start, const int* __restrict__ row_count, const int* __restrict__ col_ids,
     const float* __restrict__ scal,  // [box_x, box_y, box_z, cutoff]
     float4* __restrict__ out,        // (Npad) [0, dU/dx, dU/dy, dU/dz]
-    const Series s) {
+    const Series s, int row_base) {
   __shared__ float4 tile[2 * COL];
   __shared__ float4 part[WARPS][ROW];
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int row = blockIdx.x;
+  const int row = row_base + blockIdx.x;
   const int i = row * ROW + lane;
   const Frame f = make_frame(scal, nullptr, row, false);
 
@@ -293,14 +306,15 @@ __global__ void __launch_bounds__(THREADS) tri_kernel(
     unsigned long long* __restrict__ acc,  // (4 Npad + 1) fixed-point [u, dU/dx, dU/dy, dU/dz], then the flag; zeroed
     int n_rows, const Series s,
     const int* __restrict__ list_of_system,  // (gridDim.z,) the lists each system reads; nullptr: list 0
-    int max_pairs) {                          // col_ids entries of one list
+    int max_pairs,                            // col_ids entries of one list
+    int row_base) {                           // the slab's first row chunk
   extern __shared__ float4 smem[];
   float4* stages = smem;                     // [STAGES][2 * COL] column atoms, as in atoms
   float4* rpos = stages + STAGES * 2 * COL;  // [ROW] the row atoms at the center's image (preshift)
   float4* part = rpos + ROW;                 // [GROUPS][ROW] row sums [u, dU/dx]
   float* gt = reinterpret_cast<float*>(part + GROUPS * ROW);
 
-  const int row = blockIdx.x;
+  const int row = row_base + blockIdx.x;
   // system blockIdx.z: its own atoms, scalars and accumulator, the lists of list_of_system[z]
   const int n_pad = n_rows * ROW;
   const int sys = blockIdx.z;
@@ -438,10 +452,13 @@ struct Launch {
   cudaStream_t stream;
   const int* list_of_system;  // nullptr: one system
   int n_systems, max_pairs;
+  int row_base, n_rows_local;  // the slab of row chunks swept
+  bool store;                  // triangular: convert the accumulator into out
 };
 
 int launch_sym(const Launch& a) {
-  sym_kernel<<<a.n_rows, THREADS, 0, a.stream>>>(a.atoms, a.row_start, a.row_count, a.col_ids, a.scal, a.out, a.s);
+  sym_kernel<<<a.n_rows_local, THREADS, 0, a.stream>>>(a.atoms, a.row_start, a.row_count, a.col_ids, a.scal, a.out,
+                                                       a.s, a.row_base);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -453,11 +470,12 @@ int launch_tri(const Launch& a) {
         cudaFuncSetAttribute(tri_kernel<MODE, PRE, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  tri_kernel<MODE, PRE, W><<<dim3(a.n_rows, SPLITS, a.n_systems), THREADS, bytes, a.stream>>>(
+  tri_kernel<MODE, PRE, W><<<dim3(a.n_rows_local, SPLITS, a.n_systems), THREADS, bytes, a.stream>>>(
       a.atoms, a.row_start, a.row_count, a.col_ids, a.rcen_q, a.scal, a.acc, a.n_rows, a.s, a.list_of_system,
-      a.max_pairs);
+      a.max_pairs, a.row_base);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (!a.store) return 0;
   fixed_point::launch_store_checked(a.out, a.acc, a.n_rows * ROW, a.stream, a.n_systems);
   return static_cast<int>(cudaGetLastError());
 }
@@ -472,18 +490,24 @@ int launch_images(const Launch& a, bool pre, bool w) {
 
 }  // namespace
 
-// Launch the sweep over n_rows row chunks on `stream`. Device pointers:
-// atoms (Npad, 8) f32, row_start/row_count (n_rows,) i32, col_ids i32,
-// rcen_q (n_rows * 4,) i32 (read with preshift only), scal (4,) f32, out
-// (Npad, 4) f32, acc (4 Npad + 1,) i64 set to zero (triangular only). h
-// and p are host arrays of 11 floats. mode: 0 forces, 1 forces + energy, 2
-// energy; triangular, preshift, has_w: 0 or 1. A form that is not built
-// returns cudaErrorInvalidValue and launches nothing; else the first CUDA
-// error, or 0.
-extern "C" int rowscan_sweep_launch(const void* atoms, const void* row_start, const void* row_count,
-                                    const void* col_ids, const void* rcen_q, const void* scal, void* out, void* acc,
-                                    int n_rows, int mode, int triangular, int preshift, int has_w, const float* h,
-                                    const float* p, void* stream) {
+// Launch the sweep over the slab of row chunks [row_base, row_base +
+// n_rows_local) of n_rows on `stream`. Device pointers: atoms (Npad, 8)
+// f32, row_start/row_count (n_rows,) i32, col_ids i32, rcen_q (n_rows * 4,)
+// i32 (read with preshift only), scal (4,) f32, out (Npad, 4) f32 (a
+// symmetric slab writes its own rows only), acc (4 Npad + 1,) i64 set to
+// zero (triangular only). h and p are host arrays of 11 floats. mode: 0
+// forces, 1 forces + energy, 2 energy; triangular, preshift, has_w, store:
+// 0 or 1 (store 0 leaves a triangular sweep's sums in acc, for
+// rowscan_store_checked_launch). A form that is not built, or a slab outside
+// [0, n_rows), returns cudaErrorInvalidValue and launches nothing; else the
+// first CUDA error, or 0.
+extern "C" int rowscan_sweep_slab_launch(const void* atoms, const void* row_start, const void* row_count,
+                                         const void* col_ids, const void* rcen_q, const void* scal, void* out,
+                                         void* acc, int n_rows, int row_base, int n_rows_local, int mode,
+                                         int triangular, int preshift, int has_w, int store, const float* h,
+                                         const float* p, void* stream) {
+  if (row_base < 0 || n_rows_local < 1 || row_base > n_rows - n_rows_local)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Launch a{static_cast<const float4*>(atoms),
                  static_cast<const int*>(row_start),
                  static_cast<const int*>(row_count),
@@ -497,7 +521,10 @@ extern "C" int rowscan_sweep_launch(const void* atoms, const void* row_start, co
                  static_cast<cudaStream_t>(stream),
                  nullptr,
                  1,
-                 0};
+                 0,
+                 row_base,
+                 n_rows_local,
+                 store != 0};
   // the 10 forms a configuration reaches: triangular F and U in every form
   // (the MD providers), triangular F+U with minimum image and w (the
   // energy/force entry), symmetric F with minimum image and w (the yardstick)
@@ -509,6 +536,24 @@ extern "C" int rowscan_sweep_launch(const void* atoms, const void* row_start, co
     return launch_sym(a);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The whole sweep: rowscan_sweep_slab_launch over every row chunk, stored.
+extern "C" int rowscan_sweep_launch(const void* atoms, const void* row_start, const void* row_count,
+                                    const void* col_ids, const void* rcen_q, const void* scal, void* out, void* acc,
+                                    int n_rows, int mode, int triangular, int preshift, int has_w, const float* h,
+                                    const float* p, void* stream) {
+  return rowscan_sweep_slab_launch(atoms, row_start, row_count, col_ids, rcen_q, scal, out, acc, n_rows, 0, n_rows,
+                                   mode, triangular, preshift, has_w, 1, h, p, stream);
+}
+
+// Convert a triangular sweep's accumulator acc (4 n_pad + 1,) i64 into out
+// (n_pad, 4) f32 on `stream`, as the whole launch's store does: NaN
+// everywhere if the flag is up, NaN for a sum past the range. Returns the
+// first CUDA error, or 0.
+extern "C" int rowscan_store_checked_launch(void* out, const void* acc, int n_pad, void* stream) {
+  fixed_point::launch_store_checked(static_cast<float4*>(out), acc, n_pad, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Launch the masked form (triangular, minimum image; F or U, with or without
@@ -537,7 +582,10 @@ extern "C" int rowscan_sweep_batched_launch(const void* atoms, const void* row_s
                  static_cast<cudaStream_t>(stream),
                  static_cast<const int*>(list_of_system),
                  n_systems,
-                 max_pairs};
+                 max_pairs,
+                 0,
+                 n_rows,
+                 true};
   if (n_systems < 1 || n_systems > 65535) return static_cast<int>(cudaErrorInvalidValue);
   if (mode == FORCE) return launch_images<FORCE>(a, false, has_w);
   if (mode == ENERGY) return launch_images<ENERGY>(a, false, has_w);

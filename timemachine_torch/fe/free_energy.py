@@ -24,6 +24,7 @@ JAX's get_context form (configure_all_pairs): dense on the CPU and below
 from __future__ import annotations
 
 import copy
+import math
 import time
 from dataclasses import dataclass, replace
 from functools import cache
@@ -32,6 +33,7 @@ from warnings import warn
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from timemachine_torch.constants import BOLTZ
 from timemachine_torch.fe import model_utils
@@ -950,7 +952,10 @@ def run_sims_hrex(
     """Nearest-neighbor HREX over a ladder of states on one card: every
     iteration advances all K replicas' segments in one batched step
     (parallel/replica_exchange.py), computes the banded U_kl on the card
-    and runs the swap batch on the host. With local MD the replicas run one
+    and runs the swap batch on the host. Where a process group is
+    initialized, the replicas are sharded over gcd(K, world size) of its
+    ranks (a replica mesh, as JAX shards over gcd(K, devices)); every rank
+    returns the result, the ranks outside the shards by broadcast. With local MD the replicas run one
     after another in one Context (_run_sims_hrex_time_multiplexed). With
     water sampling each replica's sampler takes its state's parameters
     every iteration. Returns (PairBarResult, trajectories by state,
@@ -958,6 +963,7 @@ def run_sims_hrex(
     sampling): the sampler's counts of each iteration's segment by state,
     equilibration left out."""
     from timemachine_torch.md.barostat import MonteCarloBarostat
+    from timemachine_torch.parallel.mesh import make_mesh
     from timemachine_torch.parallel.replica_exchange import ReplicaExchangeRunner
 
     assert md_params.hrex_params is not None
@@ -981,6 +987,12 @@ def run_sims_hrex(
         neighbor_pairs = [(0, 0), *neighbor_pairs]
         strip_identity_pair = True
 
+    # shard the replica axis over as many ranks of a process group as divide K
+    n_shards = math.gcd(n_states, dist.get_world_size()) if dist.is_initialized() else 1
+    mesh = make_mesh(context.device, "replica", ranks=range(n_shards)) if n_shards > 1 else None
+    if dist.is_initialized() and dist.get_rank() >= n_shards:
+        return _broadcast_result(None)
+
     runner = ReplicaExchangeRunner(
         context,
         [[pot.params for pot in s.potentials] for s in initial_states],
@@ -990,6 +1002,7 @@ def run_sims_hrex(
         max_delta_states=md_params.hrex_params.max_delta_states,
         seed=md_params.seed,
         water_params_by_state=_water_params_by_state(initial_states, md_params),
+        mesh=mesh,
     )
     runner.initialize([s.x0 for s in initial_states], [s.v0 for s in initial_states], [s.box0 for s in initial_states])
     runner.equilibrate(md_params.n_eq_steps)
@@ -1034,8 +1047,17 @@ def run_sims_hrex(
     neighbor_ulkns_by_component = generate_pair_bar_ulkns(initial_states, samples_by_state, temperature)
     pair_bar_results = [estimate_free_energy_bar(u, temperature) for u in neighbor_ulkns_by_component]
     diagnostics = HREXDiagnostics(replica_idx_by_state_by_iter, fraction_accepted_by_pair_by_iter)
-    return (PairBarResult(list(initial_states), pair_bar_results), samples_by_state, diagnostics,
-            _water_diagnostics(md_params, water_counts_by_state_by_iter))
+    result = (PairBarResult(list(initial_states), pair_bar_results), samples_by_state, diagnostics,
+              _water_diagnostics(md_params, water_counts_by_state_by_iter))
+    return _broadcast_result(result) if dist.is_initialized() and n_shards < dist.get_world_size() else result
+
+
+def _broadcast_result(result):
+    """run_sims_hrex's result from rank 0 on every rank of the default
+    process group (the ranks outside its shards ran nothing)."""
+    box = [result]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 def _water_params_by_state(initial_states: Sequence[InitialState], md_params: MDParams) -> Optional[list]:

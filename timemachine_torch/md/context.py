@@ -613,9 +613,21 @@ class BatchedContext:
 
     Langevin only (HREX's integrator). set_params drops the providers'
     lists, which the next step rebuilds from the new parameters.
+
+    draw_rows = (rows, n_total), where given, says that these K replicas are
+    the rows `rows` (a slice) of a batch of n_total, the rest on other
+    ranks of a mesh (parallel/replica_exchange.py): every draw, the noise,
+    the barostat's uniforms and the water sampler's draws, is then made for
+    the whole batch from the generator and sliced, and the terms without a
+    batched provider are evaluated over a batch of n_total rows (these
+    replicas at their rows, the others repeats of them) and sliced: an
+    elementwise or reduction kernel rounds a row by where it lies in the
+    batch (the CPU's vectorized math, a reduction's launch shape), so each
+    row meets the arithmetic it meets in the whole batch and the rows step
+    bitwise as they would there. The providers' sweeps are per system.
     """
 
-    def __init__(self, context: Context, xs, vs, boxes, params, seed: int):
+    def __init__(self, context: Context, xs, vs, boxes, params, seed: int, draw_rows=None):
         if context._verlet:
             raise NotImplementedError("BatchedContext steps Langevin BAOAB only")
         self.device = context.device
@@ -632,6 +644,11 @@ class BatchedContext:
             raise ValueError("xs and vs must be (K, N, 3) and boxes (K, 3, 3)")
         self._noise = torch.Generator(device=self.device)
         self._noise.manual_seed(seed)
+        self._draw_rows = draw_rows
+        self._layout = None  # the whole batch's rows, as indices of these replicas
+        if draw_rows is not None:
+            rows, total = draw_rows
+            self._layout = (torch.arange(total, device=self.device) - rows.start) % k
         self._mover_states = [m.init_state(self.device, dtype, shape=(k,)) for m in self.movers]
         self._move_fns = [self._make_move_fn(m) for m in self.movers]
         self._providers = {}
@@ -647,8 +664,41 @@ class BatchedContext:
         self._step = 0
         self.set_params(params)
 
-    # the same code over (K, ...) tensors: a barostat's energy is _mover_energy's (K,) energies
-    _make_move_fn = Context._make_move_fn
+    def _make_move_fn(self, mover):
+        """Context's move over (K, ...) tensors (a barostat's energy is
+        _mover_energy's (K,) energies); under draw_rows, the same move with
+        its draws made for the whole batch and sliced."""
+        move = Context._make_move_fn(self, mover)
+        if self._draw_rows is None:
+            return move
+        rows, total = self._draw_rows
+        if isinstance(mover, MonteCarloBarostat):
+            rigid = getattr(mover, "rigid_group_move", False)
+            move_with = mover.make_move_with_uniforms(lambda x, box: self._mover_energy(x, box, rigid), self.device)
+
+            def barostat_rows(state, x, v, box):
+                u = torch.rand((total, 2), generator=state.generator, device=box.device, dtype=box.dtype)[rows]
+                return move_with(state, x, v, box, u[:, 0], u[:, 1])
+
+            return barostat_rows
+        if isinstance(mover, TIBDExchangeMove):
+
+            def sampler_rows(state, x, v, box):
+                uniforms, normals = mover.draw(state.generator, total, x.device)
+                return move.with_draws(state, x, v, box, uniforms[:, rows], normals[:, rows])
+
+            return sampler_rows
+        raise NotImplementedError(f"BatchedContext: {type(mover).__name__} cannot draw for a batch split over ranks")
+
+    def _whole(self, t):
+        """t (K, ...) laid out as the whole batch under draw_rows (t itself without)."""
+        return t if self._layout is None else t[self._layout]
+
+    def _own(self, t):
+        """These replicas' rows of a whole-batch result."""
+        return t if self._draw_rows is None else t[self._draw_rows[0]]
+
+    # the same code over (K, ...) tensors
     _fire_movers = Context._fire_movers
     set_barostat_interval = Context.set_barostat_interval
     set_water_sampler_params = Context.set_water_sampler_params
@@ -676,7 +726,7 @@ class BatchedContext:
             if i in self._providers:
                 total = total + self._providers[i][3 if rigid else 2](self._prov_states[i], xs, self._params[i], boxes)
             else:
-                total = total + self._u[i](xs, self._params[i], boxes)
+                total = total + self._own(self._u[i](self._whole(xs), self._whole(self._params[i]), self._whole(boxes)))
         return total
 
     def energies_with_params(self, params_sets):
@@ -696,7 +746,9 @@ class BatchedContext:
                 if i in self._providers:
                     u = self._providers[i][4](self._prov_states[i], self._x, ps, self._box)
                 else:
-                    u = torch.func.vmap(torch.func.vmap(self.potentials[i].u, in_dims=(None, 0, None)))(x64, ps.to(f64), box64)
+                    u = self._own(torch.func.vmap(torch.func.vmap(self.potentials[i].u, in_dims=(None, 0, None)))(
+                        self._whole(x64), self._whole(ps.to(f64)), self._whole(box64)
+                    ))
                 total = total + u
         return total
 
@@ -709,10 +761,14 @@ class BatchedContext:
             if i in self._providers:
                 f, self._prov_states[i] = self._providers[i][1](self._prov_states[i], x, self._params[i], box, t)
             else:
-                f = self._u_force[i](x, self._params[i], box)[1]
+                f = self._own(self._u_force[i](self._whole(x), self._whole(self._params[i]), self._whole(box))[1])
             force = force + f
         if noise is None:
-            noise = torch.randn(x.shape, generator=self._noise, device=self.device, dtype=x.dtype)
+            if self._draw_rows is None:
+                noise = torch.randn(x.shape, generator=self._noise, device=self.device, dtype=x.dtype)
+            else:
+                rows, total = self._draw_rows
+                noise = torch.randn((total, *x.shape[1:]), generator=self._noise, device=self.device, dtype=x.dtype)[rows]
         self._x, self._v = langevin_step(x, self._v, force, noise, self._ca, self._cb, self._cc, self.integrator.dt)
         self._fire_movers(t)
         self._step = t + 1

@@ -367,16 +367,27 @@ def nonbonded_interaction_groups(conf, params, box, a_idxs, b_idxs, beta, cutoff
     return vdw.reshape(-1), es.reshape(-1)
 
 
-def interaction_group_energy_force(conf, params, box, a_idxs, b_idxs, beta, cutoff):
+def interaction_group_energy_force(conf, params, box, a_idxs, b_idxs, beta, cutoff, col_mask=None):
     """(u, force) of the interaction group in grid form: each side's force
     is a sum over the other axis of the (R, C) grid, and the two sides are
     written by assignment at their own (disjoint, unique) atoms, so the
-    result is the same bits on any device."""
+    result is the same bits on any device.
+
+    col_mask (C,) bool, where given: a False column contributes nothing,
+    so that a caller that splits the columns over ranks can pad its share
+    with a repeated real index (parallel/spatial_md.py); the columns' forces
+    are then added at their atoms (index_add_), repeats included."""
     d, dw, (vdw, es, dvdw, des) = _group_grid(conf, params, box, a_idxs, b_idxs, beta, cutoff)
+    if col_mask is not None:
+        keep = torch.as_tensor(col_mask, device=conf.device)[None, :]
+        vdw, es, dvdw, des = (torch.where(keep, t, 0.0) for t in (vdw, es, dvdw, des))
     g = _pair_grad(d, dw, dvdw + des)  # dU/d(x_a) per pair
     force = torch.zeros_like(conf)
     force[a_idxs] = -torch.sum(g, dim=1)
-    force[b_idxs] = torch.sum(g, dim=0)
+    if col_mask is None:
+        force[b_idxs] = torch.sum(g, dim=0)
+    else:
+        force.index_add_(0, torch.as_tensor(b_idxs, device=conf.device), torch.sum(g, dim=0))
     return torch.sum(vdw) + torch.sum(es), force
 
 

@@ -33,6 +33,12 @@ PyTorch, on CPU tensors. The tile builder, the per-step count chop and the
 MD provider are plain tensor code, as they are plain XLA in the JAX package.
 Each launching wrapper counts its launches (`launches`) and, by form,
 `launches_by_form`.
+
+A sweep may cover a row slab, the row chunks [row_base, row_base +
+n_rows_local) of whole lists (JAX's `row_base`): `rowscan_sweep_sharded`
+gives each rank of a mesh its slab and sums the slabs over the mesh before
+the store, as spatially decomposed MD (parallel/spatial_md.py) does every
+step. Slab launches are also counted in `rowscan_sweep.launches_slabs`.
 """
 
 from __future__ import annotations
@@ -57,6 +63,7 @@ from timemachine_torch.ops.nonbonded_kernel import (
     run_dp,
     snake_order,
 )
+from timemachine_torch.parallel import mesh as mesh_ops
 
 ROW = 32  # atoms per row chunk
 COL = 128  # atoms per column chunk
@@ -363,7 +370,7 @@ def _col_frame(cols, cen, box, inv_box):
 
 def rowscan_sweep_plain(
     atoms, row_start, row_count, col_ids, scalars, series, mode: int, triangular: bool = False, rcen_q=None,
-    has_w: bool = True,
+    has_w: bool = True, row_base: int = 0, n_rows_local=None,
 ):
     """The sweep in plain PyTorch, in atoms' dtype: each batch of row chunks
     gathers its tiles (in triangular form the covering chunk first) into
@@ -371,17 +378,21 @@ def rowscan_sweep_plain(
     row_count, with L the batch's longest list. A batch holds at most about
     2^18 pair slots on the CPU (cache-sized temporaries) and 2^24 on a card.
     Returns (Npad, 4) [u_i, dU/dx_i] like the kernel; the triangular form's
-    column reactions are scattered with index_add_."""
+    column reactions are scattered with index_add_. With n_rows_local it
+    sweeps the slab of row chunks [row_base, row_base + n_rows_local) of the
+    whole lists: the other rows' sums are zero, column reactions land
+    wherever their atoms are."""
     rowscan_sweep_plain.calls += 1
     dev, dt = atoms.device, atoms.dtype
     block_pairs = 1 << 18 if dev.type == "cpu" else 1 << 24
     n_pad = atoms.shape[0]
     n_rows, n_cols = n_pad // ROW, n_pad // COL
+    row_end = n_rows if n_rows_local is None else row_base + n_rows_local
     out = atoms.new_zeros((n_pad, 4))
     react = atoms.new_zeros((n_pad, 3)) if triangular and mode != ENERGY else None
     counts_t = row_count.long() + int(triangular)
     counts = counts_t.tolist()
-    batch = max(1, block_pairs // (max(max(counts), 1) * ROW * COL))
+    batch = max(1, block_pairs // (max(max(counts[row_base:row_end], default=0), 1) * ROW * COL))
     comp = atoms.T.contiguous()  # one contiguous row per column of the atom rows
     rows_all = comp.view(8, n_rows, ROW)
     cols_all = comp.view(8, n_cols, COL)
@@ -392,8 +403,8 @@ def rowscan_sweep_plain(
     row_ids = torch.arange(n_rows, device=dev)
     lane_r = torch.arange(ROW, device=dev)
     lane_c = torch.arange(COL, device=dev)
-    for r0 in range(0, n_rows, batch):
-        r1 = min(r0 + batch, n_rows)
+    for r0 in range(row_base, row_end, batch):
+        r1 = min(r0 + batch, row_end)
         length = max(counts[r0:r1])
         if length == 0:
             continue
@@ -445,9 +456,17 @@ _series_args: dict = {}
 
 
 def _launcher():
-    fn = _build.load_library("rowscan").rowscan_sweep_launch
+    fn = _build.load_library("rowscan").rowscan_sweep_slab_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_float)] * 2 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_float)] * 2 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _store_launcher():
+    fn = _build.load_library("rowscan").rowscan_store_checked_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -467,9 +486,20 @@ def check_tensor(name, t, dtype, device, shape=None):
         raise ValueError(f"{name}: want shape {shape}, got {tuple(t.shape)}")
 
 
+def check_slab(n_rows: int, row_base: int, n_rows_local):
+    """Raise ValueError unless [row_base, row_base + n_rows_local) is a
+    nonempty slab of the n_rows row chunks (n_rows_local None: the whole)."""
+    if n_rows_local is None:
+        if row_base != 0:
+            raise ValueError(f"rowscan_sweep: row_base {row_base} without n_rows_local")
+        return
+    if not (0 <= row_base and 1 <= n_rows_local and row_base + n_rows_local <= n_rows):
+        raise ValueError(f"rowscan_sweep: slab [{row_base}, {row_base} + {n_rows_local}) is not within {n_rows} row chunks")
+
+
 def rowscan_sweep(
     atoms, row_start, row_count, col_ids, scalars, series, mode: int, triangular: bool = False, rcen_q=None,
-    has_w: bool = True,
+    has_w: bool = True, row_base: int = 0, n_rows_local=None, reduce=None,
 ):
     """(Npad, 4) [u_i, dU/dx_i] of the sweep over the listed tiles.
 
@@ -485,9 +515,24 @@ def rowscan_sweep(
     F and U in every form, triangular F+U with minimum image and w,
     symmetric F with minimum image and w; any other form raises
     RuntimeError (CUDA error 1). A CPU tensor runs rowscan_sweep_plain, in
-    every form."""
+    every form.
+
+    n_rows_local sweeps the slab of row chunks [row_base, row_base +
+    n_rows_local) of the whole lists and atoms: the rows outside it come
+    back zero but for the triangular form's column reactions, and a slab
+    outside the row chunks raises ValueError before any launch. reduce, where
+    given, is applied in place to the partial sums before they are stored
+    (an all-reduce over the ranks of a mesh, rowscan_sweep_sharded): on the
+    card the triangular form's int64 accumulator, flag included, so that
+    the stored slabs are bitwise the whole launch; elsewhere the output."""
     if atoms.device.type == "cpu":
-        return rowscan_sweep_plain(atoms, row_start, row_count, col_ids, scalars, series, mode, triangular, rcen_q, has_w)
+        check_slab(atoms.shape[0] // ROW, row_base, n_rows_local)
+        out = rowscan_sweep_plain(
+            atoms, row_start, row_count, col_ids, scalars, series, mode, triangular, rcen_q, has_w, row_base, n_rows_local
+        )
+        if reduce is not None:
+            reduce(out)
+        return out
     if atoms.device.type != "cuda":
         raise ValueError(f"rowscan_sweep: no kernel for device {atoms.device}")
     if mode not in (FORCE, FORCE_ENERGY, ENERGY):
@@ -497,6 +542,7 @@ def rowscan_sweep(
     if n_pad % COL:
         raise ValueError(f"rowscan_sweep: {n_pad} atom rows is not a multiple of {COL}")
     n_rows = n_pad // ROW
+    check_slab(n_rows, row_base, n_rows_local)
     check_tensor("atoms", atoms, torch.float32, dev, (n_pad, 8))
     check_tensor("row_start", row_start, torch.int32, dev, (n_rows,))
     check_tensor("row_count", row_count, torch.int32, dev, (n_rows,))
@@ -504,24 +550,75 @@ def rowscan_sweep(
     check_tensor("scalars", scalars, torch.float32, dev, (4,))
     if rcen_q is not None:
         check_tensor("rcen_q", rcen_q, torch.int32, dev, (4 * n_rows,))
+    slab = n_rows_local is not None
     h_arg, p_arg = series_args(series)
-    out = torch.empty((n_pad, 4), dtype=torch.float32, device=dev)
+    # a symmetric slab writes its own rows only
+    out = (torch.zeros if slab and not triangular else torch.empty)((n_pad, 4), dtype=torch.float32, device=dev)
     acc = torch.zeros((4 * n_pad + 1) if triangular else 0, dtype=torch.int64, device=dev)  # the sums, then the flag
+    store_later = triangular and reduce is not None
+    stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _launcher()(
         atoms.data_ptr(), row_start.data_ptr(), row_count.data_ptr(), col_ids.data_ptr(),
         None if rcen_q is None else rcen_q.data_ptr(), scalars.data_ptr(), out.data_ptr(), acc.data_ptr(), n_rows,
-        mode, int(triangular), int(rcen_q is not None), int(has_w), h_arg, p_arg,
-        torch.cuda.current_stream(dev).cuda_stream,
+        row_base, n_rows if n_rows_local is None else n_rows_local, mode, int(triangular), int(rcen_q is not None),
+        int(has_w), int(not store_later), h_arg, p_arg, stream,
     )
     if rc != 0:
         raise RuntimeError(f"rowscan_sweep: kernel launch failed with CUDA error {rc}")
     rowscan_sweep.launches += 1
     rowscan_sweep.launches_by_form[mode, bool(triangular), rcen_q is not None, bool(has_w)] += 1
+    rowscan_sweep.launches_slabs += int(slab)
+    if reduce is not None:
+        reduce(acc if store_later else out)
+    return rowscan_store_checked(acc, out) if store_later else out
+
+
+def rowscan_store_checked(acc, out=None):
+    """(Npad, 4) f32 [u_i, dU/dx_i] of a triangular sweep's int64
+    accumulator acc (4 Npad + 1,) on the card (the sums, then the flag), as
+    the launch's own store converts it: NaN everywhere if the flag is up,
+    NaN for a sum past the fixed-point range. out, where given, is written."""
+    n_pad = (acc.shape[0] - 1) // 4
+    check_tensor("acc", acc, torch.int64, acc.device, (4 * n_pad + 1,))
+    if out is None:
+        out = torch.empty((n_pad, 4), dtype=torch.float32, device=acc.device)
+    rc = _store_launcher()(out.data_ptr(), acc.data_ptr(), n_pad, torch.cuda.current_stream(acc.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"rowscan_store_checked: store failed with CUDA error {rc}")
     return out
 
 
 rowscan_sweep.launches = 0
 rowscan_sweep.launches_by_form = Counter()  # (mode, triangular, preshift, has_w) -> launches
+rowscan_sweep.launches_slabs = 0  # launches given n_rows_local, counted in the two above as well
+
+
+def rowscan_sweep_sharded(
+    atoms, row_start, row_count, col_ids, scalars, series, mode: int, mesh, axis_name: str = "rows",
+    triangular: bool = False, rcen_q=None, has_w: bool = True,
+):
+    """rowscan_sweep over a mesh (counterpart of JAX's rowscan_sweep_sharded):
+    the n_rows row chunks of whole lists are cut into one contiguous slab a
+    rank (rank r sweeps [r L, (r + 1) L), L = n_rows / ranks; atoms and
+    lists are whole on every rank, as JAX replicates its columns), and one
+    all-reduce over the mesh's `axis_name` sums the slabs before the store:
+    on the card the int64 accumulator of the triangular form (its column
+    reactions and flag too), which gives the whole launch bitwise; the
+    symmetric form's rows, which are zero outside their slab; on the CPU the
+    plain slabs' outputs. Every rank returns the whole (Npad, 4) output.
+    mesh None sweeps everything locally. n_rows must divide over the
+    ranks, as in JAX."""
+    if mesh is None:
+        return rowscan_sweep(atoms, row_start, row_count, col_ids, scalars, series, mode, triangular, rcen_q, has_w)
+    n_rows = atoms.shape[0] // ROW
+    ranks, rank = mesh_ops.mesh_size(mesh, axis_name), mesh_ops.mesh_rank(mesh, axis_name)
+    if n_rows % ranks:
+        raise ValueError(f"rowscan_sweep_sharded: {n_rows} row chunks do not divide over {ranks} ranks")
+    local = n_rows // ranks
+    return rowscan_sweep(
+        atoms, row_start, row_count, col_ids, scalars, series, mode, triangular, rcen_q, has_w, rank * local, local,
+        lambda t: mesh_ops.all_reduce_sum(t, mesh, axis_name),
+    )
 
 
 def rowscan_sweep_batched_plain(atoms, row_start, row_count, col_ids, list_of_system, scalars, series, mode: int,
